@@ -1,0 +1,150 @@
+"""Convolutional building blocks, NHWC; counterpart of
+``image_segmentation_tpu/models/blocks.py`` (ConvBlock :41,
+ConvBlockDownsample :74, resize_bilinear_align_corners :108,
+ConvBlockUpsampleSkip :140).
+
+The modules hold their parameters in ``nn.Conv2d`` / ``nn.BatchNorm2d`` /
+``nn.ConvTranspose2d`` under the reference torch key layout
+(``conv.{0,1,3,4}``, ``block.0``, ``up``, ``conv.conv``), so a JAX tree
+converted by ``utils/convert.py`` loads strictly.  The forwards are
+written on NHWC tensors, as in the JAX package: convolutions take a
+permuted (channels-last) view.  Parameters stay fp32 and are cast to the
+activation dtype at use, like flax's ``dtype=`` modules; eval BatchNorm is
+computed in fp32 and cast back, as flax does.  Only eval mode is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# torch BatchNorm2d default, and the JAX package's BN_EPS (blocks.py:38).
+BN_EPS = 1e-5
+
+
+def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm as ``y = x*a + b`` with fp32 ``a, b``
+    (models/folded.py:356-357)."""
+    a = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+    return a, bn.bias - bn.running_mean * a
+
+
+def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """``relu(BatchNorm(x))`` in eval mode, computed in fp32."""
+    a, b = bn_affine(bn)
+    return F.relu(x.float() * a + b).to(x.dtype)
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` (SAME padding) on an NHWC tensor, in ``x``'s dtype."""
+    w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=conv.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """1x1 conv on an NHWC tensor as one matmul over the channel axis
+    (models/folded.py ``Folded1x1`` at fold 1)."""
+    w = conv.weight[:, :, 0, 0].to(x.dtype)
+    return F.linear(x, w, conv.bias.to(x.dtype))
+
+
+def conv_transpose2x2_nhwc(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
+    """ConvTranspose(k=2, s=2) on an NHWC tensor, in ``x``'s dtype."""
+    w, b = up.weight.to(x.dtype), up.bias.to(x.dtype)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=2)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel=2, stride=2) in NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def _resize_axis_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) fp32 two-tap interpolation matrix with
+    ``align_corners=True`` weights (blocks.py:88-105)."""
+    m = np.zeros((out_size, in_size), np.float32)
+    if out_size == 1 or in_size == 1:
+        m[:, 0] = 1.0
+        return m
+    src = np.arange(out_size, dtype=np.float64) * ((in_size - 1) / (out_size - 1))
+    lo = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
+    hi = np.clip(lo + 1, 0, in_size - 1)
+    frac = (src - lo).astype(np.float32)
+    m[np.arange(out_size), lo] += 1.0 - frac
+    m[np.arange(out_size), hi] += frac
+    return m
+
+
+def resize_bilinear_align_corners(
+    x: torch.Tensor, height: int, width: int
+) -> torch.Tensor:
+    """Bilinear NHWC resize with ``align_corners=True``, as two fp32
+    two-tap matmuls; the identity when the size already matches."""
+    _, h, w, _ = x.shape
+    if (h, w) == (height, width):
+        return x
+    my = torch.from_numpy(_resize_axis_matrix(h, height)).to(x.device)
+    mx = torch.from_numpy(_resize_axis_matrix(w, width)).to(x.device)
+    top = torch.einsum("oh,bhwc->bowc", my, x.float())
+    return torch.einsum("ow,bhwc->bhoc", mx, top).to(x.dtype)
+
+
+class ConvBlock(nn.Module):
+    """[Conv3x3 -> BatchNorm -> ReLU] x2 (blocks.py:41)."""
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_features, features, 3, padding=1, device=device),
+            nn.BatchNorm2d(features, eps=BN_EPS, device=device),
+            nn.ReLU(),
+            nn.Conv2d(features, features, 3, padding=1, device=device),
+            nn.BatchNorm2d(features, eps=BN_EPS, device=device),
+            nn.ReLU(),
+        )
+
+    def forward(
+        self, x: torch.Tensor, x_b: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """``x_b`` (optional): the input is the channel concat ``[x | x_b]``."""
+        if x_b is not None:
+            x = torch.cat([x, x_b.to(x.dtype)], dim=-1)
+        x = bn_relu(conv_nhwc(x, self.conv[0]), self.conv[1])
+        return bn_relu(conv_nhwc(x, self.conv[3]), self.conv[4])
+
+
+class ConvBlockDownsample(nn.Module):
+    """ConvBlock -> 2x2 max-pool (blocks.py:74).  ``block.0`` is the
+    reference's Sequential([ConvBlock, MaxPool]) index."""
+
+    block_cls = ConvBlock
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.block = nn.ModuleList([self.block_cls(in_features, features, device=device)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_2x2(self.block[0](x))
+
+
+class ConvBlockUpsampleSkip(nn.Module):
+    """ConvTranspose(k=2, s=2) -> align-corners resize to the skip ->
+    concat [up | skip] -> ConvBlock(2*features -> features) (blocks.py:140)."""
+
+    block_cls = ConvBlock
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(in_features, features, 2, stride=2, device=device)
+        self.conv = self.block_cls(2 * features, features, device=device)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up = conv_transpose2x2_nhwc(x, self.up)
+        up = resize_bilinear_align_corners(up, skip.shape[1], skip.shape[2])
+        return self.conv(up, skip)

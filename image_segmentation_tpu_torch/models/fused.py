@@ -1,0 +1,82 @@
+"""Kernel-backed blocks of the two full-resolution levels; counterpart of the
+eval forward of ``image_segmentation_tpu/models/folded.py``:
+FoldedConvBlock (:365, fused eval path :508-523), FoldedConvBlockDownsample
+(:634, raw-output pool :651-673) and FoldedConvBlockUpsampleSkip (:723, with
+the ConvTranspose kernel :586-595).
+
+The width fold itself is not ported: it exists to fill the TPU's 128
+lanes, and at fold 1 the same kernels compute the plain NHWC ops.  Each
+block here subclasses its standard twin in :mod:`.blocks` and owns the same
+parameters, so the two share a state dict; only the forward differs:
+
+- conv1 reads the block input (the decoder's [up | skip] pair without
+  building the concat) through :func:`~..ops.fused_conv.conv3x3`;
+- conv2 applies bn1's affine + ReLU on load, so bn1's output never exists;
+- the encoder returns conv2's raw output, and the pool applies bn2's affine
+  + ReLU on load; the decoder applies ``relu(y2*a2 + b2)`` itself in the
+  activation dtype, as ``folded.py:521-523`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import fused_conv
+from .blocks import (
+    ConvBlock,
+    ConvBlockDownsample,
+    ConvBlockUpsampleSkip,
+    bn_affine,
+    resize_bilinear_align_corners,
+)
+
+Raw = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class FusedConvBlock(ConvBlock):
+    """[Conv3x3 -> BN -> ReLU] x2 through the conv3x3 kernel."""
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        x_b: Optional[torch.Tensor] = None,
+        *,
+        raw_out: bool = False,
+    ) -> Union[torch.Tensor, Raw]:
+        """``raw_out``: return ``(y2, a2, b2)`` — conv2's raw output and
+        bn2's fp32 affine — for a consumer that applies ``relu(y2*a2 + b2)``
+        on its own load."""
+        conv1, bn1, conv2, bn2 = (self.conv[i] for i in (0, 1, 3, 4))
+        y1 = fused_conv.conv3x3(x, conv1.weight, conv1.bias, x_b=x_b)
+        a1, b1 = bn_affine(bn1)
+        y2 = fused_conv.conv3x3(y1, conv2.weight, conv2.bias, a=a1, b=b1)
+        a2, b2 = bn_affine(bn2)
+        if raw_out:
+            return y2, a2, b2
+        dt = y2.dtype
+        return F.relu(y2 * a2.to(dt) + b2.to(dt))
+
+
+class FusedConvBlockDownsample(ConvBlockDownsample):
+    """FusedConvBlock -> the BN-affine max-pool kernel."""
+
+    block_cls = FusedConvBlock
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y2, a2, b2 = self.block[0](x.contiguous(), raw_out=True)
+        return fused_conv.maxpool2x2_affine_relu(y2, a2, b2)
+
+
+class FusedConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
+    """The ConvTranspose kernel -> FusedConvBlock over [up | skip]."""
+
+    block_cls = FusedConvBlock
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up = fused_conv.convtranspose2x2(x.contiguous(), self.up.weight, self.up.bias)
+        # the identity at these levels for even image sizes (folded.py:765)
+        up = resize_bilinear_align_corners(up, skip.shape[1], skip.shape[2])
+        return self.conv(up.contiguous(), skip.to(up.dtype).contiguous())

@@ -1,0 +1,42 @@
+"""The port imports no jax: a fresh interpreter imports every module of
+image_segmentation_tpu_torch and chip_smoke.py, runs a tiny CPU forward of
+the preset model through the wrappers, and finds no module of jax, flax or
+the JAX package (image_segmentation_tpu) loaded."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import importlib, pkgutil, sys
+import torch
+import image_segmentation_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+import chip_smoke
+from image_segmentation_tpu_torch.models.registry import build_model
+m = build_model("large_unet", device="cpu", dtype=torch.float32,
+                stem_features=4, encoder_features=(8, 8, 8, 8),
+                **chip_smoke.MODEL_ARGS).eval()
+with torch.no_grad():
+    out = m(torch.zeros((1, 32, 32, 3)))
+assert out.shape == (1, 32, 32, 3), out.shape
+jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
+                  ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
+assert not jax_mods, jax_mods
+print("ok")
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
