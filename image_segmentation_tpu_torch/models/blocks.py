@@ -10,7 +10,14 @@ converted by ``utils/convert.py`` loads strictly.  The forwards are
 written on NHWC tensors, as in the JAX package: convolutions take a
 permuted (channels-last) view.  Parameters stay fp32 and are cast to the
 activation dtype at use, like flax's ``dtype=`` modules; eval BatchNorm is
-computed in fp32 and cast back, as flax does.  Only eval mode is ported.
+computed in fp32 and cast back, as flax does.
+
+Training mode (``train=True``) normalises with the batch statistics in
+flax's semantics (blocks.py:35-37, folded.py:340-353): biased
+``var = max(0, E[x^2] - mean^2)`` in fp32, and running averages
+``0.9*running + 0.1*batch`` from that same biased variance — not
+``nn.BatchNorm2d``'s unbiased running update, which this module never
+runs.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from torch import nn
 
 # torch BatchNorm2d default, and the JAX package's BN_EPS (blocks.py:38).
 BN_EPS = 1e-5
+# flax's running-average decay (blocks.py:37): running = 0.9*running + 0.1*batch.
+BN_MOMENTUM = 0.9
 
 
 def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -37,6 +46,27 @@ def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """``relu(BatchNorm(x))`` in eval mode, computed in fp32."""
     a, b = bn_affine(bn)
     return F.relu(x.float() * a + b).to(x.dtype)
+
+
+def commit_running_stats(
+    bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor
+) -> None:
+    """flax's running-average update with the batch mean and BIASED
+    variance (folded.py:348-354)."""
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+
+
+def bn_relu_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """``relu(BatchNorm(x))`` with batch statistics, computed in fp32, and
+    the running averages committed."""
+    xf = x.float()
+    mean = xf.mean((0, 1, 2))
+    var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
+    commit_running_stats(bn, mean.detach(), var.detach())
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return F.relu((xf - mean) * mul + bn.bias).to(x.dtype)
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -110,13 +140,14 @@ class ConvBlock(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, x_b: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, x_b: Optional[torch.Tensor] = None, *, train: bool = False
     ) -> torch.Tensor:
         """``x_b`` (optional): the input is the channel concat ``[x | x_b]``."""
         if x_b is not None:
             x = torch.cat([x, x_b.to(x.dtype)], dim=-1)
-        x = bn_relu(conv_nhwc(x, self.conv[0]), self.conv[1])
-        return bn_relu(conv_nhwc(x, self.conv[3]), self.conv[4])
+        act = bn_relu_train if train else bn_relu
+        x = act(conv_nhwc(x, self.conv[0]), self.conv[1])
+        return act(conv_nhwc(x, self.conv[3]), self.conv[4])
 
 
 class ConvBlockDownsample(nn.Module):
@@ -129,8 +160,8 @@ class ConvBlockDownsample(nn.Module):
         super().__init__()
         self.block = nn.ModuleList([self.block_cls(in_features, features, device=device)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return max_pool_2x2(self.block[0](x))
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return max_pool_2x2(self.block[0](x, train=train))
 
 
 class ConvBlockUpsampleSkip(nn.Module):
@@ -144,7 +175,9 @@ class ConvBlockUpsampleSkip(nn.Module):
         self.up = nn.ConvTranspose2d(in_features, features, 2, stride=2, device=device)
         self.conv = self.block_cls(2 * features, features, device=device)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, skip: torch.Tensor, *, train: bool = False
+    ) -> torch.Tensor:
         up = conv_transpose2x2_nhwc(x, self.up)
         up = resize_bilinear_align_corners(up, skip.shape[1], skip.shape[2])
-        return self.conv(up, skip)
+        return self.conv(up, skip, train=train)

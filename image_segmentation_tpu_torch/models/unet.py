@@ -1,5 +1,5 @@
 """U-Net family, NHWC; counterpart of ``image_segmentation_tpu/models/unet.py``
-(UNet :29, LargeUNet :251), eval mode.
+(UNet :29, LargeUNet :251), eval and training forwards.
 
 The constructor takes the JAX modules' fields, so the model args stored in
 a JAX artifact build the same network here:
@@ -86,19 +86,22 @@ class UNet(nn.Module):
             cin = feats
         self.out = nn.Conv2d(stem_features, out_channels, 1, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, Cin) float -> logits (B, H, W, out_channels) fp32."""
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """x (B, H, W, Cin) float -> logits (B, H, W, out_channels) fp32.
+
+        ``train``: BatchNorm with batch statistics over the whole batch,
+        committing the running averages (flax's ``train=True``)."""
         h = conv1x1_nhwc(x.to(self.dtype), self.input)
         # Decoder i pairs with skips[-i]: enc outputs are post-pool, so dec1's
         # skip (the last encoder) has the bottleneck's resolution and its 2x
         # up-conv is resized back down (unet.py:94-99).
         skips = [h]
         for name in self.encoders:
-            h = getattr(self, name)(h)
+            h = getattr(self, name)(h, train=train)
             skips.append(h)
-        h = self.bottleneck(h)
+        h = self.bottleneck(h, train=train)
         for i, name in enumerate(self.decoders, start=1):
-            h = getattr(self, name)(h, skips[-i])
+            h = getattr(self, name)(h, skips[-i], train=train)
         return conv1x1_nhwc(h, self.out).float()
 
 

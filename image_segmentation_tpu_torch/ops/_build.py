@@ -2,8 +2,9 @@
 with ``ctypes``.
 
 The kernels have a plain C interface (no PyTorch headers), so the build
-takes seconds.  It happens at first use, into ``build/kernels/`` at the
-root of the checkout, under a name keyed by the hash of the sources and
+takes seconds: one ``nvcc -c`` per source, all started together, then one
+link.  It happens at first use, into ``build/kernels/`` at the root of the
+checkout, under a name keyed by the hash of the sources, headers and
 flags: a changed source rebuilds, an unchanged one is loaded as it is.
 Nothing here runs at import time, and nothing here needs a card until a
 kernel is launched.
@@ -25,18 +26,36 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argtypes.  Every entry returns cudaError_t as int.
 SIGNATURES = {
-    # x, x_b, w, bias, ab, out, B, H, W, Ca, Cb, Co, stream
-    "imgseg_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, stream
+    "imgseg_conv3x3": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # g, y, gf, w, x_post, ab_post, out, out_b, sums, scratch, B, H, W, Cg, Co, Na, affine, stream
+    "imgseg_conv3x3_dgrad": (_P,) * 10 + (_I,) * 7 + (_P,),
+    # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, stream
+    "imgseg_conv3x3_wgrad": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # g, y, ab, sums, scratch, B, H, W, C, stream
+    "imgseg_bn_relu_bwd_reduce": (_P,) * 5 + (_I,) * 4 + (_P,),
     # z, ab, p, B, H, W, C, stream
     "imgseg_maxpool2x2_affine_relu": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # z, ab, dp, dz, sums, scratch, B, H, W, C, stream
+    "imgseg_maxpool2x2_affine_relu_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
     # x, w, bias, y, B, Hin, Win, Cin, Co, stream
     "imgseg_convtranspose2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, wt, g, dx, dw, db, scratch, B, Hin, Win, Cin, Co, stream
+    "imgseg_convtranspose2x2_bwd": (_P,) * 7 + (_I,) * 5 + (_P,),
+}
+# Scratch sizes (fp32 elements) of the kernels with a second summing pass:
+# name -> argtypes; each returns long long.
+SCRATCH_QUERIES = {
+    "imgseg_conv3x3_scratch": (_I, _I, _I, _I),                  # B, H, W, Co
+    "imgseg_conv3x3_wgrad_scratch": (_I, _I, _I, _I, _I),        # B, H, W, Cin, Co
+    "imgseg_channel_sums_scratch": (_L, _I),                     # pixels, C
+    "imgseg_convtranspose2x2_bwd_scratch": (_I, _I, _I, _I, _I),  # B, Hin, Win, Cin, Co
 }
 
 
@@ -65,35 +84,51 @@ def build() -> Build:
     """Compile the kernels unless a library for these exact sources exists."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libimgseg_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs))
+    ]
+    steps = []  # (command, return code, stderr)
+    for cmd, proc in compiles:
+        _, err = proc.communicate()
+        steps.append((cmd, proc.returncode, err))
+    if all(rc == 0 for _, rc, _ in steps):
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, res.returncode, res.stderr))
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, rc, err) for cmd, rc, err in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
+        cmd, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
     os.replace(tmp, out)
-    return Build(out, seconds, res.stderr)
+    return Build(out, seconds, "".join(err for _, _, err in steps))
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for table, restype in ((SIGNATURES, ctypes.c_int), (SCRATCH_QUERIES, ctypes.c_longlong)):
+        for name, argtypes in table.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     lib.imgseg_error_string.argtypes = (ctypes.c_int,)
     lib.imgseg_error_string.restype = ctypes.c_char_p
     return lib

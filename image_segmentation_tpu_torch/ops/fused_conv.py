@@ -1,28 +1,44 @@
-"""The three kernels of the serving path, each a wrapper beside its plain
-PyTorch version; counterpart of ``image_segmentation_tpu/ops/pallas_conv.py``.
+"""The kernels of the ``large_unet`` preset's serving and training paths,
+each a wrapper beside its plain PyTorch version, and the three
+``torch.autograd.Function``s built on them; counterpart of
+``image_segmentation_tpu/ops/pallas_conv.py``.
 
-- :func:`conv3x3` (``csrc/conv3x3.cu``) replaces ``_folded_conv_pallas``
-  :568 in the eval form ``make_folded_conv_bn3x3`` :2033 reaches;
-- :func:`maxpool2x2_affine_relu` (``csrc/pool.cu``) replaces
-  ``make_folded_pool`` :1608, ``_fwd_pallas`` :1629 with ``with_ab=True``;
-- :func:`convtranspose2x2` (``csrc/convtranspose.cu``) replaces
-  ``make_folded_convtranspose2x2`` :1795, ``_fwd_pallas`` :1852.
+Wrappers (``WRAPPERS``), the TPU kernel each replaces, and its source:
+
+- :func:`conv3x3` — ``_folded_conv_pallas`` :568 in the forms
+  ``make_folded_conv_bn3x3`` :2033 (eval) and ``make_folded_block`` :2227
+  (``stats``) reach; ``csrc/conv3x3.cu``;
+- :func:`conv3x3_dgrad` and :func:`conv3x3_wgrad` — the merged dx + wgrad
+  ``_folded_bwd_fused_pallas`` :1139, as two kernels (``csrc/conv3x3.cu``
+  and ``csrc/conv3x3_bwd.cu``);
+- :func:`bn_relu_bwd_reduce` — ``_bn_relu_bwd_reduce_pallas`` :1462
+  (``csrc/bn_relu_bwd.cu``);
+- :func:`maxpool2x2_affine_relu` and :func:`maxpool2x2_affine_relu_bwd` —
+  ``make_folded_pool`` :1608, ``_fwd_pallas`` :1629 and ``_bwd_pallas``
+  :1665 with ``with_ab=True`` (``csrc/pool.cu``);
+- :func:`convtranspose2x2` and :func:`convtranspose2x2_bwd` —
+  ``make_folded_convtranspose2x2`` :1795, ``_fwd_pallas`` :1852 and
+  ``ct_bwd`` :1888 (``csrc/convtranspose.cu``).
 
 The JAX kernels work on width-folded tensors to fill the TPU's 128 lanes;
 at fold 1 they compute the plain NHWC ops, and that is what is ported.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (bf16 in and out, fp32 sums) and
-raises if the build or the launch fails.  Any other device raises.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.  The kernels
-are forward-only: on a CUDA tensor, an input that requires grad while grad
-mode is on raises.
+version, a CUDA tensor launches the kernel (bf16 activations, fp32 sums)
+and raises if the build or the launch fails.  Any other device raises.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.  On a
+CUDA tensor the wrappers are not differentiable themselves: an input that
+requires grad while grad mode is on raises (they are forward-only).
+Gradients go through the Functions, whose backwards call the backward
+wrappers.
 
 The plain versions compute in fp32 from the same operands the kernels see
-(weights and pre-affine rounded to the activation dtype, bias in fp32) and
-round the result to the activation dtype, so on the card they are the
-reference for the kernels, and in fp32 on the CPU they are the JAX
-kernels' math.
+(weights and affines rounded to the activation dtype, bias in fp32) and
+round bf16 results the same way, so on the card they are the reference for
+the kernels, and in fp32 on the CPU they are the JAX kernels' math.  Sums
+over pixels are fp32 in both; the kernels take them as per-block partial
+sums plus a second pass in a fixed order, so they are reproducible but not
+in ``torch.sum``'s order.
 """
 
 from __future__ import annotations
@@ -40,9 +56,37 @@ def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype).float()
 
 
+def _channel_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.sum((0, 1, 2))
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
+
+def _activate(x, x_b, a, b):
+    """fp32 operand of a conv: ``[x | x_b]``, or ``round(relu(x*a + b))``."""
+    dt = x.dtype
+    xin = x if x_b is None else torch.cat([x, x_b.to(dt)], dim=-1)
+    xf = xin.float()
+    if a is not None:
+        # SAME padding pads the ACTIVATED tensor with zeros (pallas_conv.py
+        # _build_aug :288-290), which F.conv2d's zero padding does.
+        xf = F.relu(xf * _round(a, dt) + _round(b, dt)).to(dt).float()
+    return xf
+
+
+def _gfold(g, y, c1, c2, a, b):
+    """The transformed cotangent ``ge`` of ``_gfold_transform`` :249, rounded
+    to g's dtype: ``g*a*[y*a + b > 0] + c1 + 2*y*c2`` with ``a, b`` (the
+    bn2 affine, rounded) or ``g + c1 + 2*y*c2`` without."""
+    dt = g.dtype
+    gf, yf = g.float(), y.float()
+    if a is not None:
+        af, bf = _round(a, dt), _round(b, dt)
+        gf = torch.where(yf * af + bf > 0, gf * af, 0.0)
+    return (gf + c1 + 2.0 * yf * c2).to(dt)
+
 
 def conv3x3_plain(
     x: torch.Tensor,
@@ -52,17 +96,54 @@ def conv3x3_plain(
     x_b: Optional[torch.Tensor] = None,
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """3x3 SAME conv of ``act([x | x_b])``; see :func:`conv3x3`."""
     dt = x.dtype
-    xin = x if x_b is None else torch.cat([x, x_b.to(dt)], dim=-1)
-    xf = xin.float()
-    if a is not None:
-        # SAME padding pads the ACTIVATED tensor with zeros (pallas_conv.py
-        # _build_aug :288-290), which F.conv2d's zero padding does.
-        xf = F.relu(xf * _round(a, dt) + _round(b, dt)).to(dt).float()
+    xf = _activate(x, x_b, a, b)
     y = F.conv2d(xf.permute(0, 3, 1, 2), _round(w, dt), bias.float(), padding=1)
-    return y.permute(0, 2, 3, 1).to(dt)
+    y = y.permute(0, 2, 3, 1).to(dt)
+    if not stats:
+        return y
+    yf = y.float()
+    return y, _channel_sum(yf), _channel_sum(yf * yf)
+
+
+def conv3x3_dgrad_plain(
+    g, y, w, c1, c2, *, a=None, b=None, x_post=None, a_post=None, b_post=None,
+    split=None,
+):
+    """Input gradient of a 3x3 SAME conv; see :func:`conv3x3_dgrad`."""
+    dt = g.dtype
+    ge = _gfold(g, y, c1, c2, a, b).float()
+    wt = _round(w, dt).flip(2, 3).transpose(0, 1)  # the flipped, transposed kernel
+    acc = F.conv2d(ge.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1)
+    if x_post is not None:
+        xf = x_post.float()
+        ap, bp = _round(a_post, dt), _round(b_post, dt)
+        gu = torch.where(xf * ap + bp > 0, acc, 0.0)
+        return (gu * ap).to(dt), _channel_sum(gu * xf), _channel_sum(gu)
+    if split is not None:
+        return acc[..., :split].to(dt), acc[..., split:].to(dt)
+    return acc.to(dt)
+
+
+def conv3x3_wgrad_plain(
+    g, y, x, c1, c2, *, a=None, b=None, x_b=None, a_pre=None, b_pre=None,
+):
+    """Weight and bias gradient of a 3x3 SAME conv; see :func:`conv3x3_wgrad`."""
+    ge = _gfold(g, y, c1, c2, a, b).float().permute(0, 3, 1, 2)
+    xf = _activate(x, x_b, a_pre, b_pre).permute(0, 3, 1, 2)
+    dw = torch.nn.grad.conv2d_weight(xf, (ge.shape[1], xf.shape[1], 3, 3), ge, padding=1)
+    return dw, ge.sum((0, 2, 3))
+
+
+def bn_relu_bwd_reduce_plain(g, y, a, b):
+    """``(sum P*y, sum P)`` per channel; see :func:`bn_relu_bwd_reduce`."""
+    dt = y.dtype
+    yf = y.float()
+    p = torch.where(yf * _round(a, dt) + _round(b, dt) > 0, g.float(), 0.0)
+    return _channel_sum(p * yf), _channel_sum(p)
 
 
 def maxpool2x2_affine_relu_plain(
@@ -74,6 +155,28 @@ def maxpool2x2_affine_relu_plain(
     return F.max_pool2d(u.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).to(dt)
 
 
+def maxpool2x2_affine_relu_bwd_plain(z, a, b, dp):
+    """``(dz, da, db)``; see :func:`maxpool2x2_affine_relu_bwd`."""
+    dt = z.dtype
+    bsz, h, wd, c = z.shape
+    af, bf = _round(a, dt), _round(b, dt)
+    zf = z.float()
+    pre = zf * af + bf
+    u = F.relu(pre).view(bsz, h // 2, 2, wd // 2, 2, c)
+    u00, u01, u10, u11 = u[:, :, 0, :, 0], u[:, :, 0, :, 1], u[:, :, 1, :, 0], u[:, :, 1, :, 1]
+    # the first maximum in row-major order: the top row if it holds one,
+    # then the left column within the row (pallas_conv.py:1569-1588)
+    top = torch.maximum(u00, u01) >= torch.maximum(u10, u11)
+    left0, left1 = u00 >= u01, u10 >= u11
+    g, zero = dp.float(), torch.zeros((), device=z.device)
+    routed = torch.stack([
+        torch.stack([torch.where(top & left0, g, zero), torch.where(top & ~left0, g, zero)], 3),
+        torch.stack([torch.where(~top & left1, g, zero), torch.where(~top & ~left1, g, zero)], 3),
+    ], 2).reshape(bsz, h, wd, c)
+    p = torch.where(pre > 0, routed, zero)
+    return (p * af).to(dt), _channel_sum(p * zf), _channel_sum(p)
+
+
 def convtranspose2x2_plain(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
@@ -83,6 +186,18 @@ def convtranspose2x2_plain(
         x.float().permute(0, 3, 1, 2), _round(w, dt), bias.float(), stride=2
     )
     return y.permute(0, 2, 3, 1).to(dt)
+
+
+def convtranspose2x2_bwd_plain(x, w, g):
+    """``(dx, dw, dbias)``; see :func:`convtranspose2x2_bwd`."""
+    dt = x.dtype
+    bsz, h, wd, ci = x.shape
+    co = w.shape[1]
+    gf = g.float()
+    dx = F.conv2d(gf.permute(0, 3, 1, 2), _round(w, dt), stride=2).permute(0, 2, 3, 1)
+    g6 = gf.view(bsz, h, 2, wd, 2, co)
+    dw = torch.einsum("bijc,biyjxo->coyx", x.float(), g6)
+    return dx.to(dt), dw, _channel_sum(gf)
 
 
 # --------------------------------------------------------------------------
@@ -101,26 +216,33 @@ def _check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:
     tensors = [x, *(t for t in others if t is not None)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad() or torch.inference_mode()"
+            f"{name}: the CUDA wrapper is forward-only; call it under "
+            "torch.no_grad() or through its autograd Function"
         )
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"{name}: operands on {t.device} and {x.device}")
 
 
-def _check_activation(name: str, t: torch.Tensor, what: str) -> None:
+def _check_activation(name: str, t: torch.Tensor, what: str, shape=None) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: {what} must be bfloat16, got {t.dtype}")
     if t.dim() != 4:
         raise ValueError(f"{name}: {what} must be NHWC, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {what} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
 def _check_vector(name: str, t: torch.Tensor, n: int, what: str) -> None:
     if t.shape != (n,):
         raise ValueError(f"{name}: {what} must have shape ({n},), got {tuple(t.shape)}")
+
+
+def _check_pair(name: str, a, b, what: str) -> None:
+    if (a is None) != (b is None):
+        raise ValueError(f"{name}: pass both {what}, or neither")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -132,8 +254,29 @@ def _stream() -> int:
 
 
 def _ab(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(2, C) fp32 pre-affine rows [a, b], rounded to ``dtype``."""
+    """(2, C) fp32 rows [a, b], rounded to ``dtype``."""
     return torch.stack([_round(a, dtype), _round(b, dtype)]).contiguous()
+
+
+def _gf(c1, c2, a, b, dtype) -> torch.Tensor:
+    """The cotangent transform's per-channel rows: [c1, c2], or
+    [a, b, c1, c2] with the affine rounded to ``dtype``."""
+    rows = [c1.float(), c2.float()]
+    if a is not None:
+        rows = [_round(a, dtype), _round(b, dtype)] + rows
+    return torch.stack(rows).contiguous()
+
+
+def _scratch(query: str, like: torch.Tensor, *dims: int) -> torch.Tensor:
+    """fp32 scratch for a kernel's per-block partial sums, sized by the C
+    library's ``query``."""
+    n = getattr(_build.library(), query)(*dims)
+    return torch.empty(max(int(n), 1), dtype=torch.float32, device=like.device)
+
+
+def _launch(wrapper, entry: str, *args) -> None:
+    _build.check(getattr(_build.library(), entry)(*args, _stream()), wrapper.__name__)
+    wrapper.launches += 1
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +291,8 @@ def conv3x3(
     x_b: Optional[torch.Tensor] = None,
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """3x3 SAME conv with optional BN-affine + ReLU on load.
 
     x (B,H,W,Ca) and optional x_b (B,H,W,Cb): the input is the channel
@@ -157,24 +301,25 @@ def conv3x3(
     ``x_b`` (pallas_conv.py:2097): the conv reads ``act(t) =
     round(max(t*a + b, 0))`` with ``a, b`` rounded to the activation dtype
     first (``_ab_pre`` :2103-2105); positions outside the image are zero
-    after activation.  Output (B,H,W,Co) = round(bias + sum), fp32 sum.
+    after activation.  Output y (B,H,W,Co) = round(bias + sum), fp32 sum.
+
+    ``stats``: also return the per-channel fp32 sums ``S = sum y`` and
+    ``Q = sum y*y`` of the ROUNDED output (the BN batch statistics,
+    ``_conv_kernel_body`` :557-565): ``(y, S, Q)``.
     """
-    if (a is None) != (b is None):
-        raise ValueError("conv3x3: pass both a and b, or neither")
+    name = "conv3x3"
+    _check_pair(name, a, b, "a and b")
     if x_b is not None and a is not None:
         raise ValueError("conv3x3: the pre-affine is not taken with a second input")
     if _on_cpu(x):
-        return conv3x3_plain(x, w, bias, x_b=x_b, a=a, b=b)
-    name = "conv3x3"
+        return conv3x3_plain(x, w, bias, x_b=x_b, a=a, b=b, stats=stats)
     _check_cuda_operands(name, x, w, bias, x_b, a, b)
     _check_activation(name, x, "x")
     bsz, h, wd, ca = x.shape
     cb = 0
     if x_b is not None:
-        _check_activation(name, x_b, "x_b")
-        if x_b.shape[:3] != x.shape[:3]:
-            raise ValueError(f"{name}: x {tuple(x.shape)} and x_b {tuple(x_b.shape)}")
         cb = x_b.shape[-1]
+        _check_activation(name, x_b, "x_b", (bsz, h, wd, cb))
     co = w.shape[0]
     if w.shape != (co, ca + cb, 3, 3):
         raise ValueError(f"{name}: w must be ({co}, {ca + cb}, 3, 3), got {tuple(w.shape)}")
@@ -185,19 +330,174 @@ def conv3x3(
         _check_vector(name, b, ca, "b")
         ab = _ab(a, b, x.dtype)
     wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Co)
-    bias32 = bias.float().contiguous()
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    err = lib.imgseg_conv3x3(
-        _ptr(x), _ptr(x_b), _ptr(wk), _ptr(bias32), _ptr(ab), _ptr(out),
-        bsz, h, wd, ca, cb, co, _stream(),
-    )
-    _build.check(err, name)
-    conv3x3.launches += 1
-    return out
+    sums = scratch = None
+    if stats:
+        sums = torch.empty((2, co), dtype=torch.float32, device=x.device)
+        scratch = _scratch("imgseg_conv3x3_scratch", x, bsz, h, wd, co)
+    _launch(conv3x3, "imgseg_conv3x3", _ptr(x), _ptr(x_b), _ptr(wk),
+            _ptr(bias.float().contiguous()), _ptr(ab), _ptr(out), _ptr(sums), _ptr(scratch),
+            bsz, h, wd, ca, cb, co)
+    return (out, sums[0], sums[1]) if stats else out
 
 
-conv3x3.launches = 0
+def conv3x3_dgrad(
+    g: torch.Tensor,
+    y: torch.Tensor,
+    w: torch.Tensor,
+    c1: torch.Tensor,
+    c2: torch.Tensor,
+    *,
+    a: Optional[torch.Tensor] = None,
+    b: Optional[torch.Tensor] = None,
+    x_post: Optional[torch.Tensor] = None,
+    a_post: Optional[torch.Tensor] = None,
+    b_post: Optional[torch.Tensor] = None,
+    split: Optional[int] = None,
+):
+    """Input gradient of the 3x3 SAME conv ``y = conv3x3(x, w, ...)`` of a
+    BatchNorm'd block (the dx half of ``_bwd_fused_kernel_body`` :938).
+
+    g, y (B,H,W,Co): the cotangent and the conv's output.  The kernel reads
+    the transformed cotangent ``ge = round(g + c1 + 2*y*c2)``, or with the
+    bn affine ``a, b`` (Co,) ``ge = round(g*a*[y*a + b > 0] + c1 + 2*y*c2)``
+    (``_gfold_transform`` :249; ``a, b`` rounded to the activation dtype,
+    c1, c2 (Co,) fp32), zero outside the image AFTER the transform.
+    ``dx = round(conv of ge with the flipped, transposed w)``; w (Co, Cin,
+    3, 3) as in :func:`conv3x3`.
+
+    ``x_post`` (B,H,W,Cin) with ``a_post, b_post`` (Cin,): the conv's input
+    was ``relu(x_post*a + b)``; return ``(round(gu*a), sum gu*x_post, sum
+    gu)`` with ``gu = dx_acc * [x_post*a + b > 0]`` (the ``post`` epilogue
+    :1033-1048).  ``split`` = Ca: return dx as ``(dx[..., :Ca],
+    dx[..., Ca:])`` (``split_out`` :1049-1053).
+    """
+    name = "conv3x3_dgrad"
+    _check_pair(name, a, b, "a and b")
+    _check_pair(name, a_post, b_post, "a_post and b_post")
+    if (x_post is None) != (a_post is None):
+        raise ValueError(f"{name}: x_post comes with a_post and b_post")
+    if x_post is not None and split is not None:
+        raise ValueError(f"{name}: post and split do not go together")
+    if _on_cpu(g):
+        return conv3x3_dgrad_plain(g, y, w, c1, c2, a=a, b=b, x_post=x_post,
+                                   a_post=a_post, b_post=b_post, split=split)
+    _check_cuda_operands(name, g, y, w, c1, c2, a, b, x_post, a_post, b_post)
+    _check_activation(name, g, "g")
+    bsz, h, wd, co = g.shape
+    _check_activation(name, y, "y", g.shape)
+    cin = w.shape[1]
+    if w.shape != (co, cin, 3, 3):
+        raise ValueError(f"{name}: w must be ({co}, Cin, 3, 3), got {tuple(w.shape)}")
+    for t, what in ((c1, "c1"), (c2, "c2"), (a, "a"), (b, "b")):
+        if t is not None:
+            _check_vector(name, t, co, what)
+    gf = _gf(c1, c2, a, b, g.dtype)
+    # the flipped, transposed kernel in conv3x3's (3, 3, Cin', Co') layout
+    wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    ab_post = sums = scratch = out_b = None
+    na = cin
+    if x_post is not None:
+        _check_activation(name, x_post, "x_post", (bsz, h, wd, cin))
+        _check_vector(name, a_post, cin, "a_post")
+        _check_vector(name, b_post, cin, "b_post")
+        ab_post = _ab(a_post, b_post, g.dtype)
+        sums = torch.empty((2, cin), dtype=torch.float32, device=g.device)
+        scratch = _scratch("imgseg_conv3x3_scratch", g, bsz, h, wd, cin)
+    if split is not None:
+        if not 0 < split < cin:
+            raise ValueError(f"{name}: split {split} must lie in (0, {cin})")
+        na = split
+        out_b = torch.empty((bsz, h, wd, cin - na), dtype=g.dtype, device=g.device)
+    out = torch.empty((bsz, h, wd, na), dtype=g.dtype, device=g.device)
+    _launch(conv3x3_dgrad, "imgseg_conv3x3_dgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(wk),
+            _ptr(x_post), _ptr(ab_post), _ptr(out), _ptr(out_b), _ptr(sums), _ptr(scratch),
+            bsz, h, wd, co, cin, na, int(a is not None))
+    if x_post is not None:
+        return out, sums[0], sums[1]
+    return (out, out_b) if split is not None else out
+
+
+def conv3x3_wgrad(
+    g: torch.Tensor,
+    y: torch.Tensor,
+    x: torch.Tensor,
+    c1: torch.Tensor,
+    c2: torch.Tensor,
+    *,
+    a: Optional[torch.Tensor] = None,
+    b: Optional[torch.Tensor] = None,
+    x_b: Optional[torch.Tensor] = None,
+    a_pre: Optional[torch.Tensor] = None,
+    b_pre: Optional[torch.Tensor] = None,
+):
+    """Weight and bias gradient of the 3x3 SAME conv of a BatchNorm'd block
+    (the wgrad half of ``_bwd_fused_kernel_body`` :1057-1109).
+
+    g, y, c1, c2, a, b: the transformed cotangent ``ge`` as in
+    :func:`conv3x3_dgrad`.  x (B,H,W,Ca) [with x_b (B,H,W,Cb)] or with
+    ``a_pre, b_pre`` (Ca,): the conv's operand as :func:`conv3x3` read it.
+    Returns fp32 ``dw`` (Co, Ca+Cb, 3, 3) = sum over pixels of
+    ``act(x)[p + tap] * ge[p]`` and ``db`` (Co,) = sum ``ge``.
+    """
+    name = "conv3x3_wgrad"
+    _check_pair(name, a, b, "a and b")
+    _check_pair(name, a_pre, b_pre, "a_pre and b_pre")
+    if x_b is not None and a_pre is not None:
+        raise ValueError(f"{name}: the pre-affine is not taken with a second input")
+    if _on_cpu(g):
+        return conv3x3_wgrad_plain(g, y, x, c1, c2, a=a, b=b, x_b=x_b,
+                                   a_pre=a_pre, b_pre=b_pre)
+    _check_cuda_operands(name, g, y, x, c1, c2, a, b, x_b, a_pre, b_pre)
+    _check_activation(name, g, "g")
+    bsz, h, wd, co = g.shape
+    _check_activation(name, y, "y", g.shape)
+    ca = x.shape[-1]
+    _check_activation(name, x, "x", (bsz, h, wd, ca))
+    cb = 0
+    if x_b is not None:
+        cb = x_b.shape[-1]
+        _check_activation(name, x_b, "x_b", (bsz, h, wd, cb))
+    for t, what in ((c1, "c1"), (c2, "c2"), (a, "a"), (b, "b")):
+        if t is not None:
+            _check_vector(name, t, co, what)
+    ab = None
+    if a_pre is not None:
+        _check_vector(name, a_pre, ca, "a_pre")
+        _check_vector(name, b_pre, ca, "b_pre")
+        ab = _ab(a_pre, b_pre, g.dtype)
+    gf = _gf(c1, c2, a, b, g.dtype)
+    cin = ca + cb
+    dw = torch.empty((9, cin, co), dtype=torch.float32, device=g.device)
+    db = torch.empty((co,), dtype=torch.float32, device=g.device)
+    scratch = _scratch("imgseg_conv3x3_wgrad_scratch", g, bsz, h, wd, cin, co)
+    _launch(conv3x3_wgrad, "imgseg_conv3x3_wgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(x),
+            _ptr(x_b), _ptr(ab), _ptr(dw), _ptr(db), _ptr(scratch),
+            bsz, h, wd, ca, cb, co, int(a is not None))
+    return dw.view(3, 3, cin, co).permute(3, 2, 0, 1).contiguous(), db
+
+
+def bn_relu_bwd_reduce(
+    g: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+):
+    """Per-channel fp32 ``(sum P*y, sum P)`` with ``P = g*[y*a + b > 0]``:
+    the affine cotangent of ``z = relu(y*a + b)`` (``_bnred_kernel_body``
+    :1439).  g, y (B,H,W,C); a, b (C,) rounded to the activation dtype and
+    held in fp32 (pallas_conv.py:2389-2391)."""
+    name = "bn_relu_bwd_reduce"
+    if _on_cpu(y):
+        return bn_relu_bwd_reduce_plain(g, y, a, b)
+    _check_cuda_operands(name, y, g, a, b)
+    _check_activation(name, y, "y")
+    _check_activation(name, g, "g", y.shape)
+    bsz, h, wd, c = y.shape
+    _check_vector(name, a, c, "a")
+    _check_vector(name, b, c, "b")
+    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
+    scratch = _scratch("imgseg_channel_sums_scratch", y, bsz * h * wd, c)
+    _launch(bn_relu_bwd_reduce, "imgseg_bn_relu_bwd_reduce", _ptr(g), _ptr(y),
+            _ptr(_ab(a, b, y.dtype)), _ptr(sums), _ptr(scratch), bsz, h, wd, c)
+    return sums[0], sums[1]
 
 
 def maxpool2x2_affine_relu(
@@ -215,18 +515,38 @@ def maxpool2x2_affine_relu(
     bsz, h, wd, c = z.shape
     _check_vector(name, a, c, "a")
     _check_vector(name, b, c, "b")
-    ab = _ab(a, b, z.dtype)
     out = torch.empty((bsz, h // 2, wd // 2, c), dtype=z.dtype, device=z.device)
-    lib = _build.library()
-    err = lib.imgseg_maxpool2x2_affine_relu(
-        _ptr(z), _ptr(ab), _ptr(out), bsz, h, wd, c, _stream()
-    )
-    _build.check(err, name)
-    maxpool2x2_affine_relu.launches += 1
+    _launch(maxpool2x2_affine_relu, "imgseg_maxpool2x2_affine_relu", _ptr(z),
+            _ptr(_ab(a, b, z.dtype)), _ptr(out), bsz, h, wd, c)
     return out
 
 
-maxpool2x2_affine_relu.launches = 0
+def maxpool2x2_affine_relu_bwd(
+    z: torch.Tensor, a: torch.Tensor, b: torch.Tensor, dp: torch.Tensor
+):
+    """Backward of :func:`maxpool2x2_affine_relu` (``_pool_bwd_kernel_body``
+    :1540): each window's cotangent dp (B,H/2,W/2,C) goes to the window's
+    FIRST maximum in row-major order of the fp32 ``relu(z*a + b)``; with
+    ``P = routed*[z*a + b > 0]`` it returns ``(round(P*a), sum P*z, sum P)``.
+    H and W must be even."""
+    name = "maxpool2x2_affine_relu_bwd"
+    bsz, h, wd, c = z.shape
+    if h % 2 or wd % 2:
+        raise ValueError(f"{name}: H and W must be even, got {h}x{wd}")
+    if _on_cpu(z):
+        return maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
+    _check_cuda_operands(name, z, a, b, dp)
+    _check_activation(name, z, "z")
+    _check_activation(name, dp, "dp", (bsz, h // 2, wd // 2, c))
+    _check_vector(name, a, c, "a")
+    _check_vector(name, b, c, "b")
+    dz = torch.empty_like(z)
+    sums = torch.empty((2, c), dtype=torch.float32, device=z.device)
+    scratch = _scratch("imgseg_channel_sums_scratch", z, bsz * (h // 2) * (wd // 2), c)
+    _launch(maxpool2x2_affine_relu_bwd, "imgseg_maxpool2x2_affine_relu_bwd", _ptr(z),
+            _ptr(_ab(a, b, z.dtype)), _ptr(dp), _ptr(dz), _ptr(sums), _ptr(scratch),
+            bsz, h, wd, c)
+    return dz, sums[0], sums[1]
 
 
 def convtranspose2x2(
@@ -247,17 +567,162 @@ def convtranspose2x2(
         raise ValueError(f"{name}: w must be ({ci}, {co}, 2, 2), got {tuple(w.shape)}")
     _check_vector(name, bias, co, "bias")
     wk = w.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()  # (Cin, 2, 2, Co)
-    bias32 = bias.float().contiguous()
     out = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    err = lib.imgseg_convtranspose2x2(
-        _ptr(x), _ptr(wk), _ptr(bias32), _ptr(out), bsz, h, wd, ci, co, _stream()
-    )
-    _build.check(err, name)
-    convtranspose2x2.launches += 1
+    _launch(convtranspose2x2, "imgseg_convtranspose2x2", _ptr(x), _ptr(wk),
+            _ptr(bias.float().contiguous()), _ptr(out), bsz, h, wd, ci, co)
     return out
 
 
-convtranspose2x2.launches = 0
+def convtranspose2x2_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """Backward of :func:`convtranspose2x2` (``_ct_bwd_kernel_body`` :1761):
+    ``dx[b,i,j,c] = round(sum_{dy,dx,o} g[b,2i+dy,2j+dx,o] w[c,o,dy,dx])``
+    and the fp32 sums over (b, i, j) ``dw`` (Cin, Co, 2, 2) and ``dbias``
+    (Co,)."""
+    if _on_cpu(x):
+        return convtranspose2x2_bwd_plain(x, w, g)
+    name = "convtranspose2x2_bwd"
+    _check_cuda_operands(name, x, w, g)
+    _check_activation(name, x, "x")
+    bsz, h, wd, ci = x.shape
+    co = w.shape[1]
+    if w.shape != (ci, co, 2, 2):
+        raise ValueError(f"{name}: w must be ({ci}, {co}, 2, 2), got {tuple(w.shape)}")
+    _check_activation(name, g, "g", (bsz, 2 * h, 2 * wd, co))
+    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (2, 2, Co, Cin)
+    dx = torch.empty_like(x)
+    dw = torch.empty((ci, 4 * co), dtype=torch.float32, device=x.device)
+    db = torch.empty((4 * co,), dtype=torch.float32, device=x.device)
+    scratch = _scratch("imgseg_convtranspose2x2_bwd_scratch", x, bsz, h, wd, ci, co)
+    _launch(convtranspose2x2_bwd, "imgseg_convtranspose2x2_bwd", _ptr(x), _ptr(wk),
+            _ptr(g), _ptr(dx), _ptr(dw), _ptr(db), _ptr(scratch), bsz, h, wd, ci, co)
+    # dw columns are (dy, dx, o); db is per (dy, dx, o), summed over the taps
+    return dx, dw.view(ci, 2, 2, co).permute(0, 3, 1, 2).contiguous(), db.view(4, co).sum(0)
 
-WRAPPERS = (conv3x3, maxpool2x2_affine_relu, convtranspose2x2)
+
+WRAPPERS = (conv3x3, conv3x3_dgrad, conv3x3_wgrad, bn_relu_bwd_reduce,
+            maxpool2x2_affine_relu, maxpool2x2_affine_relu_bwd,
+            convtranspose2x2, convtranspose2x2_bwd)
+for _w in WRAPPERS:
+    _w.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd Functions
+# --------------------------------------------------------------------------
+
+def bn_scalars(S, Q, scale, bias, n: int, eps: float):
+    """Batch statistics -> the BN affine, flax's semantics (pallas_conv.py
+    :2307): biased ``var = max(0, E[y^2] - mean^2)``, ``y*a + b`` with
+    ``a = rsqrt(var + eps)*scale``, ``b = bias - mean*a``.
+    Returns ``(a, b, mean, var)``."""
+    mean = S / n
+    var = torch.clamp(Q / n - mean * mean, min=0.0)
+    a = torch.rsqrt(var + eps) * scale
+    return a, bias - mean * a, mean, var
+
+
+def _bn_scalars_vjp(S, Q, scale, bias, n, eps, cts):
+    """Cotangents of ``(S, Q, scale, bias)`` from those of
+    :func:`bn_scalars`' outputs, by autograd on the (C,) vectors (as JAX
+    differentiates the same chain with ``jax.vjp``)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (S, Q, scale, bias)]
+        return torch.autograd.grad(bn_scalars(*ins, n, eps), ins, cts)
+
+
+class FusedBlockFunction(torch.autograd.Function):
+    """The training-mode [Conv3x3-BN-ReLU] x2 block as ONE autograd node,
+    mirroring ``make_folded_block`` (pallas_conv.py:2227).
+
+    ``apply(x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out,
+    eps) -> (z, mean1, var1, mean2, var2)``.  Forward: conv1 with the stats
+    epilogue, bn1's affine from (S1, Q1), conv2 with bn1 + ReLU on load and
+    its own stats, bn2's affine; ``z = round(relu(y2*a2 + b2))`` in fp32
+    with ``a2, b2`` rounded to the activation dtype, or with ``raw_out``
+    ``z = y2`` for a consumer that applies bn2 itself.  The backward follows
+    ``block_bwd`` :2368-2526: the bn2 reduction (without ``raw_out``), the
+    per-channel scalar chain by autograd, conv2's dgrad with bn1's ReLU
+    adjoint and wgrad, then conv1's (dx split into [x | x_b]).
+    """
+
+    @staticmethod
+    def forward(ctx, x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out, eps):
+        dt = x.dtype
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        y1, s1, q1 = conv3x3(x, w1, c1b, x_b=x_b, stats=True)
+        a1, b1, mean1, var1 = bn_scalars(s1, q1, scale1, bias1, n, eps)
+        y2, s2, q2 = conv3x3(y1, w2, c2b, a=a1, b=b1, stats=True)
+        a2, b2, mean2, var2 = bn_scalars(s2, q2, scale2, bias2, n, eps)
+        if raw_out:
+            z = y2
+        else:
+            z = F.relu(y2.float() * _round(a2, dt) + _round(b2, dt)).to(dt)
+        ctx.save_for_backward(x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
+                              scale1, bias1, scale2, bias2, a1, b1, a2, b2)
+        ctx.raw_out, ctx.eps, ctx.n = raw_out, eps, n
+        return z, mean1, var1, mean2, var2
+
+    @staticmethod
+    def backward(ctx, dz, dmean1, dvar1, dmean2, dvar2):
+        (x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
+         scale1, bias1, scale2, bias2, a1, b1, a2, b2) = ctx.saved_tensors
+        n, eps = ctx.n, ctx.eps
+        zero = torch.zeros_like(s1)
+
+        def ct(t):
+            return zero if t is None else t
+
+        dz = torch.zeros_like(y2) if dz is None else dz.contiguous()
+        aff = {}
+        if ctx.raw_out:
+            # bn2's affine + ReLU adjoint ran in the consumer's backward:
+            # dz is the cotangent of raw y2, bn2 gets mean2/var2 cotangents.
+            da2 = db2 = zero
+        else:
+            da2, db2 = bn_relu_bwd_reduce(dz, y2, a2, b2)
+            aff = dict(a=a2, b=b2)
+        ds2, dq2, dscale2, dbias2 = _bn_scalars_vjp(
+            s2, q2, scale2, bias2, n, eps, (da2, db2, ct(dmean2), ct(dvar2)))
+        gy1, da1, db1 = conv3x3_dgrad(dz, y2, w2, ds2, dq2, **aff,
+                                      x_post=y1, a_post=a1, b_post=b1)
+        dw2, dc2b = conv3x3_wgrad(dz, y2, y1, ds2, dq2, **aff, a_pre=a1, b_pre=b1)
+        ds1, dq1, dscale1, dbias1 = _bn_scalars_vjp(
+            s1, q1, scale1, bias1, n, eps, (da1, db1, ct(dmean1), ct(dvar1)))
+        if x_b is None:
+            dx, dxb = conv3x3_dgrad(gy1, y1, w1, ds1, dq1), None
+        else:
+            dx, dxb = conv3x3_dgrad(gy1, y1, w1, ds1, dq1, split=x.shape[-1])
+        dw1, dc1b = conv3x3_wgrad(gy1, y1, x, ds1, dq1, x_b=x_b)
+        return (dx, dxb, dw1, dc1b, dw2, dc2b, dscale1, dbias1, dscale2, dbias2,
+                None, None)
+
+
+class PoolFunction(torch.autograd.Function):
+    """``maxpool2x2_affine_relu`` with its backward kernel, mirroring
+    ``pool_ab`` (pallas_conv.py:1714-1728): ``apply(z, a, b) -> p``, and
+    the backward returns ``(dz, da, db)``."""
+
+    @staticmethod
+    def forward(ctx, z, a, b):
+        ctx.save_for_backward(z, a, b)
+        return maxpool2x2_affine_relu(z, a, b)
+
+    @staticmethod
+    def backward(ctx, dp):
+        z, a, b = ctx.saved_tensors
+        return maxpool2x2_affine_relu_bwd(z, a, b, dp.contiguous())
+
+
+class ConvTransposeFunction(torch.autograd.Function):
+    """``convtranspose2x2`` with its backward kernel, mirroring ``ct``
+    (pallas_conv.py:1878-1927): ``apply(x, w, bias) -> y``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        return convtranspose2x2(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return convtranspose2x2_bwd(x, w, g.contiguous())

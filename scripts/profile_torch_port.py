@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
-"""Where the device time of the PyTorch port's serving forward goes, on one
-NVIDIA GPU, and how exact its conv kernel is.
+"""Where the device time of the PyTorch port's serving forward and train
+step goes, on one NVIDIA GPU, and how exact its conv kernel is.
 
-    python3 scripts/profile_torch_port.py
+    python3 scripts/profile_torch_port.py [--mode serve|train|both]
 
-Uses ``chip_smoke.py``'s model (the ``large_unet`` preset at full width,
-seeded random weights) and its main-path shapes; imports no jax.
+Uses ``chip_smoke.py``'s configuration (the ``large_unet`` preset at full
+width, batch 16 at 512x512, bf16, seeded random weights) and its main-path
+shapes; imports no jax.
 
+``serve``:
 1. For the kernel path and the all-stock path of the same weights, at batch
-   16 and batch 1 (512x512, bf16): CUDA-event ms per forward without the
-   profiler, then in a ``torch.profiler`` trace the CUDA-event ms of the
-   traced window and the device-busy ms (the sum of the kernels' device
-   time), idle share = 1 - busy / traced window, and the device time by
-   group: each hand-written kernel, cuDNN convs and GEMMs, elementwise and
-   copies, the rest by name.
+   16 and batch 1: CUDA-event ms per forward without the profiler, then in
+   a ``torch.profiler`` trace the CUDA-event ms of the traced window and
+   the device-busy ms (the sum of the kernels' device time), idle share =
+   1 - busy / traced window, and the device time by group: each
+   hand-written kernel, cuDNN convs and GEMMs, elementwise and copies, the
+   rest by name.
 2. cuDNN bf16 ms of each conv3x3 main-path launch (no pre-affine), for
    scale against the hand-written kernel.
 3. Exactness at enc1.conv2: the kernel, its plain version and the fp64 conv
    of the same bf16 operands rounded to bf16 — in how many outputs each
    pair differs, and how far the plain fp32 sum lies from fp64.
+
+``train``: the same trace of ``Trainer.train_step`` on one fixed batch
+(forward, backward, Adam), for the kernel path and the plain path (every
+wrapper replaced by its plain version) from the same weights, with the
+peak device memory of each.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import sys
 from collections import defaultdict
 from pathlib import Path
@@ -37,44 +46,62 @@ import chip_smoke as smoke  # noqa: E402
 from image_segmentation_tpu_torch.models.registry import build_model  # noqa: E402
 from image_segmentation_tpu_torch.ops import fused_conv as fc  # noqa: E402
 
+MODEL_ARGS = smoke.train_config().model_args
+
 DEVICE = smoke.DEVICE
 FORWARDS = 5
-OWN_KERNELS = ("conv3x3_kernel", "pool_kernel", "convtranspose2x2_kernel")
+TRAIN_STEPS = 3
+# device kernel name -> group; conv3x3_kernel<LOAD, EPI>: LOAD 0 is the
+# forward, 1 and 2 the dgrad
+OWN_KERNELS = (
+    ("conv3x3_kernel<0", "conv3x3 (forward)"), ("conv3x3_kernel<1", "conv3x3_dgrad"),
+    ("conv3x3_kernel<2", "conv3x3_dgrad"), ("wgrad_kernel", "conv3x3_wgrad"),
+    ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
+    ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_dx_kernel", "convtranspose2x2_bwd (dx)"),
+    ("ct_dw_kernel", "convtranspose2x2_bwd (dw)"), ("convtranspose2x2_kernel", "convtranspose2x2"),
+    ("sum_rows_kernel", "second pass of the sums"),
+)
 
 
 def group(name: str) -> str:
-    for k in OWN_KERNELS:
+    for k, label in OWN_KERNELS:
         if k in name:
-            return k
-    if any(s in name for s in ("xmma", "cudnn", "gemm", "cutlass", "conv2d")):
+            return label
+    if any(s in name for s in ("xmma", "cudnn", "gemm", "cutlass", "conv2d", "wgrad", "dgrad")):
         return "cudnn conv/gemm"
+    if "multi_tensor" in name or "foreach" in name.lower():
+        return "optimizer (foreach)"
+    if any(s in name for s in ("reduce", "Reduce")):
+        return "reductions"
     if any(s in name for s in ("elementwise", "copy", "Copy")):
         return "elementwise/copy"
     return "other: " + name[:60]
 
 
-def profile(model, x, label: str) -> None:
+def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None:
+    """Untraced CUDA-event ms per call of ``fn``, then the traced window,
+    device busy time, idle share and device time by group."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with torch.inference_mode():
-        event_ms = smoke.cuda_ms(torch, lambda: model(x), FORWARDS, warmup=2)
+    with torch.inference_mode() if no_grad else contextlib.nullcontext():
+        event_ms = smoke.cuda_ms(torch, fn, calls, warmup=2)
         with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start.record()
-            for _ in range(FORWARDS):
-                model(x)
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-    window_ms = start.elapsed_time(end) / FORWARDS
+    window_ms = start.elapsed_time(end) / calls
     groups = defaultdict(float)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
-            groups[group(e.key)] += (e.self_cuda_time_total if us is None else us) / 1e3 / FORWARDS
+            groups[group(e.key)] += (e.self_cuda_time_total if us is None else us) / 1e3 / calls
     busy = sum(groups.values())
-    print(f"== {label}: {event_ms!r} ms/forward untraced; traced window {window_ms!r} ms/forward, "
-          f"device busy {busy!r} ms/forward, idle share {1 - busy / window_ms!r}", flush=True)
+    print(f"== {label}: {event_ms!r} ms/call untraced; traced window {window_ms!r} ms/call, "
+          f"device busy {busy!r} ms/call, idle share {1 - busy / window_ms!r}", flush=True)
     if busy == 0:
         print("   the trace holds no device time", flush=True)
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -84,7 +111,7 @@ def profile(model, x, label: str) -> None:
 def cudnn_conv_ms() -> None:
     g = torch.Generator(device=DEVICE).manual_seed(smoke.SEED)
     total = 0.0
-    for label, shp, cb, co, _ in smoke.main_path_shapes(smoke.MODEL_ARGS)["conv3x3"]:
+    for label, shp, cb, co, _, _ in smoke.main_path_shapes(MODEL_ARGS)["conv"]:
         cin = shp[-1] + cb
         x = torch.randn((*shp[:3], cin), generator=g, device=DEVICE).to(torch.bfloat16)
         w = torch.randn((co, cin, 3, 3), generator=g, device=DEVICE).to(torch.bfloat16)
@@ -97,7 +124,7 @@ def cudnn_conv_ms() -> None:
 
 
 def exactness() -> None:
-    label, shp, _, co, _ = smoke.main_path_shapes(smoke.MODEL_ARGS)["conv3x3"][1]
+    label, shp, _, co, _, _ = smoke.main_path_shapes(MODEL_ARGS)["conv"][1]
     g = torch.Generator(device=DEVICE).manual_seed(smoke.SEED)
     ci = shp[-1]
     x = torch.randn(shp, generator=g, device=DEVICE).to(torch.bfloat16)
@@ -122,14 +149,8 @@ def exactness() -> None:
               flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_port: no CUDA device", file=sys.stderr)
-        return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {smoke.card_line()}", flush=True)
-    model = build_model("large_unet", device=DEVICE, **smoke.MODEL_ARGS)
+def serve() -> None:
+    model = build_model("large_unet", device=DEVICE, **MODEL_ARGS)
     smoke.randomize_(torch, model, smoke.SEED)
     model.eval().requires_grad_(False)
     stock = build_model("large_unet", device=DEVICE).eval().requires_grad_(False)
@@ -137,9 +158,52 @@ def main() -> int:
     x = torch.rand((smoke.BATCH, smoke.SIZE, smoke.SIZE, 3), device=DEVICE)
     for label, m in (("kernels", model), ("stock", stock)):
         for batch in (1, smoke.BATCH):
-            profile(m, x[:batch], f"{label} b{batch}")
+            profile(lambda m=m, x=x[:batch]: m(x), f"serve {label} b{batch}")
+    del model, stock
+    torch.cuda.empty_cache()
     cudnn_conv_ms()
     exactness()
+
+
+def train() -> None:
+    import numpy as np
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = smoke.train_config()
+    rng = np.random.default_rng(smoke.SEED)
+    shape = (cfg.batch_size, smoke.SIZE, smoke.SIZE)
+    images = torch.from_numpy(rng.integers(0, 256, shape + (3,), dtype=np.uint8)).to(DEVICE)
+    masks = torch.from_numpy(rng.integers(0, 3, shape, dtype=np.uint8)).to(DEVICE)
+    state = None
+    for label in ("kernels", "plain"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        if state is None:
+            state = {k: v.clone() for k, v in t.model.state_dict().items()}
+        t.model.load_state_dict(state)
+        with smoke.plain_path(fc) if label == "plain" else contextlib.nullcontext():
+            profile(lambda t=t: t.train_step(images, masks), f"train step {label} b{cfg.batch_size}",
+                    calls=TRAIN_STEPS, no_grad=False)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+        del t
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("serve", "train", "both"), default="both")
+    mode = parser.parse_args().mode
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"card: {smoke.card_line()}", flush=True)
+    if mode in ("serve", "both"):
+        serve()
+    if mode in ("train", "both"):
+        train()
     return 0
 
 

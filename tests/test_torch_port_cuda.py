@@ -9,8 +9,12 @@ run them with
 Inputs are bf16; the plain versions compute in fp32 (TF32 off) from the same
 bf16 operands and round to bf16, so the two differ only by the order of the
 fp32 sums and the bf16 rounding it can flip: tolerance 1e-2 of the output's
-largest magnitude.
+largest magnitude.  fp32 outputs (batch statistics, gradient sums) differ
+only by the order of their sums: tolerance 1e-4 of the largest magnitude.
 """
+
+import contextlib
+from unittest import mock
 
 import pytest
 import torch
@@ -19,6 +23,7 @@ from image_segmentation_tpu_torch.ops import fused_conv as fc
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-2
+SUM_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -38,6 +43,19 @@ def _close(got, ref):
     assert got.shape == ref.shape and got.dtype == ref.dtype == torch.bfloat16
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= RTOL * ref.float().abs().max().item(), err
+
+
+def _close_all(got, ref):
+    """Tuples of outputs: bf16 ones as _close, fp32 sums at SUM_RTOL."""
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        if b.dtype == torch.bfloat16:
+            _close(a, b)
+        else:
+            assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            err = (a - b).abs().max().item()
+            assert err <= SUM_RTOL * b.abs().max().item(), err
 
 
 def _counted(wrapper, fn):
@@ -84,6 +102,135 @@ def test_convtranspose2x2(gen, shape, co):
     bias = _randn(gen, co, dtype=torch.float32)
     got = _counted(fc.convtranspose2x2, lambda: fc.convtranspose2x2(x, w, bias))
     _close(got, fc.convtranspose2x2_plain(x, w, bias))
+
+
+@pytest.mark.parametrize("shape,cb,co,pre", [
+    ((2, 19, 37, 8), 0, 16, False),
+    ((2, 19, 37, 24), 0, 40, True),
+    ((1, 9, 5, 3), 5, 7, False),
+])
+def test_conv3x3_stats(gen, shape, cb, co, pre):
+    ca = shape[-1]
+    x = _randn(gen, *shape)
+    xb = _randn(gen, *shape[:3], cb) if cb else None
+    w = _randn(gen, co, ca + cb, 3, 3, dtype=torch.float32) * 0.2
+    bias = _randn(gen, co, dtype=torch.float32)
+    ab = dict(a=torch.rand(ca, generator=gen, device="cuda") + 0.5,
+              b=_randn(gen, ca, dtype=torch.float32) * 0.5) if pre else {}
+    got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, x_b=xb, stats=True, **ab))
+    _close_all(got, fc.conv3x3_plain(x, w, bias, x_b=xb, stats=True, **ab))
+
+
+def _bwd_operands(gen, shape, co, affine):
+    g, y = _randn(gen, *shape[:3], co), _randn(gen, *shape[:3], co)
+    c1, c2 = (_randn(gen, co, dtype=torch.float32) * 0.1 for _ in range(2))
+    aff = dict(a=torch.rand(co, generator=gen, device="cuda") + 0.5,
+               b=_randn(gen, co, dtype=torch.float32) * 0.5) if affine else {}
+    return g, y, c1, c2, aff
+
+
+# (shape of the conv's input, Cb, Co, affine cotangent, post / split / neither)
+BWD_CASES = [
+    ((2, 19, 37, 8), 0, 16, False, None),
+    ((2, 19, 37, 40), 0, 40, True, "post"),
+    ((2, 11, 23, 24), 0, 24, False, "post"),
+    ((1, 16, 32, 16), 16, 16, False, "split"),
+    ((1, 9, 5, 3), 5, 7, True, None),
+]
+
+
+@pytest.mark.parametrize("shape,cb,co,affine,epi", BWD_CASES)
+def test_conv3x3_dgrad(gen, shape, cb, co, affine, epi):
+    ca = shape[-1]
+    g, y, c1, c2, aff = _bwd_operands(gen, shape, co, affine)
+    w = _randn(gen, co, ca + cb, 3, 3, dtype=torch.float32) * 0.2
+    kw = dict(aff)
+    if epi == "post":
+        kw.update(x_post=_randn(gen, *shape), a_post=torch.rand(ca, generator=gen, device="cuda") + 0.5,
+                  b_post=_randn(gen, ca, dtype=torch.float32) * 0.5)
+    elif epi == "split":
+        kw.update(split=ca)
+    got = _counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **kw))
+    _close_all(got, fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **kw))
+
+
+@pytest.mark.parametrize("shape,cb,co,affine,epi", BWD_CASES)
+def test_conv3x3_wgrad(gen, shape, cb, co, affine, epi):
+    ca = shape[-1]
+    g, y, c1, c2, aff = _bwd_operands(gen, shape, co, affine)
+    x = _randn(gen, *shape)
+    kw = dict(aff, x_b=_randn(gen, *shape[:3], cb) if cb else None)
+    if epi == "post":  # conv2's operand: bn1's affine + ReLU of x
+        kw.update(a_pre=torch.rand(ca, generator=gen, device="cuda") + 0.5,
+                  b_pre=_randn(gen, ca, dtype=torch.float32) * 0.5)
+    got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **kw))
+    _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2, **kw))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 7, 9, 5)])
+def test_bn_relu_bwd_reduce(gen, shape):
+    g, y = _randn(gen, *shape), _randn(gen, *shape)
+    a = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+    b = _randn(gen, shape[-1], dtype=torch.float32) * 0.5
+    got = _counted(fc.bn_relu_bwd_reduce, lambda: fc.bn_relu_bwd_reduce(g, y, a, b))
+    _close_all(got, fc.bn_relu_bwd_reduce_plain(g, y, a, b))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 6, 10, 5)])
+def test_maxpool2x2_affine_relu_bwd(gen, shape):
+    # few distinct values, so windows hold ties the routing must break alike
+    z = (torch.randint(-3, 4, shape, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    a = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+    b = _randn(gen, shape[-1], dtype=torch.float32) * 0.5
+    dp = _randn(gen, shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+    got = _counted(fc.maxpool2x2_affine_relu_bwd, lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp))
+    ref = fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
+    assert torch.equal(got[0], ref[0])  # the same routing and one product: exact
+    _close_all(got, ref)
+
+
+@pytest.mark.parametrize("shape,co", [((2, 8, 16, 64), 32), ((1, 3, 5, 7), 9)])
+def test_convtranspose2x2_bwd(gen, shape, co):
+    x = _randn(gen, *shape)
+    w = _randn(gen, shape[-1], co, 2, 2, dtype=torch.float32) * 0.3
+    g = _randn(gen, shape[0], 2 * shape[1], 2 * shape[2], co)
+    got = _counted(fc.convtranspose2x2_bwd, lambda: fc.convtranspose2x2_bwd(x, w, g))
+    _close_all(got, fc.convtranspose2x2_bwd_plain(x, w, g))
+
+
+def test_autograd_functions_train_through_the_kernels(gen):
+    """One training step of the preset's small LargeUNet on the card: the
+    kernel path and the plain path give the same loss and gradients within
+    the bf16 limits (rtol 2e-2 loss, 5e-2 relative L2 per weight gradient)."""
+    from image_segmentation_tpu_torch.models.registry import build_model
+
+    torch.manual_seed(0)
+    args = dict(stem_features=8, encoder_features=(16, 32, 64, 128), w2d_level0=True,
+                w2d_impl="pallas_fused", w2d_level1_fold2=True)
+    x = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    t = torch.randint(0, 3, (2, 64, 64), generator=gen, device="cuda")
+    grads, losses = [], []
+    sd = None
+    dgrad = fc.conv3x3_dgrad  # the wrapper, whose count the plain run must not move
+    for plain in (False, True):
+        m = build_model("large_unet", device="cuda", **args)
+        if sd is None:
+            sd = m.state_dict()
+        m.load_state_dict(sd)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for w in fc.WRAPPERS:
+                    stack.enter_context(mock.patch.object(fc, w.__name__, getattr(fc, w.__name__ + "_plain")))
+            before = dgrad.launches
+            loss = torch.nn.functional.cross_entropy(m(x, train=True).permute(0, 3, 1, 2), t)
+            loss.backward()
+            assert dgrad.launches == before + (0 if plain else 8)
+        losses.append(loss.item())
+        grads.append({k: p.grad.float() for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+    for k, ref in grads[1].items():
+        if k.endswith("weight"):
+            assert (grads[0][k] - ref).norm() <= 5e-2 * ref.norm(), k
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

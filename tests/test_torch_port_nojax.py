@@ -1,7 +1,8 @@
 """The port imports no jax: a fresh interpreter imports every module of
-image_segmentation_tpu_torch and chip_smoke.py, runs a tiny CPU forward of
-the preset model through the wrappers, and finds no module of jax, flax or
-the JAX package (image_segmentation_tpu) loaded."""
+image_segmentation_tpu_torch (config, data.*, engine.*, models.*, ops.*,
+utils.*) and chip_smoke.py, runs a tiny CPU forward and train step of the
+preset model through the wrappers and the Trainer, and finds no module of
+jax, flax or the JAX package (image_segmentation_tpu) loaded."""
 
 import os
 import subprocess
@@ -17,13 +18,24 @@ import image_segmentation_tpu_torch as pkg
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import chip_smoke
+from image_segmentation_tpu_torch import config
+from image_segmentation_tpu_torch.data import datasets, pipeline
+from image_segmentation_tpu_torch.engine import train
 from image_segmentation_tpu_torch.models.registry import build_model
+from image_segmentation_tpu_torch.ops import losses
+args = chip_smoke.train_config().model_args
 m = build_model("large_unet", device="cpu", dtype=torch.float32,
-                stem_features=4, encoder_features=(8, 8, 8, 8),
-                **chip_smoke.MODEL_ARGS).eval()
+                stem_features=4, encoder_features=(8, 8, 8, 8), **args).eval()
 with torch.no_grad():
     out = m(torch.zeros((1, 32, 32, 3)))
 assert out.shape == (1, 32, 32, 3), out.shape
+cfg = config.TrainConfig(model="large_unet", bf16=False, batch_size=2,
+                         model_args=dict(args, stem_features=4, encoder_features=(8, 8, 8, 8)),
+                         data=config.DataConfig(dataset="synthetic", synthetic_length=2,
+                                                image_size=32, augmentations_per_datapoint=0))
+t = train.Trainer(cfg, device="cpu", make_artifacts=False)
+images, masks = next(pipeline.BatchPipeline(t.train_data, 2, device="cpu").epoch(0))
+assert float(t.train_step(images, masks)) > 0
 jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
                   ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
 assert not jax_mods, jax_mods
