@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and augmentation paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ width of the port's ``large_unet`` preset (``config.preset``):
    ``image_segmentation_tpu_torch/csrc`` (nvcc, one process per source,
    into ``build/kernels``);
 2. kernel phase: every kernel against its plain PyTorch version at each
-   shape the serving forward and the train step give it (batch 16 at
-   512x512, bf16), with both times from CUDA events;
+   shape the serving forward, the train step and the augmentor give it
+   (batch 16 at 512x512), with both times from CUDA events, the least time
+   the card could take (``bound_ms``) and, where one PyTorch call computes
+   the same function, that call's time (``library_ms``);
 3. serving phase: a LargeUNet with random weights from a seeded generator
    is written with ``export_model``, read back with ``load_model`` on the
    card, answers ``predict`` requests and runs batch-16 and batch-1
@@ -20,15 +23,20 @@ width of the port's ``large_unet`` preset (``config.preset``):
    and the batch-16 logits are held against the same model on the plain
    versions;
 4. training phase: ``Trainer(train_config(), device="cuda")`` trains one
-   epoch of 3 batches and evaluates 3 (``augmentations_per_datapoint=0``).
-   Launch counts are set to 0 before and read after, exact per train step
-   and per eval batch; then, on one fixed batch, 3 steps of the kernel path
-   against 3 steps from the same weights on the plain versions (per-step
-   losses, every step-0 gradient), 5 steps that must lower the loss, and
-   the train-step time, rate and peak memory of both paths;
-5. prints one JSON line of per-kernel results (``launches`` counts the
-   serving and the training runs), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+   epoch with the preset's augmentation (``augmentations_per_datapoint=4``:
+   5 steps over 16 synthetic images) and evaluates.  Launch counts are set
+   to 0 before and read after, exact per train step and per eval batch;
+   then, on one fixed batch and one fixed augmentation draw, 3 steps of the
+   kernel path against 3 steps from the same weights on the plain versions
+   (per-step losses, every step-0 gradient), 5 steps that must lower the
+   loss, and the train-step time, rate and peak memory of both paths, with
+   and without augmentation on the kernel path;
+5. augmentor phase: ``DataAugmentor(4, backend="pallas").apply_u8`` on a
+   batch-16 512x512 batch launches the colour kernel once (counts from 0),
+   and its output is held against ``backend="xla"`` on the same draws;
+6. prints one JSON line of per-kernel results (``launches`` counts the
+   serving, training and augmentor runs), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device the script exits at once.
@@ -45,6 +53,7 @@ import tempfile
 import time
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -52,13 +61,21 @@ DEVICE = "cuda"
 SEED = 0
 BATCH = 16
 SIZE = 512
-TRAIN_BATCHES = 3
+# 16 synthetic images, each seen aug + 1 = 5 times: 5 train steps an epoch
+TRAIN_LENGTH = 16
+# the augmentation draw of the fixed-batch steps (Trainer.train_step's step_key)
+STEP_KEY = 1
 # kernel vs plain, per launch: max|kernel - plain| <= KERNEL_RTOL * max|plain|
 # for bf16 outputs (their rounding of two fp32 sums taken in different
 # orders), SUM_RTOL * max|plain| for fp32 sums over up to 16*512*512
-# pixels, taken in another order than the plain version's.
+# pixels, taken in another order than the plain version's.  Integer outputs
+# (the shifts move whole words) must be equal.  The colour stage: fp32
+# within COLOUR_ATOL (its only sum, the per-image gray mean, is taken in
+# another order; the rest is the same separately rounded fp32 ops), bf16
+# within one bf16 step of the plain value.
 KERNEL_RTOL = 2e-2
 SUM_RTOL = 1e-3
+COLOUR_ATOL = 1e-5
 # served logits, kernel path vs plain path on the same weights and input
 LOGITS_RTOL = 5e-2
 ARGMAX_AGREEMENT = 0.995
@@ -74,6 +91,16 @@ LOSS_RTOL = 2e-2
 GRAD_RL2 = 5e-2
 PRE_BN_BIASES = (".conv.0.bias", ".conv.3.bias")
 NUM_CLASSES = 3
+# The card's peaks for bound_ms (H100 SXM data sheet, dense): device memory
+# bytes/s, bf16 tensor-core FLOP/s (the convs), fp32 FLOP/s outside the
+# tensor cores (the elementwise kernels).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+# fp32 operations of the colour stage per pixel: normalize 3, brightness 9,
+# the gray mean 5, contrast 14, saturation 19, the HSV round trip ~70 (with
+# its clips), the two blur passes 60
+PREPROCESS_OPS_PER_PIXEL = 180
 
 KERNEL_INFO = {  # wrapper name -> (source, the TPU kernel it replaces)
     "conv3x3": ("image_segmentation_tpu_torch/csrc/conv3x3.cu",
@@ -92,24 +119,31 @@ KERNEL_INFO = {  # wrapper name -> (source, the TPU kernel it replaces)
                          "image_segmentation_tpu/ops/pallas_conv.py:1852"),
     "convtranspose2x2_bwd": ("image_segmentation_tpu_torch/csrc/convtranspose.cu",
                              "image_segmentation_tpu/ops/pallas_conv.py:1888"),
+    "row_shift": ("image_segmentation_tpu_torch/csrc/shift.cu",
+                  "image_segmentation_tpu/ops/pallas_roll.py:55"),
+    "col_shift": ("image_segmentation_tpu_torch/csrc/shift.cu",
+                  "image_segmentation_tpu/ops/pallas_roll.py:55"),
+    "preprocess": ("image_segmentation_tpu_torch/csrc/preprocess.cu",
+                   "image_segmentation_tpu/ops/pallas_preprocess.py:147"),
 }
-# launches of one serving forward, one train step and one eval batch
+# launches of one serving forward, one train step, one eval batch and one
+# augmentor call with backend="pallas"
 PER_FORWARD = {"conv3x3": 8, "maxpool2x2_affine_relu": 2, "convtranspose2x2": 2}
 PER_STEP = {"conv3x3": 8, "conv3x3_dgrad": 8, "conv3x3_wgrad": 8, "bn_relu_bwd_reduce": 2,
             "maxpool2x2_affine_relu": 2, "maxpool2x2_affine_relu_bwd": 2,
-            "convtranspose2x2": 2, "convtranspose2x2_bwd": 2}
+            "convtranspose2x2": 2, "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1}
+PER_AUGMENT = {"row_shift": 2, "col_shift": 1, "preprocess": 1}
 
 
 def train_config():
     """The port's ``large_unet`` preset, cut to a smoke run: batch 16,
-    synthetic 512x512 data of TRAIN_BATCHES batches per split, one epoch,
-    no augmentation (its kernel is not ported yet)."""
+    synthetic 512x512 data of TRAIN_LENGTH images per split, one epoch, the
+    preset's augmentation (``augmentations_per_datapoint=4``)."""
     from image_segmentation_tpu_torch.config import preset
 
     cfg = preset("large_unet")
     data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=SIZE,
-                               synthetic_length=TRAIN_BATCHES * BATCH,
-                               augmentations_per_datapoint=0)
+                               synthetic_length=TRAIN_LENGTH)
     return dataclasses.replace(cfg, batch_size=BATCH, num_epochs=1, seed=SEED, data=data)
 
 
@@ -136,13 +170,21 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def counts(fc) -> dict:
-    return {w.__name__: w.launches for w in fc.WRAPPERS}
+def kernel_modules():
+    """The port's modules of kernel wrappers, each with ``WRAPPERS``."""
+    from image_segmentation_tpu_torch.ops import fused_conv, preprocess, roll
+
+    return (fused_conv, roll, preprocess)
 
 
-def reset_counts(fc) -> None:
-    for w in fc.WRAPPERS:
-        w.launches = 0
+def counts(mods) -> dict:
+    return {w.__name__: w.launches for m in mods for w in m.WRAPPERS}
+
+
+def reset_counts(mods) -> None:
+    for m in mods:
+        for w in m.WRAPPERS:
+            w.launches = 0
 
 
 def expected(per: dict, times: int = 1) -> dict:
@@ -150,11 +192,12 @@ def expected(per: dict, times: int = 1) -> dict:
 
 
 @contextmanager
-def plain_path(fc):
-    """Every wrapper replaced by its plain version."""
+def plain_path(mods):
+    """Every wrapper of every kernel module replaced by its plain version."""
     with ExitStack() as stack:
-        for w in fc.WRAPPERS:
-            stack.enter_context(mock.patch.object(fc, w.__name__, getattr(fc, w.__name__ + "_plain")))
+        for m in mods:
+            for w in m.WRAPPERS:
+                stack.enter_context(mock.patch.object(m, w.__name__, getattr(m, w.__name__ + "_plain")))
         yield
 
 
@@ -186,10 +229,34 @@ def main_path_shapes(model_args: dict) -> dict:
     return {"conv": conv, "pool": pool, "ct": ct}
 
 
-def kernel_cases(torch, fc, shapes: dict) -> list:
-    """(wrapper name, label, make) for every launch of the serving forward
-    and the train step; ``make()`` draws the inputs and returns the kernel
-    call and the plain call, so only one case's tensors live at a time."""
+class Case(NamedTuple):
+    """One kernel launch of a main path, beside its plain version.
+
+    ``inputs``: the tensors the function reads (each counted once for the
+    bound; the outputs are counted from the result); ``ops``: its
+    arithmetic, at the peak ``flop_per_s``; ``library``: one PyTorch call
+    that computes the same function, or None; ``tol``: "default" (the
+    relative limits), "exact", "colour" (COLOUR_ATOL) or "bf16_step"."""
+
+    kern: Callable
+    plain: Callable
+    inputs: list
+    ops: float = 0.0
+    flop_per_s: float = FP32_FLOP_PER_S
+    library: Optional[Callable] = None
+    tol: str = "default"
+
+
+def kernel_cases(torch, mods, shapes: dict) -> list:
+    """(wrapper name, label, timed, make) for every launch of the serving
+    forward, the train step and the augmentor (``timed``), and for the
+    edge checks (not timed); ``make()`` draws the inputs and returns a
+    :class:`Case`, so only one case's tensors live at a time."""
+    import torch.nn.functional as F
+
+    from image_segmentation_tpu_torch.ops.augment import DataAugmentor, _shear3_shifts
+
+    fc, roll, pp = mods
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     bf16 = torch.bfloat16
 
@@ -202,19 +269,28 @@ def kernel_cases(torch, fc, shapes: dict) -> list:
     def small(n):
         return torch.randn(n, generator=g, device=DEVICE) * 1e-3
 
+    def nchw(t):  # the channels-last view cuDNN takes
+        return t.permute(0, 3, 1, 2)
+
     cases = []
     for label, shp, cb, co, pre, dec in shapes["conv"]:
         ca = shp[-1]
         cin = ca + cb
+        flops = 2.0 * shp[0] * shp[1] * shp[2] * cin * co * 9
 
-        def conv_fwd(shp=shp, ca=ca, cb=cb, co=co, pre=pre, stats=False):
+        def conv_fwd(shp=shp, ca=ca, cb=cb, co=co, pre=pre, stats=False, flops=flops):
             x = randn(*shp)
             xb = randn(*shp[:3], cb) if cb else None
             w = torch.randn((co, ca + cb, 3, 3), generator=g, device=DEVICE) / (9 * (ca + cb)) ** 0.5
             bias = torch.randn(co, generator=g, device=DEVICE) * 0.1
             ab = dict(a=vec(ca, 0.5, 1.5), b=vec(ca, -0.5, 0.5)) if pre else {}
             kw = dict(x_b=xb, stats=stats, **ab)
-            return (lambda: fc.conv3x3(x, w, bias, **kw)), (lambda: fc.conv3x3_plain(x, w, bias, **kw))
+            xl = nchw(x if xb is None else torch.cat([x, xb], -1))
+            wl, bl = w.to(bf16).contiguous(memory_format=torch.channels_last), bias.to(bf16)
+            return Case((lambda: fc.conv3x3(x, w, bias, **kw)),
+                        (lambda: fc.conv3x3_plain(x, w, bias, **kw)),
+                        [x, xb, w, bias, *ab.values()], flops, BF16_FLOP_PER_S,
+                        lambda: F.conv2d(xl, wl, bl, padding=1))
 
         def bwd_operands(shp=shp, co=co, cin=cin, affine=pre and dec):
             # the decoders' conv2 cotangent goes through bn2's affine + ReLU
@@ -223,67 +299,131 @@ def kernel_cases(torch, fc, shapes: dict) -> list:
             aff = dict(a=vec(co, 0.5, 1.5), b=vec(co, -0.5, 0.5)) if affine else {}
             return gt, y, w, small(co), small(co), aff
 
-        def dgrad(shp=shp, ca=ca, cb=cb, pre=pre, operands=bwd_operands):
+        def dgrad(shp=shp, ca=ca, cb=cb, cin=cin, pre=pre, operands=bwd_operands, flops=flops):
             gt, y, w, c1, c2, aff = operands()
             kw = dict(aff)
             if pre:  # conv2: bn1's ReLU adjoint on the raw conv1 output
                 kw.update(x_post=randn(*shp), a_post=vec(ca, 0.5, 1.5), b_post=vec(ca, -0.5, 0.5))
             elif cb:  # decoder conv1: dx split into [up | skip]
                 kw.update(split=ca)
-            return ((lambda: fc.conv3x3_dgrad(gt, y, w, c1, c2, **kw)),
-                    (lambda: fc.conv3x3_dgrad_plain(gt, y, w, c1, c2, **kw)))
+            gl, wl = nchw(gt), w.to(bf16)
+            size = (shp[0], cin, shp[1], shp[2])
+            return Case((lambda: fc.conv3x3_dgrad(gt, y, w, c1, c2, **kw)),
+                        (lambda: fc.conv3x3_dgrad_plain(gt, y, w, c1, c2, **kw)),
+                        [gt, y, w, c1, c2, *(v for v in kw.values() if torch.is_tensor(v))],
+                        flops, BF16_FLOP_PER_S,
+                        lambda: torch.nn.grad.conv2d_input(size, wl, gl, padding=1))
 
-        def wgrad(shp=shp, ca=ca, cb=cb, pre=pre, operands=bwd_operands):
+        def wgrad(shp=shp, ca=ca, cb=cb, pre=pre, operands=bwd_operands, flops=flops):
             gt, y, w, c1, c2, aff = operands()
             kw = dict(aff, x_b=randn(*shp[:3], cb) if cb else None)
             if pre:
                 kw.update(a_pre=vec(ca, 0.5, 1.5), b_pre=vec(ca, -0.5, 0.5))
             x = randn(*shp)
-            return ((lambda: fc.conv3x3_wgrad(gt, y, x, c1, c2, **kw)),
-                    (lambda: fc.conv3x3_wgrad_plain(gt, y, x, c1, c2, **kw)))
+            xl = nchw(x if kw["x_b"] is None else torch.cat([x, kw["x_b"]], -1))
+            gl = nchw(gt)
+            return Case((lambda: fc.conv3x3_wgrad(gt, y, x, c1, c2, **kw)),
+                        (lambda: fc.conv3x3_wgrad_plain(gt, y, x, c1, c2, **kw)),
+                        [gt, y, x, c1, c2, *kw.values()], flops, BF16_FLOP_PER_S,
+                        lambda: torch.nn.grad.conv2d_weight(xl, w.shape, gl, padding=1))
 
-        cases.append(("conv3x3", label, conv_fwd))
-        cases.append(("conv3x3", label + " stats", lambda f=conv_fwd: f(stats=True)))
-        cases.append(("conv3x3_dgrad", label, dgrad))
-        cases.append(("conv3x3_wgrad", label, wgrad))
+        cases.append(("conv3x3", label, True, conv_fwd))
+        cases.append(("conv3x3", label + " stats", True, lambda f=conv_fwd: f(stats=True)))
+        cases.append(("conv3x3_dgrad", label, True, dgrad))
+        cases.append(("conv3x3_wgrad", label, True, wgrad))
         if pre and dec:  # the decoders' bn2 reduction, at conv2's output shape
             def bnred(shp=shp, co=co):
                 gt, y, a, b = randn(*shp[:3], co), randn(*shp[:3], co), vec(co, 0.5, 1.5), vec(co, -0.5, 0.5)
-                return ((lambda: fc.bn_relu_bwd_reduce(gt, y, a, b)),
-                        (lambda: fc.bn_relu_bwd_reduce_plain(gt, y, a, b)))
-            cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", bnred))
+                return Case((lambda: fc.bn_relu_bwd_reduce(gt, y, a, b)),
+                            (lambda: fc.bn_relu_bwd_reduce_plain(gt, y, a, b)),
+                            [gt, y, a, b], 6.0 * y.numel())  # mul, add, compare, select, mul, 2 adds
+            cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", True, bnred))
     for label, shp in shapes["pool"]:
         def pool(shp=shp, bwd=False):
             # few distinct values, so windows hold ties
             z = (torch.randint(-6, 7, shp, generator=g, device=DEVICE) * 0.25).to(bf16)
             a, b = vec(shp[-1], 0.5, 1.5), vec(shp[-1], -0.5, 0.5)
             if not bwd:
-                return ((lambda: fc.maxpool2x2_affine_relu(z, a, b)),
-                        (lambda: fc.maxpool2x2_affine_relu_plain(z, a, b)))
+                return Case((lambda: fc.maxpool2x2_affine_relu(z, a, b)),
+                            (lambda: fc.maxpool2x2_affine_relu_plain(z, a, b)),
+                            [z, a, b], 4.0 * z.numel())  # mul, add, relu, max
             dp = randn(shp[0], shp[1] // 2, shp[2] // 2, shp[3])
-            return ((lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp)),
-                    (lambda: fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)))
-        cases.append(("maxpool2x2_affine_relu", label, pool))
-        cases.append(("maxpool2x2_affine_relu_bwd", label, lambda f=pool: f(bwd=True)))
+            return Case((lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp)),
+                        (lambda: fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)),
+                        [z, a, b, dp], 8.0 * z.numel())  # affine, relu, routing, P*a, 2 sums
+        cases.append(("maxpool2x2_affine_relu", label, True, pool))
+        cases.append(("maxpool2x2_affine_relu_bwd", label, True, lambda f=pool: f(bwd=True)))
     for label, shp, co in shapes["ct"]:
         def ct(shp=shp, co=co, bwd=False):
             x = randn(*shp)
             w = torch.randn((shp[-1], co, 2, 2), generator=g, device=DEVICE) / (4 * shp[-1]) ** 0.5
+            flops = 2.0 * shp[0] * shp[1] * shp[2] * shp[3] * co * 4
             if not bwd:
                 bias = torch.randn(co, generator=g, device=DEVICE) * 0.1
-                return ((lambda: fc.convtranspose2x2(x, w, bias)),
-                        (lambda: fc.convtranspose2x2_plain(x, w, bias)))
+                xl, wl, bl = nchw(x), w.to(bf16), bias.to(bf16)
+                return Case((lambda: fc.convtranspose2x2(x, w, bias)),
+                            (lambda: fc.convtranspose2x2_plain(x, w, bias)),
+                            [x, w, bias], flops, BF16_FLOP_PER_S,
+                            lambda: F.conv_transpose2d(xl, wl, bl, stride=2))
             gt = randn(shp[0], 2 * shp[1], 2 * shp[2], co)
-            return ((lambda: fc.convtranspose2x2_bwd(x, w, gt)),
-                    (lambda: fc.convtranspose2x2_bwd_plain(x, w, gt)))
-        cases.append(("convtranspose2x2", label, ct))
-        cases.append(("convtranspose2x2_bwd", label, lambda f=ct: f(bwd=True)))
+            # the library's backward: autograd through cuDNN's ConvTranspose (dx and dw)
+            xr = nchw(x).detach().requires_grad_()
+            wr = w.to(bf16).detach().requires_grad_()
+            yr = F.conv_transpose2d(xr, wr, stride=2)
+            gl = nchw(gt)
+            return Case((lambda: fc.convtranspose2x2_bwd(x, w, gt)),
+                        (lambda: fc.convtranspose2x2_bwd_plain(x, w, gt)),
+                        [x, w, gt], 2 * flops, BF16_FLOP_PER_S,
+                        lambda: torch.autograd.grad(yr, (xr, wr), gl, retain_graph=True))
+        cases.append(("convtranspose2x2", label, True, ct))
+        cases.append(("convtranspose2x2_bwd", label, True, lambda f=ct: f(bwd=True)))
+
+    # the augmentor: the shear shifts of 16 drawn angles (rows twice, columns
+    # once per step), |s| up to 511 (not on the main path), the colour stage
+    params = DataAugmentor(4).sample(BATCH, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    _, sx, sy = _shear3_shifts(params.angles, BATCH, SIZE, SIZE)
+
+    def extreme():
+        s = torch.randint(-(SIZE - 1), SIZE, (BATCH, SIZE), generator=g, device=DEVICE,
+                          dtype=torch.int32)
+        s[:, 0], s[:, -1] = SIZE - 1, -(SIZE - 1)
+        return s
+
+    def shift(name, table):
+        def make():
+            x = torch.randint(-2**31, 2**31 - 1, (BATCH, SIZE, SIZE), generator=g,
+                              device=DEVICE, dtype=torch.int32)
+            s = table() if callable(table) else table
+            kern, plain = getattr(roll, name), getattr(roll, name + "_plain")
+            return Case((lambda: kern(x, s)), (lambda: plain(x, s)), [x, s], tol="exact")
+        return make
+
+    cases.append(("row_shift", "shear 1 (rows)", True, shift("row_shift", sx)))
+    cases.append(("col_shift", "shear 2 (columns)", True, shift("col_shift", sy)))
+    cases.append(("row_shift", "shear 3 (rows)", True, shift("row_shift", sx)))
+    cases.append(("row_shift", "|s| up to 511", False, shift("row_shift", extreme)))
+    cases.append(("col_shift", "|s| up to 511", False, shift("col_shift", extreme)))
+
+    def colour(dtype):
+        def make():
+            u8 = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=g, device=DEVICE,
+                               dtype=torch.uint8)
+            kw = dict(out_dtype=dtype)
+            return Case((lambda: pp.preprocess(u8, params.jitter, params.blur, **kw)),
+                        (lambda: pp.preprocess_plain(u8, params.jitter, params.blur, **kw)),
+                        [u8, params.jitter, params.blur],
+                        float(PREPROCESS_OPS_PER_PIXEL) * BATCH * SIZE * SIZE,
+                        tol="colour" if dtype == torch.float32 else "bf16_step")
+        return make
+
+    cases.append(("preprocess", "u8 -> fp32", True, colour(torch.float32)))
+    cases.append(("preprocess", "u8 -> bf16", False, colour(torch.bfloat16)))
     return cases
 
 
-def compare(torch, label: str, got, ref) -> float:
+def compare(torch, label: str, got, ref, tol: str = "default") -> float:
     """Max abs error of a kernel's outputs against its plain version's;
-    raises past the stated limits."""
+    raises past the stated limits (see ``Case.tol``)."""
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     worst = 0.0
@@ -291,40 +431,77 @@ def compare(torch, label: str, got, ref) -> float:
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{label}[{i}]: kernel {tuple(a.shape)}/{a.dtype} vs plain "
                                  f"{tuple(b.shape)}/{b.dtype}")
-        err = (a.float() - b.float()).abs().max().item()
-        scale = b.float().abs().max().item()
-        rtol = KERNEL_RTOL if a.dtype == torch.bfloat16 else SUM_RTOL
-        finite = bool(torch.isfinite(a).all())
+        if tol == "exact":
+            err = float((a != b).sum().item())
+            ok, what = err == 0.0, "exact (the count of differing words)"
+        else:
+            diff = (a.float() - b.float()).abs()
+            err = diff.max().item()
+            if tol == "colour":
+                ok, what = err <= COLOUR_ATOL, f"atol {COLOUR_ATOL}"
+            elif tol == "bf16_step":
+                # one bf16 step at each plain value: 2^(exponent - 7)
+                step = torch.exp2(torch.floor(torch.log2(b.float().abs().clamp(min=2.0**-126))) - 7)
+                ok, what = bool((diff <= step).all()), "one bf16 step per element"
+            else:
+                rtol = KERNEL_RTOL if a.dtype == torch.bfloat16 else SUM_RTOL
+                scale = b.float().abs().max().item()
+                ok, what = err <= rtol * scale, f"{rtol} x max|plain| {scale!r}"
+            ok = ok and bool(torch.isfinite(a).all())
         print(f"  {label}[{i}] {tuple(a.shape)} {str(a.dtype)[6:]}: max_abs_err={err!r} "
-              f"limit {rtol} x max|plain| {scale!r}{'' if finite else ' NOT FINITE'}", flush=True)
-        if not (err <= rtol * scale and finite):
+              f"limit {what}{'' if ok else ' FAILED'}", flush=True)
+        if not ok:
             raise AssertionError(f"{label}[{i}]: kernel disagrees with its plain version")
         worst = max(worst, err)
     return worst
 
 
-def kernel_phase(torch, fc, shapes: dict) -> dict:
-    """Each kernel vs its plain version at every main-path shape; the ms of
-    both summed per wrapper over its launches of one serving forward plus
-    one train step."""
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in KERNEL_INFO}
-    for name, label, make in kernel_cases(torch, fc, shapes):
-        kern, plain = make()
-        err = compare(torch, f"{name} {label}", kern(), plain())
-        # in turns: plain, kernel, kernel, plain
-        iters = 3 if name.startswith("conv3x3") else 10
-        p1 = cuda_ms(torch, plain, iters)
-        k1 = cuda_ms(torch, kern, iters)
-        k2 = cuda_ms(torch, kern, iters)
-        p2 = cuda_ms(torch, plain, iters)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"kernel {name} {label}: ms={k_ms!r} plain_ms={p_ms!r} ok", flush=True)
+def _nbytes(tensors) -> int:
+    flat = []
+    for t in tensors:
+        flat.extend(t if isinstance(t, tuple) else (t,))
+    return sum(t.numel() * t.element_size() for t in flat if t is not None)
+
+
+def kernel_phase(torch, mods, shapes: dict) -> dict:
+    """Each kernel vs its plain version at every main-path shape; per
+    wrapper, summed over its launches of one serving forward, one train
+    step and one augmentor call: the ms of both, the bound and the library
+    call's ms."""
+    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
+               for name in KERNEL_INFO}
+    for name, label, timed, make in kernel_cases(torch, mods, shapes):
+        case = make()
+        got = case.kern()
         r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += k_ms
-        r["plain_ms"] += p_ms
-        del kern, plain
+        r["max_abs_err"] = max(r["max_abs_err"], compare(torch, f"{name} {label}", got,
+                                                         case.plain(), case.tol))
+        if timed:
+            # the least time: each input read once, each output written once
+            bytes_ms = _nbytes([*case.inputs, got]) / HBM_BYTES_PER_S * 1e3
+            ops_ms = case.ops / case.flop_per_s * 1e3
+            # in turns: plain, kernel, kernel, plain
+            iters = 3 if name.startswith("conv3x3") else 10
+            p1 = cuda_ms(torch, case.plain, iters)
+            k1 = cuda_ms(torch, case.kern, iters)
+            k2 = cuda_ms(torch, case.kern, iters)
+            p2 = cuda_ms(torch, case.plain, iters)
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            lib_ms = None if case.library is None else cuda_ms(torch, case.library, iters)
+            print(f"kernel {name} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
+                  f"bound_ms={max(bytes_ms, ops_ms)!r} library_ms={lib_ms!r} ok", flush=True)
+            r["ms"] += k_ms
+            r["plain_ms"] += p_ms
+            r["bound_ms"] += max(bytes_ms, ops_ms)
+            r["bytes_ms"] += bytes_ms
+            r["ops_ms"] += ops_ms
+            if lib_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        del case, got
         torch.cuda.empty_cache()
+    for r in results.values():
+        r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("ops_ms") else "operations"
     return results
 
 
@@ -358,7 +535,7 @@ def randomize_(torch, model, seed: int) -> None:
                 uniform(m.running_var, 0.5, 1.5)
 
 
-def serving_phase(torch, fc, card: str) -> dict:
+def serving_phase(torch, mods, card: str) -> dict:
     """The serving path end to end; returns the launch counts of its run."""
     import numpy as np
 
@@ -385,16 +562,16 @@ def serving_phase(torch, fc, card: str) -> dict:
     per_forward = expected(PER_FORWARD)
 
     def checked(what, fn):
-        before = counts(fc)
+        before = counts(mods)
         out = fn()
         torch.cuda.synchronize()
-        delta = {k: v - before[k] for k, v in counts(fc).items()}
+        delta = {k: v - before[k] for k, v in counts(mods).items()}
         if delta != per_forward:
             raise AssertionError(f"{what}: launches {delta}, expected {per_forward}")
         return out
 
     # ---- the main path: counts from 0, read right after
-    reset_counts(fc)
+    reset_counts(mods)
     for what, image in requests.items():
         mask = checked(f"predict {what}", lambda: predict(served, image))
         if mask.shape != (256, 256) or mask.min() < 0 or mask.max() >= NUM_CLASSES:
@@ -404,7 +581,7 @@ def serving_phase(torch, fc, card: str) -> dict:
     with torch.inference_mode():
         logits = checked("forward b16", lambda: served(x16))
         logits1 = checked("forward b1", lambda: served(x16[:1]))
-    launches = counts(fc)
+    launches = counts(mods)
     n_forwards = len(requests) + 2
     if launches != expected(PER_FORWARD, n_forwards):
         raise AssertionError(f"serving launches {launches} over {n_forwards} forwards")
@@ -415,7 +592,7 @@ def serving_phase(torch, fc, card: str) -> dict:
                            ("b1", logits1, (1, SIZE, SIZE, NUM_CLASSES))):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not torch.isfinite(t).all():
             raise AssertionError(f"logits {name}: {tuple(t.shape)} {t.dtype}, finite={bool(torch.isfinite(t).all())}")
-    with plain_path(fc), torch.inference_mode():
+    with plain_path(mods), torch.inference_mode():
         plain_logits = served(x16)
     diff = (logits - plain_logits).abs().max().item()
     scale = plain_logits.abs().max().item()
@@ -462,33 +639,38 @@ def _check_gradients(torch, gk: dict, gp: dict):
 
 
 def _step_ms(torch, trainer, images, masks, steps: int = 3) -> float:
-    return cuda_ms(torch, lambda: trainer.train_step(images, masks), steps, warmup=1)
+    return cuda_ms(torch, lambda: trainer.train_step(images, masks, STEP_KEY), steps, warmup=1)
 
 
-def training_phase(torch, fc, card: str) -> dict:
-    """The train step end to end; returns the launch counts of its run."""
+def training_phase(torch, mods, card: str) -> dict:
+    """The train step end to end, augmentation on; returns the launch
+    counts of its run."""
     from image_segmentation_tpu_torch.engine.train import Trainer
 
     cfg = train_config()
     trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    aug = cfg.data.augmentations_per_datapoint
     print(f"trainer: large_unet preset, {trainer.num_params} params, batch {cfg.batch_size}, "
-          f"{cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}", flush=True)
+          f"{cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}, "
+          f"augmentor {trainer.augmentor}", flush=True)
 
     # ---- the main path: counts from 0, read right after
-    reset_counts(fc)
+    reset_counts(mods)
     torch.cuda.reset_peak_memory_stats()
     hist = trainer.train(1)["history"]
     torch.cuda.synchronize()
-    launches = counts(fc)
+    launches = counts(mods)
+    n_train = len(trainer.train_data) * (aug + 1) // cfg.batch_size
     n_val = math.ceil(len(trainer.val_data) / cfg.batch_size)
-    want = {k: PER_STEP.get(k, 0) * TRAIN_BATCHES + PER_FORWARD.get(k, 0) * n_val for k in KERNEL_INFO}
+    want = {k: PER_STEP.get(k, 0) * n_train + PER_FORWARD.get(k, 0) * n_val for k in KERNEL_INFO}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     row = hist[0]
     if not all(math.isfinite(v) for v in row.values()):
         raise AssertionError(f"train(1) + evaluate: not finite: {row}")
-    print(f"training path: {TRAIN_BATCHES} train steps + {n_val} eval batches, launches {launches}; "
-          f"history {row}; peak memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+    print(f"training path: {n_train} augmented train steps + {n_val} eval batches, launches "
+          f"{launches}; history {row}; peak memory {torch.cuda.max_memory_allocated()!r} B",
+          flush=True)
 
     # ---- exact launches of one train step
     import numpy as np
@@ -497,21 +679,22 @@ def training_phase(torch, fc, card: str) -> dict:
     images = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(DEVICE)
     masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (BATCH, SIZE, SIZE), dtype=np.uint8)).to(DEVICE)
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    before = counts(fc)
-    trainer.train_step(images, masks)
+    before = counts(mods)
+    trainer.train_step(images, masks, STEP_KEY)
     torch.cuda.synchronize()
-    delta = {k: v - before[k] for k, v in counts(fc).items()}
+    delta = {k: v - before[k] for k, v in counts(mods).items()}
     if delta != expected(PER_STEP):
         raise AssertionError(f"one train step: launches {delta}, expected {expected(PER_STEP)}")
     print(f"one train step: launches {delta}", flush=True)
 
-    # ---- kernel path vs plain path: 3 steps from the same weights on one batch
+    # ---- kernel path vs plain path: 3 steps from the same weights on one
+    # batch and one augmentation draw (STEP_KEY)
     def run(steps: int):
         t = Trainer(cfg, device=DEVICE, make_artifacts=False)
         t.model.load_state_dict(state)
         losses, grads = [], None
         for _ in range(steps):
-            losses.append(float(t.train_step(images, masks)))
+            losses.append(float(t.train_step(images, masks, STEP_KEY)))
             if grads is None:
                 grads = _grads(t.model)
         return t, losses, grads
@@ -520,13 +703,17 @@ def training_phase(torch, fc, card: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kt, k_losses, k_grads = run(3)
-    more = [float(kt.train_step(images, masks)) for _ in range(5)]
+    more = [float(kt.train_step(images, masks, STEP_KEY)) for _ in range(5)]
     k_ms = _step_ms(torch, kt, images, masks)
     k_mem = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(kt, "augmentor", None):
+        n_ms = _step_ms(torch, kt, images, masks)
+    n_mem = torch.cuda.max_memory_allocated()
     del kt
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with plain_path(fc):
+    with plain_path(mods):
         pt, p_losses, p_grads = run(3)
         p_ms = _step_ms(torch, pt, images, masks)
     p_mem = torch.cuda.max_memory_allocated()
@@ -543,10 +730,63 @@ def training_phase(torch, fc, card: str) -> dict:
     print(f"5 more steps on the batch, kernel path: losses {more}", flush=True)
     if not more[-1] < more[0]:
         raise AssertionError("5 steps on one fixed batch did not lower its loss")
-    for what, ms, mem in (("kernel", k_ms, k_mem), ("plain", p_ms, p_mem)):
-        print(f"train step LargeUNet@{SIZE} bf16 batch {BATCH}, {what} path: {ms!r} ms "
+    for what, ms, mem in (("kernel path, augmented", k_ms, k_mem),
+                          ("kernel path, no augmentation", n_ms, n_mem),
+                          ("plain path, augmented", p_ms, p_mem)):
+        print(f"train step LargeUNet@{SIZE} bf16 batch {BATCH}, {what}: {ms!r} ms "
               f"({BATCH * 1000.0 / ms!r} img/s), max_memory_allocated {mem!r} B on {card}",
               flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# augmentor phase
+# --------------------------------------------------------------------------
+
+def augmentor_phase(torch, mods, card: str) -> dict:
+    """``DataAugmentor(4, backend="pallas").apply_u8`` at batch 16, 512x512;
+    returns the launch counts of its run."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.ops.augment import DataAugmentor, apply_geometric
+
+    rng = np.random.default_rng(SEED + 11)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(DEVICE)
+    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (BATCH, SIZE, SIZE), dtype=np.uint8)).to(DEVICE)
+    fused, xla = DataAugmentor(4, backend="pallas"), DataAugmentor(4)
+    params = fused.sample(BATCH, torch.Generator().manual_seed(SEED)).to(DEVICE)
+
+    # ---- the main path: counts from 0, read right after
+    reset_counts(mods)
+    out_i, out_m = fused.apply_u8(params, images, masks)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    if launches != expected(PER_AUGMENT):
+        raise AssertionError(f"augmentor launches {launches}, expected {expected(PER_AUGMENT)}")
+    ref_i, ref_m = xla.apply_u8(params, images, masks)
+    if (tuple(out_i.shape) != (BATCH, SIZE, SIZE, 3) or out_i.dtype != torch.float32
+            or out_m.dtype != torch.int64 or not bool(torch.isfinite(out_i).all())):
+        raise AssertionError(f"augmentor: {tuple(out_i.shape)} {out_i.dtype}, masks {out_m.dtype}")
+    err = (out_i - ref_i).abs().max().item()
+    same_masks = bool(torch.equal(out_m, ref_m))
+    print(f"augmentor backend=pallas vs xla on the same draws: images max_abs_err={err!r} "
+          f"(limit {COLOUR_ATOL}), masks equal={same_masks}, launches {launches}", flush=True)
+    if err > COLOUR_ATOL or not same_masks:
+        raise AssertionError("the fused colour stage disagrees with the xla stage")
+    if out_i.min().item() < 0.0 or out_i.max().item() > 1.0 or out_m.max().item() >= NUM_CLASSES:
+        raise AssertionError("augmented images leave [0, 1] or masks leave the classes")
+    del out_i, out_m, ref_i, ref_m
+
+    stacked = torch.cat([images, masks[..., None]], dim=-1)
+    times = {
+        "apply_u8 backend=pallas": cuda_ms(torch, lambda: fused.apply_u8(params, images, masks), 10),
+        "apply_u8 backend=xla": cuda_ms(torch, lambda: xla.apply_u8(params, images, masks), 10),
+        "geometry alone (flip, quarter turn, 3 shears)":
+            cuda_ms(torch, lambda: apply_geometric(stacked, params.flip, params.angles), 10),
+    }
+    for what, ms in times.items():
+        print(f"augmentor {what}, batch {BATCH} {SIZE}x{SIZE} u8: {ms!r} ms on {card}", flush=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -558,8 +798,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from image_segmentation_tpu_torch.ops import _build
-    from image_segmentation_tpu_torch.ops import fused_conv as fc
 
+    mods = kernel_modules()
     # fp32 references in full fp32 (cuDNN's TF32 default would not be)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -577,19 +817,20 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    results = kernel_phase(torch, fc, main_path_shapes(train_config().model_args))
-    served = serving_phase(torch, fc, card)
-    trained = training_phase(torch, fc, card)
+    results = kernel_phase(torch, mods, main_path_shapes(train_config().model_args))
+    runs = [serving_phase(torch, mods, card), training_phase(torch, mods, card),
+            augmentor_phase(torch, mods, card)]
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = results[name]
-        n = served[name] + trained[name]
+        n = sum(run[name] for run in runs)
         if n == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -46,10 +46,11 @@ def export_model(
 
 
 def load_model(
-    artifact_dir: str, *, device, dtype: torch.dtype = torch.bfloat16
+    artifact_dir: str, *, device="cuda", dtype: torch.dtype = torch.bfloat16
 ) -> nn.Module:
-    """Rebuild the model of an artifact directory on ``device``, in eval
-    mode, computing in ``dtype``.  Its parameters do not require grad: an
+    """Rebuild the model of an artifact directory on ``device`` (the card
+    unless the caller asks for the CPU), in eval mode, computing in
+    ``dtype``.  Its parameters do not require grad: an
     artifact is for inference."""
     with open(os.path.join(artifact_dir, "config.json")) as f:
         cfg = json.load(f)

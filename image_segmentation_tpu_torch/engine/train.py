@@ -1,19 +1,26 @@
 """Training engine; counterpart of ``image_segmentation_tpu/engine/train.py``
 (adam_l2 :52, build_optimizer :62, make_loss_fn :84, Trainer :131).
 
-One train step: uint8 batch -> normalise on the device -> forward in the
-compute dtype (bf16 on the card, fp32 parameters) -> CE loss -> backward ->
-``torch.optim.Adam`` with L2 added to the gradient before the moments, and
-the BatchNorm running averages committed by the forward.  Batch statistics
-are over the whole batch, as in the JAX Trainer.  The loss of each step
-stays on the device and is read once per epoch.
+One train step: uint8 batch -> ``DataAugmentor.apply_u8`` (flip, rotation,
+colour jitter, blur, clean slots; with ``augmentations_per_datapoint > 0``)
+or normalisation, on the device -> forward in the compute dtype (bf16 on
+the card, fp32 parameters) -> CE loss -> backward -> ``torch.optim.Adam``
+with L2 added to the gradient before the moments, and the BatchNorm
+running averages committed by the forward.  Batch statistics are over the
+whole batch, as in the JAX Trainer.  The loss of each step stays on the
+device and is read once per epoch.
 
-Ported for the segmentation task without augmentation
-(``augmentations_per_datapoint=0``; the JAX ``_prepare_batch`` then only
-normalises, :313-317) on the U-Nets, with synthetic data.  What is not
-ported raises ``NotImplementedError`` naming its ROADMAP.md item: the
-augmentor, run artifacts (run folder, ``loss.csv``, checkpoints), the
-Oxford-IIIT-Pet loader, the other losses, ``remat``, ``native_loader`` and
+The augmentation of a step is drawn on the host from a ``torch.Generator``
+seeded by ``(config.seed, step_key)``, with ``step_key = epoch*100003 +
+batch`` as the JAX Trainer folds its key (:439), so the CPU and the card
+draw the same augmentation; the draws go to the card from pinned memory
+without a wait.  torch's draws are not JAX's: the tests hold the step to
+JAX by feeding both augmentors the same draws.
+
+Ported for the segmentation task on the U-Nets, with synthetic data.  What
+is not ported raises ``NotImplementedError`` naming its ROADMAP.md item:
+run artifacts (run folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet
+loader, the other losses, ``remat``, ``native_loader`` and
 ``n_model_shards``.
 """
 
@@ -23,6 +30,7 @@ import math
 import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,7 +39,7 @@ from ..data.datasets import ArrayDataset, synthetic_dataset
 from ..data.pipeline import BatchPipeline
 from ..models.registry import build_model
 from ..ops import losses as L
-from ..ops.augment import normalize_image
+from ..ops.augment import AugmentParams, DataAugmentor, normalize_image
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
 # scale corrected so the variance is 1/fan_in (jax.nn.initializers).
@@ -97,16 +105,19 @@ def _dataset_from_config(cfg: TrainConfig, train: bool) -> ArrayDataset:
 class Trainer:
     """The JAX ``Trainer`` (:131) for one device.
 
-    ``device`` is where the model, the optimizer state and the batches live;
-    the initial weights are drawn from a ``torch.Generator`` seeded with
-    ``config.seed``, so they do not depend on the device.
+    ``device`` is where the model, the optimizer state and the batches live
+    (the card unless the caller asks for the CPU); the initial weights are
+    drawn from a ``torch.Generator`` seeded with ``config.seed``, so they do
+    not depend on the device.  With ``augmentations_per_datapoint > 0`` the
+    train batches go through a ``DataAugmentor`` with the JAX Trainer's
+    backend and geometry (:190-196).
     """
 
     def __init__(
         self,
         config: TrainConfig,
         *,
-        device,
+        device="cuda",
         train_data: Optional[ArrayDataset] = None,
         val_data: Optional[ArrayDataset] = None,
         make_artifacts: bool = True,
@@ -123,11 +134,6 @@ class Trainer:
                     f"{field}={getattr(config, field)!r} is not ported; "
                     f"see ROADMAP.md Queue 1 item {item}"
                 )
-        if config.data.augmentations_per_datapoint > 0:
-            raise NotImplementedError(
-                "the DataAugmentor (augmentations_per_datapoint > 0) is not ported; "
-                "see ROADMAP.md Queue 1 item 4"
-            )
         self.config = config
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if config.bf16 else torch.float32
@@ -137,16 +143,44 @@ class Trainer:
         self.num_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = build_optimizer(config.optimizer, self.model)
         self.loss_fn = make_loss_fn(config.loss)
+        aug_n = config.data.augmentations_per_datapoint
+        self.augmentor = DataAugmentor(aug_n) if aug_n > 0 else None
         self.train_data = train_data or _dataset_from_config(config, True)
         self.val_data = val_data or _dataset_from_config(config, False)
 
-    def _prepare_batch(self, images_u8: torch.Tensor, masks_u8: torch.Tensor):
-        """uint8 device batch -> ([0, 1] fp32 images, {"masks": class ids})."""
+    def augment_params(self, n: int, step_key: int) -> AugmentParams:
+        """The augmentation draws of the step ``step_key`` for a batch of n,
+        on the host, from a generator seeded by ``(config.seed, step_key)``."""
+        seed = np.random.SeedSequence([self.config.seed, step_key]).generate_state(1)[0]
+        return self.augmentor.sample(n, torch.Generator().manual_seed(int(seed)))
+
+    def _prepare_batch(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, *,
+                       augment: bool, params: Optional[AugmentParams] = None):
+        """uint8 device batch -> ([0, 1] fp32 images, {"masks": int64 class
+        ids}), through the augmentor with ``params`` when ``augment`` and
+        the Trainer has one."""
+        if augment and self.augmentor is not None:
+            if params is None:
+                raise ValueError("an augmented batch needs its AugmentParams")
+            if self.device.type == "cuda":
+                params = params.pin_memory().to(self.device, non_blocking=True)
+            images, masks = self.augmentor.apply_u8(params, images_u8, masks_u8)
+            return images, {"masks": masks}
         return normalize_image(images_u8), {"masks": masks_u8.long()}
 
-    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on one batch; returns the loss, on the device."""
-        images, batch = self._prepare_batch(images_u8, masks_u8)
+    def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
+                   step_key: int = 0) -> torch.Tensor:
+        """One optimizer step on one batch, augmented with the draws of
+        ``step_key``; returns the loss, on the device."""
+        params = None
+        if self.augmentor is not None:
+            params = self.augment_params(images_u8.shape[0], step_key)
+        images, batch = self._prepare_batch(images_u8, masks_u8, augment=True, params=params)
+        return self.optimize(images, batch)
+
+    def optimize(self, images: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Forward, loss, backward and Adam on a prepared batch; returns the
+        loss, on the device."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(self.model(images, train=True), batch)
         loss.backward()
@@ -157,7 +191,7 @@ class Trainer:
     def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor):
         """(loss, IoU, pixel accuracy, dice) of one batch with the running
         statistics, on the device."""
-        images, batch = self._prepare_batch(images_u8, masks_u8)
+        images, batch = self._prepare_batch(images_u8, masks_u8, augment=False)
         logits = self.model(images, train=False)
         masks = batch["masks"]
         return (self.loss_fn(logits, batch), L.iou(logits, masks),
@@ -165,8 +199,10 @@ class Trainer:
 
     def _pipelines(self):
         cfg = self.config
-        train_pipe = BatchPipeline(self.train_data, cfg.batch_size, device=self.device,
-                                   shuffle=True, drop_last=True, seed=cfg.seed)
+        train_pipe = BatchPipeline(
+            self.train_data, cfg.batch_size, device=self.device,
+            augmentations_per_datapoint=cfg.data.augmentations_per_datapoint,
+            shuffle=True, drop_last=True, seed=cfg.seed)
         val_pipe = BatchPipeline(self.val_data, cfg.batch_size, device=self.device,
                                  shuffle=False, drop_last=False, seed=cfg.seed)
         return train_pipe, val_pipe
@@ -183,7 +219,7 @@ class Trainer:
             loss_sum = torch.zeros((), device=self.device)
             n_batches = 0
             for images, masks in train_pipe.epoch(epoch):
-                loss_sum += self.train_step(images, masks)
+                loss_sum += self.train_step(images, masks, epoch * 100003 + n_batches)
                 n_batches += 1
             train_loss = float(loss_sum / max(n_batches, 1))  # one sync per epoch
             dt = time.perf_counter() - t0

@@ -21,6 +21,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,6 +51,10 @@ SIGNATURES = {
     "imgseg_convtranspose2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, wt, g, dx, dw, db, scratch, B, Hin, Win, Cin, Co, stream
     "imgseg_convtranspose2x2_bwd": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # x, shifts, out, N, H, W, axis, stream
+    "imgseg_shift": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # img, factors, out, sums, scratch, N, H, W, bf16_out, stream
+    "imgseg_preprocess": (_P,) * 5 + (_I,) * 4 + (_P,),
 }
 # Scratch sizes (fp32 elements) of the kernels with a second summing pass:
 # name -> argtypes; each returns long long.
@@ -56,6 +63,7 @@ SCRATCH_QUERIES = {
     "imgseg_conv3x3_wgrad_scratch": (_I, _I, _I, _I, _I),        # B, H, W, Cin, Co
     "imgseg_channel_sums_scratch": (_L, _I),                     # pixels, C
     "imgseg_convtranspose2x2_bwd_scratch": (_I, _I, _I, _I, _I),  # B, Hin, Win, Cin, Co
+    "imgseg_preprocess_scratch": (_I, _I, _I),                   # N, H, W
 }
 
 
@@ -139,3 +147,34 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().imgseg_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# ---- shared by the kernel wrappers (ops/fused_conv.py, roll.py, preprocess.py)
+
+def on_cpu(x) -> bool:
+    """True for a CPU tensor (the wrapper takes its plain version), False
+    for a CUDA tensor (it launches the kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}: expected cpu or cuda")
+    return False
+
+
+def ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def launch(wrapper, entry: str, *args) -> None:
+    """Call C entry point ``entry`` on PyTorch's current stream, raise on a
+    CUDA error, and count one launch of ``wrapper``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    check(getattr(library(), entry)(*args, stream), wrapper.__name__)
+    wrapper.launches += 1
+
+
+def scratch(query: str, like, *dims: int):
+    """fp32 scratch for a kernel's per-block partial sums, sized by the C
+    library's ``query``."""
+    n = getattr(library(), query)(*dims)
+    return torch.empty(max(int(n), 1), dtype=torch.float32, device=like.device)

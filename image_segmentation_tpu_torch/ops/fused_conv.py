@@ -48,7 +48,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from ._build import launch as _launch
+from ._build import on_cpu as _on_cpu
+from ._build import ptr as _ptr
+from ._build import scratch as _scratch
 
 
 def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -204,14 +207,6 @@ def convtranspose2x2_bwd_plain(x, w, g):
 # checks shared by the wrappers
 # --------------------------------------------------------------------------
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}: expected cpu or cuda")
-    return False
-
-
 def _check_cuda_operands(name: str, x: torch.Tensor, *others) -> None:
     tensors = [x, *(t for t in others if t is not None)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -245,14 +240,6 @@ def _check_pair(name: str, a, b, what: str) -> None:
         raise ValueError(f"{name}: pass both {what}, or neither")
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _ab(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(2, C) fp32 rows [a, b], rounded to ``dtype``."""
     return torch.stack([_round(a, dtype), _round(b, dtype)]).contiguous()
@@ -265,18 +252,6 @@ def _gf(c1, c2, a, b, dtype) -> torch.Tensor:
     if a is not None:
         rows = [_round(a, dtype), _round(b, dtype)] + rows
     return torch.stack(rows).contiguous()
-
-
-def _scratch(query: str, like: torch.Tensor, *dims: int) -> torch.Tensor:
-    """fp32 scratch for a kernel's per-block partial sums, sized by the C
-    library's ``query``."""
-    n = getattr(_build.library(), query)(*dims)
-    return torch.empty(max(int(n), 1), dtype=torch.float32, device=like.device)
-
-
-def _launch(wrapper, entry: str, *args) -> None:
-    _build.check(getattr(_build.library(), entry)(*args, _stream()), wrapper.__name__)
-    wrapper.launches += 1
 
 
 # --------------------------------------------------------------------------

@@ -22,19 +22,30 @@ shapes; imports no jax.
    of the same bf16 operands rounded to bf16 — in how many outputs each
    pair differs, and how far the plain fp32 sum lies from fp64.
 
-``train``: the same trace of ``Trainer.train_step`` on one fixed batch
-(forward, backward, Adam), for the kernel path and the plain path (every
-wrapper replaced by its plain version) from the same weights, with the
-peak device memory of each.
+``train``: the same trace of the production ``Trainer.train_step`` on one
+fixed batch (augmentation on: ``augmentations_per_datapoint=4``, one fixed
+draw; forward, backward, Adam), for the kernel path and the plain path
+(every wrapper replaced by its plain version) from the same weights, with
+the peak device memory of each, and the kernel-path step without
+augmentation.  The augmentor's device time is on rows of its own: the
+shift kernels by name, and the device time under the ranges "augment:
+geometry" (flip, quarter turn, shifts), "augment: quarter turn" and
+"augment: colour stage", which this script puts around those functions
+(the ranges, like the optimizer's, are not added to the busy time).  Then
+each augmentor stage alone, traced the same way: the flip and quarter-turn
+copies, the three shifts, the colour stage of either backend, and
+``apply_u8`` whole.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import sys
 from collections import defaultdict
 from pathlib import Path
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +55,9 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
 from image_segmentation_tpu_torch.models.registry import build_model  # noqa: E402
+from image_segmentation_tpu_torch.ops import augment as A  # noqa: E402
 from image_segmentation_tpu_torch.ops import fused_conv as fc  # noqa: E402
+from image_segmentation_tpu_torch.ops import roll  # noqa: E402
 
 MODEL_ARGS = smoke.train_config().model_args
 
@@ -59,8 +72,10 @@ OWN_KERNELS = (
     ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
     ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_dx_kernel", "convtranspose2x2_bwd (dx)"),
     ("ct_dw_kernel", "convtranspose2x2_bwd (dw)"), ("convtranspose2x2_kernel", "convtranspose2x2"),
-    ("sum_rows_kernel", "second pass of the sums"),
+    ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
+    ("gray_sum_kernel", "preprocess (gray sums)"), ("colour_blur_kernel", "preprocess (colour, blur)"),
 )
+AUGMENT_RANGES = "augment: "
 
 
 def group(name: str) -> str:
@@ -94,11 +109,16 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
             end.record()
             end.synchronize()
     window_ms = start.elapsed_time(end) / calls
-    groups = defaultdict(float)
+    groups, ranges = defaultdict(float), {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
-            groups[group(e.key)] += (e.self_cuda_time_total if us is None else us) / 1e3 / calls
+            ms = (e.self_cuda_time_total if us is None else us) / 1e3 / calls
+            # annotation ranges (ours, the optimizer's) span kernels already counted
+            if e.key.startswith(AUGMENT_RANGES) or e.key.startswith("Optimizer."):
+                ranges[e.key] = ms
+            else:
+                groups[group(e.key)] += ms
     busy = sum(groups.values())
     print(f"== {label}: {event_ms!r} ms/call untraced; traced window {window_ms!r} ms/call, "
           f"device busy {busy!r} ms/call, idle share {1 - busy / window_ms!r}", flush=True)
@@ -106,6 +126,8 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
         print("   the trace holds no device time", flush=True)
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"   {name}: {ms!r} ms ({ms / busy:.3f})", flush=True)
+    for name, ms in ranges.items():
+        print(f"   [range] {name}: {ms!r} ms", flush=True)
 
 
 def cudnn_conv_ms() -> None:
@@ -165,12 +187,55 @@ def serve() -> None:
     exactness()
 
 
+def _ranged(label: str, fn):
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(AUGMENT_RANGES + label):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextlib.contextmanager
+def augment_ranges():
+    """Profiler ranges around the augmentor's stages (looked up on their
+    module and class at call time)."""
+    with mock.patch.object(A, "apply_geometric", _ranged("geometry", A.apply_geometric)), \
+            mock.patch.object(A, "_quarter_turn", _ranged("quarter turn", A._quarter_turn)), \
+            mock.patch.object(A.DataAugmentor, "_colour_stage",
+                              _ranged("colour stage", A.DataAugmentor._colour_stage)):
+        yield
+
+
+def augment_stages(images, masks) -> None:
+    """Each stage of the augmentor alone, batch 16 at 512x512."""
+    xla, fused = A.DataAugmentor(4), A.DataAugmentor(4, backend="pallas")
+    p = xla.sample(images.shape[0], torch.Generator().manual_seed(smoke.SEED)).to(DEVICE)
+    n, h, w, _ = images.shape
+    stacked = torch.cat([images, masks[..., None]], dim=-1)
+    quarter, sx, sy = A._shear3_shifts(p.angles, n, h, w)
+    rgb = stacked[..., :3]
+    stages = {
+        "flip + quarter-turn copies": lambda: A._quarter_turn(
+            torch.where(p.flip.view(-1, 1, 1, 1), stacked.flip(2), stacked), quarter),
+        "3 shifts (pack and unpack are views)": lambda: roll.unpack_u8x4(
+            roll.row_shift(roll.col_shift(roll.row_shift(roll.pack_u8x4(stacked), sx), sy), sx)),
+        "colour stage, backend=xla": lambda: xla._colour_stage(p, rgb, from_u8=True, dtype=torch.float32),
+        "colour stage, backend=pallas (K9)": lambda: fused._colour_stage(
+            p, rgb, from_u8=True, dtype=torch.float32),
+        "apply_u8, backend=xla": lambda: xla.apply_u8(p, images, masks),
+        "apply_u8, backend=pallas": lambda: fused.apply_u8(p, images, masks),
+    }
+    for label, fn in stages.items():
+        profile(fn, f"augmentor stage: {label}", calls=10)
+
+
 def train() -> None:
     import numpy as np
 
     from image_segmentation_tpu_torch.engine.train import Trainer
 
     cfg = smoke.train_config()
+    mods = smoke.kernel_modules()
     rng = np.random.default_rng(smoke.SEED)
     shape = (cfg.batch_size, smoke.SIZE, smoke.SIZE)
     images = torch.from_numpy(rng.integers(0, 256, shape + (3,), dtype=np.uint8)).to(DEVICE)
@@ -183,11 +248,21 @@ def train() -> None:
         if state is None:
             state = {k: v.clone() for k, v in t.model.state_dict().items()}
         t.model.load_state_dict(state)
-        with smoke.plain_path(fc) if label == "plain" else contextlib.nullcontext():
-            profile(lambda t=t: t.train_step(images, masks), f"train step {label} b{cfg.batch_size}",
-                    calls=TRAIN_STEPS, no_grad=False)
+        step = functools.partial(t.train_step, images, masks, smoke.STEP_KEY)
+        with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
+            with augment_ranges():
+                profile(step, f"train step {label} b{cfg.batch_size}, augmented",
+                        calls=TRAIN_STEPS, no_grad=False)
         print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
-        del t
+        if label == "kernels":
+            torch.cuda.reset_peak_memory_stats()
+            with mock.patch.object(t, "augmentor", None):
+                profile(step, f"train step {label} b{cfg.batch_size}, no augmentation",
+                        calls=TRAIN_STEPS, no_grad=False)
+            print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+        del t, step
+    torch.cuda.empty_cache()
+    augment_stages(images, masks)
 
 
 def main() -> int:

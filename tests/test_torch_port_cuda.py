@@ -242,3 +242,65 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fc.conv3x3(x.transpose(1, 2), w, bias)
     with pytest.raises(RuntimeError, match="forward-only"):
         fc.conv3x3(x, w.requires_grad_(), bias)
+
+
+# ---- the augmentor's kernels: the shifts must be exact; the colour stage
+# within 1e-5 in fp32 (the per-image gray sum in another order) and one
+# bf16 step in bf16
+
+@pytest.mark.parametrize("axis", ["row", "col"])
+@pytest.mark.parametrize("shape", [(3, 17, 33), (2, 64, 64), (1, 5, 130)])
+def test_shift(gen, axis, shape):
+    from image_segmentation_tpu_torch.ops import roll
+
+    n, h, w = shape
+    size, length = (w, h) if axis == "row" else (h, w)
+    x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device="cuda", dtype=torch.int32)
+    s = torch.randint(-(size - 1), size, (n, length), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    s[0, 0], s[-1, -1] = size - 1, -(size - 1)
+    wrapper = roll.row_shift if axis == "row" else roll.col_shift
+    plain = roll.row_shift_plain if axis == "row" else roll.col_shift_plain
+    got = _counted(wrapper, lambda: wrapper(x, s))
+    assert torch.equal(got, plain(x, s))
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 45), (2, 64, 32), (1, 3, 3)])
+def test_preprocess(gen, shape):
+    from image_segmentation_tpu_torch.ops import preprocess as pp
+    from image_segmentation_tpu_torch.ops.augment import DataAugmentor
+
+    n, h, w = shape
+    u8 = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    p = DataAugmentor(4).sample(n, torch.Generator().manual_seed(n * h)).to("cuda")
+    got = _counted(pp.preprocess, lambda: pp.preprocess(u8, p.jitter, p.blur))
+    ref = pp.preprocess_plain(u8, p.jitter, p.blur)
+    assert got.dtype == torch.float32 and (got - ref).abs().max().item() <= 1e-5
+    got16 = pp.preprocess(u8, p.jitter, p.blur, out_dtype=torch.bfloat16)
+    ref16 = pp.preprocess_plain(u8, p.jitter, p.blur, out_dtype=torch.bfloat16).float()
+    step = torch.exp2(torch.floor(torch.log2(ref16.abs().clamp(min=2.0**-126))) - 7)
+    assert got16.dtype == torch.bfloat16 and bool(((got16.float() - ref16).abs() <= step).all())
+
+
+def test_augmentor_on_the_card_equals_the_plain_path(gen):
+    """apply_u8 on the kernels (shifts and the fused colour stage) against
+    the same call on the plain versions: masks exact, images within 1e-5."""
+    from image_segmentation_tpu_torch.ops import preprocess as pp
+    from image_segmentation_tpu_torch.ops import roll
+    from image_segmentation_tpu_torch.ops.augment import DataAugmentor
+
+    images = torch.randint(0, 256, (6, 96, 96, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    masks = torch.randint(0, 3, (6, 96, 96), generator=gen, device="cuda", dtype=torch.uint8)
+    aug = DataAugmentor(2, backend="pallas")
+    params = aug.sample(6, torch.Generator().manual_seed(1)).to("cuda")
+    before = roll.col_shift.launches
+    ki, km = aug.apply_u8(params, images, masks)
+    torch.cuda.synchronize()
+    assert roll.col_shift.launches == before + 1
+    with contextlib.ExitStack() as stack:
+        for m in (roll, pp):
+            for w in m.WRAPPERS:
+                stack.enter_context(mock.patch.object(m, w.__name__, getattr(m, w.__name__ + "_plain")))
+        pi, pm = aug.apply_u8(params, images, masks)
+    assert torch.equal(km, pm)
+    assert (ki - pi).abs().max().item() <= 1e-5

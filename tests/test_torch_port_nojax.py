@@ -1,8 +1,9 @@
 """The port imports no jax: a fresh interpreter imports every module of
 image_segmentation_tpu_torch (config, data.*, engine.*, models.*, ops.*,
-utils.*) and chip_smoke.py, runs a tiny CPU forward and train step of the
-preset model through the wrappers and the Trainer, and finds no module of
-jax, flax or the JAX package (image_segmentation_tpu) loaded."""
+utils.*) and chip_smoke.py, runs a tiny CPU forward and an augmented train
+step of the preset model through the wrappers, the augmentor and the
+Trainer, and finds no module of jax, flax or the JAX package
+(image_segmentation_tpu) loaded."""
 
 import os
 import subprocess
@@ -32,10 +33,11 @@ assert out.shape == (1, 32, 32, 3), out.shape
 cfg = config.TrainConfig(model="large_unet", bf16=False, batch_size=2,
                          model_args=dict(args, stem_features=4, encoder_features=(8, 8, 8, 8)),
                          data=config.DataConfig(dataset="synthetic", synthetic_length=2,
-                                                image_size=32, augmentations_per_datapoint=0))
+                                                image_size=32, augmentations_per_datapoint=1))
 t = train.Trainer(cfg, device="cpu", make_artifacts=False)
+assert t.augmentor is not None
 images, masks = next(pipeline.BatchPipeline(t.train_data, 2, device="cpu").epoch(0))
-assert float(t.train_step(images, masks)) > 0
+assert float(t.train_step(images, masks, step_key=3)) > 0
 jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
                   ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
 assert not jax_mods, jax_mods

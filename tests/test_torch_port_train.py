@@ -237,9 +237,6 @@ def test_trainer_raises_on_what_is_not_ported():
                                ("n_model_shards", 2, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(dataclasses.replace(cfg, **{field: value}), device="cpu", make_artifacts=False)
-    aug = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, augmentations_per_datapoint=1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Trainer(aug, device="cpu", make_artifacts=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         make_loss_fn("dice_ce")
 
