@@ -1,27 +1,28 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and augmentation paths
-on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, augmentation, prompt,
+ClipUnet and fusion paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Drives ``image_segmentation_tpu_torch`` (no jax, no module of the JAX
 package) through the entry points a user calls, on one card, at the full
-width of the port's ``large_unet`` preset (``config.preset``):
+width of the port's presets (``config.preset``), random weights from a seed:
 
 1. prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``image_segmentation_tpu_torch/csrc`` (nvcc, one process per source,
    into ``build/kernels``);
 2. kernel phase: every kernel against its plain PyTorch version at each
-   shape the serving forward, the train step and the augmentor give it
-   (batch 16 at 512x512), with both times from CUDA events, the least time
-   the card could take (``bound_ms``) and, where one PyTorch call computes
-   the same function, that call's time (``library_ms``);
-3. serving phase: a LargeUNet with random weights from a seeded generator
-   is written with ``export_model``, read back with ``load_model`` on the
-   card, answers ``predict`` requests and runs batch-16 and batch-1
-   forwards at 512x512.  Launch counts are set to 0 before and read after,
-   and the batch-16 logits are held against the same model on the plain
-   versions;
+   shape the large_unet serving forward, train step and augmentor (batch 16
+   at 512x512) and the prompt train step (batch 32 at 256x256, the
+   1-channel heatmap included) give it, and the cross-attention kernel at
+   the CLIP bottleneck of that batch; with both times from CUDA events, the
+   least time the card could take (``bound_ms``) and, where one PyTorch
+   call computes the same function, that call's time (``library_ms``);
+3. serving phase: a LargeUNet is written with ``export_model``, read back
+   with ``load_model`` on the card, answers ``predict`` requests and runs
+   batch-16 and batch-1 forwards at 512x512.  Launch counts are set to 0
+   before and read after, and the batch-16 logits are held against the same
+   model on the plain versions;
 4. training phase: ``Trainer(train_config(), device="cuda")`` trains one
    epoch with the preset's augmentation (``augmentations_per_datapoint=4``:
    5 steps over 16 synthetic images) and evaluates.  Launch counts are set
@@ -34,9 +35,22 @@ width of the port's ``large_unet`` preset (``config.preset``):
 5. augmentor phase: ``DataAugmentor(4, backend="pallas").apply_u8`` on a
    batch-16 512x512 batch launches the colour kernel once (counts from 0),
    and its output is held against ``backend="xla"`` on the same draws;
-6. prints one JSON line of per-kernel results (``launches`` counts the
-   serving, training and augmentor runs), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+6. prompt phase: the ``prompt`` preset (ClipUnetPrompt with the ViT-B/32
+   tower, point prompts from palette masks, the prompt augmentor) trains
+   one epoch at batch 32, 256x256 and evaluates, with exact launch counts
+   (the prompt encoder's enc1 runs its conv1 wgrad alone: one dgrad fewer
+   than wgrads per step) and the kernel path held to the plain path as in
+   4 (leaves that bf16 rounding dominates are held to the fp32 gradient),
+   the frozen tower bit-identical after the steps;
+7. ClipUnet phase: the ``clip_unet`` preset trains one epoch (exact counts)
+   and its step is timed;
+8. fusion phase: ``CrossAttentionFusion(512, 1)`` on the bottleneck map
+   with an 8-token context launches the cross-attention kernel once and
+   agrees with the plain path (no model passes it more than one token);
+9. prints one JSON line of per-kernel results (``launches`` counts the runs
+   of 3-8; the wgrad kernel has a line for its launches beside a dgrad and
+   one for its launches alone), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device the script exits at once.
@@ -82,14 +96,25 @@ ARGMAX_AGREEMENT = 0.995
 # training, kernel path vs plain path from the same weights on one batch:
 # |loss_k - loss_p| <= LOSS_RTOL * loss_p per step, and per step-0 gradient
 # ||g_k - g_p|| <= GRAD_RL2 * ||g_p|| (bf16 roundings in other places and
-# sums in other orders, compounded through the network).  The biases of
-# the 3x3 convs have an exact gradient of 0 (the training-mode BatchNorm
-# after each takes the mean out); what the card computes for them is bf16
+# sums in other orders, compounded through the network).  Some biases have
+# a gradient that a training-mode BatchNorm cancels: the 3x3 convs' exactly
+# (the BatchNorm after each takes the mean out), and the one-token CLIP
+# fusion's nearly (it adds the same vector to every image's map, and
+# dec1's BatchNorm takes the batch mean out, up to the ConvTranspose's
+# phases and the resize).  What the card computes for them is mostly bf16
 # rounding, so their difference is held to GRAD_RL2 * the gradient norm of
-# the same conv's weight instead.
+# the same layer's weight instead.
 LOSS_RTOL = 2e-2
 GRAD_RL2 = 5e-2
-PRE_BN_BIASES = (".conv.0.bias", ".conv.3.bias")
+# The prompt model's bf16 gradients are dominated by rounding in its prompt
+# encoder and deep levels: there the plain path in bf16 is 20-60 % (relative
+# L2) from the same step in fp32, so two bf16 paths that round in other
+# places cannot agree to GRAD_RL2.  Such a leaf is held instead to the fp32
+# gradient: the kernel path no further from it than BF16_NOISE_FACTOR times
+# the plain bf16 path (1.29 at most on the H100).
+BF16_NOISE_FACTOR = 1.5
+CANCELLED_BIASES = (".conv.0.bias", ".conv.3.bias", ".cross_attn.in_proj_bias",
+                    ".cross_attn.out_proj.bias")
 NUM_CLASSES = 3
 # The card's peaks for bound_ms (H100 SXM data sheet, dense): device memory
 # bytes/s, bf16 tensor-core FLOP/s (the convs), fp32 FLOP/s outside the
@@ -102,37 +127,67 @@ FP32_FLOP_PER_S = 67e12
 # its clips), the two blur passes 60
 PREPROCESS_OPS_PER_PIXEL = 180
 
-KERNEL_INFO = {  # wrapper name -> (source, the TPU kernel it replaces)
-    "conv3x3": ("image_segmentation_tpu_torch/csrc/conv3x3.cu",
+# One line of the kernels JSON per entry: entry -> (wrapper, source, the TPU
+# kernel it replaces).  The wgrad kernel has two: launched beside a dgrad
+# (the merged backward's wgrad half) and alone, for a block input that takes
+# no gradient (the prompt heatmap; ``_folded_wgrad_pallas``).
+KERNEL_INFO = {
+    "conv3x3": ("conv3x3", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "image_segmentation_tpu/ops/pallas_conv.py:568"),
-    "conv3x3_dgrad": ("image_segmentation_tpu_torch/csrc/conv3x3.cu",
+    "conv3x3_dgrad": ("conv3x3_dgrad", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
                       "image_segmentation_tpu/ops/pallas_conv.py:1139"),
-    "conv3x3_wgrad": ("image_segmentation_tpu_torch/csrc/conv3x3_bwd.cu",
+    "conv3x3_wgrad": ("conv3x3_wgrad", "image_segmentation_tpu_torch/csrc/conv3x3_bwd.cu",
                       "image_segmentation_tpu/ops/pallas_conv.py:1139"),
-    "bn_relu_bwd_reduce": ("image_segmentation_tpu_torch/csrc/bn_relu_bwd.cu",
+    "conv3x3_wgrad alone": ("conv3x3_wgrad", "image_segmentation_tpu_torch/csrc/conv3x3_bwd.cu",
+                            "image_segmentation_tpu/ops/pallas_conv.py:822"),
+    "bn_relu_bwd_reduce": ("bn_relu_bwd_reduce", "image_segmentation_tpu_torch/csrc/bn_relu_bwd.cu",
                            "image_segmentation_tpu/ops/pallas_conv.py:1462"),
-    "maxpool2x2_affine_relu": ("image_segmentation_tpu_torch/csrc/pool.cu",
+    "maxpool2x2_affine_relu": ("maxpool2x2_affine_relu", "image_segmentation_tpu_torch/csrc/pool.cu",
                                "image_segmentation_tpu/ops/pallas_conv.py:1629"),
-    "maxpool2x2_affine_relu_bwd": ("image_segmentation_tpu_torch/csrc/pool.cu",
+    "maxpool2x2_affine_relu_bwd": ("maxpool2x2_affine_relu_bwd",
+                                   "image_segmentation_tpu_torch/csrc/pool.cu",
                                    "image_segmentation_tpu/ops/pallas_conv.py:1665"),
-    "convtranspose2x2": ("image_segmentation_tpu_torch/csrc/convtranspose.cu",
+    "convtranspose2x2": ("convtranspose2x2", "image_segmentation_tpu_torch/csrc/convtranspose.cu",
                          "image_segmentation_tpu/ops/pallas_conv.py:1852"),
-    "convtranspose2x2_bwd": ("image_segmentation_tpu_torch/csrc/convtranspose.cu",
+    "convtranspose2x2_bwd": ("convtranspose2x2_bwd",
+                             "image_segmentation_tpu_torch/csrc/convtranspose.cu",
                              "image_segmentation_tpu/ops/pallas_conv.py:1888"),
-    "row_shift": ("image_segmentation_tpu_torch/csrc/shift.cu",
+    "row_shift": ("row_shift", "image_segmentation_tpu_torch/csrc/shift.cu",
                   "image_segmentation_tpu/ops/pallas_roll.py:55"),
-    "col_shift": ("image_segmentation_tpu_torch/csrc/shift.cu",
+    "col_shift": ("col_shift", "image_segmentation_tpu_torch/csrc/shift.cu",
                   "image_segmentation_tpu/ops/pallas_roll.py:55"),
-    "preprocess": ("image_segmentation_tpu_torch/csrc/preprocess.cu",
+    "preprocess": ("preprocess", "image_segmentation_tpu_torch/csrc/preprocess.cu",
                    "image_segmentation_tpu/ops/pallas_preprocess.py:147"),
+    "cross_attention": ("cross_attention", "image_segmentation_tpu_torch/csrc/cross_attention.cu",
+                        "image_segmentation_tpu/ops/cross_attention.py:82"),
 }
+WRAPPER_NAMES = tuple(dict.fromkeys(w for w, _, _ in KERNEL_INFO.values()))
 # launches of one serving forward, one train step, one eval batch and one
-# augmentor call with backend="pallas"
+# augmentor call with backend="pallas" of the large_unet preset
 PER_FORWARD = {"conv3x3": 8, "maxpool2x2_affine_relu": 2, "convtranspose2x2": 2}
 PER_STEP = {"conv3x3": 8, "conv3x3_dgrad": 8, "conv3x3_wgrad": 8, "bn_relu_bwd_reduce": 2,
             "maxpool2x2_affine_relu": 2, "maxpool2x2_affine_relu_bwd": 2,
             "convtranspose2x2": 2, "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1}
 PER_AUGMENT = {"row_shift": 2, "col_shift": 1, "preprocess": 1}
+# the prompt preset (batch 32 at 256x256): the trunk's enc1, enc2, dec3 and
+# dec4 and the prompt encoder's enc1 and enc2 on the kernels; enc1 of the
+# prompt encoder reads the heatmap with input_grad=False, so conv1 there
+# runs its wgrad alone (one dgrad fewer than wgrads per step); the two
+# shears of rows and one of columns run on the (2n, H, W) packed stack of
+# image + mask words and heatmap bits
+PROMPT_BATCH, PROMPT_SIZE = 32, 256
+PROMPT_LENGTH = 32  # images per split: 5 augmented train steps and 1 eval batch an epoch
+PER_PROMPT_FORWARD = {"conv3x3": 12, "maxpool2x2_affine_relu": 4, "convtranspose2x2": 2}
+PER_PROMPT_STEP = {"conv3x3": 12, "conv3x3_dgrad": 11, "conv3x3_wgrad": 12,
+                   "bn_relu_bwd_reduce": 2, "maxpool2x2_affine_relu": 4,
+                   "maxpool2x2_affine_relu_bwd": 4, "convtranspose2x2": 2,
+                   "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1}
+# the cross-attention kernel on the CLIP bottleneck of a 256x256 batch of 32
+# (a 32x32 map, 512 wide) with a multi-token context: no model of the repo
+# passes one (every model fuses the pooled embedding, one token, which takes
+# the exact one-key path), so the fusion phase drives it on its own at
+# ClipUnet's one head with FUSION_TOKENS tokens
+FUSION_TOKENS, FUSION_HEADS = 8, 1
 
 
 def train_config():
@@ -172,9 +227,9 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
 
 def kernel_modules():
     """The port's modules of kernel wrappers, each with ``WRAPPERS``."""
-    from image_segmentation_tpu_torch.ops import fused_conv, preprocess, roll
+    from image_segmentation_tpu_torch.ops import cross_attention, fused_conv, preprocess, roll
 
-    return (fused_conv, roll, preprocess)
+    return (fused_conv, roll, preprocess, cross_attention)
 
 
 def counts(mods) -> dict:
@@ -188,7 +243,18 @@ def reset_counts(mods) -> None:
 
 
 def expected(per: dict, times: int = 1) -> dict:
-    return {name: per.get(name, 0) * times for name in KERNEL_INFO}
+    return {name: per.get(name, 0) * times for name in WRAPPER_NAMES}
+
+
+def entry_launches(launches: dict) -> dict:
+    """Wrapper counts -> KERNEL_INFO entries: every block backward pairs a
+    wgrad with a dgrad except conv1's of an input_grad=False block, so the
+    wgrads without a dgrad are the wgrad-alone launches."""
+    out = {entry: launches[w] for entry, (w, _, _) in KERNEL_INFO.items()}
+    alone = launches["conv3x3_wgrad"] - launches["conv3x3_dgrad"]
+    out["conv3x3_wgrad alone"] = alone
+    out["conv3x3_wgrad"] -= alone
+    return out
 
 
 @contextmanager
@@ -205,28 +271,66 @@ def plain_path(mods):
 # kernel phase
 # --------------------------------------------------------------------------
 
+class Conv(NamedTuple):
+    """One conv of a kernel block: its input (B, H, W, Ca), the skip's Cb,
+    Co, whether bn1's affine + ReLU is applied on load (conv2), whether it
+    is a decoder's, and whether its wgrad runs alone (input_grad=False)."""
+
+    label: str
+    shape: tuple
+    cb: int
+    co: int
+    pre: bool
+    dec: bool
+    alone: bool = False
+
+
+def level01_shapes(b: int, size: int, stem: int, e1: int, e2: int, decs=("dec4", "dec5"),
+                   encs=("enc1", "enc2")) -> dict:
+    """The level 0-1 kernel blocks of a U-Net trunk at batch b: convs, pools
+    (label, (B, H, W, C)) and ConvTransposes (label, (B, Hin, Win, Cin),
+    Co)."""
+    s0, s1 = size, size // 2
+    (n1, n2), (d1, d0) = encs, decs
+    conv = [
+        Conv(f"{n1}.conv1", (b, s0, s0, stem), 0, e1, False, False),
+        Conv(f"{n1}.conv2", (b, s0, s0, e1), 0, e1, True, False),
+        Conv(f"{n2}.conv1", (b, s1, s1, e1), 0, e2, False, False),
+        Conv(f"{n2}.conv2", (b, s1, s1, e2), 0, e2, True, False),
+        Conv(f"{d1}.conv1", (b, s1, s1, e1), e1, e1, False, True),
+        Conv(f"{d1}.conv2", (b, s1, s1, e1), 0, e1, True, True),
+        Conv(f"{d0}.conv1", (b, s0, s0, stem), stem, stem, False, True),
+        Conv(f"{d0}.conv2", (b, s0, s0, stem), 0, stem, True, True),
+    ]
+    pool = [(f"{n1}.pool", (b, s0, s0, e1)), (f"{n2}.pool", (b, s1, s1, e2))]
+    ct = [(f"{d1}.up", (b, s1 // 2, s1 // 2, e2), e1), (f"{d0}.up", (b, s0 // 2, s0 // 2, e1), stem)]
+    return {"conv": conv, "pool": pool, "ct": ct}
+
+
 def main_path_shapes(model_args: dict) -> dict:
-    """The level 0-1 blocks of a batch-16 512x512 LargeUNet: conv launches
-    (label, (B, H, W, Ca), Cb, Co, pre-affine, decoder), pools (label,
-    (B, H, W, C)) and ConvTransposes (label, (B, Hin, Win, Cin), Co)."""
+    """The level 0-1 blocks of a batch-16 512x512 LargeUNet."""
     from image_segmentation_tpu_torch.models.unet import LargeUNet
 
     stem = model_args.get("stem_features", 32)
     e1, e2 = (model_args.get("encoder_features") or LargeUNet.default_encoder_features)[:2]
-    b, s0, s1 = BATCH, SIZE, SIZE // 2
-    conv = [
-        ("enc1.conv1", (b, s0, s0, stem), 0, e1, False, False),
-        ("enc1.conv2", (b, s0, s0, e1), 0, e1, True, False),
-        ("enc2.conv1", (b, s1, s1, e1), 0, e2, False, False),
-        ("enc2.conv2", (b, s1, s1, e2), 0, e2, True, False),
-        ("dec4.conv1", (b, s1, s1, e1), e1, e1, False, True),
-        ("dec4.conv2", (b, s1, s1, e1), 0, e1, True, True),
-        ("dec5.conv1", (b, s0, s0, stem), stem, stem, False, True),
-        ("dec5.conv2", (b, s0, s0, stem), 0, stem, True, True),
+    return level01_shapes(BATCH, SIZE, stem, e1, e2)
+
+
+def prompt_path_shapes() -> dict:
+    """The kernel blocks of the prompt preset's ClipUnetPrompt at batch 32,
+    256x256: the trunk's (stem 32, enc1 64, enc2 128; dec3, dec4) and the
+    prompt encoder's enc1 (the 1-channel heatmap, input_grad=False) and
+    enc2."""
+    b, s0, s1 = PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE // 2
+    shapes = level01_shapes(b, s0, 32, 64, 128, decs=("dec3", "dec4"))
+    shapes["conv"] += [
+        Conv("prompt enc1.conv1", (b, s0, s0, 1), 0, 32, False, False, alone=True),
+        Conv("prompt enc1.conv2", (b, s0, s0, 32), 0, 32, True, False),
+        Conv("prompt enc2.conv1", (b, s1, s1, 32), 0, 64, False, False),
+        Conv("prompt enc2.conv2", (b, s1, s1, 64), 0, 64, True, False),
     ]
-    pool = [("enc1.pool", (b, s0, s0, e1)), ("enc2.pool", (b, s1, s1, e2))]
-    ct = [("dec4.up", (b, s1 // 2, s1 // 2, e2), e1), ("dec5.up", (b, s0 // 2, s0 // 2, e1), stem)]
-    return {"conv": conv, "pool": pool, "ct": ct}
+    shapes["pool"] += [("prompt enc1.pool", (b, s0, s0, 32)), ("prompt enc2.pool", (b, s1, s1, 64))]
+    return shapes
 
 
 class Case(NamedTuple):
@@ -247,16 +351,20 @@ class Case(NamedTuple):
     tol: str = "default"
 
 
-def kernel_cases(torch, mods, shapes: dict) -> list:
-    """(wrapper name, label, timed, make) for every launch of the serving
-    forward, the train step and the augmentor (``timed``), and for the
-    edge checks (not timed); ``make()`` draws the inputs and returns a
+def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
+    """(KERNEL_INFO entry, label, timed, make) for every launch of the
+    serving forward, the large_unet train step and the augmentor, of the
+    prompt train step and of the fusion phase, and for edge checks.
+    ``timed``: "sum" (timed, and summed into the entry's line of the JSON:
+    the large_unet step's launches, the wgrad alone of the prompt step, the
+    fusion phase's attention), "line" (timed and printed on its own line)
+    or None (checked only).  ``make()`` draws the inputs and returns a
     :class:`Case`, so only one case's tensors live at a time."""
     import torch.nn.functional as F
 
     from image_segmentation_tpu_torch.ops.augment import DataAugmentor, _shear3_shifts
 
-    fc, roll, pp = mods
+    fc, roll, pp, xattn = mods
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     bf16 = torch.bfloat16
 
@@ -273,7 +381,8 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
         return t.permute(0, 3, 1, 2)
 
     cases = []
-    for label, shp, cb, co, pre, dec in shapes["conv"]:
+    convs = [(c, "sum") for c in shapes["conv"]] + [(c, None) for c in prompt_shapes["conv"]]
+    for (label, shp, cb, co, pre, dec, alone), mode in convs:
         ca = shp[-1]
         cin = ca + cb
         flops = 2.0 * shp[0] * shp[1] * shp[2] * cin * co * 9
@@ -327,18 +436,23 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
                         [gt, y, x, c1, c2, *kw.values()], flops, BF16_FLOP_PER_S,
                         lambda: torch.nn.grad.conv2d_weight(xl, w.shape, gl, padding=1))
 
-        cases.append(("conv3x3", label, True, conv_fwd))
-        cases.append(("conv3x3", label + " stats", True, lambda f=conv_fwd: f(stats=True)))
-        cases.append(("conv3x3_dgrad", label, True, dgrad))
-        cases.append(("conv3x3_wgrad", label, True, wgrad))
+        cases.append(("conv3x3", label, mode, conv_fwd))
+        cases.append(("conv3x3", label + " stats", "line" if alone else mode,
+                      lambda f=conv_fwd: f(stats=True)))
+        if alone:  # input_grad=False: the wgrad kernel alone, no dgrad
+            cases.append(("conv3x3_wgrad alone", label, "sum", wgrad))
+        else:
+            cases.append(("conv3x3_dgrad", label, mode, dgrad))
+            cases.append(("conv3x3_wgrad", label, mode, wgrad))
         if pre and dec:  # the decoders' bn2 reduction, at conv2's output shape
             def bnred(shp=shp, co=co):
                 gt, y, a, b = randn(*shp[:3], co), randn(*shp[:3], co), vec(co, 0.5, 1.5), vec(co, -0.5, 0.5)
                 return Case((lambda: fc.bn_relu_bwd_reduce(gt, y, a, b)),
                             (lambda: fc.bn_relu_bwd_reduce_plain(gt, y, a, b)),
                             [gt, y, a, b], 6.0 * y.numel())  # mul, add, compare, select, mul, 2 adds
-            cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", True, bnred))
-    for label, shp in shapes["pool"]:
+            cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", mode, bnred))
+    pools = [(p, "sum") for p in shapes["pool"]] + [(p, None) for p in prompt_shapes["pool"]]
+    for (label, shp), mode in pools:
         def pool(shp=shp, bwd=False):
             # few distinct values, so windows hold ties
             z = (torch.randint(-6, 7, shp, generator=g, device=DEVICE) * 0.25).to(bf16)
@@ -351,9 +465,10 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
             return Case((lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp)),
                         (lambda: fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)),
                         [z, a, b, dp], 8.0 * z.numel())  # affine, relu, routing, P*a, 2 sums
-        cases.append(("maxpool2x2_affine_relu", label, True, pool))
-        cases.append(("maxpool2x2_affine_relu_bwd", label, True, lambda f=pool: f(bwd=True)))
-    for label, shp, co in shapes["ct"]:
+        cases.append(("maxpool2x2_affine_relu", label, mode, pool))
+        cases.append(("maxpool2x2_affine_relu_bwd", label, mode, lambda f=pool: f(bwd=True)))
+    cts = [(c, "sum") for c in shapes["ct"]] + [(c, None) for c in prompt_shapes["ct"]]
+    for (label, shp, co), mode in cts:
         def ct(shp=shp, co=co, bwd=False):
             x = randn(*shp)
             w = torch.randn((shp[-1], co, 2, 2), generator=g, device=DEVICE) / (4 * shp[-1]) ** 0.5
@@ -375,8 +490,8 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
                         (lambda: fc.convtranspose2x2_bwd_plain(x, w, gt)),
                         [x, w, gt], 2 * flops, BF16_FLOP_PER_S,
                         lambda: torch.autograd.grad(yr, (xr, wr), gl, retain_graph=True))
-        cases.append(("convtranspose2x2", label, True, ct))
-        cases.append(("convtranspose2x2_bwd", label, True, lambda f=ct: f(bwd=True)))
+        cases.append(("convtranspose2x2", label, mode, ct))
+        cases.append(("convtranspose2x2_bwd", label, mode, lambda f=ct: f(bwd=True)))
 
     # the augmentor: the shear shifts of 16 drawn angles (rows twice, columns
     # once per step), |s| up to 511 (not on the main path), the colour stage
@@ -398,11 +513,11 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
             return Case((lambda: kern(x, s)), (lambda: plain(x, s)), [x, s], tol="exact")
         return make
 
-    cases.append(("row_shift", "shear 1 (rows)", True, shift("row_shift", sx)))
-    cases.append(("col_shift", "shear 2 (columns)", True, shift("col_shift", sy)))
-    cases.append(("row_shift", "shear 3 (rows)", True, shift("row_shift", sx)))
-    cases.append(("row_shift", "|s| up to 511", False, shift("row_shift", extreme)))
-    cases.append(("col_shift", "|s| up to 511", False, shift("col_shift", extreme)))
+    cases.append(("row_shift", "shear 1 (rows)", "sum", shift("row_shift", sx)))
+    cases.append(("col_shift", "shear 2 (columns)", "sum", shift("col_shift", sy)))
+    cases.append(("row_shift", "shear 3 (rows)", "sum", shift("row_shift", sx)))
+    cases.append(("row_shift", "|s| up to 511", None, shift("row_shift", extreme)))
+    cases.append(("col_shift", "|s| up to 511", None, shift("col_shift", extreme)))
 
     def colour(dtype):
         def make():
@@ -416,8 +531,28 @@ def kernel_cases(torch, mods, shapes: dict) -> list:
                         tol="colour" if dtype == torch.float32 else "bf16_step")
         return make
 
-    cases.append(("preprocess", "u8 -> fp32", True, colour(torch.float32)))
-    cases.append(("preprocess", "u8 -> bf16", False, colour(torch.bfloat16)))
+    cases.append(("preprocess", "u8 -> fp32", "sum", colour(torch.float32)))
+    cases.append(("preprocess", "u8 -> bf16", None, colour(torch.bfloat16)))
+
+    # the cross-attention kernel at the CLIP bottleneck of a 256x256 batch of
+    # 32 (L = 32*32, D 512): the fusion phase's context and heads, one key,
+    # 77 tokens over 4 heads, and the JAX kernel's own test shape
+    def attention(b, length, s, heads):
+        def make():
+            q, k, v = randn(b, length, 512), randn(b, s, 512), randn(b, s, 512)
+            split = [t.view(b, -1, heads, 512 // heads).transpose(1, 2) for t in (q, k, v)]
+            return Case((lambda: xattn.cross_attention(q, k, v, heads)),
+                        (lambda: xattn.cross_attention_plain(q, k, v, heads)),
+                        [q, k, v], 4.0 * b * length * s * 512, BF16_FLOP_PER_S,
+                        lambda: F.scaled_dot_product_attention(*split))
+        return make
+
+    bott = PROMPT_BATCH, (PROMPT_SIZE // 8) ** 2
+    cases.append(("cross_attention", f"B{bott[0]} L{bott[1]} S{FUSION_TOKENS} heads {FUSION_HEADS}",
+                  "sum", attention(*bott, FUSION_TOKENS, FUSION_HEADS)))
+    for b, length, s, heads in ((*bott, 1, 1), (*bott, 77, 4), (1, 4096, 8, 1)):
+        cases.append(("cross_attention", f"B{b} L{length} S{s} heads {heads}", "line",
+                      attention(b, length, s, heads)))
     return cases
 
 
@@ -463,34 +598,37 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in flat if t is not None)
 
 
-def kernel_phase(torch, mods, shapes: dict) -> dict:
+def kernel_phase(torch, mods, shapes: dict, prompt_shapes: dict) -> dict:
     """Each kernel vs its plain version at every main-path shape; per
-    wrapper, summed over its launches of one serving forward, one train
-    step and one augmentor call: the ms of both, the bound and the library
-    call's ms."""
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
-               for name in KERNEL_INFO}
-    for name, label, timed, make in kernel_cases(torch, mods, shapes):
+    KERNEL_INFO entry, summed over its "sum" cases (the launches of one
+    large_unet serving forward, train step and augmentor call; the prompt
+    step's wgrad alone; one fusion call): the ms of both, the bound and the
+    library call's ms."""
+    results = {entry: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                       "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
+               for entry in KERNEL_INFO}
+    for entry, label, timed, make in kernel_cases(torch, mods, shapes, prompt_shapes):
         case = make()
         got = case.kern()
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], compare(torch, f"{name} {label}", got,
+        r = results[entry]
+        r["max_abs_err"] = max(r["max_abs_err"], compare(torch, f"{entry} {label}", got,
                                                          case.plain(), case.tol))
         if timed:
             # the least time: each input read once, each output written once
             bytes_ms = _nbytes([*case.inputs, got]) / HBM_BYTES_PER_S * 1e3
             ops_ms = case.ops / case.flop_per_s * 1e3
             # in turns: plain, kernel, kernel, plain
-            iters = 3 if name.startswith("conv3x3") else 10
+            iters = 3 if entry.startswith("conv3x3") else 10
             p1 = cuda_ms(torch, case.plain, iters)
             k1 = cuda_ms(torch, case.kern, iters)
             k2 = cuda_ms(torch, case.kern, iters)
             p2 = cuda_ms(torch, case.plain, iters)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
             lib_ms = None if case.library is None else cuda_ms(torch, case.library, iters)
-            print(f"kernel {name} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
-                  f"bound_ms={max(bytes_ms, ops_ms)!r} library_ms={lib_ms!r} ok", flush=True)
+            print(f"kernel {entry} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
+                  f"bound_ms={max(bytes_ms, ops_ms)!r} ({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
+                  f"library_ms={lib_ms!r}{'' if timed == 'sum' else ' (own line)'} ok", flush=True)
+        if timed == "sum":
             r["ms"] += k_ms
             r["plain_ms"] += p_ms
             r["bound_ms"] += max(bytes_ms, ops_ms)
@@ -619,77 +757,96 @@ def serving_phase(torch, mods, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 def _grads(model) -> dict:
-    return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+    return {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
+            if p.requires_grad}
 
 
-def _check_gradients(torch, gk: dict, gp: dict):
-    """Step-0 gradients, kernel path vs plain path; returns the largest
-    relative L2 error and its parameter (see GRAD_RL2)."""
-    worst = (0.0, "")
-    for name, ref in gp.items():
-        got = gk[name]
-        if not bool(torch.isfinite(got).all()):
+def _rel_l2(got: dict, ref: dict, name: str) -> float:
+    scale = ref[name[: -len("bias")] + "weight"] if name.endswith(CANCELLED_BIASES) else ref[name]
+    return (got[name] - ref[name]).norm().item() / max(scale.norm().item(), 1e-30)
+
+
+def _check_gradients(torch, gk: dict, gp: dict, g32: Optional[dict] = None):
+    """Step-0 gradients, kernel path vs plain path (see GRAD_RL2); with
+    ``g32``, the plain path's fp32 gradients, a leaf that bf16 rounding
+    alone moves by more than GRAD_RL2 (plain bf16 vs fp32) may instead be
+    no further from the fp32 gradient than BF16_NOISE_FACTOR times the
+    plain path is.  Returns (the largest kernel-vs-plain error, its leaf,
+    the leaves held to the fp32 gradient, their largest distance ratio)."""
+    errs, noisy, ratio = [], 0, 0.0
+    for name in gp:
+        if not bool(torch.isfinite(gk[name]).all()):
             raise AssertionError(f"gradient {name} is not finite on the kernel path")
-        scale = gp[name[: -len("bias")] + "weight"] if name.endswith(PRE_BN_BIASES) else ref
-        rel = (got - ref).norm().item() / max(scale.norm().item(), 1e-30)
-        worst = max(worst, (rel, name))
-        if rel > GRAD_RL2:
-            raise AssertionError(f"gradient {name}: relative L2 {rel!r} > {GRAD_RL2}")
-    return worst
+        err = _rel_l2(gk, gp, name)
+        errs.append((err, name))
+        if err <= GRAD_RL2 or g32 is None:
+            continue
+        p32, k32 = _rel_l2(gp, g32, name), _rel_l2(gk, g32, name)
+        if p32 > GRAD_RL2 and k32 <= BF16_NOISE_FACTOR * p32:
+            noisy += 1
+            ratio = max(ratio, k32 / p32)
+            errs[-1] = (0.0, name)  # held to the fp32 gradient instead
+    errs.sort(reverse=True)
+    if errs[0][0] > GRAD_RL2:
+        print("largest relative L2 errors: " + ", ".join(f"{n} {e!r}" for e, n in errs[:12]),
+              flush=True)
+        raise AssertionError(f"gradient {errs[0][1]}: relative L2 {errs[0][0]!r} > {GRAD_RL2}")
+    return errs[0][0], errs[0][1], noisy, ratio
 
 
 def _step_ms(torch, trainer, images, masks, steps: int = 3) -> float:
     return cuda_ms(torch, lambda: trainer.train_step(images, masks, STEP_KEY), steps, warmup=1)
 
 
-def training_phase(torch, mods, card: str) -> dict:
-    """The train step end to end, augmentation on; returns the launch
-    counts of its run."""
-    from image_segmentation_tpu_torch.engine.train import Trainer
-
-    cfg = train_config()
-    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
-    aug = cfg.data.augmentations_per_datapoint
-    print(f"trainer: large_unet preset, {trainer.num_params} params, batch {cfg.batch_size}, "
-          f"{cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}, "
-          f"augmentor {trainer.augmentor}", flush=True)
-
-    # ---- the main path: counts from 0, read right after
+def _train_epoch(torch, mods, trainer, per_step: dict, per_forward: dict, what: str) -> dict:
+    """The main path: ``trainer.train(1)`` (train steps, then ``evaluate``)
+    with the counts set to 0 before and read after, exact per train step
+    and per eval batch; returns the counts."""
+    cfg = trainer.config
     reset_counts(mods)
     torch.cuda.reset_peak_memory_stats()
     hist = trainer.train(1)["history"]
     torch.cuda.synchronize()
     launches = counts(mods)
-    n_train = len(trainer.train_data) * (aug + 1) // cfg.batch_size
+    n_train = len(trainer.train_data) * (cfg.data.augmentations_per_datapoint + 1) // cfg.batch_size
     n_val = math.ceil(len(trainer.val_data) / cfg.batch_size)
-    want = {k: PER_STEP.get(k, 0) * n_train + PER_FORWARD.get(k, 0) * n_val for k in KERNEL_INFO}
+    want = {k: per_step.get(k, 0) * n_train + per_forward.get(k, 0) * n_val for k in WRAPPER_NAMES}
     if launches != want:
-        raise AssertionError(f"training launches {launches}, expected {want}")
+        raise AssertionError(f"{what} launches {launches}, expected {want}")
     row = hist[0]
     if not all(math.isfinite(v) for v in row.values()):
-        raise AssertionError(f"train(1) + evaluate: not finite: {row}")
-    print(f"training path: {n_train} augmented train steps + {n_val} eval batches, launches "
+        raise AssertionError(f"{what} train(1) + evaluate: not finite: {row}")
+    print(f"{what} path: {n_train} augmented train steps + {n_val} eval batches, launches "
           f"{launches}; history {row}; peak memory {torch.cuda.max_memory_allocated()!r} B",
           flush=True)
+    return launches
 
-    # ---- exact launches of one train step
-    import numpy as np
 
-    rng = np.random.default_rng(SEED + 7)
-    images = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(DEVICE)
-    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (BATCH, SIZE, SIZE), dtype=np.uint8)).to(DEVICE)
-    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+def _step_launches(torch, mods, trainer, images, masks, per_step: dict, what: str) -> dict:
+    """One train step's launches, exactly ``per_step``."""
     before = counts(mods)
     trainer.train_step(images, masks, STEP_KEY)
     torch.cuda.synchronize()
     delta = {k: v - before[k] for k, v in counts(mods).items()}
-    if delta != expected(PER_STEP):
-        raise AssertionError(f"one train step: launches {delta}, expected {expected(PER_STEP)}")
-    print(f"one train step: launches {delta}", flush=True)
+    if delta != expected(per_step):
+        raise AssertionError(f"{what}, one train step: launches {delta}, expected "
+                             f"{expected(per_step)}")
+    print(f"{what}, one train step: launches {delta}", flush=True)
+    return delta
 
-    # ---- kernel path vs plain path: 3 steps from the same weights on one
-    # batch and one augmentation draw (STEP_KEY)
-    def run(steps: int):
+
+def _kernel_vs_plain(torch, mods, cfg, state: dict, images, masks, *, no_aug=False,
+                     fp32_ref=False, after: Optional[Callable] = None) -> dict:
+    """3 train steps from ``state`` on one batch and one draw (STEP_KEY) on
+    the kernel path and on the plain path: per-step losses within
+    LOSS_RTOL, every step-0 gradient within GRAD_RL2 (with ``fp32_ref``, or
+    held to the plain path's fp32 gradient, see BF16_NOISE_FACTOR); 5 more
+    kernel-path steps must lower the loss; ``after(trainer)`` checks each
+    trainer after its steps.  Returns {path: (ms per train step, peak
+    bytes)}."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    def run(steps: int, cfg=cfg):
         t = Trainer(cfg, device=DEVICE, make_artifacts=False)
         t.model.load_state_dict(state)
         losses, grads = [], None
@@ -699,43 +856,208 @@ def training_phase(torch, mods, card: str) -> dict:
                 grads = _grads(t.model)
         return t, losses, grads
 
-    del trainer
+    times = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kt, k_losses, k_grads = run(3)
     more = [float(kt.train_step(images, masks, STEP_KEY)) for _ in range(5)]
-    k_ms = _step_ms(torch, kt, images, masks)
-    k_mem = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(kt, "augmentor", None):
-        n_ms = _step_ms(torch, kt, images, masks)
-    n_mem = torch.cuda.max_memory_allocated()
+    if after is not None:
+        after(kt)
+    times["kernel path"] = (_step_ms(torch, kt, images, masks), torch.cuda.max_memory_allocated())
+    if no_aug:
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(kt, "augmentor", None):
+            times["kernel path, no augmentation"] = (_step_ms(torch, kt, images, masks),
+                                                     torch.cuda.max_memory_allocated())
     del kt
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with plain_path(mods):
         pt, p_losses, p_grads = run(3)
-        p_ms = _step_ms(torch, pt, images, masks)
-    p_mem = torch.cuda.max_memory_allocated()
-    del pt
+        if after is not None:
+            after(pt)
+        times["plain path"] = (_step_ms(torch, pt, images, masks), torch.cuda.max_memory_allocated())
+        del pt
+        torch.cuda.empty_cache()
+        g32 = run(1, dataclasses.replace(cfg, bf16=False))[2] if fp32_ref else None
     torch.cuda.empty_cache()
     for i, (a, b) in enumerate(zip(k_losses, p_losses)):
         print(f"step {i} loss: kernel path {a!r}, plain path {b!r} (limit {LOSS_RTOL} relative)",
               flush=True)
         if not (math.isfinite(a) and abs(a - b) <= LOSS_RTOL * abs(b)):
             raise AssertionError(f"step {i}: kernel-path loss {a!r} vs plain {b!r}")
-    worst, where = _check_gradients(torch, k_grads, p_grads)
-    print(f"step-0 gradients of {len(p_grads)} parameters: largest relative L2 error {worst!r} "
-          f"({where}; limit {GRAD_RL2})", flush=True)
+    worst, where, noisy, ratio = _check_gradients(torch, k_grads, p_grads, g32)
+    print(f"step-0 gradients of {len(p_grads)} parameters: largest relative L2 error vs the plain "
+          f"path {worst!r} ({where}; limit {GRAD_RL2})", flush=True)
+    if g32 is not None:
+        print(f"  {noisy} leaves that bf16 rounding moves by more than {GRAD_RL2} held to the "
+              f"fp32 gradient: kernel path at most {ratio!r} x the plain path's distance (limit "
+              f"{BF16_NOISE_FACTOR})", flush=True)
     print(f"5 more steps on the batch, kernel path: losses {more}", flush=True)
     if not more[-1] < more[0]:
         raise AssertionError("5 steps on one fixed batch did not lower its loss")
-    for what, ms, mem in (("kernel path, augmented", k_ms, k_mem),
-                          ("kernel path, no augmentation", n_ms, n_mem),
-                          ("plain path, augmented", p_ms, p_mem)):
-        print(f"train step LargeUNet@{SIZE} bf16 batch {BATCH}, {what}: {ms!r} ms "
-              f"({BATCH * 1000.0 / ms!r} img/s), max_memory_allocated {mem!r} B on {card}",
+    return times
+
+
+def _print_times(what: str, batch: int, times: dict, card: str) -> None:
+    for path, (ms, mem) in times.items():
+        print(f"train step {what} bf16 batch {batch}, {path}: {ms!r} ms "
+              f"({batch * 1000.0 / ms!r} img/s), max_memory_allocated {mem!r} B on {card}",
               flush=True)
+
+
+def training_phase(torch, mods, card: str) -> dict:
+    """The large_unet train step end to end, augmentation on; returns the
+    launch counts of its run."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = train_config()
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    print(f"trainer: large_unet preset, {trainer.num_params} params, batch {cfg.batch_size}, "
+          f"{cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}, "
+          f"augmentor {trainer.augmentor}", flush=True)
+    launches = _train_epoch(torch, mods, trainer, PER_STEP, PER_FORWARD, "training")
+
+    rng = np.random.default_rng(SEED + 7)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(DEVICE)
+    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (BATCH, SIZE, SIZE), dtype=np.uint8)).to(DEVICE)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    _step_launches(torch, mods, trainer, images, masks, PER_STEP, "training")
+    del trainer
+    times = _kernel_vs_plain(torch, mods, cfg, state, images, masks, no_aug=True)
+    _print_times(f"LargeUNet@{SIZE}", BATCH, times, card)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# prompt, ClipUnet and fusion phases
+# --------------------------------------------------------------------------
+
+def clip_config(name: str):
+    """The port's ``prompt`` or ``clip_unet`` preset cut to a smoke run: the
+    full-width model (ViT-B/32 tower, random weights from SEED), batch 32,
+    synthetic 256x256 data of PROMPT_LENGTH images per split, one epoch,
+    the preset's augmentation (4), as ``bench_extra.py`` measures it on
+    the JAX side."""
+    from image_segmentation_tpu_torch.config import preset
+
+    cfg = preset(name)
+    data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=PROMPT_SIZE,
+                               synthetic_length=PROMPT_LENGTH)
+    return dataclasses.replace(cfg, batch_size=PROMPT_BATCH, num_epochs=1, seed=SEED, data=data)
+
+
+def _clip_batch(torch, seed: int, palette: bool):
+    """A uint8 batch on the card: images, and class-id or palette masks."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.data.datasets import (
+        CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE)
+
+    rng = np.random.default_rng(seed)
+    shape = (PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE)
+    images = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+    masks = rng.integers(0, NUM_CLASSES + palette, shape).astype(np.uint8)
+    if palette:
+        masks = np.array([0, CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE], np.uint8)[masks]
+    return torch.from_numpy(images).to(DEVICE), torch.from_numpy(masks).to(DEVICE)
+
+
+def prompt_phase(torch, mods, card: str) -> dict:
+    """The prompt preset's train step end to end (point prompts from the
+    palette masks, the prompt augmentor, ClipUnetPrompt with the frozen
+    tower, the binary loss, Adam with the frozen mask); returns the launch
+    counts of its run."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+    from image_segmentation_tpu_torch.utils.convert import CLIP
+
+    cfg = clip_config("prompt")
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    tower = sum(p.numel() for p in trainer.model.clip_feature_extractor.parameters())
+    print(f"trainer: prompt preset, {trainer.num_params} params ({tower} in the frozen tower), "
+          f"batch {cfg.batch_size}, {cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}, "
+          f"augmentor {trainer.augmentor}", flush=True)
+    launches = _train_epoch(torch, mods, trainer, PER_PROMPT_STEP, PER_PROMPT_FORWARD, "prompt")
+    images, raw = _clip_batch(torch, SEED + 17, palette=True)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    delta = _step_launches(torch, mods, trainer, images, raw, PER_PROMPT_STEP, "prompt")
+    if delta["conv3x3_dgrad"] != delta["conv3x3_wgrad"] - 1:
+        raise AssertionError(f"prompt step: dgrad {delta['conv3x3_dgrad']} != wgrad - 1")
+    del trainer
+
+    def tower_unchanged(t):
+        for k, v in t.model.state_dict().items():
+            if k.startswith(CLIP) and not torch.equal(v, state[k]):
+                raise AssertionError(f"the frozen tower moved: {k}")
+
+    times = _kernel_vs_plain(torch, mods, cfg, state, images, raw, fp32_ref=True,
+                             after=tower_unchanged)
+    print("the frozen CLIP tower is bit-identical after the steps of both paths", flush=True)
+    _print_times(f"ClipUnetPrompt@{PROMPT_SIZE}", PROMPT_BATCH, times, card)
+    return launches
+
+
+def clip_unet_phase(torch, mods, card: str) -> dict:
+    """A train epoch and timed steps of the clip_unet preset; returns the
+    launch counts of its run."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = clip_config("clip_unet")
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    launches = _train_epoch(torch, mods, trainer, PER_STEP, PER_FORWARD, "clip_unet")
+    images, masks = _clip_batch(torch, SEED + 19, palette=False)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(torch, trainer, images, masks)
+    _print_times(f"ClipUnet@{PROMPT_SIZE}", PROMPT_BATCH,
+                 {"kernel path": (ms, torch.cuda.max_memory_allocated())}, card)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fusion_phase(torch, mods, card: str) -> dict:
+    """``CrossAttentionFusion(512, FUSION_HEADS)`` on a ClipUnet@256
+    bottleneck map with a (32, FUSION_TOKENS, 512) context: the attention
+    kernel once per call, against the plain path; returns the launch counts
+    of its run."""
+    from image_segmentation_tpu_torch.ops.cross_attention import CrossAttentionFusion
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    m = CrossAttentionFusion(512, FUSION_HEADS, device=DEVICE)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            scale = 0.1 if "bias" in name else p.shape[-1] ** -0.5
+            p.copy_(torch.randn(p.shape, generator=g, device=DEVICE) * scale)
+    side = PROMPT_SIZE // 8
+    spatial = torch.randn((PROMPT_BATCH, side, side, 512), generator=g, device=DEVICE)
+    ctx = torch.randn((PROMPT_BATCH, FUSION_TOKENS, 512), generator=g, device=DEVICE)
+    with torch.no_grad():
+        reset_counts(mods)
+        out = m(spatial, ctx)
+        torch.cuda.synchronize()
+        launches = counts(mods)
+        if launches != expected({"cross_attention": 1}):
+            raise AssertionError(f"fusion launches {launches}, expected one cross_attention")
+        before = counts(mods)
+        one = m(spatial, ctx[:, 0])
+        if counts(mods) != before:
+            raise AssertionError("the one-token fusion launched a kernel")
+        with plain_path(mods):
+            ref = m(spatial, ctx)
+            p_ms = cuda_ms(torch, lambda: m(spatial, ctx), 10)
+        k_ms = cuda_ms(torch, lambda: m(spatial, ctx), 10)
+    diff = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if (out.shape != ref.shape or one.shape != out.shape or not bool(torch.isfinite(out).all())
+            or diff > KERNEL_RTOL * scale):
+        raise AssertionError(f"fusion: kernel path {tuple(out.shape)} vs plain, max diff {diff!r}")
+    print(f"fusion phase: CrossAttentionFusion(512, {FUSION_HEADS}) on {tuple(spatial.shape)} with "
+          f"{FUSION_TOKENS} context tokens: launches {launches}, max_abs_diff vs plain path {diff!r} "
+          f"(limit {KERNEL_RTOL} x {scale!r}); {k_ms!r} ms per call, plain path {p_ms!r} ms on "
+          f"{card}", flush=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -804,6 +1126,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
@@ -817,21 +1140,25 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    results = kernel_phase(torch, mods, main_path_shapes(train_config().model_args))
+    results = kernel_phase(torch, mods, main_path_shapes(train_config().model_args),
+                           prompt_path_shapes())
     runs = [serving_phase(torch, mods, card), training_phase(torch, mods, card),
-            augmentor_phase(torch, mods, card)]
+            augmentor_phase(torch, mods, card), prompt_phase(torch, mods, card),
+            clip_unet_phase(torch, mods, card), fusion_phase(torch, mods, card)]
+    launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES})
 
     kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
-        r = results[name]
-        n = sum(run[name] for run in runs)
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main paths")
+    for entry, (name, source, replaces) in KERNEL_INFO.items():
+        r = results[entry]
+        if launched[entry] == 0:
+            raise AssertionError(f"{entry} was never launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches": launched[entry], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
         })
+    print(f"wall time {time.perf_counter() - t_start!r} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

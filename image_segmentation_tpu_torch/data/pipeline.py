@@ -40,7 +40,8 @@ def epoch_permutation(
 class BatchPipeline:
     """Iterate ``(images_u8, masks_u8)`` batches on ``device`` over an
     ArrayDataset.  ``drop_last=True`` keeps every training batch full;
-    evaluation uses ``drop_last=False``."""
+    evaluation uses ``drop_last=False``.  ``mask_attr``: the dataset field
+    the masks come from ("raw_masks" for the prompt task's palette masks)."""
 
     def __init__(
         self,
@@ -52,6 +53,7 @@ class BatchPipeline:
         shuffle: bool = True,
         drop_last: bool = True,
         seed: int = 0,
+        mask_attr: str = "masks",
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -60,6 +62,9 @@ class BatchPipeline:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.mask_attr = mask_attr
+        if getattr(dataset, mask_attr) is None:
+            raise ValueError(f"the dataset has no {mask_attr!r}")
 
     def batches_per_epoch(self) -> int:
         n = len(self.dataset) * (self.augmentations_per_datapoint + 1)
@@ -68,7 +73,7 @@ class BatchPipeline:
     def _to_device(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         pin = self.device.type == "cuda"
         out = []
-        for src in (self.dataset.images, self.dataset.masks):
+        for src in (self.dataset.images, getattr(self.dataset, self.mask_attr)):
             t = torch.from_numpy(src[idx])
             if pin:
                 t = t.pin_memory()

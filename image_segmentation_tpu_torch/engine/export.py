@@ -6,7 +6,8 @@ The artifact format is the JAX package's: ``config.json`` (registry name +
 model args) and ``model.npz`` (flat ``params/...``, ``batch_stats/...``
 keys), so an artifact written by either package loads in the other.  The
 torch-format, StableHLO and model-card extras of the JAX exporter are not
-ported.
+ported, nor are the artifacts of the CLIP models (ROADMAP.md Queue 1 item
+11): their entry points raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,10 +21,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.clip_models import ClipUnet
 from ..models.registry import build_model
 from ..utils import convert
 
 PREDICT_SIZE = 256
+# registry names whose artifacts are ported
+EXPORTABLE = ("unet", "large_unet")
+
+
+def _check_exportable(model_name: str) -> None:
+    if model_name not in EXPORTABLE:
+        raise NotImplementedError(
+            f"artifacts of model {model_name!r} are not ported; see ROADMAP.md Queue 1 "
+            f"item 11 (ported: {', '.join(EXPORTABLE)})")
 
 
 def export_model(
@@ -34,6 +45,7 @@ def export_model(
 ) -> str:
     """Write ``model``'s weights and its registry name/args as an artifact
     directory that both packages' ``load_model`` read."""
+    _check_exportable(model_name)
     os.makedirs(out_dir, exist_ok=True)
     params, batch_stats = convert.jax_from_state_dict(model.state_dict())
     convert.write_flat_npz(
@@ -54,6 +66,7 @@ def load_model(
     artifact is for inference."""
     with open(os.path.join(artifact_dir, "config.json")) as f:
         cfg = json.load(f)
+    _check_exportable(cfg["model"])
     model = build_model(
         cfg["model"], device=device, dtype=dtype, **cfg.get("model_args", {})
     )
@@ -72,6 +85,8 @@ def predict(model: nn.Module, image) -> np.ndarray:
     256x256 (antialiased when shrinking, as ``jax.image.resize`` is), then
     the forward and an argmax over classes.
     """
+    if isinstance(model, ClipUnet):
+        _check_exportable(type(model).__name__)
     arr = np.asarray(image, dtype=np.float32)
     if arr.max() > 1.5:
         arr = arr / 255.0

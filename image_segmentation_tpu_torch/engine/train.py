@@ -1,34 +1,45 @@
 """Training engine; counterpart of ``image_segmentation_tpu/engine/train.py``
 (adam_l2 :52, build_optimizer :62, make_loss_fn :84, Trainer :131).
 
-One train step: uint8 batch -> ``DataAugmentor.apply_u8`` (flip, rotation,
-colour jitter, blur, clean slots; with ``augmentations_per_datapoint > 0``)
-or normalisation, on the device -> forward in the compute dtype (bf16 on
-the card, fp32 parameters) -> CE loss -> backward -> ``torch.optim.Adam``
+One train step: uint8 batch -> the task's inputs on the device (the
+segmentation task: ``DataAugmentor.apply_u8`` with
+``augmentations_per_datapoint > 0``, else normalisation; the prompt task:
+point prompts and labels from the palette masks, then
+``DataAugmentorPrompt.apply_u8``) -> forward in the compute dtype (bf16 on
+the card, fp32 parameters) -> loss -> backward -> ``torch.optim.Adam``
 with L2 added to the gradient before the moments, and the BatchNorm
 running averages committed by the forward.  Batch statistics are over the
 whole batch, as in the JAX Trainer.  The loss of each step stays on the
 device and is read once per epoch.
 
-The augmentation of a step is drawn on the host from a ``torch.Generator``
-seeded by ``(config.seed, step_key)``, with ``step_key = epoch*100003 +
-batch`` as the JAX Trainer folds its key (:439), so the CPU and the card
-draw the same augmentation; the draws go to the card from pinned memory
-without a wait.  torch's draws are not JAX's: the tests hold the step to
-JAX by feeding both augmentors the same draws.
+Two rules keep the optimizer JAX's.  Frozen subtrees (the CLIP tower,
+``FROZEN_PREFIXES``) are not in the optimizer: neither decayed nor updated,
+as JAX's ``set_to_zero`` mask.  Every other parameter is in it, and one
+that autograd leaves without a gradient (in the CLIP models the bottleneck
+block, whose output the one-token fusion does not read) gets a zero
+gradient, so L2 decay and Adam move it as they move JAX's zero-gradient
+leaves.
 
-Ported for the segmentation task on the U-Nets, with synthetic data.  What
-is not ported raises ``NotImplementedError`` naming its ROADMAP.md item:
-run artifacts (run folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet
-loader, the other losses, ``remat``, ``native_loader`` and
-``n_model_shards``.
+The random draws of a step (the augmentation; the prompt task's class and
+pixel uniforms) are made on the host from ``torch.Generator``s seeded by
+``(config.seed, step_key)``, with ``step_key = epoch*100003 + batch`` as
+the JAX Trainer folds its key (:439; eval batches ``7919 + batch``), so the
+CPU and the card draw the same ones; they go to the card from pinned
+memory without a wait.  torch's draws are not JAX's: the tests hold the
+step to JAX by feeding both sides the same draws.
+
+Ported: the segmentation task on the U-Nets and ClipUnet, the prompt task
+on ClipUnetPrompt, with synthetic data.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item: run artifacts (run
+folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet loader, the other
+losses and models, ``remat``, ``native_loader`` and ``n_model_shards``.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,13 +48,21 @@ from torch import nn
 from ..config import TrainConfig
 from ..data.datasets import ArrayDataset, synthetic_dataset
 from ..data.pipeline import BatchPipeline
+from ..data.prompts import PromptDraws, prompt_maps, prompt_points, sample_prompt_draws
+from ..models.clip import ClipEmbeddings
+from ..models.clip_models import FROZEN_PREFIXES
 from ..models.registry import build_model
 from ..ops import losses as L
-from ..ops.augment import AugmentParams, DataAugmentor, normalize_image
+from ..ops.augment import AugmentParams, DataAugmentor, DataAugmentorPrompt, normalize_image
+from ..ops.cross_attention import CrossAttentionFusion
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
 # scale corrected so the variance is 1/fan_in (jax.nn.initializers).
 _TRUNC_STD = 0.87962566103423978
+# the CLIP embeddings' initialiser, flax's normal(0.02) (models/clip.py:131-140)
+_EMBED_STD = 0.02
+# fold_in data of the JAX Trainer's eval batches (:493)
+EVAL_STEP_KEY = 7919
 
 
 def adam_l2(cfg, params) -> torch.optim.Optimizer:
@@ -54,42 +73,72 @@ def adam_l2(cfg, params) -> torch.optim.Optimizer:
                             eps=cfg.eps, weight_decay=cfg.weight_decay)
 
 
+def trainable_parameters(model: nn.Module):
+    """Every parameter outside the frozen subtrees (``FROZEN_PREFIXES``)."""
+    return [p for name, p in model.named_parameters() if not name.startswith(FROZEN_PREFIXES)]
+
+
 def build_optimizer(opt_cfg, model: nn.Module) -> torch.optim.Optimizer:
-    """``adam_l2`` over every parameter.  The JAX version also masks frozen
-    subtrees (the CLIP tower, the ResNet backbone); the U-Nets have none, and
-    the mask comes with the CLIP models (ROADMAP.md Queue 1 item 6)."""
-    return adam_l2(opt_cfg, model.parameters())
+    """``adam_l2`` over the trainable parameters; the frozen subtrees are
+    left out, the torch form of the JAX mask's ``set_to_zero``."""
+    return adam_l2(opt_cfg, trainable_parameters(model))
 
 
 def make_loss_fn(name: str) -> Callable:
     if name in ("hybrid", "ce"):
         return lambda logits, batch: L.hybrid_loss(logits, batch["masks"])
-    if name in ("dice_ce", "hybrid_binary", "mse", "class_binary"):
+    if name == "hybrid_binary":
+        return lambda logits, batch: L.hybrid_loss_binary(logits, batch["masks"])
+    if name in ("dice_ce", "mse", "class_binary"):
         raise NotImplementedError(
             f"loss {name!r} is not ported yet; see ROADMAP.md Queue 1 item 2"
         )
     raise KeyError(f"unknown loss {name!r}")
 
 
+def _lecun_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    t = torch.empty(w.shape)
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    w.copy_(t)
+
+
 def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initialisers, drawn on the CPU from ``generator`` whatever
-    the model's device: lecun-normal conv and ConvTranspose kernels, zero
-    biases, BatchNorm scale 1, bias 0, mean 0, var 1."""
+    the model's device: lecun-normal conv, ConvTranspose and Dense kernels
+    (the patch conv's too, which has no bias), zero biases, BatchNorm scale
+    1, bias 0, mean 0, var 1, LayerNorm scale 1, bias 0, and normal(0.02)
+    class and position embeddings.  The cross-attention fusion's q_proj and
+    k_proj are zero: the JAX models call it with one context token and
+    never create them, as their exported trees say."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = m.weight
                 cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
-                std = math.sqrt(1.0 / (cin * w.shape[2] * w.shape[3])) / _TRUNC_STD
-                t = torch.empty(w.shape)
-                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
-                w.copy_(t)
-                m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
+                _lecun_(w, cin * w.shape[2] * w.shape[3], generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                _lecun_(m.weight, m.in_features, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * _EMBED_STD)
+            elif isinstance(m, ClipEmbeddings):
+                e = m.class_embedding
+                e.copy_(torch.randn(e.shape, generator=generator) * _EMBED_STD)
+            elif isinstance(m, CrossAttentionFusion):
+                for i in (0, 1):
+                    m.proj_weight(i).zero_()
+                _lecun_(m.proj_weight(2), m.kv_dim, generator)
+                m.cross_attn.in_proj_bias.zero_()  # out_proj: the nn.Linear branch
 
 
-def _dataset_from_config(cfg: TrainConfig, train: bool) -> ArrayDataset:
+def _dataset_from_config(cfg: TrainConfig, train: bool,
+                         keep_raw_masks: bool = False) -> ArrayDataset:
     d = cfg.data
     if d.dataset != "synthetic":
         raise NotImplementedError(
@@ -99,7 +148,11 @@ def _dataset_from_config(cfg: TrainConfig, train: bool) -> ArrayDataset:
     return synthetic_dataset(
         length=d.synthetic_length, height=d.image_size, width=d.image_size,
         num_classes=d.num_classes, seed=cfg.seed + (0 if train else 1),
+        keep_raw_masks=keep_raw_masks,
     )
+
+
+Inputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 class Trainer:
@@ -108,9 +161,12 @@ class Trainer:
     ``device`` is where the model, the optimizer state and the batches live
     (the card unless the caller asks for the CPU); the initial weights are
     drawn from a ``torch.Generator`` seeded with ``config.seed``, so they do
-    not depend on the device.  With ``augmentations_per_datapoint > 0`` the
-    train batches go through a ``DataAugmentor`` with the JAX Trainer's
-    backend and geometry (:190-196).
+    not depend on the device.  The task follows the model as in JAX
+    (:170-177): ``clip_unet_prompt`` trains the prompt task on the raw
+    palette masks, everything else the segmentation task.  With
+    ``augmentations_per_datapoint > 0`` the train batches go through the
+    task's augmentor with the JAX Trainer's backend and geometry
+    (:190-196).
     """
 
     def __init__(
@@ -140,71 +196,128 @@ class Trainer:
         self.model = build_model(config.model, device=self.device, dtype=self.dtype,
                                  **config.model_args)
         init_weights_(self.model, torch.Generator().manual_seed(config.seed))
+        self.task = "prompt" if config.model == "clip_unet_prompt" else "segmentation"
         self.num_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = build_optimizer(config.optimizer, self.model)
+        self.trainable = trainable_parameters(self.model)
         self.loss_fn = make_loss_fn(config.loss)
+        self.is_binary = config.loss == "hybrid_binary"
         aug_n = config.data.augmentations_per_datapoint
-        self.augmentor = DataAugmentor(aug_n) if aug_n > 0 else None
-        self.train_data = train_data or _dataset_from_config(config, True)
-        self.val_data = val_data or _dataset_from_config(config, False)
+        aug_cls = DataAugmentorPrompt if self.task == "prompt" else DataAugmentor
+        self.augmentor = aug_cls(aug_n) if aug_n > 0 else None
+        raw = self.task == "prompt"
+        self.train_data = train_data or _dataset_from_config(config, True, raw)
+        self.val_data = val_data or _dataset_from_config(config, False, raw)
+
+    def _generator(self, step_key: int, stream: int) -> torch.Generator:
+        """The host generator of one step's draws; ``stream`` tells the
+        augmentation (0) and the prompts (1) apart."""
+        words = [self.config.seed, step_key] + ([stream] if stream else [])
+        seed = np.random.SeedSequence(words).generate_state(1)[0]
+        return torch.Generator().manual_seed(int(seed))
 
     def augment_params(self, n: int, step_key: int) -> AugmentParams:
         """The augmentation draws of the step ``step_key`` for a batch of n,
         on the host, from a generator seeded by ``(config.seed, step_key)``."""
-        seed = np.random.SeedSequence([self.config.seed, step_key]).generate_state(1)[0]
-        return self.augmentor.sample(n, torch.Generator().manual_seed(int(seed)))
+        return self.augmentor.sample(n, self._generator(step_key, 0))
+
+    def prompt_draws(self, n: int, step_key: int) -> PromptDraws:
+        """The prompt draws (two uniforms per image) of the step
+        ``step_key``, on the host."""
+        return sample_prompt_draws(n, self._generator(step_key, 1))
+
+    def _to_device(self, draws):
+        """Host draws to the device: from pinned memory, without a wait, to a card."""
+        if self.device.type == "cuda":
+            return draws.pin_memory().to(self.device, non_blocking=True)
+        return draws.to(self.device)
+
+    def prompt_points(self, masks_u8: torch.Tensor, step_key: int):
+        """``(choice, cy, cx)`` of the step's prompts, on the device."""
+        return prompt_points(masks_u8, self._to_device(self.prompt_draws(masks_u8.shape[0],
+                                                                         step_key)))
 
     def _prepare_batch(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, *,
-                       augment: bool, params: Optional[AugmentParams] = None):
-        """uint8 device batch -> ([0, 1] fp32 images, {"masks": int64 class
-        ids}), through the augmentor with ``params`` when ``augment`` and
-        the Trainer has one."""
-        if augment and self.augmentor is not None:
+                       augment: bool, params: Optional[AugmentParams] = None,
+                       points=None) -> Tuple[Inputs, Dict[str, torch.Tensor]]:
+        """uint8 device batch -> (model inputs, {"masks": int64 targets}).
+
+        segmentation: inputs the [0, 1] fp32 images, targets the class ids,
+        through the augmentor with ``params`` when ``augment`` and the
+        Trainer has one; prompt: inputs ``(images, prompt maps)``, targets
+        the binary labels of the prompts at ``points`` = ``(choice, cy,
+        cx)`` made from the palette masks (:299-312), the three through the
+        prompt augmentor likewise."""
+        augmenting = augment and self.augmentor is not None
+        if augmenting:
             if params is None:
                 raise ValueError("an augmented batch needs its AugmentParams")
-            if self.device.type == "cuda":
-                params = params.pin_memory().to(self.device, non_blocking=True)
+            params = self._to_device(params)
+        if self.task == "prompt":
+            if points is None:
+                raise ValueError("a prompt batch needs its points")
+            heat, labels = prompt_maps(masks_u8, *points, self.config.data.prompt_gaussian_sigma)
+            if augmenting:
+                images, masks, heat = self.augmentor.apply_u8(
+                    params, images_u8, labels.to(torch.uint8), heat)
+                return (images, heat), {"masks": masks}
+            return (normalize_image(images_u8), heat), {"masks": labels.long()}
+        if augmenting:
             images, masks = self.augmentor.apply_u8(params, images_u8, masks_u8)
             return images, {"masks": masks}
         return normalize_image(images_u8), {"masks": masks_u8.long()}
 
     def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
                    step_key: int = 0) -> torch.Tensor:
-        """One optimizer step on one batch, augmented with the draws of
-        ``step_key``; returns the loss, on the device."""
-        params = None
-        if self.augmentor is not None:
-            params = self.augment_params(images_u8.shape[0], step_key)
-        images, batch = self._prepare_batch(images_u8, masks_u8, augment=True, params=params)
-        return self.optimize(images, batch)
+        """One optimizer step on one batch with the draws of ``step_key``;
+        returns the loss, on the device."""
+        n = images_u8.shape[0]
+        params = self.augment_params(n, step_key) if self.augmentor is not None else None
+        points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
+        inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=True, params=params,
+                                            points=points)
+        return self.optimize(inputs, batch)
 
-    def optimize(self, images: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def optimize(self, inputs: Inputs, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Forward, loss, backward and Adam on a prepared batch; returns the
-        loss, on the device."""
+        loss, on the device.  A trainable parameter without a gradient gets
+        a zero one (see the module doc)."""
+        inputs = inputs if isinstance(inputs, tuple) else (inputs,)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(images, train=True), batch)
+        loss = self.loss_fn(self.model(*inputs, train=True), batch)
         loss.backward()
+        for p in self.trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return loss.detach()
 
     @torch.no_grad()
-    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor):
+    def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
+                  step_key: int = EVAL_STEP_KEY):
         """(loss, IoU, pixel accuracy, dice) of one batch with the running
-        statistics, on the device."""
-        images, batch = self._prepare_batch(images_u8, masks_u8, augment=False)
-        logits = self.model(images, train=False)
+        statistics, on the device; the binary metrics for the binary loss."""
+        points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
+        inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=False, points=points)
+        inputs = inputs if isinstance(inputs, tuple) else (inputs,)
+        logits = self.model(*inputs, train=False)
         masks = batch["masks"]
-        return (self.loss_fn(logits, batch), L.iou(logits, masks),
-                L.pixel_accuracy(logits, masks), L.dice_score(logits, masks))
+        if self.is_binary:
+            metrics = (L.iou_binary, L.pixel_accuracy_binary, L.dice_score_binary)
+        else:
+            metrics = (L.iou, L.pixel_accuracy, L.dice_score)
+        return (self.loss_fn(logits, batch), *(f(logits, masks) for f in metrics))
 
     def _pipelines(self):
         cfg = self.config
+        mask_attr = "raw_masks" if self.task == "prompt" else "masks"
         train_pipe = BatchPipeline(
             self.train_data, cfg.batch_size, device=self.device,
             augmentations_per_datapoint=cfg.data.augmentations_per_datapoint,
-            shuffle=True, drop_last=True, seed=cfg.seed)
+            shuffle=True, drop_last=True, seed=cfg.seed, mask_attr=mask_attr)
         val_pipe = BatchPipeline(self.val_data, cfg.batch_size, device=self.device,
-                                 shuffle=False, drop_last=False, seed=cfg.seed)
+                                 shuffle=False, drop_last=False, seed=cfg.seed,
+                                 mask_attr=mask_attr)
         return train_pipe, val_pipe
 
     def train(self, num_epochs: Optional[int] = None, *, verbose: bool = False) -> Dict[str, Any]:
@@ -241,7 +354,7 @@ class Trainer:
             _, val_pipe = self._pipelines()
         sums, n = None, 0
         for images, masks in val_pipe.epoch(0):
-            out = self.eval_step(images, masks)
+            out = self.eval_step(images, masks, EVAL_STEP_KEY + n)
             sums = out if sums is None else tuple(a + b for a, b in zip(sums, out))
             n += 1
         if n == 0:

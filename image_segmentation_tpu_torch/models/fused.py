@@ -1,8 +1,8 @@
 """Kernel-backed blocks of the two full-resolution levels; counterpart of
 ``image_segmentation_tpu/models/folded.py``: FoldedConvBlock (:365, fused
-path :431-523), FoldedConvBlockDownsample (:634, raw-output pool :651-673)
-and FoldedConvBlockUpsampleSkip (:723, with the ConvTranspose kernel
-:586-595).
+path :431-523, ``input_grad`` :377-386), FoldedConvBlockDownsample (:634,
+raw-output pool :651-673) and FoldedConvBlockUpsampleSkip (:723, with the
+ConvTranspose kernel :586-595).
 
 The width fold itself is not ported: it exists to fill the TPU's 128
 lanes, and at fold 1 the same kernels compute the plain NHWC ops.  Each
@@ -50,7 +50,15 @@ Raw = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class FusedConvBlock(ConvBlock):
-    """[Conv3x3 -> BN -> ReLU] x2 through the conv3x3 kernels."""
+    """[Conv3x3 -> BN -> ReLU] x2 through the conv3x3 kernels.
+
+    ``input_grad=False`` (folded.py:377-386): the block input is a model
+    input that is never differentiated (the prompt heatmap), so the
+    backward runs conv1's wgrad kernel without its dgrad.  The contract is
+    explicit: an input that requires grad while grad mode is on raises,
+    where the JAX block would return a silent zero."""
+
+    input_grad: bool = True
 
     def forward(
         self,
@@ -63,11 +71,16 @@ class FusedConvBlock(ConvBlock):
         """``raw_out``: return ``(y2, a2, b2)`` — conv2's raw output and
         bn2's fp32 affine — for a consumer that applies ``relu(y2*a2 + b2)``
         on its own load."""
+        if not self.input_grad and torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, x_b)):
+            raise RuntimeError(
+                "a block built with input_grad=False got an input that requires grad; "
+                "build it with input_grad=True to differentiate with respect to its input")
         conv1, bn1, conv2, bn2 = (self.conv[i] for i in (0, 1, 3, 4))
         if train:
             z, mean1, var1, mean2, var2 = fused_conv.FusedBlockFunction.apply(
                 x, x_b, conv1.weight, conv1.bias, conv2.weight, conv2.bias,
-                bn1.weight, bn1.bias, bn2.weight, bn2.bias, raw_out, BN_EPS,
+                bn1.weight, bn1.bias, bn2.weight, bn2.bias, raw_out, BN_EPS, self.input_grad,
             )
             commit_running_stats(bn1, mean1.detach(), var1.detach())
             commit_running_stats(bn2, mean2.detach(), var2.detach())
@@ -89,6 +102,11 @@ class FusedConvBlockDownsample(ConvBlockDownsample):
     """FusedConvBlock -> the BN-affine max-pool kernel."""
 
     block_cls = FusedConvBlock
+
+    def __init__(self, in_features: int, features: int, *, input_grad: bool = True,
+                 device=None):
+        super().__init__(in_features, features, device=device)
+        self.block[0].input_grad = input_grad
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         y2, a2, b2 = self.block[0](x.contiguous(), train=train, raw_out=True)

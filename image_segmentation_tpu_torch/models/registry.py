@@ -1,8 +1,9 @@
 """Model registry: config name -> port model; counterpart of
 ``image_segmentation_tpu/models/registry.py``.
 
-Only the plain U-Nets are ported.  The JAX package's other names raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Ported: the plain U-Nets, ClipUnet and the prompt model.  The JAX
+package's other names raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
 """
 
 from __future__ import annotations
@@ -10,18 +11,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .clip_models import ClipUnet, ClipUnetPrompt
 from .unet import LargeUNet, UNet
 
-_REGISTRY = {"unet": UNet, "large_unet": LargeUNet}
+_REGISTRY = {"unet": UNet, "large_unet": LargeUNet, "clip_unet": ClipUnet,
+             "clip_unet_prompt": ClipUnetPrompt}
 
 # JAX registry names not ported yet -> the ROADMAP.md Queue 1 item.
 _NOT_PORTED = {
     "autoencoder": "Queue 1 'The remaining models'",
-    "clip_unet": "Queue 1 'CLIP stack and ClipUnet'",
     "clip_res": "Queue 1 'The remaining models'",
     "clip_autoencoder": "Queue 1 'The remaining models'",
     "clip_res_class": "Queue 1 'The remaining models'",
-    "clip_unet_prompt": "Queue 1 'Prompt path'",
     "prompt_fusion": "Queue 1 'The remaining models'",
 }
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argtypes.  Every entry returns cudaError_t as int.
 SIGNATURES = {
     # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, stream
@@ -55,6 +55,8 @@ SIGNATURES = {
     "imgseg_shift": (_P, _P, _P, _I, _I, _I, _I, _P),
     # img, factors, out, sums, scratch, N, H, W, bf16_out, stream
     "imgseg_preprocess": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # q, k, v, out, B, L, S, D, heads, scale, stream
+    "imgseg_cross_attention": (_P,) * 4 + (_I,) * 5 + (_F, _P),
 }
 # Scratch sizes (fp32 elements) of the kernels with a second summing pass:
 # name -> argtypes; each returns long long.

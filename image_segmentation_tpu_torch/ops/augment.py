@@ -1,6 +1,7 @@
 """Input normalisation and the on-device batch augmentor; counterpart of
 ``image_segmentation_tpu/ops/augment.py`` (normalize_image :35, the
-geometry :45-319, the colour ops :335-461, DataAugmentor :482-568).
+geometry :45-319, the colour ops :335-461, DataAugmentor :482-568,
+DataAugmentorPrompt :571-657).
 
 Per sample: a horizontal flip (p = 0.5) and a rotation by an angle drawn
 from U(-90, 90) degrees, nearest resampling with zero fill, applied to the
@@ -26,8 +27,10 @@ ops (``backend="xla"``, the JAX package's XLA code) or the fused kernel
 ``preprocess.preprocess`` (``backend="pallas"``, ``csrc/preprocess.cu`` on
 the card).  Both kernels are looked up on their modules at call time.
 
-``DataAugmentorPrompt`` and ``random_geometric_packed`` come with the
-prompt model (ROADMAP.md Queue 1 item 7).
+``DataAugmentorPrompt`` (:572) moves the image, its label mask and the
+prompt heatmap together: u8x4 image + mask words and the heatmap's fp32
+bits as int32 words go through the shift kernels as one stack
+(``apply_geometric_packed``, JAX's ``random_geometric_packed`` :195).
 """
 
 from __future__ import annotations
@@ -249,6 +252,32 @@ def _rotate_shear3(stacked: torch.Tensor, angles_deg: torch.Tensor) -> torch.Ten
     return _row_shift(out, sx, mx)
 
 
+def apply_geometric_packed(
+    packed: torch.Tensor, flip: torch.Tensor, angles_deg: torch.Tensor
+) -> torch.Tensor:
+    """Per-sample flip and rotation of an (m, h, w) int32 stack of
+    ``reps`` groups of the n samples, m = reps*n, ``packed[i]`` and
+    ``packed[n + i]`` moved by sample i's transform
+    (``random_geometric_packed`` :195-236): a quarter turn and the three
+    shears through the shift kernels, on all m planes in one launch each.
+    Whole 32-bit words move, so the prompt augmentor's groups (u8x4 image +
+    mask, the fp32 heatmap's bits) come out bit for bit as the channels of
+    one NHWC stack would.  A non-square stack takes the direct gather."""
+    m, h, w = packed.shape
+    n = flip.shape[0]
+    if m % n:
+        raise ValueError(f"apply_geometric_packed: {m} planes are not groups of {n} samples")
+    flip, angles_deg = flip.repeat(m // n), angles_deg.repeat(m // n)
+    x = torch.where(flip.view(-1, 1, 1), packed.flip(2), packed)
+    if h != w:
+        return _rotate_gather(x[..., None], angles_deg)[..., 0]
+    quarter, sx, sy = _shear3_shifts(angles_deg, m, h, w)
+    base = _quarter_turn(x, quarter).contiguous()
+    out = roll.row_shift(base, sx)
+    out = roll.col_shift(out, sy)
+    return roll.row_shift(out, sx)
+
+
 def apply_geometric(
     stacked: torch.Tensor, flip: torch.Tensor, angles_deg: torch.Tensor, method: str = "shear3"
 ) -> torch.Tensor:
@@ -420,3 +449,49 @@ class DataAugmentor:
                              images_u8.device)
         return (torch.where(clean[:, None, None, None], normalize_image(images_u8, dtype), aug_images),
                 torch.where(clean[:, None, None], masks_u8.long(), aug_masks))
+
+
+@dataclasses.dataclass(frozen=True)
+class DataAugmentorPrompt:
+    """The JAX ``DataAugmentorPrompt`` (:572) with sampling split from
+    applying: the geometry moves the image, the label mask and the prompt
+    heatmap together; the colour stage (``color_jitter`` +
+    ``gaussian_blur_5x5``, the xla form, :644-646) touches the image only.
+    Its draws are a :class:`DataAugmentor`'s: ``sample`` is the same."""
+
+    augmentations_per_datapoint: int = 4
+    max_degrees: float = 90.0
+
+    def sample(self, n: int, generator: torch.Generator) -> AugmentParams:
+        return DataAugmentor(self.augmentations_per_datapoint, self.max_degrees).sample(
+            n, generator)
+
+    def apply_u8(
+        self,
+        params: AugmentParams,
+        images_u8: torch.Tensor,
+        masks_u8: torch.Tensor,
+        prompts: torch.Tensor,
+        dtype: torch.dtype = torch.float32,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """uint8 images (n, h, w, 3), uint8 label masks (n, h, w) and fp32
+        prompts (n, h, w[, 1]) -> ([0, 1] images in ``dtype``, int64 masks,
+        fp32 prompts (n, h, w, 1)) (:605-657).  The image and mask are
+        packed as u8x4 and the heatmap's bits as int32 under them, one
+        (2n, h, w) stack through :func:`apply_geometric_packed`; zero fill
+        is class 0 and heat 0.0."""
+        params = params.to(images_u8.device)
+        n = images_u8.shape[0]
+        prompts_c = prompts if prompts.dim() == 4 else prompts[..., None]
+        packed4 = roll.pack_u8x4(torch.cat([images_u8, masks_u8[..., None]], dim=-1))
+        heat = prompts_c[..., 0].float().contiguous().view(torch.int32)
+        out = apply_geometric_packed(torch.cat([packed4, heat]), params.flip, params.angles)
+        four = roll.unpack_u8x4(out[:n])
+        aug_prompts = out[n:].contiguous().view(torch.float32)[..., None]
+        aug_images = apply_gaussian_blur_5x5(
+            apply_color_jitter(normalize_image(four[..., :3], dtype), params.jitter), params.blur)
+        clean = _clean_slots(n, self.augmentations_per_datapoint + 1, images_u8.device)
+        return (torch.where(clean[:, None, None, None], normalize_image(images_u8, dtype),
+                            aug_images),
+                torch.where(clean[:, None, None], masks_u8.long(), four[..., 3].long()),
+                torch.where(clean[:, None, None, None], prompts_c.float(), aug_prompts))

@@ -610,18 +610,24 @@ class FusedBlockFunction(torch.autograd.Function):
     mirroring ``make_folded_block`` (pallas_conv.py:2227).
 
     ``apply(x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out,
-    eps) -> (z, mean1, var1, mean2, var2)``.  Forward: conv1 with the stats
-    epilogue, bn1's affine from (S1, Q1), conv2 with bn1 + ReLU on load and
-    its own stats, bn2's affine; ``z = round(relu(y2*a2 + b2))`` in fp32
-    with ``a2, b2`` rounded to the activation dtype, or with ``raw_out``
-    ``z = y2`` for a consumer that applies bn2 itself.  The backward follows
-    ``block_bwd`` :2368-2526: the bn2 reduction (without ``raw_out``), the
-    per-channel scalar chain by autograd, conv2's dgrad with bn1's ReLU
-    adjoint and wgrad, then conv1's (dx split into [x | x_b]).
+    eps, input_grad) -> (z, mean1, var1, mean2, var2)``.  Forward: conv1
+    with the stats epilogue, bn1's affine from (S1, Q1), conv2 with bn1 +
+    ReLU on load and its own stats, bn2's affine; ``z = round(relu(y2*a2 +
+    b2))`` in fp32 with ``a2, b2`` rounded to the activation dtype, or with
+    ``raw_out`` ``z = y2`` for a consumer that applies bn2 itself.  The
+    backward follows ``block_bwd`` :2368-2526: the bn2 reduction (without
+    ``raw_out``), the per-channel scalar chain by autograd, conv2's dgrad
+    with bn1's ReLU adjoint and wgrad, then conv1's (dx split into [x |
+    x_b]).  With ``input_grad=False`` conv1 gets its wgrad alone, no dgrad,
+    and the block input no gradient (``None``), as ``make_folded_block(
+    input_grad=False)`` runs ``_folded_wgrad_pallas`` alone (:2465-2481);
+    the caller guarantees the input needs none (``models/fused.py`` raises
+    otherwise).
     """
 
     @staticmethod
-    def forward(ctx, x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out, eps):
+    def forward(ctx, x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out, eps,
+                input_grad=True):
         dt = x.dtype
         n = x.shape[0] * x.shape[1] * x.shape[2]
         y1, s1, q1 = conv3x3(x, w1, c1b, x_b=x_b, stats=True)
@@ -634,7 +640,7 @@ class FusedBlockFunction(torch.autograd.Function):
             z = F.relu(y2.float() * _round(a2, dt) + _round(b2, dt)).to(dt)
         ctx.save_for_backward(x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
                               scale1, bias1, scale2, bias2, a1, b1, a2, b2)
-        ctx.raw_out, ctx.eps, ctx.n = raw_out, eps, n
+        ctx.raw_out, ctx.eps, ctx.n, ctx.input_grad = raw_out, eps, n, input_grad
         return z, mean1, var1, mean2, var2
 
     @staticmethod
@@ -663,13 +669,14 @@ class FusedBlockFunction(torch.autograd.Function):
         dw2, dc2b = conv3x3_wgrad(dz, y2, y1, ds2, dq2, **aff, a_pre=a1, b_pre=b1)
         ds1, dq1, dscale1, dbias1 = _bn_scalars_vjp(
             s1, q1, scale1, bias1, n, eps, (da1, db1, ct(dmean1), ct(dvar1)))
-        if x_b is None:
-            dx, dxb = conv3x3_dgrad(gy1, y1, w1, ds1, dq1), None
-        else:
+        dx = dxb = None  # input_grad=False: conv1's wgrad alone
+        if ctx.input_grad and x_b is None:
+            dx = conv3x3_dgrad(gy1, y1, w1, ds1, dq1)
+        elif ctx.input_grad:
             dx, dxb = conv3x3_dgrad(gy1, y1, w1, ds1, dq1, split=x.shape[-1])
         dw1, dc1b = conv3x3_wgrad(gy1, y1, x, ds1, dq1, x_b=x_b)
         return (dx, dxb, dw1, dc1b, dw2, dc2b, dscale1, dbias1, dscale2, dbias2,
-                None, None)
+                None, None, None)
 
 
 class PoolFunction(torch.autograd.Function):

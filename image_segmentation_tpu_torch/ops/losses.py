@@ -1,12 +1,15 @@
-"""The training loss and the eval metrics, fp32; counterpart of
-``image_segmentation_tpu/ops/losses.py`` (cross_entropy :33, dice_score
-:92, hybrid_loss :140, iou :180, pixel_accuracy :216).
+"""The training losses and the eval metrics, fp32; counterpart of
+``image_segmentation_tpu/ops/losses.py`` (cross_entropy :33,
+bce_with_logits :50, dice_score :92, dice_score_binary :116, hybrid_loss
+:140, hybrid_loss_binary :162, iou :180, iou_binary :197, pixel_accuracy
+:216, pixel_accuracy_binary :239).
 
-Logits are NHWC ``(B, H, W, C)``, targets ``(B, H, W)`` integer class ids.
-The dice score keeps the reference's smp double softmax (the published
-numbers pass softmax probabilities into smp's DiceLoss, which applies
-softmax again).  The other losses of the JAX module wait for the models
-that train with them (ROADMAP.md Queue 1).
+Multiclass: logits NHWC ``(B, H, W, C)``, targets ``(B, H, W)`` integer
+class ids.  Binary: logits ``(B, H, W, 1)`` or ``(B, H, W)``, targets
+``(B, H, W)`` in {0, 1}.  The dice terms keep the reference's smp double
+activation (the published numbers pass softmax or sigmoid probabilities
+into smp's DiceLoss, which applies it again).  The other losses of the JAX
+module wait for the models that train with them (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -60,6 +63,66 @@ def iou(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-6) -> to
     inter = (pred * tgt).sum((0, 1, 2))
     union = pred.sum((0, 1, 2)) + tgt.sum((0, 1, 2)) - inter
     return ((inter + eps) / (union + eps)).mean()
+
+
+def _squeeze_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.squeeze(-1) if t.dim() == 4 else t
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on logits (``BCEWithLogitsLoss``), in the
+    stable form ``max(x, 0) - x*t + log1p(exp(-|x|))``."""
+    x, t = logits.float(), targets.float()
+    return (torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def _binary_dice_loss(probs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """smp binary DiceLoss of ``probs`` over (batch, pixels): smooth 0, eps
+    1e-7, 0 when the target has no positive pixel."""
+    p = probs.reshape(probs.shape[0], -1)
+    o = t.reshape(t.shape[0], -1)
+    inter = (p * o).sum()
+    card = p.sum() + o.sum()
+    loss = 1.0 - 2.0 * inter / card.clamp_min(_SMP_EPS)
+    return torch.where(o.sum() > 0, loss, torch.zeros_like(loss))
+
+
+def dice_score_binary(
+    logits: torch.Tensor, targets: torch.Tensor, *, smp_parity: bool = True
+) -> torch.Tensor:
+    """1 - smp binary ``DiceLoss`` of ``sigmoid(logits)``, which takes the
+    sigmoid again (``smp_parity``)."""
+    probs = torch.sigmoid(_squeeze_channel(logits).float())
+    if smp_parity:
+        probs = torch.sigmoid(probs)
+    return 1.0 - _binary_dice_loss(probs, targets.float())
+
+
+def hybrid_loss_binary(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The binary training loss: BCE on logits + smp binary DiceLoss of
+    ``sigmoid(logits)`` (double sigmoid)."""
+    x = _squeeze_channel(logits).float()
+    t = targets.float()
+    return bce_with_logits(x, t) + _binary_dice_loss(torch.sigmoid(torch.sigmoid(x)), t)
+
+
+def iou_binary(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-6,
+               threshold: float = 0.5) -> torch.Tensor:
+    """Per-sample IoU of ``sigmoid(logits) > threshold``, averaged over the
+    batch."""
+    preds = (torch.sigmoid(_squeeze_channel(logits).float()) > threshold).float()
+    t = _squeeze_channel(targets.float())
+    inter = (preds * t).sum((1, 2))
+    union = preds.sum((1, 2)) + t.sum((1, 2)) - inter
+    return ((inter + eps) / (union + eps)).mean()
+
+
+def pixel_accuracy_binary(logits: torch.Tensor, targets: torch.Tensor, *,
+                          threshold: float = 0.5) -> torch.Tensor:
+    """The share of pixels where ``sigmoid(logits) > threshold`` equals the
+    target."""
+    preds = (torch.sigmoid(_squeeze_channel(logits).float()) > threshold).float()
+    return (preds == _squeeze_channel(targets.float())).float().mean()
 
 
 def pixel_accuracy(

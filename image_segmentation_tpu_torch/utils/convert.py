@@ -1,26 +1,37 @@
 """JAX parameter trees <-> the port's state dicts, and the flat-npz artifact.
 
-Counterpart of the U-Net parts of ``image_segmentation_tpu/utils/
-torch_export.py`` (``unet_state_dict`` :143, JAX -> torch) and
+Counterpart of ``image_segmentation_tpu/utils/torch_export.py`` (JAX ->
+torch: ``unet_state_dict`` :143, ``clip_tower_to_torch`` :163,
+``clip_unet_state_dict`` :196, ``clip_unet_prompt_state_dict`` :272) and
 ``utils/torch_convert.py`` (block helpers :53-104, torch -> JAX), and of
 ``utils/checkpoint.py``'s flat ``.npz`` format (:27-60) for the inference
 artifact.  Ported rather than imported, so the port and ``chip_smoke.py``
-load nothing of the JAX package; tests/test_torch_port_slice.py holds both
-directions to those modules.
+load nothing of the JAX package; tests/test_torch_port_slice.py and
+tests/test_torch_port_clip.py hold both directions to those modules.
 
-The port's modules use the reference torch key layout (``input``,
-``enc{i}.block.0.conv.{0,1,3,4}``, ``bottleneck.conv.*``, ``dec{i}.up``,
-``dec{i}.conv.conv.*``, ``out``), so a JAX tree loads with
-``load_state_dict(strict=True)``.
+The port's modules use the reference torch key layout, so a JAX tree loads
+with ``load_state_dict(strict=True)``:
+
+- U-Net: ``input``, ``enc{i}.block.0.conv.{0,1,3,4}``,
+  ``bottleneck.conv.*``, ``dec{i}.up``, ``dec{i}.conv.conv.*``, ``out``;
+- the CLIP models add ``clip_feature_extractor.clip_model.*`` (the
+  transformers CLIP vision keys, from the JAX ``clip_tower``),
+  ``cross_attention_fusion.cross_attn.*`` (``nn.MultiheadAttention``'s
+  layout; q_proj and k_proj, which the JAX models never create, are
+  zero-filled), ``prompt_encoder.enc{i}.block.0.conv.*``,
+  ``prompt_encoder.conv.conv.*`` and ``prompt_fusion``.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.cross_attention import mha_params_from_torch, mha_state_dict_from_params
 
 Tree = Dict[str, Any]
 
@@ -29,6 +40,8 @@ _LAYER = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
 _LAYER_INV = {v: k for k, v in _LAYER.items()}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
+CLIP = "clip_feature_extractor.clip_model."
+FUSION = "cross_attention_fusion.cross_attn"
 
 
 def read_flat_npz(path: str) -> Dict[str, Tree]:
@@ -64,23 +77,32 @@ def _leaves(node: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (k,), v
 
 
+# ---- the U-Net blocks (and the prompt encoder, prompt_fusion) -------------
+
 def _torch_key(path: Tuple[str, ...]) -> str:
     """JAX leaf path (below ``params``/``batch_stats``) -> torch key."""
     top, *mid, leaf = path
+    if top == "prompt_encoder":
+        return "prompt_encoder." + _torch_key(tuple(path[1:]))
     if mid[:1] == ["conv_block"]:  # enc{i} / dec{i}: the block's ConvBlock
         mid = ["block.0.conv" if top.startswith("enc") else "conv.conv", _LAYER[mid[1]]]
-    elif top == "bottleneck":
+    elif mid[:1] and mid[0] in _LAYER:  # a ConvBlock itself: bottleneck, the prompt conv
         mid = ["conv", _LAYER[mid[0]]]
     return ".".join([top, *mid, _LEAF[leaf]])
 
 
 def _jax_path(key: str) -> Tuple[str, List[str]]:
     """Torch key -> (collection, JAX leaf path); inverse of ``_torch_key``."""
+    if key.startswith("prompt_encoder."):
+        coll, path = _jax_path(key[len("prompt_encoder."):])
+        return coll, ["prompt_encoder", *path]
     top, *mid, leaf = key.split(".")
     path = [top]
-    if mid and mid != ["up"]:  # <block>.conv.{0,1,3,4}
-        path += ([] if top == "bottleneck" else ["conv_block"]) + [_LAYER_INV[mid[-1]]]
-    else:
+    if mid[:2] in (["block", "0"], ["conv", "conv"]):  # <enc>.block.0.conv.i, <dec>.conv.conv.i
+        path += ["conv_block", _LAYER_INV[mid[-1]]]
+    elif mid[:1] == ["conv"]:  # <ConvBlock>.conv.i
+        path += [_LAYER_INV[mid[-1]]]
+    else:  # <dec>.up, or a bare conv (input, out, prompt_fusion)
         path += mid
     if leaf == "weight":
         leaf = "scale" if path[-1].startswith("bn") else "kernel"
@@ -89,19 +111,95 @@ def _jax_path(key: str) -> Tuple[str, List[str]]:
     return ("batch_stats" if leaf in ("mean", "var") else "params"), path + [leaf]
 
 
+# ---- the CLIP tower ---------------------------------------------------------
+
+def _clip_torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """Leaf path in the JAX ``clip_tower`` -> (torch key below
+    ``clip_feature_extractor.clip_model.``, kind of the kernel layout:
+    "conv", "dense" or "raw"); ``clip_tower_to_torch`` :163."""
+    top, rest = path[0], path[1:]
+    if top == "patch_embedding":
+        return "vision_model.embeddings.patch_embedding.weight", "conv"
+    if top == "class_embedding":
+        return "vision_model.embeddings.class_embedding", "raw"
+    if top == "position_embedding":
+        return "vision_model.embeddings.position_embedding.weight", "raw"
+    if top == "visual_projection":
+        return "visual_projection.weight", "dense"
+    leaf = _LEAF[rest[-1]]
+    if top in ("pre_layernorm", "post_layernorm"):
+        name = "pre_layrnorm" if top == "pre_layernorm" else "post_layernorm"
+        return f"vision_model.{name}.{leaf}", "raw"
+    i = int(top[len("layer_"):])
+    mod = {"fc1": "mlp.fc1", "fc2": "mlp.fc2"}.get(rest[0], ".".join(rest[:-1]))
+    return f"vision_model.encoder.layers.{i}.{mod}.{leaf}", (
+        "dense" if rest[-1] == "kernel" else "raw")
+
+
+def _clip_jax_path(key: str) -> List[str]:
+    """Inverse of ``_clip_torch_key``: torch key below the CLIP prefix ->
+    the leaf path in the JAX ``clip_tower``."""
+    fixed = {
+        "vision_model.embeddings.patch_embedding.weight": ["patch_embedding", "kernel"],
+        "vision_model.embeddings.class_embedding": ["class_embedding"],
+        "vision_model.embeddings.position_embedding.weight": ["position_embedding"],
+        "visual_projection.weight": ["visual_projection", "kernel"],
+    }
+    if key in fixed:
+        return fixed[key]
+    parts = key.split(".")
+    m = re.fullmatch(r"vision_model\.encoder\.layers\.(\d+)\.(.+)", key)
+    if m is None:  # vision_model.{pre_layrnorm,post_layernorm}.{weight,bias}
+        ln = "pre_layernorm" if parts[1] == "pre_layrnorm" else parts[1]
+        return [ln, "scale" if parts[2] == "weight" else "bias"]
+    *mod, leaf = m.group(2).split(".")
+    if mod[0] == "mlp":
+        mod = mod[1:]
+    is_ln = mod[-1].startswith("layer_norm")
+    return [f"layer_{m.group(1)}", *mod,
+            ("scale" if is_ln else "kernel") if leaf == "weight" else "bias"]
+
+
+def _to_torch_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "conv":  # flax (kH, kW, I, O) -> torch (O, I, kH, kW)
+        return t.permute(3, 2, 0, 1)
+    if kind == "dense":  # flax (I, O) -> torch Linear (O, I)
+        return t.t()
+    return t
+
+
+def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "conv":
+        return t.permute(2, 3, 1, 0)
+    if kind == "dense":
+        return t.t()
+    return t
+
+
+# ---- whole models -----------------------------------------------------------
+
 def state_dict_from_jax(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 ) -> Dict[str, torch.Tensor]:
-    """JAX UNet/LargeUNet ``params``/``batch_stats`` -> the port's strict
-    state dict (fp32 CPU tensors).  Kernels go from flax ``(kH, kW, I, O)``
-    to torch ``(O, I, kH, kW)``; ConvTranspose kernels to ``(I, O, kH, kW)``
-    with flax's spatial flip undone (torch_export.py:45-48)."""
+    """JAX UNet/LargeUNet/ClipUnet/ClipUnetPrompt ``params``/``batch_stats``
+    -> the port's strict state dict (fp32 CPU tensors).  Conv kernels go
+    from flax ``(kH, kW, I, O)`` to torch ``(O, I, kH, kW)``, Dense kernels
+    from ``(I, O)`` to ``(O, I)``; ConvTranspose kernels to ``(I, O, kH,
+    kW)`` with flax's spatial flip undone (torch_export.py:45-48)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in [*_leaves(params), *_leaves(batch_stats)]:
         t = torch.from_numpy(np.array(v, dtype=np.float32))
+        if path[0] == "cross_attention_fusion":
+            continue  # below, as one packed module
+        if path[0] == "clip_tower":
+            key, kind = _clip_torch_key(path[1:])
+            sd[CLIP + key] = _to_torch_layout(t, kind).contiguous()
+            continue
         if path[-1] == "kernel":
             t = t.permute(2, 3, 0, 1).flip(2, 3) if "up" in path else t.permute(3, 2, 0, 1)
         sd[_torch_key(path)] = t.contiguous()
+    if "cross_attention_fusion" in params:
+        sd.update(mha_state_dict_from_params(params["cross_attention_fusion"], FUSION))
     for key in [k for k in sd if k.endswith(".running_mean")]:
         # torch counts batches; eval never reads it.
         sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
@@ -109,20 +207,38 @@ def state_dict_from_jax(
 
 
 def jax_from_state_dict(
-    state_dict: Mapping[str, torch.Tensor]
+    state_dict: Mapping[str, torch.Tensor], *, fusion_qk: bool = False
 ) -> Tuple[Tree, Tree]:
-    """The port's UNet/LargeUNet state dict -> JAX ``(params, batch_stats)``
-    as nested numpy dicts (fp32), the tree ``models/unet.py`` declares."""
+    """The port's state dict -> JAX ``(params, batch_stats)`` as nested
+    numpy dicts (fp32), the tree the JAX models declare.  The fusion's
+    q_proj and k_proj are left out (the models call it with one context
+    token, where flax never creates them) unless ``fusion_qk``."""
     trees: Dict[str, Tree] = {"params": {}, "batch_stats": {}}
-    for key, v in state_dict.items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        coll, path = _jax_path(key)
-        t = v.detach().to("cpu", torch.float32)
-        if path[-1] == "kernel":
-            t = t.flip(2, 3).permute(2, 3, 0, 1) if "up" in path else t.permute(2, 3, 1, 0)
+
+    def put(coll, path, t):
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(t.numpy())
+
+    fusion = {}
+    for key, v in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        t = v.detach().to("cpu", torch.float32)
+        if key.startswith(FUSION + "."):
+            fusion[key] = v
+        elif key.startswith(CLIP):
+            path = _clip_jax_path(key[len(CLIP):])
+            kind = "conv" if path[0] == "patch_embedding" else (
+                "dense" if path[-1] == "kernel" else "raw")
+            put("params", ["clip_tower", *path], _to_jax_layout(t, kind))
+        else:
+            coll, path = _jax_path(key)
+            if path[-1] == "kernel":
+                t = t.flip(2, 3).permute(2, 3, 0, 1) if "up" in path else t.permute(2, 3, 1, 0)
+            put(coll, path, t)
+    if fusion:
+        trees["params"]["cross_attention_fusion"] = mha_params_from_torch(
+            fusion, FUSION, with_qk=fusion_qk)
     return trees["params"], trees["batch_stats"]

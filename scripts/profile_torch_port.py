@@ -2,7 +2,7 @@
 """Where the device time of the PyTorch port's serving forward and train
 step goes, on one NVIDIA GPU, and how exact its conv kernel is.
 
-    python3 scripts/profile_torch_port.py [--mode serve|train|both]
+    python3 scripts/profile_torch_port.py [--mode serve|train|prompt|both]
 
 Uses ``chip_smoke.py``'s configuration (the ``large_unet`` preset at full
 width, batch 16 at 512x512, bf16, seeded random weights) and its main-path
@@ -22,7 +22,7 @@ shapes; imports no jax.
    of the same bf16 operands rounded to bf16 — in how many outputs each
    pair differs, and how far the plain fp32 sum lies from fp64.
 
-``train``: the same trace of the production ``Trainer.train_step`` on one
+``train``: the same trace of the large_unet ``Trainer.train_step`` on one
 fixed batch (augmentation on: ``augmentations_per_datapoint=4``, one fixed
 draw; forward, backward, Adam), for the kernel path and the plain path
 (every wrapper replaced by its plain version) from the same weights, with
@@ -35,6 +35,14 @@ geometry" (flip, quarter turn, shifts), "augment: quarter turn" and
 each augmentor stage alone, traced the same way: the flip and quarter-turn
 copies, the three shifts, the colour stage of either backend, and
 ``apply_u8`` whole.
+
+``prompt``: the same trace of the ``prompt`` preset's train step
+(``chip_smoke.clip_config``: ClipUnetPrompt with the ViT-B/32 tower, batch
+32 at 256x256, augmentation 4, one fixed batch of palette masks and one
+fixed draw), kernel path and plain path, with ranges "augment: ..." around
+the prompt maps, the packed geometry, the colour jitter and the blur, and
+"model: ..." around the frozen tower and the prompt encoder.  ``both`` is
+``serve`` and ``train``.
 """
 
 from __future__ import annotations
@@ -74,8 +82,10 @@ OWN_KERNELS = (
     ("ct_dw_kernel", "convtranspose2x2_bwd (dw)"), ("convtranspose2x2_kernel", "convtranspose2x2"),
     ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
     ("gray_sum_kernel", "preprocess (gray sums)"), ("colour_blur_kernel", "preprocess (colour, blur)"),
+    ("attn_kernel", "cross_attention"),
 )
 AUGMENT_RANGES = "augment: "
+MODEL_RANGES = "model: "
 
 
 def group(name: str) -> str:
@@ -115,7 +125,7 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
             us = getattr(e, "self_device_time_total", None)
             ms = (e.self_cuda_time_total if us is None else us) / 1e3 / calls
             # annotation ranges (ours, the optimizer's) span kernels already counted
-            if e.key.startswith(AUGMENT_RANGES) or e.key.startswith("Optimizer."):
+            if e.key.startswith((AUGMENT_RANGES, MODEL_RANGES, "Optimizer.")):
                 ranges[e.key] = ms
             else:
                 groups[group(e.key)] += ms
@@ -133,7 +143,7 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
 def cudnn_conv_ms() -> None:
     g = torch.Generator(device=DEVICE).manual_seed(smoke.SEED)
     total = 0.0
-    for label, shp, cb, co, _, _ in smoke.main_path_shapes(MODEL_ARGS)["conv"]:
+    for label, shp, cb, co, *_ in smoke.main_path_shapes(MODEL_ARGS)["conv"]:
         cin = shp[-1] + cb
         x = torch.randn((*shp[:3], cin), generator=g, device=DEVICE).to(torch.bfloat16)
         w = torch.randn((co, cin, 3, 3), generator=g, device=DEVICE).to(torch.bfloat16)
@@ -146,7 +156,7 @@ def cudnn_conv_ms() -> None:
 
 
 def exactness() -> None:
-    label, shp, _, co, _, _ = smoke.main_path_shapes(MODEL_ARGS)["conv"][1]
+    label, shp, _, co, *_ = smoke.main_path_shapes(MODEL_ARGS)["conv"][1]
     g = torch.Generator(device=DEVICE).manual_seed(smoke.SEED)
     ci = shp[-1]
     x = torch.randn(shp, generator=g, device=DEVICE).to(torch.bfloat16)
@@ -187,10 +197,10 @@ def serve() -> None:
     exactness()
 
 
-def _ranged(label: str, fn):
+def _ranged(label: str, fn, prefix: str = AUGMENT_RANGES):
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(AUGMENT_RANGES + label):
+        with torch.profiler.record_function(prefix + label):
             return fn(*args, **kwargs)
     return wrapped
 
@@ -265,9 +275,53 @@ def train() -> None:
     augment_stages(images, masks)
 
 
+@contextlib.contextmanager
+def prompt_ranges():
+    """Profiler ranges around the prompt step's stages (looked up on their
+    modules and classes at call time)."""
+    from image_segmentation_tpu_torch.engine import train as T
+    from image_segmentation_tpu_torch.models import clip, clip_models
+
+    patches = [(T, "prompt_points", "augment: "), (T, "prompt_maps", "augment: "),
+               (A, "apply_geometric_packed", "augment: "), (A, "apply_color_jitter", "augment: "),
+               (A, "apply_gaussian_blur_5x5", "augment: "),
+               (clip.ClipFeatureExtractor, "forward", MODEL_RANGES + "clip tower"),
+               (clip_models.PromptEncoder, "forward", MODEL_RANGES + "prompt encoder")]
+    with contextlib.ExitStack() as stack:
+        for owner, name, label in patches:
+            fn = getattr(owner, name)
+            if label.endswith(": "):
+                label += name
+            stack.enter_context(mock.patch.object(owner, name, _ranged(label, fn, prefix="")))
+        yield
+
+
+def prompt() -> None:
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = smoke.clip_config("prompt")
+    mods = smoke.kernel_modules()
+    images, raw = smoke._clip_batch(torch, smoke.SEED + 17, palette=True)
+    state = None
+    for label in ("kernels", "plain"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        if state is None:
+            state = {k: v.clone() for k, v in t.model.state_dict().items()}
+        t.model.load_state_dict(state)
+        step = functools.partial(t.train_step, images, raw, smoke.STEP_KEY)
+        with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
+            with prompt_ranges():
+                profile(step, f"prompt train step {label} b{cfg.batch_size}, augmented",
+                        calls=TRAIN_STEPS, no_grad=False)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+        del t, step
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--mode", choices=("serve", "train", "both"), default="both")
+    parser.add_argument("--mode", choices=("serve", "train", "prompt", "both"), default="both")
     mode = parser.parse_args().mode
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -279,6 +333,8 @@ def main() -> int:
         serve()
     if mode in ("train", "both"):
         train()
+    if mode == "prompt":
+        prompt()
     return 0
 
 

@@ -304,3 +304,75 @@ def test_augmentor_on_the_card_equals_the_plain_path(gen):
         pi, pm = aug.apply_u8(params, images, masks)
     assert torch.equal(km, pm)
     assert (ki - pi).abs().max().item() <= 1e-5
+
+
+# ---- the prompt path: the 1-channel heatmap (Cin = 1, wgrad alone) and the
+# cross-attention kernel
+
+def test_conv3x3_stats_and_wgrad_at_one_input_channel(gen):
+    """The prompt encoder's enc1.conv1 reads the 1-channel heatmap."""
+    x = _randn(gen, 2, 19, 37, 1)
+    w = _randn(gen, 32, 1, 3, 3, dtype=torch.float32) * 0.5
+    bias = _randn(gen, 32, dtype=torch.float32)
+    got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, stats=True))
+    _close_all(got, fc.conv3x3_plain(x, w, bias, stats=True))
+    g, y, c1, c2, _ = _bwd_operands(gen, (2, 19, 37, 1), 32, False)
+    got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2))
+    _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2))
+
+
+def test_input_grad_false_block_launches_no_conv1_dgrad(gen):
+    """One training step of the prompt encoder's enc1: 2 forward convs, 2
+    wgrads, 1 dgrad (conv2's), and the same parameter gradients as the
+    plain path."""
+    from image_segmentation_tpu_torch.models.fused import FusedConvBlockDownsample
+
+    torch.manual_seed(0)
+    blk = FusedConvBlockDownsample(1, 32, input_grad=False, device="cuda")
+    x = torch.rand((2, 64, 64, 1), generator=gen, device="cuda").to(torch.bfloat16)
+    wrappers = (fc.conv3x3, fc.conv3x3_dgrad, fc.conv3x3_wgrad)
+    before = [w.launches for w in wrappers]
+    blk(x, train=True).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2, 1, 2]
+    grads = {k: p.grad.clone() for k, p in blk.named_parameters()}
+    blk.zero_grad(set_to_none=True)
+    with contextlib.ExitStack() as stack:
+        for w in fc.WRAPPERS:
+            stack.enter_context(mock.patch.object(fc, w.__name__, getattr(fc, w.__name__ + "_plain")))
+        blk(x, train=True).float().square().mean().backward()
+    for k, p in blk.named_parameters():
+        if k.endswith("weight"):
+            assert (grads[k] - p.grad).norm() <= 5e-2 * p.grad.norm(), k
+
+
+@pytest.mark.parametrize("b,length,d,s,heads", [
+    (2, 100, 64, 8, 4),     # a tail query tile, four heads
+    (1, 33, 512, 77, 1),    # K/V in five chunks of 16 keys
+    (2, 64, 96, 1, 3),      # one key, a head dim off the warp width
+])
+def test_cross_attention(gen, b, length, d, s, heads):
+    from image_segmentation_tpu_torch.ops import cross_attention as ca
+
+    q, k, v = _randn(gen, b, length, d), _randn(gen, b, s, d), _randn(gen, b, s, d)
+    got = _counted(ca.cross_attention, lambda: ca.cross_attention(q, k, v, heads))
+    _close(got, ca.cross_attention_plain(q, k, v, heads))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ca.cross_attention(q.float().requires_grad_().to(torch.bfloat16), k, v, heads)
+
+
+def test_fusion_with_a_multi_token_context_launches_the_kernel_once(gen):
+    from image_segmentation_tpu_torch.ops import cross_attention as ca
+
+    m = ca.CrossAttentionFusion(64, 4, kv_dim=32, device="cuda")
+    spatial = _randn(gen, 2, 8, 8, 64)
+    ctx = _randn(gen, 2, 5, 32)
+    with torch.no_grad():
+        got = _counted(ca.cross_attention, lambda: m(spatial, ctx))
+        before = ca.cross_attention.launches
+        one = m(spatial, ctx[:, 0])  # one token: the exact path, no kernel
+        assert ca.cross_attention.launches == before
+        with mock.patch.object(ca, "cross_attention", ca.cross_attention_plain):
+            ref = m(spatial, ctx)
+    assert one.shape == got.shape == (2, 8, 8, 64)
+    _close(got, ref)

@@ -2,8 +2,9 @@
 image_segmentation_tpu_torch (config, data.*, engine.*, models.*, ops.*,
 utils.*) and chip_smoke.py, runs a tiny CPU forward and an augmented train
 step of the preset model through the wrappers, the augmentor and the
-Trainer, and finds no module of jax, flax or the JAX package
-(image_segmentation_tpu) loaded."""
+Trainer, and an augmented prompt train step of a small clip_unet_prompt
+(the prompt preset's model args, a small CLIP tower), and finds no module
+of jax, flax or the JAX package (image_segmentation_tpu) loaded."""
 
 import os
 import subprocess
@@ -38,6 +39,18 @@ t = train.Trainer(cfg, device="cpu", make_artifacts=False)
 assert t.augmentor is not None
 images, masks = next(pipeline.BatchPipeline(t.train_data, 2, device="cpu").epoch(0))
 assert float(t.train_step(images, masks, step_key=3)) > 0
+pcfg = config.preset("prompt")
+pcfg = config.TrainConfig(
+    model="clip_unet_prompt", loss=pcfg.loss, bf16=False, batch_size=2,
+    model_args=dict(pcfg.model_args, clip_kwargs=dict(hidden=32, layers=1, heads=2, mlp_dim=64,
+                                                      patch=32, proj_dim=32)),
+    data=config.DataConfig(dataset="synthetic", synthetic_length=2, image_size=32,
+                           augmentations_per_datapoint=1))
+pt = train.Trainer(pcfg, device="cpu", make_artifacts=False)
+assert pt.task == "prompt"
+train_pipe, _ = pt._pipelines()
+images, raw = next(train_pipe.epoch(0))
+assert float(pt.train_step(images, raw, step_key=3)) > 0
 jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
                   ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
 assert not jax_mods, jax_mods
