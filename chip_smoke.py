@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
-ClipUnet and fusion paths on one NVIDIA GPU.
+ClipUnet, fusion and autoencoder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,12 @@ width of the port's presets (``config.preset``), random weights from a seed:
 2. kernel phase: every kernel against its plain PyTorch version at each
    shape the large_unet serving forward, train step and augmentor (batch 16
    at 512x512) and the prompt train step (batch 32 at 256x256, the
-   1-channel heatmap included) give it, and the cross-attention kernel at
-   the CLIP bottleneck of that batch; with both times from CUDA events, the
+   1-channel heatmap included) and the autoencoder's train step (batch 32
+   at 256x256: the fused blocks and, under ``w2d_impl="pallas"``, the conv
+   kernels in their unfused forms) give it, the 1x1-conv backward (K11) at
+   the stem and output conv of the large_unet and autoencoder steps, and
+   the cross-attention kernel at the CLIP bottleneck of the prompt step's
+   batch; with both times from CUDA events, the
    least time the card could take (``bound_ms``) and, where one PyTorch
    call computes the same function, that call's time (``library_ms``);
 3. serving phase: a LargeUNet is written with ``export_model``, read back
@@ -47,10 +51,17 @@ width of the port's presets (``config.preset``), random weights from a seed:
 8. fusion phase: ``CrossAttentionFusion(512, 1)`` on the bottleneck map
    with an 8-token context launches the cross-attention kernel once and
    agrees with the plain path (no model passes it more than one token);
-9. prints one JSON line of per-kernel results (``launches`` counts the runs
-   of 3-8; the wgrad kernel has a line for its launches beside a dgrad and
-   one for its launches alone), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+9. autoencoder phase: the ``autoencoder`` preset (MSE reconstruction, no
+   augmentation) trains one epoch at batch 32, 256x256 and evaluates, with
+   exact launch counts, 3 kernel-path steps held to the plain path as in 4,
+   and its step time; then the same with ``w2d_impl="pallas"`` (each conv
+   one kernel launch in its unfused form; BatchNorm, the pools and the
+   up-convs in PyTorch);
+10. prints one JSON line of per-kernel results (``launches`` counts the
+   runs of 3-9; the wgrad kernel has a line for its launches beside a dgrad
+   and one for its launches alone, and each conv kernel a line for its
+   unfused form, which the ``"pallas"`` run launches), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device the script exits at once.
@@ -86,7 +97,9 @@ STEP_KEY = 1
 # (the shifts move whole words) must be equal.  The colour stage: fp32
 # within COLOUR_ATOL (its only sum, the per-image gray mean, is taken in
 # another order; the rest is the same separately rounded fp32 ops), bf16
-# within one bf16 step of the plain value.
+# within one bf16 step of the larger of the two values plus COLOUR_ATOL:
+# the two fp32 values it rounds may differ by COLOUR_ATOL, which is many
+# bf16 steps at the outputs near 0 (down to 1e-11) that the blur gives.
 KERNEL_RTOL = 2e-2
 SUM_RTOL = 1e-3
 COLOUR_ATOL = 1e-5
@@ -130,7 +143,10 @@ PREPROCESS_OPS_PER_PIXEL = 180
 # One line of the kernels JSON per entry: entry -> (wrapper, source, the TPU
 # kernel it replaces).  The wgrad kernel has two: launched beside a dgrad
 # (the merged backward's wgrad half) and alone, for a block input that takes
-# no gradient (the prompt heatmap; ``_folded_wgrad_pallas``).
+# no gradient (the prompt heatmap; ``_folded_wgrad_pallas``).  Each conv
+# kernel has one more ("... unfused"): its plain form, with no affine,
+# statistics or cotangent transform, which a block of ``w2d_impl="pallas"``
+# launches once per conv (``make_folded_conv3x3``).
 KERNEL_INFO = {
     "conv3x3": ("conv3x3", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "image_segmentation_tpu/ops/pallas_conv.py:568"),
@@ -160,14 +176,24 @@ KERNEL_INFO = {
                    "image_segmentation_tpu/ops/pallas_preprocess.py:147"),
     "cross_attention": ("cross_attention", "image_segmentation_tpu_torch/csrc/cross_attention.cu",
                         "image_segmentation_tpu/ops/cross_attention.py:82"),
+    "conv1x1_bwd": ("conv1x1_bwd", "image_segmentation_tpu_torch/csrc/conv1x1_bwd.cu",
+                    "image_segmentation_tpu/ops/pallas_conv.py:1343"),
+    "conv3x3 unfused": ("conv3x3", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
+                        "image_segmentation_tpu/ops/pallas_conv.py:1932"),
+    "conv3x3_dgrad unfused": ("conv3x3_dgrad", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
+                              "image_segmentation_tpu/ops/pallas_conv.py:1932"),
+    "conv3x3_wgrad unfused": ("conv3x3_wgrad", "image_segmentation_tpu_torch/csrc/conv3x3_bwd.cu",
+                              "image_segmentation_tpu/ops/pallas_conv.py:1932"),
 }
 WRAPPER_NAMES = tuple(dict.fromkeys(w for w, _, _ in KERNEL_INFO.values()))
 # launches of one serving forward, one train step, one eval batch and one
-# augmentor call with backend="pallas" of the large_unet preset
+# augmentor call with backend="pallas" of the large_unet preset; the stem's
+# and the output conv's backward are K11 (conv1x1_bwd) in every train step
 PER_FORWARD = {"conv3x3": 8, "maxpool2x2_affine_relu": 2, "convtranspose2x2": 2}
 PER_STEP = {"conv3x3": 8, "conv3x3_dgrad": 8, "conv3x3_wgrad": 8, "bn_relu_bwd_reduce": 2,
             "maxpool2x2_affine_relu": 2, "maxpool2x2_affine_relu_bwd": 2,
-            "convtranspose2x2": 2, "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1}
+            "convtranspose2x2": 2, "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1,
+            "conv1x1_bwd": 2}
 PER_AUGMENT = {"row_shift": 2, "col_shift": 1, "preprocess": 1}
 # the prompt preset (batch 32 at 256x256): the trunk's enc1, enc2, dec3 and
 # dec4 and the prompt encoder's enc1 and enc2 on the kernels; enc1 of the
@@ -181,13 +207,30 @@ PER_PROMPT_FORWARD = {"conv3x3": 12, "maxpool2x2_affine_relu": 4, "convtranspose
 PER_PROMPT_STEP = {"conv3x3": 12, "conv3x3_dgrad": 11, "conv3x3_wgrad": 12,
                    "bn_relu_bwd_reduce": 2, "maxpool2x2_affine_relu": 4,
                    "maxpool2x2_affine_relu_bwd": 4, "convtranspose2x2": 2,
-                   "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1}
+                   "convtranspose2x2_bwd": 2, "row_shift": 2, "col_shift": 1,
+                   "conv1x1_bwd": 2}
 # the cross-attention kernel on the CLIP bottleneck of a 256x256 batch of 32
 # (a 32x32 map, 512 wide) with a multi-token context: no model of the repo
 # passes one (every model fuses the pooled embedding, one token, which takes
 # the exact one-key path), so the fusion phase drives it on its own at
 # ClipUnet's one head with FUSION_TOKENS tokens
 FUSION_TOKENS, FUSION_HEADS = 8, 1
+# the autoencoder preset (batch 32 at 256x256, no augmentation, as
+# bench_extra.py measures it on the JAX side): enc1, enc2, dec1, dec2 and
+# dec3 on the kernel blocks (the ConvTranspose kernel at dec1 too, whose
+# input is 32 wide: JAX gates its own kernel by width there, the port runs
+# it at every width), enc3 and the bottleneck on cuDNN, K11 at the stem and
+# the output; under w2d_impl="pallas" the same five blocks launch one
+# unfused conv kernel per conv (and its dgrad and wgrad), with BatchNorm,
+# the pools and the up-convs in PyTorch
+AE_BATCH, AE_SIZE = 32, 256
+AE_LENGTH = 64  # images per split: 2 train steps and 2 eval batches an epoch
+PER_AE_FORWARD = {"conv3x3": 10, "maxpool2x2_affine_relu": 2, "convtranspose2x2": 3}
+PER_AE_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "bn_relu_bwd_reduce": 3,
+               "maxpool2x2_affine_relu": 2, "maxpool2x2_affine_relu_bwd": 2,
+               "convtranspose2x2": 3, "convtranspose2x2_bwd": 3, "conv1x1_bwd": 2}
+PER_AE_UNFUSED_FORWARD = {"conv3x3": 10}
+PER_AE_UNFUSED_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "conv1x1_bwd": 2}
 
 
 def train_config():
@@ -227,9 +270,10 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
 
 def kernel_modules():
     """The port's modules of kernel wrappers, each with ``WRAPPERS``."""
-    from image_segmentation_tpu_torch.ops import cross_attention, fused_conv, preprocess, roll
+    from image_segmentation_tpu_torch.ops import (
+        conv1x1, cross_attention, fused_conv, preprocess, roll)
 
-    return (fused_conv, roll, preprocess, cross_attention)
+    return (fused_conv, conv1x1, roll, preprocess, cross_attention)
 
 
 def counts(mods) -> dict:
@@ -246,11 +290,16 @@ def expected(per: dict, times: int = 1) -> dict:
     return {name: per.get(name, 0) * times for name in WRAPPER_NAMES}
 
 
-def entry_launches(launches: dict) -> dict:
-    """Wrapper counts -> KERNEL_INFO entries: every block backward pairs a
-    wgrad with a dgrad except conv1's of an input_grad=False block, so the
-    wgrads without a dgrad are the wgrad-alone launches."""
-    out = {entry: launches[w] for entry, (w, _, _) in KERNEL_INFO.items()}
+def entry_launches(launches: dict, unfused: dict) -> dict:
+    """Wrapper counts -> KERNEL_INFO entries.  ``unfused``: the counts of
+    the ``w2d_impl="pallas"`` run, whose conv kernels all run in their
+    unfused forms (and no other conv form runs there); ``launches``: those
+    of the other runs, where every block backward pairs a wgrad with a dgrad
+    except conv1's of an input_grad=False block, so the wgrads without a
+    dgrad are the wgrad-alone launches."""
+    out = {entry: launches[w] + unfused[w] for entry, (w, _, _) in KERNEL_INFO.items()}
+    for w in ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad"):
+        out[w], out[w + " unfused"] = launches[w], unfused[w]
     alone = launches["conv3x3_wgrad"] - launches["conv3x3_dgrad"]
     out["conv3x3_wgrad alone"] = alone
     out["conv3x3_wgrad"] -= alone
@@ -274,7 +323,9 @@ def plain_path(mods):
 class Conv(NamedTuple):
     """One conv of a kernel block: its input (B, H, W, Ca), the skip's Cb,
     Co, whether bn1's affine + ReLU is applied on load (conv2), whether it
-    is a decoder's, and whether its wgrad runs alone (input_grad=False)."""
+    is a decoder's, whether its wgrad runs alone (input_grad=False), and
+    whether it is a conv of the unfused family (``w2d_impl="pallas"``: no
+    affine, statistics or cotangent transform)."""
 
     label: str
     shape: tuple
@@ -283,13 +334,15 @@ class Conv(NamedTuple):
     pre: bool
     dec: bool
     alone: bool = False
+    unfused: bool = False
 
 
 def level01_shapes(b: int, size: int, stem: int, e1: int, e2: int, decs=("dec4", "dec5"),
                    encs=("enc1", "enc2")) -> dict:
     """The level 0-1 kernel blocks of a U-Net trunk at batch b: convs, pools
-    (label, (B, H, W, C)) and ConvTransposes (label, (B, Hin, Win, Cin),
-    Co)."""
+    (label, (B, H, W, C)), ConvTransposes (label, (B, Hin, Win, Cin), Co)
+    and the 1x1 convs of the stem and the output, K11 (label, (B, H, W, Ci),
+    Co, whether dx is asked for)."""
     s0, s1 = size, size // 2
     (n1, n2), (d1, d0) = encs, decs
     conv = [
@@ -304,7 +357,13 @@ def level01_shapes(b: int, size: int, stem: int, e1: int, e2: int, decs=("dec4",
     ]
     pool = [(f"{n1}.pool", (b, s0, s0, e1)), (f"{n2}.pool", (b, s1, s1, e2))]
     ct = [(f"{d1}.up", (b, s1 // 2, s1 // 2, e2), e1), (f"{d0}.up", (b, s0 // 2, s0 // 2, e1), stem)]
-    return {"conv": conv, "pool": pool, "ct": ct}
+    return {"conv": conv, "pool": pool, "ct": ct, "1x1": stem_out_shapes(b, size, stem)}
+
+
+def stem_out_shapes(b: int, size: int, stem: int) -> list:
+    """K11 at the stem (3 -> stem, the image takes no gradient) and the
+    output conv (stem -> 3)."""
+    return [("stem", (b, size, size, 3), stem, False), ("out", (b, size, size, stem), 3, True)]
 
 
 def main_path_shapes(model_args: dict) -> dict:
@@ -314,6 +373,39 @@ def main_path_shapes(model_args: dict) -> dict:
     stem = model_args.get("stem_features", 32)
     e1, e2 = (model_args.get("encoder_features") or LargeUNet.default_encoder_features)[:2]
     return level01_shapes(BATCH, SIZE, stem, e1, e2)
+
+
+def ae_path_shapes(unfused: bool = False) -> dict:
+    """The kernel blocks of the autoencoder preset at batch 32, 256x256:
+    enc1 (32 -> 64) and enc2 (64 -> 64) with their pools, dec1 (64 -> 64 at
+    64x64), dec2 (64 -> 64 at 128x128) and dec3 (32 -> 32 at 256x256) after
+    their ConvTransposes (64 -> 64, 64 -> 64, 64 -> 32), no skips; K11 at
+    the stem and the output.  With ``unfused``, the same convs in the
+    unfused forms of the ``w2d_impl="pallas"`` blocks, alone."""
+    b, s = AE_BATCH, AE_SIZE
+    blocks = [("enc1", s, 32, 64, False), ("enc2", s // 2, 64, 64, False),
+              ("dec1", s // 4, 64, 64, True), ("dec2", s // 2, 64, 64, True),
+              ("dec3", s, 32, 32, True)]
+    conv = []
+    for name, side, cin, co, dec in blocks:
+        conv += [Conv(f"{name}.conv1", (b, side, side, cin), 0, co, False, dec, unfused=unfused),
+                 Conv(f"{name}.conv2", (b, side, side, co), 0, co, not unfused, dec,
+                      unfused=unfused)]
+    if unfused:
+        return {"conv": conv, "pool": [], "ct": [], "1x1": []}
+    pool = [("enc1.pool", (b, s, s, 64)), ("enc2.pool", (b, s // 2, s // 2, 64))]
+    ct = [(f"{name}.up", (b, side // 2, side // 2, 64), co)
+          for name, side, _, co, dec in blocks if dec]
+    return {"conv": conv, "pool": pool, "ct": ct, "1x1": stem_out_shapes(b, s, 32)}
+
+
+def path_shapes() -> list:
+    """(shapes, mode) of every main path, ``mode`` as in :func:`kernel_cases`:
+    the large_unet step summed into the JSON line; the prompt step and the
+    autoencoder's kernel blocks checked; the autoencoder's unfused convs
+    summed into the "... unfused" lines."""
+    return [(main_path_shapes(train_config().model_args), "sum"), (prompt_path_shapes(), None),
+            (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum")]
 
 
 def prompt_path_shapes() -> dict:
@@ -330,6 +422,7 @@ def prompt_path_shapes() -> dict:
         Conv("prompt enc2.conv2", (b, s1, s1, 64), 0, 64, True, False),
     ]
     shapes["pool"] += [("prompt enc1.pool", (b, s0, s0, 32)), ("prompt enc2.pool", (b, s1, s1, 64))]
+    shapes["1x1"] = []  # K11's shapes here are the autoencoder's (stem 32 at batch 32, 256x256)
     return shapes
 
 
@@ -351,20 +444,22 @@ class Case(NamedTuple):
     tol: str = "default"
 
 
-def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
+def kernel_cases(torch, mods, groups: list) -> list:
     """(KERNEL_INFO entry, label, timed, make) for every launch of the
     serving forward, the large_unet train step and the augmentor, of the
-    prompt train step and of the fusion phase, and for edge checks.
+    prompt and autoencoder train steps (``groups``: (shapes, mode), see
+    :func:`path_shapes`) and of the fusion phase, and for edge checks.
     ``timed``: "sum" (timed, and summed into the entry's line of the JSON:
     the large_unet step's launches, the wgrad alone of the prompt step, the
-    fusion phase's attention), "line" (timed and printed on its own line)
-    or None (checked only).  ``make()`` draws the inputs and returns a
-    :class:`Case`, so only one case's tensors live at a time."""
+    unfused convs of the autoencoder step, the fusion phase's attention),
+    "line" (timed and printed on its own line) or None (checked only).
+    ``make()`` draws the inputs and returns a :class:`Case`, so only one
+    case's tensors live at a time."""
     import torch.nn.functional as F
 
     from image_segmentation_tpu_torch.ops.augment import DataAugmentor, _shear3_shifts
 
-    fc, roll, pp, xattn = mods
+    fc, c11, roll, pp, xattn = mods
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
     bf16 = torch.bfloat16
 
@@ -381,8 +476,10 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
         return t.permute(0, 3, 1, 2)
 
     cases = []
-    convs = [(c, "sum") for c in shapes["conv"]] + [(c, None) for c in prompt_shapes["conv"]]
-    for (label, shp, cb, co, pre, dec, alone), mode in convs:
+    def of_paths(kind):
+        return [(item, mode) for shapes, mode in groups for item in shapes[kind]]
+
+    for (label, shp, cb, co, pre, dec, alone, unfused), mode in of_paths("conv"):
         ca = shp[-1]
         cin = ca + cb
         flops = 2.0 * shp[0] * shp[1] * shp[2] * cin * co * 9
@@ -408,8 +505,12 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
             aff = dict(a=vec(co, 0.5, 1.5), b=vec(co, -0.5, 0.5)) if affine else {}
             return gt, y, w, small(co), small(co), aff
 
-        def dgrad(shp=shp, ca=ca, cb=cb, cin=cin, pre=pre, operands=bwd_operands, flops=flops):
+        def dgrad(shp=shp, ca=ca, cb=cb, cin=cin, pre=pre, operands=bwd_operands, flops=flops,
+                  raw=unfused):
             gt, y, w, c1, c2, aff = operands()
+            if raw:  # an unfused conv: the cotangent as it comes, y unread
+                y = c1 = c2 = None
+                aff = {}
             kw = dict(aff)
             if pre:  # conv2: bn1's ReLU adjoint on the raw conv1 output
                 kw.update(x_post=randn(*shp), a_post=vec(ca, 0.5, 1.5), b_post=vec(ca, -0.5, 0.5))
@@ -423,8 +524,12 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
                         flops, BF16_FLOP_PER_S,
                         lambda: torch.nn.grad.conv2d_input(size, wl, gl, padding=1))
 
-        def wgrad(shp=shp, ca=ca, cb=cb, pre=pre, operands=bwd_operands, flops=flops):
+        def wgrad(shp=shp, ca=ca, cb=cb, pre=pre, operands=bwd_operands, flops=flops,
+                  raw=unfused):
             gt, y, w, c1, c2, aff = operands()
+            if raw:
+                y = c1 = c2 = None
+                aff = {}
             kw = dict(aff, x_b=randn(*shp[:3], cb) if cb else None)
             if pre:
                 kw.update(a_pre=vec(ca, 0.5, 1.5), b_pre=vec(ca, -0.5, 0.5))
@@ -436,6 +541,11 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
                         [gt, y, x, c1, c2, *kw.values()], flops, BF16_FLOP_PER_S,
                         lambda: torch.nn.grad.conv2d_weight(xl, w.shape, gl, padding=1))
 
+        if unfused:  # make_folded_conv3x3: forward, dx, dw and db (pre is False here)
+            cases += [("conv3x3 unfused", label, mode, conv_fwd),
+                      ("conv3x3_dgrad unfused", label, mode, dgrad),
+                      ("conv3x3_wgrad unfused", label, mode, wgrad)]
+            continue
         cases.append(("conv3x3", label, mode, conv_fwd))
         cases.append(("conv3x3", label + " stats", "line" if alone else mode,
                       lambda f=conv_fwd: f(stats=True)))
@@ -451,8 +561,7 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
                             (lambda: fc.bn_relu_bwd_reduce_plain(gt, y, a, b)),
                             [gt, y, a, b], 6.0 * y.numel())  # mul, add, compare, select, mul, 2 adds
             cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", mode, bnred))
-    pools = [(p, "sum") for p in shapes["pool"]] + [(p, None) for p in prompt_shapes["pool"]]
-    for (label, shp), mode in pools:
+    for (label, shp), mode in of_paths("pool"):
         def pool(shp=shp, bwd=False):
             # few distinct values, so windows hold ties
             z = (torch.randint(-6, 7, shp, generator=g, device=DEVICE) * 0.25).to(bf16)
@@ -467,8 +576,7 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
                         [z, a, b, dp], 8.0 * z.numel())  # affine, relu, routing, P*a, 2 sums
         cases.append(("maxpool2x2_affine_relu", label, mode, pool))
         cases.append(("maxpool2x2_affine_relu_bwd", label, mode, lambda f=pool: f(bwd=True)))
-    cts = [(c, "sum") for c in shapes["ct"]] + [(c, None) for c in prompt_shapes["ct"]]
-    for (label, shp, co), mode in cts:
+    for (label, shp, co), mode in of_paths("ct"):
         def ct(shp=shp, co=co, bwd=False):
             x = randn(*shp)
             w = torch.randn((shp[-1], co, 2, 2), generator=g, device=DEVICE) / (4 * shp[-1]) ** 0.5
@@ -492,6 +600,28 @@ def kernel_cases(torch, mods, shapes: dict, prompt_shapes: dict) -> list:
                         lambda: torch.autograd.grad(yr, (xr, wr), gl, retain_graph=True))
         cases.append(("convtranspose2x2", label, mode, ct))
         cases.append(("convtranspose2x2_bwd", label, mode, lambda f=ct: f(bwd=True)))
+
+    # K11 at the stem (no dx: the image takes no gradient) and the output
+    # conv; the library's backward: autograd through the bf16 1x1 matmul
+    for (label, shp, co, input_grad), mode in of_paths("1x1"):
+        def one(shp=shp, co=co, input_grad=input_grad):
+            ci, npix = shp[-1], shp[0] * shp[1] * shp[2]
+            x, gt = randn(*shp), randn(*shp[:3], co)
+            w = torch.randn((co, ci, 1, 1), generator=g, device=DEVICE) / ci ** 0.5
+            xr = x.detach().requires_grad_(input_grad)
+            wr = w[:, :, 0, 0].to(bf16).requires_grad_()
+            br = torch.zeros(co, dtype=bf16, device=DEVICE, requires_grad=True)
+            yr = F.linear(xr, wr, br)
+            wrt = (xr, wr, br) if input_grad else (wr, br)
+
+            def run(fn):
+                return tuple(t for t in fn(x, gt, w, input_grad=input_grad) if t is not None)
+            return Case((lambda: run(c11.conv1x1_bwd)), (lambda: run(c11.conv1x1_bwd_plain)),
+                        [x, gt, w], npix * co * (2.0 * ci * (1 + input_grad) + 1), BF16_FLOP_PER_S,
+                        lambda: torch.autograd.grad(yr, wrt, gt, retain_graph=True))
+        batch = f"B{shp[0]} {shp[1]}x{shp[2]}"
+        cases.append(("conv1x1_bwd", f"{label} {batch} {shp[-1]} -> {co}",
+                      "sum" if mode == "sum" else "line", one))
 
     # the augmentor: the shear shifts of 16 drawn angles (rows twice, columns
     # once per step), |s| up to 511 (not on the main path), the colour stage
@@ -575,9 +705,11 @@ def compare(torch, label: str, got, ref, tol: str = "default") -> float:
             if tol == "colour":
                 ok, what = err <= COLOUR_ATOL, f"atol {COLOUR_ATOL}"
             elif tol == "bf16_step":
-                # one bf16 step at each plain value: 2^(exponent - 7)
-                step = torch.exp2(torch.floor(torch.log2(b.float().abs().clamp(min=2.0**-126))) - 7)
-                ok, what = bool((diff <= step).all()), "one bf16 step per element"
+                # one bf16 step, 2^(exponent - 7), at the larger of the two
+                # values, plus the fp32 values' own limit
+                mag = torch.maximum(a.float().abs(), b.float().abs()).clamp(min=2.0**-126)
+                step = torch.exp2(torch.floor(torch.log2(mag)) - 7) + COLOUR_ATOL
+                ok, what = bool((diff <= step).all()), f"one bf16 step + {COLOUR_ATOL} per element"
             else:
                 rtol = KERNEL_RTOL if a.dtype == torch.bfloat16 else SUM_RTOL
                 scale = b.float().abs().max().item()
@@ -598,16 +730,17 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in flat if t is not None)
 
 
-def kernel_phase(torch, mods, shapes: dict, prompt_shapes: dict) -> dict:
-    """Each kernel vs its plain version at every main-path shape; per
-    KERNEL_INFO entry, summed over its "sum" cases (the launches of one
-    large_unet serving forward, train step and augmentor call; the prompt
-    step's wgrad alone; one fusion call): the ms of both, the bound and the
-    library call's ms."""
+def kernel_phase(torch, mods, groups: list) -> dict:
+    """Each kernel vs its plain version at every main-path shape (``groups``
+    as :func:`path_shapes` gives them); per KERNEL_INFO entry, summed over
+    its "sum" cases (the launches of one large_unet serving forward, train
+    step and augmentor call; the prompt step's wgrad alone; the autoencoder
+    step's unfused convs; one fusion call): the ms of both, the bound and
+    the library call's ms."""
     results = {entry: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                        "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
                for entry in KERNEL_INFO}
-    for entry, label, timed, make in kernel_cases(torch, mods, shapes, prompt_shapes):
+    for entry, label, timed, make in kernel_cases(torch, mods, groups):
         case = make()
         got = case.kern()
         r = results[entry]
@@ -816,7 +949,8 @@ def _train_epoch(torch, mods, trainer, per_step: dict, per_forward: dict, what: 
     row = hist[0]
     if not all(math.isfinite(v) for v in row.values()):
         raise AssertionError(f"{what} train(1) + evaluate: not finite: {row}")
-    print(f"{what} path: {n_train} augmented train steps + {n_val} eval batches, launches "
+    print(f"{what} path: {n_train} train steps (augmentation "
+          f"{cfg.data.augmentations_per_datapoint}) + {n_val} eval batches, launches "
           f"{launches}; history {row}; peak memory {torch.cuda.max_memory_allocated()!r} B",
           flush=True)
     return launches
@@ -1062,6 +1196,63 @@ def fusion_phase(torch, mods, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# autoencoder phase
+# --------------------------------------------------------------------------
+
+def ae_config(w2d_impl: Optional[str] = None):
+    """The port's ``autoencoder`` preset cut to a smoke run: batch 32,
+    synthetic 256x256 data of AE_LENGTH images per split, one epoch, no
+    augmentation (the preset's), as ``bench_extra.py:176-204`` measures it on
+    the JAX side; ``w2d_impl`` replaces the preset's."""
+    from image_segmentation_tpu_torch.config import preset
+
+    cfg = preset("autoencoder")
+    args = dict(cfg.model_args, **({} if w2d_impl is None else {"w2d_impl": w2d_impl}))
+    data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=AE_SIZE,
+                               synthetic_length=AE_LENGTH)
+    return dataclasses.replace(cfg, batch_size=AE_BATCH, num_epochs=1, seed=SEED, data=data,
+                               model_args=args)
+
+
+def autoencoder_phase(torch, mods, card: str) -> tuple:
+    """The autoencoder preset's train step end to end (reconstruction: MSE
+    on the normalised images, sigmoid output), then the same with
+    ``w2d_impl="pallas"``; returns the launch counts of the two runs."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+
+    rng = np.random.default_rng(SEED + 23)
+    shape = (AE_BATCH, AE_SIZE, AE_SIZE)
+    images = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(DEVICE)
+    masks = torch.zeros(shape, dtype=torch.uint8, device=DEVICE)  # read by no reconstruction step
+    runs = []
+    for impl, per_step, per_forward in ((None, PER_AE_STEP, PER_AE_FORWARD),
+                                        ("pallas", PER_AE_UNFUSED_STEP, PER_AE_UNFUSED_FORWARD)):
+        cfg = ae_config(impl)
+        what = "autoencoder" + ("" if impl is None else f' w2d_impl="{impl}"')
+        trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        print(f"trainer: {what}, {trainer.num_params} params, batch {cfg.batch_size}, "
+              f"{cfg.data.image_size}x{cfg.data.image_size}, bf16={cfg.bf16}, task "
+              f"{trainer.task}, model args {cfg.model_args}", flush=True)
+        runs.append(_train_epoch(torch, mods, trainer, per_step, per_forward, what))
+        with torch.no_grad():
+            out = trainer.model(normalize_image(images), train=False)
+        if (tuple(out.shape) != (*shape, 3) or out.dtype != torch.float32
+                or not bool(((out >= 0) & (out <= 1)).all())):
+            raise AssertionError(f"{what}: reconstruction {tuple(out.shape)} {out.dtype} "
+                                 f"in [{out.min().item()!r}, {out.max().item()!r}]")
+        state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        _step_launches(torch, mods, trainer, images, masks, per_step, what)
+        del trainer, out
+        times = _kernel_vs_plain(torch, mods, cfg, state, images, masks)
+        _print_times(f"Autoencoder@{AE_SIZE}" + ("" if impl is None else f" {impl}"), AE_BATCH,
+                     times, card)
+    return tuple(runs)
+
+
+# --------------------------------------------------------------------------
 # augmentor phase
 # --------------------------------------------------------------------------
 
@@ -1140,12 +1331,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    results = kernel_phase(torch, mods, main_path_shapes(train_config().model_args),
-                           prompt_path_shapes())
+    results = kernel_phase(torch, mods, path_shapes())
     runs = [serving_phase(torch, mods, card), training_phase(torch, mods, card),
             augmentor_phase(torch, mods, card), prompt_phase(torch, mods, card),
             clip_unet_phase(torch, mods, card), fusion_phase(torch, mods, card)]
-    launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES})
+    ae, ae_unfused = autoencoder_phase(torch, mods, card)
+    launched = entry_launches({w: sum(run[w] for run in runs + [ae]) for w in WRAPPER_NAMES},
+                              ae_unfused)
 
     kernels = []
     for entry, (name, source, replaces) in KERNEL_INFO.items():

@@ -8,8 +8,11 @@
 // (:568; kernel body _conv_kernel_body :423, slab _build_aug :275) with
 // `pre`, `lanes_b` and `stats` (:557-565), and the dx half of
 // _folded_bwd_fused_pallas (:1139; body :938-1055) with `gfold`
-// (_gfold_transform :249), `post` and `split_out`.  The TPU kernels work on
-// a width-folded tensor; at fold 1 that is this plain NHWC conv.  The dx of
+// (_gfold_transform :249), `post` and `split_out`; in their plain forms
+// (no affine, no statistics, the raw cotangent) they are the forward and
+// the dx of make_folded_conv3x3 (:1932, :1978 and :2005), the conv of a
+// block with no BatchNorm fused in.  The TPU kernels work on a
+// width-folded tensor; at fold 1 that is this plain NHWC conv.  The dx of
 // a conv is a conv of the cotangent with the flipped, transposed kernel,
 // which the wrapper passes in the forward's weight layout.
 //
@@ -57,6 +60,7 @@ enum Load {
   kLoadX = 0,         // [x | xb], or round(relu(x*a + b)) with `ab`
   kLoadGeStats = 1,   // round(g + c1 + 2*y*c2)
   kLoadGeAffine = 2,  // round(g*a*[y*a + b > 0] + c1 + 2*y*c2)
+  kLoadG = 3,         // g itself: a conv with no BatchNorm after it
 };
 
 // What the epilogue writes.
@@ -98,6 +102,8 @@ __device__ __forceinline__ float load_operand(const Args& p, size_t pix, int gc)
       v = round_bf16(fmaxf(t, 0.f));
     }
     return v;
+  } else if constexpr (LOAD == kLoadG) {
+    return __bfloat162float(p.x[pix * p.Ca + gc]);
   } else {
     const int C = p.Ca;
     const float g = __bfloat162float(p.x[pix * C + gc]);
@@ -304,9 +310,10 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
 }
 
 // dx = conv(ge, w) of the transformed cotangent ge (from g, y and the
-// (2|4, Cg) rows `gf`; `affine` selects the 4-row form).  With `xpost`:
-// the post adjoint, `sums` (2, Co) = [sum gu*xpost, sum gu]; with `out_b`:
-// dx split at channel Na.
+// (2|4, Cg) rows `gf`; `affine` selects the 4-row form), or without `gf`
+// of g itself (y unread; neither `xpost` nor `out_b`).  With `xpost`: the
+// post adjoint, `sums` (2, Co) = [sum gu*xpost, sum gu]; with `out_b`: dx
+// split at channel Na.
 extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf,
                                     const void* w, const void* xpost, const void* abpost,
                                     void* out, void* out_b, void* sums, void* scratch, int B,
@@ -326,6 +333,10 @@ extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf
   p.H = H, p.W = W, p.Ca = Cg, p.Cb = 0, p.Co = Co, p.Na = Na;
   p.co_tiles = (Co + TCO - 1) / TCO;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gf == nullptr) {
+    if (xpost != nullptr || out_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<kLoadG, kEpiStore>(p, B, s);
+  }
   int err;
   if (xpost != nullptr) {
     err = affine ? launch<kLoadGeAffine, kEpiPost>(p, B, s) : launch<kLoadGeStats, kEpiPost>(p, B, s);

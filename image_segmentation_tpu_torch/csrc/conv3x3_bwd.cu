@@ -2,13 +2,16 @@
 // block, NHWC bf16 operands, fp32 sums:
 //   dw[tap][ci][co] = sum over pixels p of act(x)[p + tap - 1][ci] * ge[p][co]
 //   db[co]          = sum over pixels of ge[p][co]
-// with ge the transformed cotangent (as conv3x3.cu's dgrad reads it) and
+// with ge the transformed cotangent (as conv3x3.cu's dgrad reads it), or
+// the cotangent itself for a conv with no BatchNorm after it, and
 // act(x) the conv's operand as its forward read it: [x | xb], or
 // round(relu(x*a + b)); both are zero outside the image.
 //
 // Replaces: the wgrad half of image_segmentation_tpu/ops/pallas_conv.py
 // _folded_bwd_fused_pallas (:1139; body _bwd_fused_kernel_body :1057-1109,
-// `gfold` via _gfold_transform :249, `ab_pre`, `xwb`).  The TPU kernel
+// `gfold` via _gfold_transform :249, `ab_pre`, `xwb`), and
+// _folded_wgrad_pallas (:822), the wgrad alone: of a block input that takes
+// no gradient, and of make_folded_conv3x3 (:1932) with no transform.  The TPU kernel
 // merges dx and wgrad to read the cotangent once from VMEM; here they are
 // two kernels (conv3x3.cu computes dx).
 //
@@ -50,7 +53,7 @@ constexpr int THREADS = 256;     // 16 input-channel pairs x 16 output-channel p
 struct Args {
   const __nv_bfloat16* g;   // (B,H,W,Co) cotangent
   const __nv_bfloat16* y;   // (B,H,W,Co) the conv's output
-  const float* gf;          // (2|4, Co) transform rows
+  const float* gf;          // (2|4, Co) transform rows, or null: ge = g
   const __nv_bfloat16* x;   // (B,H,W,Ca)
   const __nv_bfloat16* xb;  // (B,H,W,Cb) or null
   const float* ab;          // (2, Ca) pre-affine or null
@@ -64,14 +67,22 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <bool AFFINE>
+// How the cotangent is read.
+enum Ge {
+  kGePlain = 0,   // g
+  kGeStats = 1,   // round(g + c1 + 2*y*c2)
+  kGeAffine = 2,  // round(g*a*[y*a + b > 0] + c1 + 2*y*c2)
+};
+
+template <int GE>
 __device__ __forceinline__ float load_ge(const Args& p, size_t pix, int co) {
   const int C = p.Co;
   const float g = __bfloat162float(p.g[pix * C + co]);
+  if constexpr (GE == kGePlain) return g;
   const float y = __bfloat162float(p.y[pix * C + co]);
   float gv = g;
   int row = 0;
-  if constexpr (AFFINE) {
+  if constexpr (GE == kGeAffine) {
     const float a = p.gf[co], b = p.gf[C + co];
     gv = __fadd_rn(__fmul_rn(y, a), b) > 0.f ? __fmul_rn(g, a) : 0.f;
     row = 2;
@@ -90,7 +101,7 @@ __device__ __forceinline__ float load_act(const Args& p, size_t pix, int ci) {
   return v;
 }
 
-template <bool AFFINE>
+template <int GE>
 __global__ void __launch_bounds__(THREADS) wgrad_kernel(const Args p) {
   __shared__ float s_x[TCI * XS];
   __shared__ __align__(16) float s_g[TH * TW][TCO];
@@ -135,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) wgrad_kernel(const Args p) {
       const int gy = y0 + q / TW, gx = x0 + q % TW, gc = co0 + c;
       float v = 0.f;  // no cotangent outside the image
       if (gy < p.H && gx < p.W && gc < p.Co) {
-        v = load_ge<AFFINE>(p, (static_cast<size_t>(n) * p.H + gy) * p.W + gx, gc);
+        v = load_ge<GE>(p, (static_cast<size_t>(n) * p.H + gy) * p.W + gx, gc);
       }
       s_g[q][c] = v;
     }
@@ -224,7 +235,8 @@ extern "C" long long imgseg_conv3x3_wgrad_scratch(int B, int H, int W, int Cin, 
 }
 
 // dw (9, Ca+Cb, Co) and db (Co), fp32.  g, y (B,H,W,Co); gf (2|4, Co) rows
-// of the cotangent transform, `affine` selecting the 4-row form; x
+// of the cotangent transform, `affine` selecting the 4-row form, or no gf
+// (and no y): the cotangent g itself; x
 // (B,H,W,Ca) with xb (B,H,W,Cb) or the pre-affine ab (2, Ca).
 extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf, const void* x,
                                     const void* xb, const void* ab, void* dw, void* db,
@@ -247,10 +259,12 @@ extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf
   p.tiles_x = q.tiles_x, p.tiles_y = q.tiles_y, p.tiles = q.tiles, p.per_chunk = q.per_chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(q.combos, static_cast<unsigned>(q.chunks));
-  if (affine) {
-    wgrad_kernel<true><<<grid, THREADS, 0, s>>>(p);
+  if (gf == nullptr) {
+    wgrad_kernel<kGePlain><<<grid, THREADS, 0, s>>>(p);
+  } else if (affine) {
+    wgrad_kernel<kGeAffine><<<grid, THREADS, 0, s>>>(p);
   } else {
-    wgrad_kernel<false><<<grid, THREADS, 0, s>>>(p);
+    wgrad_kernel<kGeStats><<<grid, THREADS, 0, s>>>(p);
   }
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {

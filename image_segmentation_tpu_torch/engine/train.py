@@ -5,7 +5,8 @@ One train step: uint8 batch -> the task's inputs on the device (the
 segmentation task: ``DataAugmentor.apply_u8`` with
 ``augmentations_per_datapoint > 0``, else normalisation; the prompt task:
 point prompts and labels from the palette masks, then
-``DataAugmentorPrompt.apply_u8``) -> forward in the compute dtype (bf16 on
+``DataAugmentorPrompt.apply_u8``; the reconstruction task: the normalised
+images, never augmented, are the targets too) -> forward in the compute dtype (bf16 on
 the card, fp32 parameters) -> loss -> backward -> ``torch.optim.Adam``
 with L2 added to the gradient before the moments, and the BatchNorm
 running averages committed by the forward.  Batch statistics are over the
@@ -29,10 +30,13 @@ memory without a wait.  torch's draws are not JAX's: the tests hold the
 step to JAX by feeding both sides the same draws.
 
 Ported: the segmentation task on the U-Nets and ClipUnet, the prompt task
-on ClipUnetPrompt, with synthetic data.  What is not ported raises
+on ClipUnetPrompt, the reconstruction task (``loss="mse"``) on the
+autoencoder, with synthetic data.  What is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item: run artifacts (run
-folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet loader, the other
-losses and models, ``remat``, ``native_loader`` and ``n_model_shards``.
+folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet loader, the losses
+``dice_ce`` and ``class_binary``, the models clip_res, clip_autoencoder,
+clip_res_class and prompt_fusion, ``remat``, ``native_loader`` and
+``n_model_shards``.
 """
 
 from __future__ import annotations
@@ -89,7 +93,9 @@ def make_loss_fn(name: str) -> Callable:
         return lambda logits, batch: L.hybrid_loss(logits, batch["masks"])
     if name == "hybrid_binary":
         return lambda logits, batch: L.hybrid_loss_binary(logits, batch["masks"])
-    if name in ("dice_ce", "mse", "class_binary"):
+    if name == "mse":
+        return lambda out, batch: torch.mean((out.float() - batch["images"]) ** 2)
+    if name in ("dice_ce", "class_binary"):
         raise NotImplementedError(
             f"loss {name!r} is not ported yet; see ROADMAP.md Queue 1 item 2"
         )
@@ -161,12 +167,14 @@ class Trainer:
     ``device`` is where the model, the optimizer state and the batches live
     (the card unless the caller asks for the CPU); the initial weights are
     drawn from a ``torch.Generator`` seeded with ``config.seed``, so they do
-    not depend on the device.  The task follows the model as in JAX
-    (:170-177): ``clip_unet_prompt`` trains the prompt task on the raw
-    palette masks, everything else the segmentation task.  With
-    ``augmentations_per_datapoint > 0`` the train batches go through the
-    task's augmentor with the JAX Trainer's backend and geometry
-    (:190-196).
+    not depend on the device.  The task follows the model and the loss as
+    in JAX (:170-177): ``clip_unet_prompt`` trains the prompt task on the
+    raw palette masks, ``loss="mse"`` the reconstruction task, everything
+    else the segmentation task.  With ``augmentations_per_datapoint > 0``
+    the train batches go through the task's augmentor with the JAX
+    Trainer's backend and geometry (:190-196) — except for reconstruction,
+    which JAX never augments (:313) while its pipeline still repeats each
+    image ``aug + 1`` times an epoch.
     """
 
     def __init__(
@@ -196,7 +204,12 @@ class Trainer:
         self.model = build_model(config.model, device=self.device, dtype=self.dtype,
                                  **config.model_args)
         init_weights_(self.model, torch.Generator().manual_seed(config.seed))
-        self.task = "prompt" if config.model == "clip_unet_prompt" else "segmentation"
+        if config.model == "clip_unet_prompt":
+            self.task = "prompt"
+        elif config.loss == "mse":
+            self.task = "reconstruction"
+        else:
+            self.task = "segmentation"
         self.num_params = sum(p.numel() for p in self.model.parameters())
         self.optimizer = build_optimizer(config.optimizer, self.model)
         self.trainable = trainable_parameters(self.model)
@@ -204,7 +217,8 @@ class Trainer:
         self.is_binary = config.loss == "hybrid_binary"
         aug_n = config.data.augmentations_per_datapoint
         aug_cls = DataAugmentorPrompt if self.task == "prompt" else DataAugmentor
-        self.augmentor = aug_cls(aug_n) if aug_n > 0 else None
+        augments = aug_n > 0 and self.task != "reconstruction"
+        self.augmentor = aug_cls(aug_n) if augments else None
         raw = self.task == "prompt"
         self.train_data = train_data or _dataset_from_config(config, True, raw)
         self.val_data = val_data or _dataset_from_config(config, False, raw)
@@ -242,7 +256,9 @@ class Trainer:
                        points=None) -> Tuple[Inputs, Dict[str, torch.Tensor]]:
         """uint8 device batch -> (model inputs, {"masks": int64 targets}).
 
-        segmentation: inputs the [0, 1] fp32 images, targets the class ids,
+        reconstruction: inputs the [0, 1] fp32 images, targets
+        ``{"images": the same}``; segmentation: inputs the [0, 1] fp32
+        images, targets the class ids,
         through the augmentor with ``params`` when ``augment`` and the
         Trainer has one; prompt: inputs ``(images, prompt maps)``, targets
         the binary labels of the prompts at ``points`` = ``(choice, cy,
@@ -253,6 +269,9 @@ class Trainer:
             if params is None:
                 raise ValueError("an augmented batch needs its AugmentParams")
             params = self._to_device(params)
+        if self.task == "reconstruction":
+            images = normalize_image(images_u8)
+            return images, {"images": images}
         if self.task == "prompt":
             if points is None:
                 raise ValueError("a prompt batch needs its points")
@@ -296,11 +315,15 @@ class Trainer:
     def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
                   step_key: int = EVAL_STEP_KEY):
         """(loss, IoU, pixel accuracy, dice) of one batch with the running
-        statistics, on the device; the binary metrics for the binary loss."""
+        statistics, on the device; the binary metrics for the binary loss;
+        for reconstruction the loss and three zeros (:372-374)."""
         points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
         inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=False, points=points)
         inputs = inputs if isinstance(inputs, tuple) else (inputs,)
         logits = self.model(*inputs, train=False)
+        if self.task == "reconstruction":
+            zero = torch.zeros((), device=logits.device)
+            return self.loss_fn(logits, batch), zero, zero, zero
         masks = batch["masks"]
         if self.is_binary:
             metrics = (L.iou_binary, L.pixel_accuracy_binary, L.dice_score_binary)

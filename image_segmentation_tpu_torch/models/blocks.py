@@ -1,7 +1,7 @@
 """Convolutional building blocks, NHWC; counterpart of
 ``image_segmentation_tpu/models/blocks.py`` (ConvBlock :41,
 ConvBlockDownsample :74, resize_bilinear_align_corners :108,
-ConvBlockUpsampleSkip :140).
+ConvBlockUpsampleSkip :140, ConvBlockUpsample :167).
 
 The modules hold their parameters in ``nn.Conv2d`` / ``nn.BatchNorm2d`` /
 ``nn.ConvTranspose2d`` under the reference torch key layout
@@ -58,15 +58,22 @@ def commit_running_stats(
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
 
 
-def bn_relu_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """``relu(BatchNorm(x))`` with batch statistics, computed in fp32, and
-    the running averages committed."""
+def batch_stats(x: torch.Tensor, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 batch mean and biased variance of NHWC ``x`` per channel, with
+    ``bn``'s running averages committed."""
     xf = x.float()
     mean = xf.mean((0, 1, 2))
     var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
     commit_running_stats(bn, mean.detach(), var.detach())
+    return mean, var
+
+
+def bn_relu_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """``relu(BatchNorm(x))`` with batch statistics, computed in fp32, and
+    the running averages committed."""
+    mean, var = batch_stats(x, bn)
     mul = torch.rsqrt(var + BN_EPS) * bn.weight
-    return F.relu((xf - mean) * mul + bn.bias).to(x.dtype)
+    return F.relu((x.float() - mean) * mul + bn.bias).to(x.dtype)
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -162,6 +169,22 @@ class ConvBlockDownsample(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         return max_pool_2x2(self.block[0](x, train=train))
+
+
+class ConvBlockUpsample(nn.Module):
+    """ConvTranspose(k=2, s=2) -> ConvBlock(features -> features), no skip
+    and no resize (blocks.py:167; the reference exports it as ``up`` and
+    ``conv.conv.*``, utils/torch_export.py ``_upsample``)."""
+
+    block_cls = ConvBlock
+
+    def __init__(self, in_features: int, features: int, *, device=None):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(in_features, features, 2, stride=2, device=device)
+        self.conv = self.block_cls(features, features, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return self.conv(conv_transpose2x2_nhwc(x, self.up), train=train)
 
 
 class ConvBlockUpsampleSkip(nn.Module):

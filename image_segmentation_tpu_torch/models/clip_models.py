@@ -10,13 +10,18 @@ kernel.  Its output does not depend on the bottleneck block's output: that
 block still runs, and its running statistics update, but its parameters
 get zero gradients (the Trainer fills them in, as JAX's are zeros).
 
-The level 0-1 blocks run on the hand-written kernels exactly as the U-Nets
-decide it (``models/unet.py``): ``w2d_level0`` with
-``w2d_impl="pallas_fused"`` puts the stem level (enc1, dec4, and the
-prompt encoder's enc1) on :mod:`.fused`; adding ``w2d_level1_fold2`` also
-level 1 (enc2, dec3, the prompt encoder's enc2).  The prompt encoder's
-enc1 reads the 1-channel heatmap, a model input, with ``input_grad=False``
-(clip_models.py:327-340): its backward runs conv1's wgrad kernel alone.
+The level 0-1 blocks take the block family of ``w2d_impl`` exactly as the
+U-Nets decide it (``models/unet.py``, :func:`.fused.block_classes`):
+``w2d_level0`` folds the stem level (enc1, dec4, and the prompt encoder's
+enc1), adding ``w2d_level1_fold2`` also level 1 (enc2, dec3, the prompt
+encoder's enc2); under ``"pallas_fused"`` they are the fused kernel
+blocks, under ``"pallas"`` the unfused ones.  With ``w2d_level0`` the stem
+and the output conv train through K11 (:func:`.fused.conv1x1`; JAX's
+``Folded1x1``, clip_models.py:75,129,394,447); ``prompt_fusion`` stays a
+plain 1x1 conv.  The prompt encoder's enc1 reads the 1-channel heatmap, a
+model input, with ``input_grad=False`` in the fused family
+(clip_models.py:327-340): its backward runs conv1's wgrad kernel alone, as
+the unfused family's does on its own (the heatmap needs no gradient).
 
 Module names follow the reference torch layout
 (``utils/torch_export.clip_unet_state_dict`` :196 and
@@ -45,20 +50,11 @@ from .clip import ClipFeatureExtractor
 FROZEN_PREFIXES = ("clip_feature_extractor.",)
 
 
-def kernel_levels(w2d_level0: bool, w2d_level1_fold2: bool, w2d_impl: str):
-    """(level 0 on the kernels, level 1 on the kernels), as models/unet.py."""
-    k0 = bool(w2d_level0) and w2d_impl == "pallas_fused"
-    return k0, k0 and bool(w2d_level1_fold2)
-
-
-def _down(kernels: bool, cin: int, cout: int, device, **kw) -> nn.Module:
-    cls = fused.FusedConvBlockDownsample if kernels else ConvBlockDownsample
-    return cls(cin, cout, device=device, **kw)
-
-
-def _up(kernels: bool, cin: int, cout: int, device) -> nn.Module:
-    cls = fused.FusedConvBlockUpsampleSkip if kernels else ConvBlockUpsampleSkip
-    return cls(cin, cout, device=device)
+def level_classes(w2d_level0: bool, w2d_level1_fold2: bool, w2d_impl: str):
+    """The (Downsample, UpsampleSkip, Upsample) classes of level 0 and of
+    level 1, as models/unet.py picks them."""
+    return (fused.block_classes(w2d_impl, bool(w2d_level0)),
+            fused.block_classes(w2d_impl, bool(w2d_level0 and w2d_level1_fold2)))
 
 
 class ClipUnet(nn.Module):
@@ -84,26 +80,27 @@ class ClipUnet(nn.Module):
                 "freeze_clip=False (training the CLIP tower) is not ported; the tower is "
                 "frozen as in every preset")
         self.dtype = dtype
-        k0, k1 = kernel_levels(w2d_level0, w2d_level1_fold2, w2d_impl)
+        self.folded = bool(w2d_level0)
+        l0, l1 = level_classes(w2d_level0, w2d_level1_fold2, w2d_impl)
         self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
         proj_dim = self.clip_feature_extractor.clip_model.proj_dim
         self.input = nn.Conv2d(3, 32, 1, device=device)
-        self.enc1 = _down(k0, 32, 64, device)
-        self.enc2 = _down(k1, 64, 128, device)
+        self.enc1 = l0[0](32, 64, device=device)
+        self.enc2 = l1[0](64, 128, device=device)
         self.enc3 = ConvBlockDownsample(128, 256, device=device)
         self.bottleneck = ConvBlock(256, 512, device=device)
         self.cross_attention_fusion = CrossAttentionFusion(512, 1, dtype, kv_dim=proj_dim,
                                                            device=device)
         self.dec1 = ConvBlockUpsampleSkip(512, 256, device=device)
         self.dec2 = ConvBlockUpsampleSkip(256, 128, device=device)
-        self.dec3 = _up(k1, 128, 64, device)
-        self.dec4 = _up(k0, 64, 32, device)
+        self.dec3 = l1[1](128, 64, device=device)
+        self.dec4 = l0[1](64, 32, device=device)
         self.out = nn.Conv2d(32, out_channels, 1, device=device)
 
     def encode(self, x: torch.Tensor, train: bool):
         """(skips [stem, enc1, enc2, enc3], the fusion's output)."""
         clip_feats = self.clip_feature_extractor(x)
-        stem = conv1x1_nhwc(x, self.input)
+        stem = fused.conv1x1(x, self.input, folded=self.folded)
         skips = [stem]
         h = stem
         for enc in (self.enc1, self.enc2, self.enc3):
@@ -115,7 +112,7 @@ class ClipUnet(nn.Module):
     def decode(self, h: torch.Tensor, skips, train: bool) -> torch.Tensor:
         for dec, skip in zip((self.dec1, self.dec2, self.dec3, self.dec4), skips[::-1]):
             h = dec(h.contiguous(), skip, train=train)
-        return conv1x1_nhwc(h, self.out).float()
+        return fused.conv1x1(h, self.out, folded=self.folded).float()
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -140,10 +137,11 @@ class PromptEncoder(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
-        k0, k1 = kernel_levels(w2d_level0, w2d_level1_fold2, w2d_impl)
+        (down0, _, _), (down1, _, _) = level_classes(w2d_level0, w2d_level1_fold2, w2d_impl)
         # the heatmap is a model input: never differentiated (see module doc)
-        self.enc1 = _down(k0, 1, 32, device, **({"input_grad": False} if k0 else {}))
-        self.enc2 = _down(k1, 32, 64, device)
+        fused0 = issubclass(down0, fused.FusedConvBlockDownsample)
+        self.enc1 = down0(1, 32, device=device, **({"input_grad": False} if fused0 else {}))
+        self.enc2 = down1(32, 64, device=device)
         self.enc3 = ConvBlockDownsample(64, 128, device=device)
         self.conv = ConvBlock(128, out_features, device=device)
 

@@ -1,15 +1,26 @@
-"""Kernel-backed blocks of the two full-resolution levels; counterpart of
+"""Kernel-backed blocks of the levels that JAX folds; counterpart of
 ``image_segmentation_tpu/models/folded.py``: FoldedConvBlock (:365, fused
 path :431-523, ``input_grad`` :377-386), FoldedConvBlockDownsample (:634,
-raw-output pool :651-673) and FoldedConvBlockUpsampleSkip (:723, with the
-ConvTranspose kernel :586-595).
+raw-output pool :651-673), FoldedConvBlockUpsample (:699) and
+FoldedConvBlockUpsampleSkip (:723, with the ConvTranspose kernel
+:586-595), and Folded1x1 (:226) as :func:`conv1x1`.
 
 The width fold itself is not ported: it exists to fill the TPU's 128
 lanes, and at fold 1 the same kernels compute the plain NHWC ops.  Each
 block here subclasses its standard twin in :mod:`.blocks` and owns the same
 parameters, so the two share a state dict; only the forward differs.
+:func:`block_classes` picks the family a level takes from ``w2d_impl``:
 
-Eval (``train=False``):
+- ``"pallas_fused"``: the fused blocks below (``Fused…``);
+- ``"pallas"``: the unfused blocks (``Unfused…``, folded.py:406-429): each
+  conv is one :class:`~..ops.fused_conv.Conv3x3Function` (the conv3x3
+  kernels in their plain forms, ``make_folded_conv3x3``) and BatchNorm +
+  ReLU are PyTorch ops between them, as ``FoldedBatchNorm`` applies them;
+  the pool and the up-conv are the standard ones (folded.py:596-612, 696);
+- any other value (``"dense"``, ``"halo"``: XLA convs in JAX): the
+  standard blocks.
+
+The fused family, eval (``train=False``):
 
 - conv1 reads the block input (the decoder's [up | skip] pair without
   building the concat) through :func:`~..ops.fused_conv.conv3x3`;
@@ -34,15 +45,20 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..ops import fused_conv
+from ..ops.conv1x1 import Conv1x1Function
 from .blocks import (
     BN_EPS,
     ConvBlock,
     ConvBlockDownsample,
+    ConvBlockUpsample,
     ConvBlockUpsampleSkip,
+    batch_stats,
     bn_affine,
     commit_running_stats,
+    conv1x1_nhwc,
     resize_bilinear_align_corners,
 )
 
@@ -117,6 +133,16 @@ class FusedConvBlockDownsample(ConvBlockDownsample):
         return fused_conv.PoolFunction.apply(y2, a2.to(dt).float(), b2.to(dt).float())
 
 
+def _up_kernel(up: nn.ConvTranspose2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """The ConvTranspose kernel, through its Function in training.  JAX
+    gates it by folded width (folded.py:586) and runs XLA below 64 folded
+    columns; the port runs it at every width, with the same math."""
+    x = x.contiguous()
+    if train:
+        return fused_conv.ConvTransposeFunction.apply(x, up.weight, up.bias)
+    return fused_conv.convtranspose2x2(x, up.weight, up.bias)
+
+
 class FusedConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
     """The ConvTranspose kernel -> FusedConvBlock over [up | skip]."""
 
@@ -125,11 +151,96 @@ class FusedConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
     def forward(
         self, x: torch.Tensor, skip: torch.Tensor, *, train: bool = False
     ) -> torch.Tensor:
-        x = x.contiguous()
-        if train:
-            up = fused_conv.ConvTransposeFunction.apply(x, self.up.weight, self.up.bias)
-        else:
-            up = fused_conv.convtranspose2x2(x, self.up.weight, self.up.bias)
+        up = _up_kernel(self.up, x, train)
         # the identity at these levels for even image sizes (folded.py:765)
         up = resize_bilinear_align_corners(up, skip.shape[1], skip.shape[2])
         return self.conv(up.contiguous(), skip.to(up.dtype).contiguous(), train=train)
+
+
+class FusedConvBlockUpsample(ConvBlockUpsample):
+    """The ConvTranspose kernel -> FusedConvBlock, no skip (folded.py:699)."""
+
+    block_cls = FusedConvBlock
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        return self.conv(_up_kernel(self.up, x, train), train=train)
+
+
+# --------------------------------------------------------------------------
+# the unfused family (w2d_impl="pallas")
+# --------------------------------------------------------------------------
+
+def folded_bn_relu(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+    """``relu(BatchNorm(y))`` as ``FoldedBatchNorm`` applies it
+    (folded.py:336-362): the fp32 affine ``a, b`` — from y's batch
+    statistics in training (fp32 mean and biased variance, the running
+    averages committed), from the running averages in eval — rounded to
+    y's dtype, and ``y*a + b`` in that dtype."""
+    if train:
+        mean, var = batch_stats(y, bn)
+        a = torch.rsqrt(var + BN_EPS) * bn.weight
+        b = bn.bias - mean * a
+    else:
+        a, b = bn_affine(bn)
+    dt = y.dtype
+    return F.relu(y * a.to(dt) + b.to(dt))
+
+
+class UnfusedConvBlock(ConvBlock):
+    """[Conv3x3 -> BN -> ReLU] x2 with each conv one
+    :class:`~..ops.fused_conv.Conv3x3Function`: FoldedConvBlock with
+    ``impl="pallas"`` (folded.py:406-429).  A second input ``x_b`` is
+    concatenated first, as JAX does for that impl (folded.py:781)."""
+
+    def forward(
+        self, x: torch.Tensor, x_b: Optional[torch.Tensor] = None, *, train: bool = False
+    ) -> torch.Tensor:
+        if x_b is not None:
+            x = torch.cat([x, x_b.to(x.dtype)], dim=-1)
+        for i in (0, 3):
+            conv = self.conv[i]
+            y = fused_conv.Conv3x3Function.apply(x.contiguous(), conv.weight, conv.bias)
+            x = folded_bn_relu(y, self.conv[i + 1], train)
+        return x
+
+
+class UnfusedConvBlockDownsample(ConvBlockDownsample):
+    """UnfusedConvBlock -> the standard max-pool (folded.py:696)."""
+
+    block_cls = UnfusedConvBlock
+
+
+class UnfusedConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
+    """The standard up-conv -> UnfusedConvBlock over [up | skip]."""
+
+    block_cls = UnfusedConvBlock
+
+
+class UnfusedConvBlockUpsample(ConvBlockUpsample):
+    """The standard up-conv -> UnfusedConvBlock, no skip."""
+
+    block_cls = UnfusedConvBlock
+
+
+STANDARD = (ConvBlockDownsample, ConvBlockUpsampleSkip, ConvBlockUpsample)
+FAMILIES = {
+    "pallas_fused": (FusedConvBlockDownsample, FusedConvBlockUpsampleSkip, FusedConvBlockUpsample),
+    "pallas": (UnfusedConvBlockDownsample, UnfusedConvBlockUpsampleSkip, UnfusedConvBlockUpsample),
+}
+
+
+def block_classes(w2d_impl: str, folded: bool = True) -> tuple:
+    """``(Downsample, UpsampleSkip, Upsample)`` of a level that JAX builds
+    as ``models/folded.py`` blocks with ``impl=w2d_impl`` when ``folded``
+    (see the module doc); the standard blocks when not."""
+    return FAMILIES.get(w2d_impl, STANDARD) if folded else STANDARD
+
+
+def conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:
+    """The 1x1 ``conv`` on NHWC x, in x's dtype.  ``folded``: where JAX
+    builds a ``Folded1x1`` without ``in_perm`` (the folded paths' stem and
+    output conv), through :class:`~..ops.conv1x1.Conv1x1Function`, whose
+    backward is K11; else ``blocks.conv1x1_nhwc``."""
+    if not folded:
+        return conv1x1_nhwc(x, conv)
+    return Conv1x1Function.apply(x.contiguous(), conv.weight, conv.bias)

@@ -1,9 +1,10 @@
 """Model registry: config name -> port model; counterpart of
 ``image_segmentation_tpu/models/registry.py``.
 
-Ported: the plain U-Nets, ClipUnet and the prompt model.  The JAX
-package's other names raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+Ported: the U-Nets, ClipUnet, the prompt model and the autoencoder.  The
+JAX package's other names (clip_res, clip_autoencoder, clip_res_class,
+prompt_fusion) raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports them.
 """
 
 from __future__ import annotations
@@ -11,15 +12,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .autoencoder import Autoencoder
 from .clip_models import ClipUnet, ClipUnetPrompt
 from .unet import LargeUNet, UNet
 
 _REGISTRY = {"unet": UNet, "large_unet": LargeUNet, "clip_unet": ClipUnet,
-             "clip_unet_prompt": ClipUnetPrompt}
+             "clip_unet_prompt": ClipUnetPrompt, "autoencoder": Autoencoder}
 
 # JAX registry names not ported yet -> the ROADMAP.md Queue 1 item.
 _NOT_PORTED = {
-    "autoencoder": "Queue 1 'The remaining models'",
     "clip_res": "Queue 1 'The remaining models'",
     "clip_autoencoder": "Queue 1 'The remaining models'",
     "clip_res_class": "Queue 1 'The remaining models'",

@@ -4,14 +4,20 @@
 The constructor takes the JAX modules' fields, so the model args stored in
 a JAX artifact build the same network here:
 
-- ``w2d_level0`` with ``w2d_impl="pallas_fused"`` runs level 0 (enc1 and
-  the last decoder) through the hand-written kernels (:mod:`.fused`);
-- adding ``w2d_level1_fold2`` also runs level 1 (enc2 and the decoder
-  before the last) through them;
-- every other level — and levels whose JAX form only changes the TPU
-  layout (other ``w2d_impl`` values, ``w2d_level1``) — runs the plain
-  PyTorch blocks, as JAX runs them as plain XLA.  The math is the same
-  either way (shared parameter tree, tests/test_folded.py).
+- ``w2d_level0`` folds level 0 (enc1 and the last decoder) in JAX, and
+  ``w2d_level1_fold2`` or ``w2d_level1`` level 1 too (enc2 and the decoder
+  before the last, unet.py:133-155, :220-237).  A folded level takes the
+  block family of ``w2d_impl`` (:func:`.fused.block_classes`): the fused
+  kernel blocks under ``"pallas_fused"``, the unfused ones (one conv
+  kernel per conv, BatchNorm between them) under ``"pallas"``, and the
+  standard blocks under ``"dense"`` and ``"halo"``, which change only the
+  TPU layout of XLA's convs;
+- with ``w2d_level0`` the stem and the output conv are JAX's
+  ``Folded1x1``, whose backward the port always runs on K11
+  (:func:`.fused.conv1x1`);
+- the deeper levels run the standard blocks, as JAX runs them as XLA
+  (``fused_deep`` is not ported).  The math is the same either way (shared
+  parameter tree, tests/test_folded.py).
 
 Module names follow the reference torch key layout, so
 ``utils.convert.state_dict_from_jax`` loads with ``strict=True``.
@@ -25,12 +31,7 @@ import torch
 from torch import nn
 
 from . import fused
-from .blocks import (
-    ConvBlock,
-    ConvBlockDownsample,
-    ConvBlockUpsampleSkip,
-    conv1x1_nhwc,
-)
+from .blocks import ConvBlock, ConvBlockDownsample, ConvBlockUpsampleSkip
 
 
 class UNet(nn.Module):
@@ -62,16 +63,17 @@ class UNet(nn.Module):
             )
         enc = list(encoder_features or self.default_encoder_features)
         self.dtype = dtype
-        kernels0 = bool(w2d_level0) and w2d_impl == "pallas_fused"
-        kernels1 = kernels0 and bool(w2d_level1_fold2) and len(enc) >= 2
+        self.folded = bool(w2d_level0)
+        down0, up0, _ = fused.block_classes(w2d_impl, self.folded)
+        down1, up1, _ = fused.block_classes(
+            w2d_impl, self.folded and bool(w2d_level1_fold2 or w2d_level1) and len(enc) >= 2)
         n = len(enc)
 
         self.input = nn.Conv2d(3, stem_features, 1, device=device)
         self.encoders = []
         cin = stem_features
         for i, feats in enumerate(enc, start=1):
-            fast = (i == 1 and kernels0) or (i == 2 and kernels1)
-            cls = fused.FusedConvBlockDownsample if fast else ConvBlockDownsample
+            cls = {1: down0, 2: down1}.get(i, ConvBlockDownsample)
             self.encoders.append(f"enc{i}")
             setattr(self, f"enc{i}", cls(cin, feats, device=device))
             cin = feats
@@ -79,8 +81,7 @@ class UNet(nn.Module):
         cin = 2 * enc[-1]
         self.decoders = []
         for i, feats in enumerate(enc[::-1] + [stem_features], start=1):
-            fast = (i == n + 1 and kernels0) or (i == n and kernels1)
-            cls = fused.FusedConvBlockUpsampleSkip if fast else ConvBlockUpsampleSkip
+            cls = {n + 1: up0, n: up1}.get(i, ConvBlockUpsampleSkip)
             self.decoders.append(f"dec{i}")
             setattr(self, f"dec{i}", cls(cin, feats, device=device))
             cin = feats
@@ -91,7 +92,7 @@ class UNet(nn.Module):
 
         ``train``: BatchNorm with batch statistics over the whole batch,
         committing the running averages (flax's ``train=True``)."""
-        h = conv1x1_nhwc(x.to(self.dtype), self.input)
+        h = fused.conv1x1(x.to(self.dtype), self.input, folded=self.folded)
         # Decoder i pairs with skips[-i]: enc outputs are post-pool, so dec1's
         # skip (the last encoder) has the bottleneck's resolution and its 2x
         # up-conv is resized back down (unet.py:94-99).
@@ -102,7 +103,7 @@ class UNet(nn.Module):
         h = self.bottleneck(h, train=train)
         for i, name in enumerate(self.decoders, start=1):
             h = getattr(self, name)(h, skips[-i], train=train)
-        return conv1x1_nhwc(h, self.out).float()
+        return fused.conv1x1(h, self.out, folded=self.folded).float()
 
 
 class LargeUNet(UNet):

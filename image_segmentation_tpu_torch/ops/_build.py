@@ -51,6 +51,8 @@ SIGNATURES = {
     "imgseg_convtranspose2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, wt, g, dx, dw, db, scratch, B, Hin, Win, Cin, Co, stream
     "imgseg_convtranspose2x2_bwd": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # x, g, w, dx, dwb, scratch, npix, Ci, Co, stream
+    "imgseg_conv1x1_bwd": (_P,) * 6 + (_L, _I, _I, _P),
     # x, shifts, out, N, H, W, axis, stream
     "imgseg_shift": (_P, _P, _P, _I, _I, _I, _I, _P),
     # img, factors, out, sums, scratch, N, H, W, bf16_out, stream
@@ -66,6 +68,7 @@ SCRATCH_QUERIES = {
     "imgseg_channel_sums_scratch": (_L, _I),                     # pixels, C
     "imgseg_convtranspose2x2_bwd_scratch": (_I, _I, _I, _I, _I),  # B, Hin, Win, Cin, Co
     "imgseg_preprocess_scratch": (_I, _I, _I),                   # N, H, W
+    "imgseg_conv1x1_bwd_scratch": (_L, _I, _I),                  # pixels, Ci, Co
 }
 
 
@@ -151,7 +154,7 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-# ---- shared by the kernel wrappers (ops/fused_conv.py, roll.py, preprocess.py)
+# ---- shared by the kernel wrappers (ops/fused_conv.py, conv1x1.py, roll.py, ...)
 
 def on_cpu(x) -> bool:
     """True for a CPU tensor (the wrapper takes its plain version), False

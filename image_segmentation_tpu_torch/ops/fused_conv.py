@@ -10,7 +10,12 @@ Wrappers (``WRAPPERS``), the TPU kernel each replaces, and its source:
   (``stats``) reach; ``csrc/conv3x3.cu``;
 - :func:`conv3x3_dgrad` and :func:`conv3x3_wgrad` — the merged dx + wgrad
   ``_folded_bwd_fused_pallas`` :1139, as two kernels (``csrc/conv3x3.cu``
-  and ``csrc/conv3x3_bwd.cu``);
+  and ``csrc/conv3x3_bwd.cu``); the wgrad alone is ``_folded_wgrad_pallas``
+  :822;
+- the three in their plain forms (no affine, no statistics, no cotangent
+  transform) — ``make_folded_conv3x3`` :1932, the conv of a block that
+  applies its BatchNorm outside the kernels (``w2d_impl="pallas"``):
+  forward :1978, dx :2005, dw and db :2016;
 - :func:`bn_relu_bwd_reduce` — ``_bn_relu_bwd_reduce_pallas`` :1462
   (``csrc/bn_relu_bwd.cu``);
 - :func:`maxpool2x2_affine_relu` and :func:`maxpool2x2_affine_relu_bwd` —
@@ -30,7 +35,9 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.  On a
 CUDA tensor the wrappers are not differentiable themselves: an input that
 requires grad while grad mode is on raises (they are forward-only).
 Gradients go through the Functions, whose backwards call the backward
-wrappers.
+wrappers: :class:`FusedBlockFunction` (a whole BatchNorm'd block),
+:class:`Conv3x3Function` (one conv), :class:`PoolFunction` and
+:class:`ConvTransposeFunction`.
 
 The plain versions compute in fp32 from the same operands the kernels see
 (weights and affines rounded to the activation dtype, bias in fp32) and
@@ -82,7 +89,10 @@ def _activate(x, x_b, a, b):
 def _gfold(g, y, c1, c2, a, b):
     """The transformed cotangent ``ge`` of ``_gfold_transform`` :249, rounded
     to g's dtype: ``g*a*[y*a + b > 0] + c1 + 2*y*c2`` with ``a, b`` (the
-    bn2 affine, rounded) or ``g + c1 + 2*y*c2`` without."""
+    bn2 affine, rounded) or ``g + c1 + 2*y*c2`` without; g itself without
+    ``c1`` (no transform: ``y``, ``c2``, ``a``, ``b`` are None too)."""
+    if c1 is None:
+        return g
     dt = g.dtype
     gf, yf = g.float(), y.float()
     if a is not None:
@@ -230,6 +240,18 @@ def _check_activation(name: str, t: torch.Tensor, what: str, shape=None) -> None
         raise ValueError(f"{name}: {what} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+def _check_transform(name: str, y, c1, c2, a, b) -> bool:
+    """True with a cotangent transform (``y``, ``c1``, ``c2``), False for the
+    raw cotangent (all of ``y``, ``c1``, ``c2``, ``a``, ``b`` None)."""
+    if y is None and c1 is None and c2 is None:
+        if a is not None or b is not None:
+            raise ValueError(f"{name}: the affine a, b comes with y, c1 and c2")
+        return False
+    if y is None or c1 is None or c2 is None:
+        raise ValueError(f"{name}: pass y, c1 and c2 together, or none of them")
+    return True
+
+
 def _check_vector(name: str, t: torch.Tensor, n: int, what: str) -> None:
     if t.shape != (n,):
         raise ValueError(f"{name}: {what} must have shape ({n},), got {tuple(t.shape)}")
@@ -245,9 +267,12 @@ def _ab(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.stack([_round(a, dtype), _round(b, dtype)]).contiguous()
 
 
-def _gf(c1, c2, a, b, dtype) -> torch.Tensor:
+def _gf(c1, c2, a, b, dtype) -> Optional[torch.Tensor]:
     """The cotangent transform's per-channel rows: [c1, c2], or
-    [a, b, c1, c2] with the affine rounded to ``dtype``."""
+    [a, b, c1, c2] with the affine rounded to ``dtype``; None without c1
+    (no transform)."""
+    if c1 is None:
+        return None
     rows = [c1.float(), c2.float()]
     if a is not None:
         rows = [_round(a, dtype), _round(b, dtype)] + rows
@@ -318,10 +343,10 @@ def conv3x3(
 
 def conv3x3_dgrad(
     g: torch.Tensor,
-    y: torch.Tensor,
+    y: Optional[torch.Tensor],
     w: torch.Tensor,
-    c1: torch.Tensor,
-    c2: torch.Tensor,
+    c1: Optional[torch.Tensor],
+    c2: Optional[torch.Tensor],
     *,
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
@@ -337,7 +362,9 @@ def conv3x3_dgrad(
     the transformed cotangent ``ge = round(g + c1 + 2*y*c2)``, or with the
     bn affine ``a, b`` (Co,) ``ge = round(g*a*[y*a + b > 0] + c1 + 2*y*c2)``
     (``_gfold_transform`` :249; ``a, b`` rounded to the activation dtype,
-    c1, c2 (Co,) fp32), zero outside the image AFTER the transform.
+    c1, c2 (Co,) fp32), zero outside the image AFTER the transform.  With
+    ``y``, ``c1`` and ``c2`` None, ``ge = g`` (no transform, y unread: the
+    dx of ``make_folded_conv3x3`` :2005; neither post nor split).
     ``dx = round(conv of ge with the flipped, transposed w)``; w (Co, Cin,
     3, 3) as in :func:`conv3x3`.
 
@@ -354,13 +381,16 @@ def conv3x3_dgrad(
         raise ValueError(f"{name}: x_post comes with a_post and b_post")
     if x_post is not None and split is not None:
         raise ValueError(f"{name}: post and split do not go together")
+    if not _check_transform(name, y, c1, c2, a, b) and (x_post is not None or split is not None):
+        raise ValueError(f"{name}: the raw cotangent takes neither post nor split")
     if _on_cpu(g):
         return conv3x3_dgrad_plain(g, y, w, c1, c2, a=a, b=b, x_post=x_post,
                                    a_post=a_post, b_post=b_post, split=split)
     _check_cuda_operands(name, g, y, w, c1, c2, a, b, x_post, a_post, b_post)
     _check_activation(name, g, "g")
     bsz, h, wd, co = g.shape
-    _check_activation(name, y, "y", g.shape)
+    if y is not None:
+        _check_activation(name, y, "y", g.shape)
     cin = w.shape[1]
     if w.shape != (co, cin, 3, 3):
         raise ValueError(f"{name}: w must be ({co}, Cin, 3, 3), got {tuple(w.shape)}")
@@ -395,10 +425,10 @@ def conv3x3_dgrad(
 
 def conv3x3_wgrad(
     g: torch.Tensor,
-    y: torch.Tensor,
+    y: Optional[torch.Tensor],
     x: torch.Tensor,
-    c1: torch.Tensor,
-    c2: torch.Tensor,
+    c1: Optional[torch.Tensor],
+    c2: Optional[torch.Tensor],
     *,
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
@@ -410,7 +440,8 @@ def conv3x3_wgrad(
     (the wgrad half of ``_bwd_fused_kernel_body`` :1057-1109).
 
     g, y, c1, c2, a, b: the transformed cotangent ``ge`` as in
-    :func:`conv3x3_dgrad`.  x (B,H,W,Ca) [with x_b (B,H,W,Cb)] or with
+    :func:`conv3x3_dgrad` (``ge = g`` with y, c1, c2 None: the dw and db of
+    ``make_folded_conv3x3``, ``_folded_wgrad_pallas`` :822).  x (B,H,W,Ca) [with x_b (B,H,W,Cb)] or with
     ``a_pre, b_pre`` (Ca,): the conv's operand as :func:`conv3x3` read it.
     Returns fp32 ``dw`` (Co, Ca+Cb, 3, 3) = sum over pixels of
     ``act(x)[p + tap] * ge[p]`` and ``db`` (Co,) = sum ``ge``.
@@ -418,6 +449,7 @@ def conv3x3_wgrad(
     name = "conv3x3_wgrad"
     _check_pair(name, a, b, "a and b")
     _check_pair(name, a_pre, b_pre, "a_pre and b_pre")
+    _check_transform(name, y, c1, c2, a, b)
     if x_b is not None and a_pre is not None:
         raise ValueError(f"{name}: the pre-affine is not taken with a second input")
     if _on_cpu(g):
@@ -426,7 +458,8 @@ def conv3x3_wgrad(
     _check_cuda_operands(name, g, y, x, c1, c2, a, b, x_b, a_pre, b_pre)
     _check_activation(name, g, "g")
     bsz, h, wd, co = g.shape
-    _check_activation(name, y, "y", g.shape)
+    if y is not None:
+        _check_activation(name, y, "y", g.shape)
     ca = x.shape[-1]
     _check_activation(name, x, "x", (bsz, h, wd, ca))
     cb = 0
@@ -677,6 +710,27 @@ class FusedBlockFunction(torch.autograd.Function):
         dw1, dc1b = conv3x3_wgrad(gy1, y1, x, ds1, dq1, x_b=x_b)
         return (dx, dxb, dw1, dc1b, dw2, dc2b, dscale1, dbias1, dscale2, dbias2,
                 None, None, None)
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """One 3x3 SAME conv with bias and nothing fused into it, mirroring
+    ``make_folded_conv3x3`` (pallas_conv.py:1932-2029): ``apply(x, w, bias)
+    -> y``.  The forward is :func:`conv3x3` in its plain form; the backward
+    runs :func:`conv3x3_dgrad` on the raw cotangent (skipped when x needs no
+    gradient) and :func:`conv3x3_wgrad` for dw and db."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        return conv3x3(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = conv3x3_dgrad(g, None, w, None, None) if ctx.needs_input_grad[0] else None
+        dw, db = conv3x3_wgrad(g, None, x, None, None)
+        return dx, dw, db
 
 
 class PoolFunction(torch.autograd.Function):

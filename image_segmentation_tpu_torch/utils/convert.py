@@ -14,6 +14,11 @@ with ``load_state_dict(strict=True)``:
 
 - U-Net: ``input``, ``enc{i}.block.0.conv.{0,1,3,4}``,
   ``bottleneck.conv.*``, ``dec{i}.up``, ``dec{i}.conv.conv.*``, ``out``;
+- the autoencoder: the same block keys below ``encoder.`` (``input``,
+  ``enc{1-3}``, ``bottleneck``) and ``decoder.`` (``dec{1-3}``, whose
+  ConvBlockUpsample exports as ``up`` and ``conv.conv.*`` like the
+  reference's ``_upsample``, torch_export.py:133; ``out``), the JAX tree's
+  two submodules;
 - the CLIP models add ``clip_feature_extractor.clip_model.*`` (the
   transformers CLIP vision keys, from the JAX ``clip_tower``),
   ``cross_attention_fusion.cross_attn.*`` (``nn.MultiheadAttention``'s
@@ -40,6 +45,8 @@ _LAYER = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
 _LAYER_INV = {v: k for k, v in _LAYER.items()}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
+# JAX submodules whose subtree keeps its name as a torch key prefix
+_NESTED = ("prompt_encoder", "encoder", "decoder")
 CLIP = "clip_feature_extractor.clip_model."
 FUSION = "cross_attention_fusion.cross_attn"
 
@@ -82,8 +89,8 @@ def _leaves(node: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
 def _torch_key(path: Tuple[str, ...]) -> str:
     """JAX leaf path (below ``params``/``batch_stats``) -> torch key."""
     top, *mid, leaf = path
-    if top == "prompt_encoder":
-        return "prompt_encoder." + _torch_key(tuple(path[1:]))
+    if top in _NESTED:
+        return f"{top}." + _torch_key(tuple(path[1:]))
     if mid[:1] == ["conv_block"]:  # enc{i} / dec{i}: the block's ConvBlock
         mid = ["block.0.conv" if top.startswith("enc") else "conv.conv", _LAYER[mid[1]]]
     elif mid[:1] and mid[0] in _LAYER:  # a ConvBlock itself: bottleneck, the prompt conv
@@ -93,10 +100,10 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 
 def _jax_path(key: str) -> Tuple[str, List[str]]:
     """Torch key -> (collection, JAX leaf path); inverse of ``_torch_key``."""
-    if key.startswith("prompt_encoder."):
-        coll, path = _jax_path(key[len("prompt_encoder."):])
-        return coll, ["prompt_encoder", *path]
     top, *mid, leaf = key.split(".")
+    if top in _NESTED:
+        coll, path = _jax_path(key[len(top) + 1:])
+        return coll, [top, *path]
     path = [top]
     if mid[:2] in (["block", "0"], ["conv", "conv"]):  # <enc>.block.0.conv.i, <dec>.conv.conv.i
         path += ["conv_block", _LAYER_INV[mid[-1]]]
@@ -181,7 +188,7 @@ def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
 def state_dict_from_jax(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 ) -> Dict[str, torch.Tensor]:
-    """JAX UNet/LargeUNet/ClipUnet/ClipUnetPrompt ``params``/``batch_stats``
+    """JAX UNet/LargeUNet/ClipUnet/ClipUnetPrompt/Autoencoder ``params``/``batch_stats``
     -> the port's strict state dict (fp32 CPU tensors).  Conv kernels go
     from flax ``(kH, kW, I, O)`` to torch ``(O, I, kH, kW)``, Dense kernels
     from ``(I, O)`` to ``(O, I)``; ConvTranspose kernels to ``(I, O, kH,

@@ -2,7 +2,7 @@
 """Where the device time of the PyTorch port's serving forward and train
 step goes, on one NVIDIA GPU, and how exact its conv kernel is.
 
-    python3 scripts/profile_torch_port.py [--mode serve|train|prompt|both]
+    python3 scripts/profile_torch_port.py [--mode serve|train|prompt|autoencoder|both]
 
 Uses ``chip_smoke.py``'s configuration (the ``large_unet`` preset at full
 width, batch 16 at 512x512, bf16, seeded random weights) and its main-path
@@ -41,8 +41,15 @@ copies, the three shifts, the colour stage of either backend, and
 32 at 256x256, augmentation 4, one fixed batch of palette masks and one
 fixed draw), kernel path and plain path, with ranges "augment: ..." around
 the prompt maps, the packed geometry, the colour jitter and the blur, and
-"model: ..." around the frozen tower and the prompt encoder.  ``both`` is
-``serve`` and ``train``.
+"model: ..." around the frozen tower and the prompt encoder.
+
+``autoencoder``: the same trace of the ``autoencoder`` preset's train step
+(``chip_smoke.ae_config``: batch 32 at 256x256, no augmentation, one fixed
+batch; MSE reconstruction) on the kernel path and the plain path from the
+same weights, and of the same step with ``w2d_impl="pallas"`` (the conv
+kernels in their unfused forms, BatchNorm, pools and up-convs in PyTorch).
+
+``both`` is ``serve`` and ``train``.
 """
 
 from __future__ import annotations
@@ -73,10 +80,11 @@ DEVICE = smoke.DEVICE
 FORWARDS = 5
 TRAIN_STEPS = 3
 # device kernel name -> group; conv3x3_kernel<LOAD, EPI>: LOAD 0 is the
-# forward, 1 and 2 the dgrad
+# forward, 1 to 3 the dgrad (3: the raw cotangent of an unfused conv)
 OWN_KERNELS = (
     ("conv3x3_kernel<0", "conv3x3 (forward)"), ("conv3x3_kernel<1", "conv3x3_dgrad"),
-    ("conv3x3_kernel<2", "conv3x3_dgrad"), ("wgrad_kernel", "conv3x3_wgrad"),
+    ("conv3x3_kernel<2", "conv3x3_dgrad"), ("conv3x3_kernel<3", "conv3x3_dgrad"),
+    ("wgrad_kernel", "conv3x3_wgrad"), ("conv1x1_bwd_kernel", "conv1x1_bwd"),
     ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
     ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_dx_kernel", "convtranspose2x2_bwd (dx)"),
     ("ct_dw_kernel", "convtranspose2x2_bwd (dw)"), ("convtranspose2x2_kernel", "convtranspose2x2"),
@@ -319,9 +327,38 @@ def prompt() -> None:
         del t, step
 
 
+def autoencoder() -> None:
+    import numpy as np
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    mods = smoke.kernel_modules()
+    rng = np.random.default_rng(smoke.SEED)
+    shape = (smoke.AE_BATCH, smoke.AE_SIZE, smoke.AE_SIZE)
+    images = torch.from_numpy(rng.integers(0, 256, shape + (3,), dtype=np.uint8)).to(DEVICE)
+    masks = torch.zeros(shape, dtype=torch.uint8, device=DEVICE)
+    state = None
+    for label, impl, plain in (("kernels", None, False), ("plain", None, True),
+                               ('kernels, w2d_impl="pallas"', "pallas", False)):
+        cfg = smoke.ae_config(impl)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        if state is None:
+            state = {k: v.clone() for k, v in t.model.state_dict().items()}
+        t.model.load_state_dict(state)
+        step = functools.partial(t.train_step, images, masks, smoke.STEP_KEY)
+        with smoke.plain_path(mods) if plain else contextlib.nullcontext():
+            profile(step, f"autoencoder train step {label} b{cfg.batch_size}",
+                    calls=TRAIN_STEPS, no_grad=False)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+        del t, step
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--mode", choices=("serve", "train", "prompt", "both"), default="both")
+    parser.add_argument("--mode", choices=("serve", "train", "prompt", "autoencoder", "both"),
+                        default="both")
     mode = parser.parse_args().mode
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -335,6 +372,8 @@ def main() -> int:
         train()
     if mode == "prompt":
         prompt()
+    if mode == "autoencoder":
+        autoencoder()
     return 0
 
 

@@ -376,3 +376,89 @@ def test_fusion_with_a_multi_token_context_launches_the_kernel_once(gen):
             ref = m(spatial, ctx)
     assert one.shape == got.shape == (2, 8, 8, 64)
     _close(got, ref)
+
+
+# ---- K11 (the 1x1 conv's backward), the conv kernels' unfused forms
+# (w2d_impl="pallas") and the autoencoder
+
+def _offset(t):
+    """A contiguous view of ``t[1:]``: an operand that need not start on a
+    16-byte boundary (the kernels' scalar paths)."""
+    return t[1:]
+
+
+@pytest.mark.parametrize("input_grad", [True, False])
+@pytest.mark.parametrize("shape,co,view", [
+    ((2, 19, 37, 3), 32, None),    # the stem; a tail tile of pixels
+    ((2, 19, 37, 32), 3, None),    # the output conv
+    ((1, 9, 5, 12), 8, None),
+    ((3, 5, 7, 3), 7, _offset),    # odd byte offsets
+])
+def test_conv1x1_bwd(gen, shape, co, view, input_grad):
+    from image_segmentation_tpu_torch.ops import conv1x1 as c11
+
+    x, g = _randn(gen, *shape), _randn(gen, *shape[:3], co)
+    if view is not None:
+        x, g = view(x), view(g)
+    w = _randn(gen, co, shape[-1], 1, 1, dtype=torch.float32) * 0.3
+    got = _counted(c11.conv1x1_bwd, lambda: c11.conv1x1_bwd(x, g, w, input_grad=input_grad))
+    ref = c11.conv1x1_bwd_plain(x, g, w, input_grad=input_grad)
+    assert (got[0] is None) is (not input_grad)
+    _close_all(tuple(t for t in got if t is not None), tuple(t for t in ref if t is not None))
+
+
+@pytest.mark.parametrize("shape,co", [((2, 19, 37, 8), 16), ((1, 9, 5, 3), 7)])
+def test_conv3x3_unfused_forms(gen, shape, co):
+    """``make_folded_conv3x3``'s forward, dx of the raw cotangent (y
+    unread), dw and db."""
+    x, g = _randn(gen, *shape), _randn(gen, *shape[:3], co)
+    w = _randn(gen, co, shape[-1], 3, 3, dtype=torch.float32) * 0.2
+    bias = _randn(gen, co, dtype=torch.float32)
+    _close(_counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias)), fc.conv3x3_plain(x, w, bias))
+    _close(_counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, None, w, None, None)),
+           fc.conv3x3_dgrad_plain(g, None, w, None, None))
+    _close_all(_counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, None, x, None, None)),
+               fc.conv3x3_wgrad_plain(g, None, x, None, None))
+
+
+@pytest.mark.parametrize("impl,per_step", [
+    ("pallas_fused", {"conv3x3": 10, "conv3x3_dgrad": 10, "conv1x1_bwd": 2}),
+    ("pallas", {"conv3x3": 10, "conv3x3_dgrad": 10, "conv1x1_bwd": 2}),
+])
+def test_autoencoder_train_step_kernels_vs_plain(gen, impl, per_step):
+    """One training step of the autoencoder preset (and of its unfused
+    ``w2d_impl="pallas"`` form) at 64x64, batch 2: the kernel path and the
+    plain path give the same MSE and weight gradients within the bf16
+    limits (rtol 2e-2 loss, 5e-2 relative L2 per weight gradient)."""
+    from image_segmentation_tpu_torch.config import preset
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.ops import conv1x1 as c11
+
+    torch.manual_seed(0)
+    args = dict(preset("autoencoder").model_args, w2d_impl=impl)
+    x = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    wrappers = {"conv3x3": fc.conv3x3, "conv3x3_dgrad": fc.conv3x3_dgrad,
+                "conv1x1_bwd": c11.conv1x1_bwd}
+    grads, losses, sd = [], [], None
+    for plain in (False, True):
+        m = build_model("autoencoder", device="cuda", **args)
+        sd = sd or m.state_dict()
+        m.load_state_dict(sd)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for mod in (fc, c11):
+                    for w in mod.WRAPPERS:
+                        stack.enter_context(mock.patch.object(mod, w.__name__,
+                                                              getattr(mod, w.__name__ + "_plain")))
+            before = {k: w.launches for k, w in wrappers.items()}
+            loss = ((m(x, train=True) - x) ** 2).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        assert launched == ({k: 0 for k in wrappers} if plain else per_step)
+        losses.append(loss.item())
+        grads.append({k: p.grad.float() for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
+    for k, ref in grads[1].items():
+        if k.endswith("weight"):
+            assert (grads[0][k] - ref).norm() <= 5e-2 * ref.norm(), k

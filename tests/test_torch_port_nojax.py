@@ -2,8 +2,9 @@
 image_segmentation_tpu_torch (config, data.*, engine.*, models.*, ops.*,
 utils.*) and chip_smoke.py, runs a tiny CPU forward and an augmented train
 step of the preset model through the wrappers, the augmentor and the
-Trainer, and an augmented prompt train step of a small clip_unet_prompt
-(the prompt preset's model args, a small CLIP tower), and finds no module
+Trainer, an augmented prompt train step of a small clip_unet_prompt (the
+prompt preset's model args, a small CLIP tower) and a reconstruction step
+of the autoencoder on its unfused blocks, and finds no module
 of jax, flax or the JAX package (image_segmentation_tpu) loaded."""
 
 import os
@@ -51,6 +52,15 @@ assert pt.task == "prompt"
 train_pipe, _ = pt._pipelines()
 images, raw = next(train_pipe.epoch(0))
 assert float(pt.train_step(images, raw, step_key=3)) > 0
+acfg = config.preset("autoencoder")
+acfg = config.TrainConfig(
+    model="autoencoder", loss=acfg.loss, bf16=False, batch_size=2,
+    model_args=dict(acfg.model_args, w2d_impl="pallas"),
+    data=config.DataConfig(dataset="synthetic", synthetic_length=2, image_size=32))
+at = train.Trainer(acfg, device="cpu", make_artifacts=False)
+assert at.task == "reconstruction"
+images, masks = next(pipeline.BatchPipeline(at.train_data, 2, device="cpu").epoch(0))
+assert float(at.train_step(images, masks, step_key=3)) > 0
 jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
                   ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
 assert not jax_mods, jax_mods
