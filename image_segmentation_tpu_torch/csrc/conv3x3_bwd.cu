@@ -15,40 +15,87 @@
 // merges dx and wgrad to read the cotangent once from VMEM; here they are
 // two kernels (conv3x3.cu computes dx).
 //
-// What bounds it on the card: arithmetic.  It is a GEMM of (9*Cin) x Co
-// outputs over a reduction depth of B*H*W pixels (4.2M at batch 16, 512^2):
-// the same FLOPs as the forward conv, on the fp32 FMA pipes in this first
-// kernel.  The reduction over pixels is the other problem: on the TPU the
-// dk block stays in VMEM while the grid walks the image in order.
+// What bounds it on the card: the tensor cores.  It is a GEMM of (9*Cin) x
+// Co outputs over a reduction depth of B*H*W pixels (4.2M at batch 16,
+// 512^2): the same FLOPs as the forward conv, on bf16 operands whose
+// products are exact in fp32.  The reduction over pixels is the other
+// problem: on the TPU the dk block stays in VMEM while the grid walks the
+// image in order; here blocks run in parallel.
 //
-// What the design does about it: each 256-thread block owns a 9-tap x 32
-// input-channel x 32 output-channel tile of dw and walks a contiguous chunk
-// of 8x16 pixel tiles.  Per tile it stages the activated (8+2)x(16+2) halo
-// of its 32 input channels and the transformed cotangent of its 32 output
-// channels in shared memory as fp32; each thread keeps 2 input x 2 output
-// channels x 9 taps = 36 fp32 accumulators and reuses every loaded input
-// row across the three horizontal taps and both output channels.  Each
-// block writes its tile of partial sums once; a second pass (reduce.cuh)
-// adds the chunks in a fixed order.  The chunk count is chosen so that
-// about four blocks per SM are in flight.
+// What the design does about it: a GEMM on mma.sync m16n8k16 (bf16 in,
+// fp32 sums) with the pixels as K.  A 384-thread block owns a 9-tap x TCI x
+// TCO tile of dw (TCI, TCO 64 where Cin, Co > 32, else 32) and walks a
+// contiguous chunk of 8x16 pixel tiles.  Per tile it stages the activated
+// (8+2)x(16+2) halo of its TCI input channels and the transformed
+// cotangent of its TCO output channels in shared memory as bf16 (rows
+// padded by 16 bytes: ldmatrix without bank conflicts), so each staged
+// value is transformed once for 9 x 64 outputs.  One tile row of 16 pixels
+// is one k-step: A = act(x) shifted by the tap comes from the halo by
+// ldmatrix.trans (the shift is a row pointer), B = ge by ldmatrix.trans.
+// A warp owns one tap row (3 taps) x 32 input x 32 output channels in
+// registers; with smaller tiles the 12 warps split the tile rows into 2 or
+// 4 groups whose sums are added in group order at the end.  The stages are
+// double-buffered and every load is a 16-byte cp.async started before the
+// previous tile's mma: an operand with no transform (x without the
+// pre-affine, the raw cotangent) straight into its tile, a transformed one
+// (x, or g and y) into a raw buffer, from which each thread transforms its
+// own vectors, 16 bytes at a time through registers, after the mma.  (Held
+// in registers across the mma instead, the next tile's raw vectors took 40
+// registers a thread and spilled 400-700 bytes at the 168-register cap of a
+// 384-thread block.)
+// Channel counts that are not a multiple of 8 (the 1-channel heatmap, odd
+// test shapes) load element by element into zero-padded tiles.  db is a
+// separate fp32 sum: each thread adds one channel of the staged cotangent
+// over a fixed share of the tile's pixels, and the block adds the shares in
+// a fixed order.  Each block writes
+// its tile of partial sums once; a second pass (reduce.cuh) adds the chunks
+// in a fixed order.  No atomics.  The chunks are short (about 4 blocks per
+// SM over the whole image) so that no block's fp32 sum runs over more than
+// a few thousand pixels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "mma.cuh"
 #include "reduce.cuh"
 
 namespace {
 
+using imgseg::cp_async16;
+using imgseg::ldsm_x4_trans;
+using imgseg::mma_bf16;
+
 constexpr int TH = 8;
-constexpr int TW = 16;
+constexpr int TW = 16;  // one k-step of 16 pixels per tile row
 constexpr int IH = TH + 2;
 constexpr int IW = TW + 2;
-constexpr int XS = IH * IW + 1;  // +1: the channel-major staging stores spread over banks
-constexpr int TCI = 32;          // input channels per block
-constexpr int TCO = 32;          // output channels per block
-constexpr int THREADS = 256;     // 16 input-channel pairs x 16 output-channel pairs
+constexpr int HALO = IH * IW;
+constexpr int TILE = TH * TW;
+constexpr int THREADS = 384;  // 12 warps
+
+// MI, NI: 32-channel halves of the input and output channel tile.
+template <int MI, int NI>
+struct WTiles {
+  static constexpr int TCI = 32 * MI;
+  static constexpr int TCO = 32 * NI;
+  static constexpr int KG = 4 / (MI * NI);  // warp groups splitting the tile rows
+  static constexpr int XS = TCI + 8;        // row strides (bf16)
+  static constexpr int GS = TCO + 8;
+  static constexpr int X = HALO * XS;
+  static constexpr int G = TILE * GS;
+  static constexpr int STAGE = X + G;
+  static constexpr int XV = (HALO * TCI / 8 + THREADS - 1) / THREADS;  // 16-byte vectors a thread
+  static constexpr int GV = (TILE * TCO / 8 + THREADS - 1) / THREADS;
+  // the next tile's raw x, g and y as loaded, for the operands transformed on load
+  static constexpr int RAW = HALO * TCI + 2 * TILE * TCO;
+  static constexpr size_t STAGES = (2 * STAGE + RAW) * sizeof(__nv_bfloat16);
+  static constexpr size_t XCHG = KG > 1 ? 9 * TCI * TCO * sizeof(float) : 0;
+  static constexpr size_t DBRED = THREADS * sizeof(float);
+  static constexpr size_t BYTES =
+      STAGES > XCHG ? (STAGES > DBRED ? STAGES : DBRED) : (XCHG > DBRED ? XCHG : DBRED);
+};
 
 struct Args {
   const __nv_bfloat16* g;   // (B,H,W,Co) cotangent
@@ -60,6 +107,7 @@ struct Args {
   float* part_w;            // (chunks, 9, Cin, Co)
   float* part_b;            // (chunks, Co)
   int B, H, W, Ca, Cb, Co, tiles_x, tiles_y;
+  int xvec, gvec;  // x / the cotangent in 16-byte vectors (channels multiples of 8, aligned)
   long long tiles, per_chunk;
 };
 
@@ -74,6 +122,7 @@ enum Ge {
   kGeAffine = 2,  // round(g*a*[y*a + b > 0] + c1 + 2*y*c2)
 };
 
+// One element (the path for channel counts that are not a multiple of 8).
 template <int GE>
 __device__ __forceinline__ float load_ge(const Args& p, size_t pix, int co) {
   const int C = p.Co;
@@ -101,117 +150,292 @@ __device__ __forceinline__ float load_act(const Args& p, size_t pix, int ci) {
   return v;
 }
 
-template <int GE>
-__global__ void __launch_bounds__(THREADS) wgrad_kernel(const Args p) {
-  __shared__ float s_x[TCI * XS];
-  __shared__ __align__(16) float s_g[TH * TW][TCO];
+template <int GE, int MI, int NI>
+__global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
+  using T = WTiles<MI, NI>;
+  constexpr int TCI = T::TCI, TCO = T::TCO, KG = T::KG;
+  constexpr int XW = TCI / 8, GW = TCO / 8;  // 16-byte vectors per staged row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
+  const int H = p.H, W = p.W, Co = p.Co;
   const int cin = p.Ca + p.Cb;
-  const int co_tiles = (p.Co + TCO - 1) / TCO;
+  const int co_tiles = (Co + TCO - 1) / TCO;
   const int ci0 = (blockIdx.x / co_tiles) * TCI;
   const int co0 = (blockIdx.x % co_tiles) * TCO;
-  const int tid = threadIdx.x;
-  const int cp = tid / 16;  // this thread's input channels ci0 + 2cp, +1
-  const int op = tid % 16;  // and output channels co0 + 2op, +1
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp % (3 * MI * NI), kg = warp / (3 * MI * NI);
+  const int ky = wg % 3;              // this warp's taps (ky, 0..2)
+  const int mh = (wg / 3) % MI;       // its input channels ci0 + 32mh ..
+  const int nh = wg / (3 * MI);       // its output channels co0 + 32nh ..
+  const bool direct_x = p.ab == nullptr;
+  const bool direct_g = GE == kGePlain;
+  const bool xraw = p.xvec && !direct_x, graw = p.gvec && !direct_g;
+  const bool with_db = ci0 == 0;
+  const bool mi1 = ci0 + mh * 32 + 16 < cin;  // the warp's second m16 tile holds channels
 
-  float acc[9][2][2];
+  // zero both stages: the element paths write only the tile's real channels
+  for (int i = tid; i < 2 * T::STAGE / 8; i += THREADS) {
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  // a transformed operand's next tile in flight, as loaded
+  __nv_bfloat16* raw_x = smem + 2 * T::STAGE;
+  __nv_bfloat16* raw_g = raw_x + HALO * TCI;
+  __nv_bfloat16* raw_y = raw_g + TILE * TCO;
+
+  auto tile_origin = [&](long long t, int& n, int& y0, int& x0) {
+    x0 = static_cast<int>(t % p.tiles_x) * TW;
+    y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * TH;
+    n = static_cast<int>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y));
+  };
+  // halo vector i of x: pixel q, channels gc..; ge vector i: pixel q, channels gc..
+  auto x_vec = [&](int i, int n, int y0, int x0, int& q, int& gc, size_t& pix) {
+    q = i / XW;
+    gc = ci0 + 8 * (i % XW);
+    const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < cin;
+    pix = ok ? (static_cast<size_t>(n) * H + gy) * W + gx : 0;
+    return ok;
+  };
+  auto g_vec = [&](int i, int n, int y0, int x0, int& q, int& gc, size_t& pix) {
+    q = i / GW;
+    gc = co0 + 8 * (i % GW);
+    const int gy = y0 + q / TW, gx = x0 + q % TW;
+    const bool ok = gy < H && gx < W && gc < Co;
+    pix = ok ? (static_cast<size_t>(n) * H + gy) * W + gx : 0;
+    return ok;
+  };
+
+  // Start tile t into buffer `buf` by cp.async: an operand with no
+  // transform into the tile, a transformed one raw; the element paths at once.
+  auto begin_tile = [&](long long t, int buf) {
+    int n, y0, x0;
+    tile_origin(t, n, y0, x0);
+    __nv_bfloat16* sX = smem + buf * T::STAGE;
+    __nv_bfloat16* sG = sX + T::X;
+    if (p.xvec) {
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
+      for (int j = 0; j < T::XV; ++j) {
+        const int i = tid + j * THREADS;
+        if (i >= HALO * XW) break;
+        int q, gc;
+        size_t pix;
+        const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
+        const __nv_bfloat16* src = p.x;
+        if (ok) src = gc < p.Ca ? p.x + pix * p.Ca + gc : p.xb + pix * p.Cb + (gc - p.Ca);
+        cp_async16(direct_x ? sX + q * T::XS + (i % XW) * 8 : raw_x + 8 * i, src, ok);
+      }
+    } else {
+      const int nci = cin - ci0 < TCI ? cin - ci0 : TCI;
+      for (int i = tid; i < HALO * nci; i += THREADS) {
+        const int c = i % nci, q = i / nci;
+        const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1;
+        float v = 0.f;  // zero outside the image, after the activation
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          v = load_act(p, (static_cast<size_t>(n) * H + gy) * W + gx, ci0 + c);
+        }
+        sX[q * T::XS + c] = __float2bfloat16(v);
+      }
+    }
+    if (p.gvec) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) acc[t][i][0] = acc[t][i][1] = 0.f;
-  float db0 = 0.f, db1 = 0.f;
+      for (int j = 0; j < T::GV; ++j) {
+        const int i = tid + j * THREADS;
+        if (i >= TILE * GW) break;
+        int q, gc;
+        size_t pix;
+        const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
+        const __nv_bfloat16* src = ok ? p.g + pix * Co + gc : p.g;
+        if (direct_g) {
+          cp_async16(sG + q * T::GS + (i % GW) * 8, src, ok);
+        } else {
+          cp_async16(raw_g + 8 * i, src, ok);
+          cp_async16(raw_y + 8 * i, ok ? p.y + pix * Co + gc : p.g, ok);
+        }
+      }
+    } else {
+      const int nco = Co - co0 < TCO ? Co - co0 : TCO;
+      for (int i = tid; i < TILE * nco; i += THREADS) {
+        const int c = i % nco, q = i / nco;
+        const int gy = y0 + q / TW, gx = x0 + q % TW;
+        float v = 0.f;  // no cotangent outside the image
+        if (gy < H && gx < W) v = load_ge<GE>(p, (static_cast<size_t>(n) * H + gy) * W + gx, co0 + c);
+        sG[q * T::GS + c] = __float2bfloat16(v);
+      }
+    }
+  };
+
+  // Finish tile t's transformed operands (this thread's own copies, so its
+  // own wait suffices): transform the raw vectors and store them.
+  auto finish_tile = [&](long long t, int buf) {
+    int n, y0, x0;
+    tile_origin(t, n, y0, x0);
+    __nv_bfloat16* sX = smem + buf * T::STAGE;
+    __nv_bfloat16* sG = sX + T::X;
+    if (xraw) {
+#pragma unroll
+      for (int j = 0; j < T::XV; ++j) {
+        const int i = tid + j * THREADS;
+        if (i >= HALO * XW) break;
+        int q, gc;
+        size_t pix;
+        const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {
+          const uint4 r = *reinterpret_cast<const uint4*>(raw_x + 8 * i);
+          v = gc < p.Ca ? imgseg::affine_relu8(p.ab, p.Ca, gc, r) : r;
+        }
+        *reinterpret_cast<uint4*>(sX + q * T::XS + (i % XW) * 8) = v;
+      }
+    }
+    if (graw) {
+#pragma unroll
+      for (int j = 0; j < T::GV; ++j) {
+        const int i = tid + j * THREADS;
+        if (i >= TILE * GW) break;
+        int q, gc;
+        size_t pix;
+        const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {
+          v = imgseg::cotangent8<GE == kGeAffine>(p.gf, Co, gc,
+                                                  *reinterpret_cast<const uint4*>(raw_g + 8 * i),
+                                                  *reinterpret_cast<const uint4*>(raw_y + 8 * i));
+        }
+        *reinterpret_cast<uint4*>(sG + q * T::GS + (i % GW) * 8) = v;
+      }
+    }
+  };
+
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[kx][mi][ni][e] = 0.f;
+  // db: this thread's channel co0 + tid % TCO over the tile pixels tid / TCO + k * DG
+  constexpr int DG = THREADS / TCO;
+  float db = 0.f;
+
+  // this lane's ldmatrix rows: A (pixel, 8-channel half), B (pixel, 8-channel half)
+  const int a_px = (lane & 7) + (lane >> 4) * 8, a_c = ((lane >> 3) & 1) * 8;
+  const int b_px = (lane & 7) + ((lane >> 3) & 1) * 8, b_c = (lane >> 4) * 8;
 
   const long long t_begin = static_cast<long long>(blockIdx.y) * p.per_chunk;
-  long long t_end = t_begin + p.per_chunk;
-  if (t_end > p.tiles) t_end = p.tiles;
+  const long long t_end = t_begin + p.per_chunk < p.tiles ? t_begin + p.per_chunk : p.tiles;
+  if (t_begin < t_end) begin_tile(t_begin, 0);
+  imgseg::cp_async_commit();
+  imgseg::cp_async_wait_all();
+  if (t_begin < t_end) finish_tile(t_begin, 0);
+  __syncthreads();
   for (long long t = t_begin; t < t_end; ++t) {
-    const int tx = static_cast<int>(t % p.tiles_x);
-    const int ty = static_cast<int>((t / p.tiles_x) % p.tiles_y);
-    const int n = static_cast<int>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y));
-    const int x0 = tx * TW, y0 = ty * TH;
-
-    for (int i = tid; i < IH * IW * TCI; i += THREADS) {
-      const int c = i % TCI;
-      const int q = i / TCI;
-      const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1, gc = ci0 + c;
-      float v = 0.f;  // zero outside the image, after the activation
-      if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W && gc < cin) {
-        v = load_act(p, (static_cast<size_t>(n) * p.H + gy) * p.W + gx, gc);
-      }
-      s_x[c * XS + q] = v;
+    const int buf = static_cast<int>((t - t_begin) & 1);
+    const bool next = t + 1 < t_end;
+    if (next) {
+      begin_tile(t + 1, buf ^ 1);
+      imgseg::cp_async_commit();
     }
-    for (int i = tid; i < TH * TW * TCO; i += THREADS) {
-      const int c = i % TCO;
-      const int q = i / TCO;
-      const int gy = y0 + q / TW, gx = x0 + q % TW, gc = co0 + c;
-      float v = 0.f;  // no cotangent outside the image
-      if (gy < p.H && gx < p.W && gc < p.Co) {
-        v = load_ge<GE>(p, (static_cast<size_t>(n) * p.H + gy) * p.W + gx, gc);
+    const __nv_bfloat16* sX = smem + buf * T::STAGE;
+    const __nv_bfloat16* sG = sX + T::X;
+    if (with_db) {  // the bias gradient: one channel, a fixed share of the pixels
+      for (int q = tid / TCO; q < TILE; q += DG) db += __bfloat162float(sG[q * T::GS + tid % TCO]);
+    }
+#pragma unroll 1
+    for (int r = kg; r < TH; r += KG) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        uint32_t q4[4];
+        ldsm_x4_trans(q4, sG + (r * TW + b_px) * T::GS + nh * 32 + pr * 16 + b_c);
+        b[2 * pr][0] = q4[0], b[2 * pr][1] = q4[1];
+        b[2 * pr + 1][0] = q4[2], b[2 * pr + 1][1] = q4[3];
       }
-      s_g[q][c] = v;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi == 1 && !mi1) break;
+          uint32_t a[4];
+          ldsm_x4_trans(a, sX + ((r + ky) * IW + a_px + kx) * T::XS + mh * 32 + mi * 16 + a_c);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[kx][mi][ni], a, b[ni][0], b[ni][1]);
+        }
+      }
+    }
+    imgseg::cp_async_wait_all();
+    if (next) finish_tile(t + 1, buf ^ 1);
+    __syncthreads();
+  }
+
+  // the row groups' sums into group 0, in group order
+  float* xs = reinterpret_cast<float*>(smem_raw);
+#pragma unroll 1
+  for (int g = 1; g < KG; ++g) {
+    if (kg == g) {
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              xs[((wg * 96) + ((kx * 2 + mi) * 4 + ni) * 4 + e) * 32 + lane] = acc[kx][mi][ni][e];
+            }
     }
     __syncthreads();
-
-    if (cp == 0) {  // the bias gradient, once per output channel pair
-      for (int q = 0; q < TH * TW; ++q) {
-        db0 += s_g[q][2 * op];
-        db1 += s_g[q][2 * op + 1];
-      }
-    }
-    const float* x0p = &s_x[(2 * cp) * XS];
-    const float* x1p = x0p + XS;
-#pragma unroll 1
-    for (int r = 0; r < TH; ++r) {
+    if (kg == 0) {
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float xa[IW], xb[IW];
+      for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-        for (int j = 0; j < IW; ++j) {
-          xa[j] = x0p[(r + ky) * IW + j];
-          xb[j] = x1p[(r + ky) * IW + j];
-        }
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int px = 0; px < TW; ++px) {
-          const float2 gv = *reinterpret_cast<const float2*>(&s_g[r * TW + px][2 * op]);
+          for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            float(&a)[2][2] = acc[ky * 3 + kx];
-            a[0][0] = fmaf(xa[px + kx], gv.x, a[0][0]);
-            a[0][1] = fmaf(xa[px + kx], gv.y, a[0][1]);
-            a[1][0] = fmaf(xb[px + kx], gv.x, a[1][0]);
-            a[1][1] = fmaf(xb[px + kx], gv.y, a[1][1]);
-          }
-        }
-      }
+            for (int e = 0; e < 4; ++e) {
+              acc[kx][mi][ni][e] += xs[((wg * 96) + ((kx * 2 + mi) * 4 + ni) * 4 + e) * 32 + lane];
+            }
     }
     __syncthreads();
   }
 
   // this block's partial sums: every (tap, ci, co) of its tile, zeros included
   const size_t chunk = blockIdx.y;
-  float* pw = p.part_w + chunk * 9 * static_cast<size_t>(cin) * p.Co;
+  if (kg == 0) {
+    float* pw = p.part_w + chunk * 9 * static_cast<size_t>(cin) * Co;
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
+    for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ci = ci0 + 2 * cp + i;
-      if (ci >= cin) continue;
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int o = 0; o < 2; ++o) {
-        const int co = co0 + 2 * op + o;
-        if (co < p.Co) pw[(static_cast<size_t>(t) * cin + ci) * p.Co + co] = acc[t][i][o];
-      }
-    }
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = ci0 + mh * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
+            const int co = co0 + nh * 32 + ni * 8 + 2 * (lane & 3) + (e & 1);
+            if (ci < cin && co < Co) {
+              pw[(static_cast<size_t>(ky * 3 + kx) * cin + ci) * Co + co] = acc[kx][mi][ni][e];
+            }
+          }
   }
-  if (ci0 == 0 && cp == 0) {
-    float* pb = p.part_b + chunk * p.Co;
-    if (co0 + 2 * op < p.Co) pb[co0 + 2 * op] = db0;
-    if (co0 + 2 * op + 1 < p.Co) pb[co0 + 2 * op + 1] = db1;
+  if (with_db) {  // the threads' db sums, added in pixel-share order per channel
+    xs[tid] = db;
+    __syncthreads();
+    if (tid < TCO && co0 + tid < Co) {
+      float s = 0.f;
+      for (int g = 0; g < DG; ++g) s += xs[g * TCO + tid];
+      p.part_b[chunk * Co + co0 + tid] = s;
+    }
   }
 }
 
 struct Plan {
-  int tiles_x, tiles_y, combos;
+  int tiles_x, tiles_y, mi, ni, combos;
   long long tiles, chunks, per_chunk;
 };
 
@@ -220,11 +444,34 @@ Plan plan(int B, int H, int W, int Cin, int Co) {
   q.tiles_x = (W + TW - 1) / TW;
   q.tiles_y = (H + TH - 1) / TH;
   q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
-  q.combos = ((Cin + TCI - 1) / TCI) * ((Co + TCO - 1) / TCO);
+  q.mi = Cin > 32 ? 2 : 1;
+  q.ni = Co > 32 ? 2 : 1;
+  q.combos = ((Cin + 32 * q.mi - 1) / (32 * q.mi)) * ((Co + 32 * q.ni - 1) / (32 * q.ni));
   q.chunks = imgseg::chunks_for(q.tiles, q.combos);
   q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
   return q;
 }
+
+template <int GE, int MI, int NI>
+cudaError_t launch_tiles(const Args& p, dim3 grid, cudaStream_t s) {
+  static bool opted = false;
+  auto* kernel = wgrad_kernel<GE, MI, NI>;
+  const cudaError_t err = imgseg::allow_smem(kernel, WTiles<MI, NI>::BYTES, opted);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, WTiles<MI, NI>::BYTES, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int GE>
+cudaError_t launch(const Args& p, const Plan& q, cudaStream_t s) {
+  const dim3 grid(q.combos, static_cast<unsigned>(q.chunks));
+  if (q.mi == 2) {
+    return q.ni == 2 ? launch_tiles<GE, 2, 2>(p, grid, s) : launch_tiles<GE, 2, 1>(p, grid, s);
+  }
+  return q.ni == 2 ? launch_tiles<GE, 1, 2>(p, grid, s) : launch_tiles<GE, 1, 1>(p, grid, s);
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 
@@ -257,16 +504,17 @@ extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf
   p.part_b = p.part_w + q.chunks * 9LL * cin * Co;
   p.B = B, p.H = H, p.W = W, p.Ca = Ca, p.Cb = Cb, p.Co = Co;
   p.tiles_x = q.tiles_x, p.tiles_y = q.tiles_y, p.tiles = q.tiles, p.per_chunk = q.per_chunk;
+  p.xvec = Ca % 8 == 0 && Cb % 8 == 0 && aligned16(x) && aligned16(xb) && aligned16(ab);
+  p.gvec = Co % 8 == 0 && aligned16(g) && aligned16(y) && aligned16(gf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(q.combos, static_cast<unsigned>(q.chunks));
+  cudaError_t err;
   if (gf == nullptr) {
-    wgrad_kernel<kGePlain><<<grid, THREADS, 0, s>>>(p);
+    err = launch<kGePlain>(p, q, s);
   } else if (affine) {
-    wgrad_kernel<kGeAffine><<<grid, THREADS, 0, s>>>(p);
+    err = launch<kGeAffine>(p, q, s);
   } else {
-    wgrad_kernel<kGeStats><<<grid, THREADS, 0, s>>>(p);
+    err = launch<kGeStats>(p, q, s);
   }
-  cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) {
     err = imgseg::sum_rows(p.part_w, static_cast<float*>(dw), q.chunks, 9LL * cin * Co, s);
   }
