@@ -140,6 +140,9 @@ NUM_CLASSES = 3
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
+# The entries whose kernels run on the tensor cores: their lines print the
+# TFLOP/s and the share of the bound reached
+TENSOR_CORE_ENTRIES = ("conv3x3", "convtranspose2x2")
 # fp32 operations of the colour stage per pixel: normalize 3, brightness 9,
 # the gray mean 5, contrast 14, saturation 19, the HSV round trip ~70 (with
 # its clips), the two blur passes 60
@@ -768,7 +771,7 @@ def kernel_phase(torch, mods, groups: list) -> dict:
             lib_ms = None if case.library is None else cuda_ms(torch, case.library, iters)
             bound = max(bytes_ms, ops_ms)
             rate = (f" {case.ops / k_ms / 1e9!r} TFLOP/s, {bound / k_ms!r} of the bound"
-                    if conv else "")
+                    if entry.startswith(TENSOR_CORE_ENTRIES) else "")
             print(f"kernel {entry} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
                   f"bound_ms={bound!r} ({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
                   f"library_ms={lib_ms!r}{rate}{'' if timed == 'sum' else ' (own line)'} ok",
@@ -786,7 +789,7 @@ def kernel_phase(torch, mods, groups: list) -> dict:
     for entry, r in results.items():
         ops_ms = r["ops_ms"]
         r["bound_by"] = "bytes" if r.pop("bytes_ms") >= r.pop("ops_ms") else "operations"
-        if entry.startswith("conv3x3") and r["ms"] > 0:
+        if entry.startswith(TENSOR_CORE_ENTRIES) and r["ms"] > 0:
             # ops_ms is FLOPs / BF16_FLOP_PER_S in ms: back to FLOP/s over the kernel's ms
             print(f"kernel {entry} summed: ms={r['ms']!r} "
                   f"{ops_ms * BF16_FLOP_PER_S / r['ms'] / 1e12!r} TFLOP/s, "

@@ -1,5 +1,5 @@
 // Tensor-core and asynchronous-copy primitives shared by the conv kernels
-// (conv3x3.cu, conv3x3_bwd.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
+// (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
 // fp32 sums, cp.async with zero fill, 8-wide bf16 vector helpers and the
 // operand transforms applied on load.
 //
@@ -60,6 +60,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 8 bf16 <-> 16 bytes

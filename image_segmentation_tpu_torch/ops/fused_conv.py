@@ -585,7 +585,7 @@ def convtranspose2x2_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     """Backward of :func:`convtranspose2x2` (``_ct_bwd_kernel_body`` :1761):
     ``dx[b,i,j,c] = round(sum_{dy,dx,o} g[b,2i+dy,2j+dx,o] w[c,o,dy,dx])``
     and the fp32 sums over (b, i, j) ``dw`` (Cin, Co, 2, 2) and ``dbias``
-    (Co,)."""
+    (Co,).  The kernel holds dw's 4*Co columns in one block: Co <= 64."""
     if _on_cpu(x):
         return convtranspose2x2_bwd_plain(x, w, g)
     name = "convtranspose2x2_bwd"
@@ -595,6 +595,8 @@ def convtranspose2x2_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     co = w.shape[1]
     if w.shape != (ci, co, 2, 2):
         raise ValueError(f"{name}: w must be ({ci}, {co}, 2, 2), got {tuple(w.shape)}")
+    if co > 64:
+        raise ValueError(f"{name}: the kernel takes Co <= 64, got {co}")
     _check_activation(name, g, "g", (bsz, 2 * h, 2 * wd, co))
     wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (2, 2, Co, Cin)
     dx = torch.empty_like(x)

@@ -86,8 +86,8 @@ OWN_KERNELS = (
     ("conv3x3_kernel<2", "conv3x3_dgrad"), ("conv3x3_kernel<3", "conv3x3_dgrad"),
     ("wgrad_kernel", "conv3x3_wgrad"), ("conv1x1_bwd_kernel", "conv1x1_bwd"),
     ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
-    ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_dx_kernel", "convtranspose2x2_bwd (dx)"),
-    ("ct_dw_kernel", "convtranspose2x2_bwd (dw)"), ("convtranspose2x2_kernel", "convtranspose2x2"),
+    ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_bwd_kernel", "convtranspose2x2_bwd"),
+    ("ct_fwd_kernel", "convtranspose2x2"),
     ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
     ("gray_sum_kernel", "preprocess (gray sums)"), ("colour_blur_kernel", "preprocess (colour, blur)"),
     ("attn_kernel", "cross_attention"),

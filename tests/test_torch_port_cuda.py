@@ -338,6 +338,64 @@ def test_convtranspose2x2_bwd(gen, shape, co):
     _close_all(got, fc.convtranspose2x2_bwd_plain(x, w, g))
 
 
+# ---- the ConvTranspose kernels at the main paths' widths (Cin -> Co = 128
+# -> 64, 64 -> 32, 64 -> 64) on images whose rows the pixel tiles cross
+# (Win 24, 32, 13) with ragged M; Co not a multiple of 8 at Cin 64 (12: the
+# 16-byte path, 10: the element path); enough pixels that blocks walk
+# several tiles; and off the main paths, Cin past one 128-channel stage and
+# 4*Co past one 256-column tile
+WIDE_CT = [
+    ((2, 7, 24, 128), 64),   # dec4
+    ((3, 5, 32, 64), 32),    # dec5
+    ((3, 5, 32, 64), 64),    # the autoencoder's dec1, dec2
+    ((2, 7, 24, 64), 12),
+    ((1, 9, 13, 64), 10),
+    ((8, 64, 96, 64), 32),
+    ((4, 64, 96, 128), 64),
+]
+OFF_PATH_CT = [((1, 6, 10, 160), 16), ((1, 6, 10, 24), 128)]
+
+
+def _ct_operands(gen, shape, co):
+    x = _randn(gen, *shape)
+    w = _randn(gen, shape[-1], co, 2, 2, dtype=torch.float32) / (4 * shape[-1]) ** 0.5
+    g = _randn(gen, shape[0], 2 * shape[1], 2 * shape[2], co)
+    bias = _randn(gen, co, dtype=torch.float32) * 0.1
+    return x, w, g, bias
+
+
+@pytest.mark.parametrize("shape,co", WIDE_CT + OFF_PATH_CT)
+def test_convtranspose2x2_at_main_path_widths(gen, shape, co):
+    x, w, _, bias = _ct_operands(gen, shape, co)
+    got = _counted(fc.convtranspose2x2, lambda: fc.convtranspose2x2(x, w, bias))
+    _close(got, fc.convtranspose2x2_plain(x, w, bias))
+
+
+@pytest.mark.parametrize("shape,co", WIDE_CT + OFF_PATH_CT[:1])
+def test_convtranspose2x2_bwd_at_main_path_widths(gen, shape, co):
+    x, w, g, _ = _ct_operands(gen, shape, co)
+    got = _counted(fc.convtranspose2x2_bwd, lambda: fc.convtranspose2x2_bwd(x, w, g))
+    _close_all(got, fc.convtranspose2x2_bwd_plain(x, w, g))
+
+
+def test_convtranspose2x2_bwd_refuses_co_above_64(gen):
+    x, w, g, _ = _ct_operands(gen, (1, 2, 2, 8), 65)
+    with pytest.raises(ValueError, match="Co <= 64"):
+        fc.convtranspose2x2_bwd(x, w, g)
+
+
+def test_convtranspose_kernels_are_deterministic(gen):
+    """Two launches on the same inputs: bit-identical y, dx, dw and db (the
+    chunks' partial rows are added in a fixed order, no atomics)."""
+    x, w, g, bias = _ct_operands(gen, (4, 64, 96, 128), 64)
+    for call in (lambda: (fc.convtranspose2x2(x, w, bias),),
+                 lambda: fc.convtranspose2x2_bwd(x, w, g)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second, strict=True):
+            assert torch.equal(a, b)
+
+
 def test_autograd_functions_train_through_the_kernels(gen):
     """One training step of the preset's small LargeUNet on the card: the
     kernel path and the plain path give the same loss and gradients within
