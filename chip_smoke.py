@@ -142,7 +142,7 @@ BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 # The entries whose kernels run on the tensor cores: their lines print the
 # TFLOP/s and the share of the bound reached
-TENSOR_CORE_ENTRIES = ("conv3x3", "convtranspose2x2")
+TENSOR_CORE_ENTRIES = ("conv3x3", "convtranspose2x2", "cross_attention", "conv1x1_bwd")
 # fp32 operations of the colour stage per pixel: normalize 3, brightness 9,
 # the gray mean 5, contrast 14, saturation 19, the HSV round trip ~70 (with
 # its clips), the two blur passes 60
@@ -673,8 +673,9 @@ def kernel_cases(torch, mods, groups: list) -> list:
     cases.append(("preprocess", "u8 -> bf16", None, colour(torch.bfloat16)))
 
     # the cross-attention kernel at the CLIP bottleneck of a 256x256 batch of
-    # 32 (L = 32*32, D 512): the fusion phase's context and heads, one key,
-    # 77 tokens over 4 heads, and the JAX kernel's own test shape
+    # 32 (L = 32*32, D 512): the fusion phase's context and heads, the same
+    # context over 8 heads (dh 64), one key, 77 tokens over 4 heads (the
+    # long-context path), and the JAX kernel's own test shape
     def attention(b, length, s, heads):
         def make():
             q, k, v = randn(b, length, 512), randn(b, s, 512), randn(b, s, 512)
@@ -688,7 +689,8 @@ def kernel_cases(torch, mods, groups: list) -> list:
     bott = PROMPT_BATCH, (PROMPT_SIZE // 8) ** 2
     cases.append(("cross_attention", f"B{bott[0]} L{bott[1]} S{FUSION_TOKENS} heads {FUSION_HEADS}",
                   "sum", attention(*bott, FUSION_TOKENS, FUSION_HEADS)))
-    for b, length, s, heads in ((*bott, 1, 1), (*bott, 77, 4), (1, 4096, 8, 1)):
+    for b, length, s, heads in ((*bott, FUSION_TOKENS, 8), (*bott, 1, 1), (*bott, 77, 4),
+                                (1, 4096, 8, 1)):
         cases.append(("cross_attention", f"B{b} L{length} S{s} heads {heads}", "line",
                       attention(b, length, s, heads)))
     return cases

@@ -286,19 +286,6 @@ __global__ void __launch_bounds__(THREADS, 2) ct_fwd_kernel(const FwdArgs p) {
   imgseg::cp_async_wait<0>();
 }
 
-// Blocks of `kernel` that fit on the whole card at once.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t bytes, int& blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes);
-  }
-  blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return err;
-}
-
 template <int BM, int TN>
 cudaError_t launch_fwd(FwdArgs p, cudaStream_t stream) {
   static bool opted = false;
@@ -314,7 +301,7 @@ cudaError_t launch_fwd(FwdArgs p, cudaStream_t stream) {
   const int col_tiles = (p.N + TN - 1) / TN;
   cudaError_t err = imgseg::allow_smem(kernel, limit, opted);
   int resident = 0;
-  if (err == cudaSuccess) err = resident_blocks(kernel, bytes, resident);
+  if (err == cudaSuccess) err = imgseg::resident_blocks(kernel, THREADS, bytes, resident);
   if (err != cudaSuccess) return err;
   int blocks = resident / col_tiles;
   blocks = blocks < 1 ? 1 : (blocks > p.tiles ? p.tiles : blocks);
@@ -600,7 +587,7 @@ cudaError_t bwd_kernel_ready(int& resident) {
   auto* kernel = ct_bwd_kernel<CP, NP>;
   const size_t bytes = BwdTiles<CP, NP>::BYTES;
   const cudaError_t err = imgseg::allow_smem(kernel, bytes, opted);
-  return err != cudaSuccess ? err : resident_blocks(kernel, bytes, resident);
+  return err != cudaSuccess ? err : imgseg::resident_blocks(kernel, THREADS, bytes, resident);
 }
 
 // The tiles and chunks of a backward launch; the scratch query and the

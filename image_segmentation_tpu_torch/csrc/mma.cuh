@@ -1,5 +1,6 @@
-// Tensor-core and asynchronous-copy primitives shared by the conv kernels
-// (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
+// Tensor-core and asynchronous-copy primitives shared by the tensor-core
+// kernels (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu, conv1x1_bwd.cu,
+// cross_attention.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
 // fp32 sums, cp.async with zero fill, 8-wide bf16 vector helpers and the
 // operand transforms applied on load.
 //
@@ -34,6 +35,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses
+// (lane 8j + r: row r of matrix j), the others are ignored.
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }
@@ -143,6 +153,20 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   done = err == cudaSuccess;
+  return err;
+}
+
+// Blocks of `kernel` (`threads` a block, `bytes` of dynamic shared memory)
+// that fit on the whole card at once.
+template <typename Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, size_t bytes, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  }
+  blocks = sms * (per_sm > 0 ? per_sm : 1);
   return err;
 }
 

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time some kernels of this checkout beside the same kernels of another
+checkout (an earlier commit), on one NVIDIA GPU, in turns.
+
+    git archive <commit> | tar -x -C build/parent      # build/ is ignored by git
+    python3 scripts/compare_kernels.py --other build/parent \\
+        --entries cross_attention conv1x1_bwd
+
+Each checkout runs in its own process, which imports that checkout's
+``chip_smoke.py`` and ``image_segmentation_tpu_torch`` and builds its
+kernels into its own ``build/kernels``.  The processes run in turns:
+other, this, this, other.  Each times, with CUDA events over ``--iters``
+launches after a warm-up, every case of ``chip_smoke.kernel_cases`` of the
+named KERNEL_INFO entries at the main paths' shapes (``path_shapes()``)
+that the smoke run times, and the library call beside it.  The result: per
+case the mean ms of both checkouts and the library's, and per entry the sum
+over its "sum" cases (the smoke run's JSON line), as JSON lines on stdout.
+With ``--profile`` each case also gets its device time per CUDA kernel
+(``torch.profiler``, a mean over ``--iters`` launches), to split a
+wrapper's time between its kernel and its second pass of the sums.  Each
+case also reports the device-memory rate it reached (its inputs read once
+and its outputs written once, over its ms) beside that of a plain copy of
+its inputs (``Tensor.copy_``: each input read once and written once), the
+rate a streaming pass reaches on this card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def device_times(torch, fn, iters: int) -> dict:
+    """Mean device microseconds per call of ``fn``, by CUDA kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if total > 0:
+            out[evt.key[:80]] = total / iters
+    return out
+
+
+def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
+    """Time the cases in this process, from ``root``'s modules."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as smoke
+    from image_segmentation_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernels: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()
+    _build.library()
+    mods = smoke.kernel_modules()
+    for entry, label, timed, make in smoke.kernel_cases(torch, mods, smoke.path_shapes()):
+        if entry not in entries or not timed:
+            continue
+        case = make()
+        got = case.kern()
+        smoke.compare(torch, f"{entry} {label}", got, case.plain(), case.tol)
+        ms = smoke.cuda_ms(torch, case.kern, iters)
+        lib = None if case.library is None else smoke.cuda_ms(torch, case.library, iters)
+        inputs = [t for t in case.inputs if isinstance(t, torch.Tensor)]
+        twins = [torch.empty_like(t) for t in inputs]
+        copy_ms = smoke.cuda_ms(torch, lambda: [b.copy_(t) for b, t in zip(twins, inputs)], iters)
+        row = {"entry": entry, "label": label, "timed": timed, "ms": ms, "library_ms": lib,
+               "TBps": smoke._nbytes([*case.inputs, got]) / ms / 1e9,
+               "copy_TBps": 2 * smoke._nbytes(inputs) / copy_ms / 1e9}
+        del got, twins
+        if with_profile:
+            row["device_us"] = device_times(torch, case.kern, iters)
+        print("CASE " + json.dumps(row), flush=True)
+        del case
+        torch.cuda.empty_cache()
+
+
+def run(root: Path, entries: list, iters: int, with_profile: bool) -> list:
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root),
+           "--iters", str(iters), "--entries", *entries] + (["--profile"] if with_profile else [])
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
+    if res.returncode != 0:
+        raise RuntimeError(f"{root}: exit {res.returncode}\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return [json.loads(line[5:]) for line in res.stdout.splitlines() if line.startswith("CASE ")]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, help="the checkout to compare with")
+    ap.add_argument("--entries", nargs="+", required=True, help="KERNEL_INFO entries")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--profile", action="store_true", help="device time per CUDA kernel")
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        child(args.child.resolve(), args.entries, args.iters, args.profile)
+        return 0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    order = [("other", args.other.resolve()), ("this", ROOT), ("this", ROOT),
+             ("other", args.other.resolve())]
+    times = {}  # (entry, label) -> {"timed", "other": [ms], "this": [ms], "library": [ms]}
+    for who, root in order:
+        for r in run(root, args.entries, args.iters, args.profile):
+            t = times.setdefault((r["entry"], r["label"]),
+                                 {"timed": r["timed"], "other": [], "this": [], "library": [],
+                                  "TBps": [], "copy_TBps": []})
+            t["copy_TBps"].append(r["copy_TBps"])
+            if who == "this":
+                t["TBps"].append(r["TBps"])
+            if "device_us" in r:
+                t.setdefault(who + "_device_us", r["device_us"])
+            t[who].append(r["ms"])
+            if r["library_ms"] is not None:
+                t["library"].append(r["library_ms"])
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+
+    sums = {}
+    for (entry, label), t in times.items():
+        row = {"entry": entry, "label": label, "this_ms": mean(t["this"]),
+               "other_ms": mean(t["other"]), "library_ms": mean(t["library"]),
+               "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]), "card": card,
+               **{k: v for k, v in t.items() if k.endswith("_device_us")}}
+        print(json.dumps(row), flush=True)
+        if t["timed"] == "sum" and t["this"] and t["other"]:
+            s = sums.setdefault(entry, {"this_ms": 0.0, "other_ms": 0.0, "library_ms": 0.0})
+            for k in ("this_ms", "other_ms", "library_ms"):
+                s[k] += row[k] or 0.0
+    for entry, s in sums.items():
+        print(json.dumps({"entry": entry, "summed": True, **s, "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

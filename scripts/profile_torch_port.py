@@ -90,7 +90,7 @@ OWN_KERNELS = (
     ("ct_fwd_kernel", "convtranspose2x2"),
     ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
     ("gray_sum_kernel", "preprocess (gray sums)"), ("colour_blur_kernel", "preprocess (colour, blur)"),
-    ("attn_kernel", "cross_attention"),
+    ("attn_mma_kernel", "cross_attention"), ("attn_kernel", "cross_attention (long context)"),
 )
 AUGMENT_RANGES = "augment: "
 MODEL_RANGES = "model: "

@@ -558,6 +558,54 @@ def test_cross_attention(gen, b, length, d, s, heads):
         ca.cross_attention(q.float().requires_grad_().to(torch.bfloat16), k, v, heads)
 
 
+def _unaligned(gen, *shape):
+    """A contiguous bf16 tensor that starts 2 bytes past a 16-byte
+    boundary: every row off the kernels' 16-byte paths."""
+    n = 1
+    for d in shape:
+        n *= d
+    return _randn(gen, n + 1)[1:].view(shape)
+
+
+@pytest.mark.parametrize("b,length,d,s,heads", [
+    (2, 100, 32, 1, 1),       # dh 32, one key
+    (2, 100, 256, 7, 4),      # dh 64, seven keys masked in one n-tile pair
+    (8, 4100, 512, 8, 1),     # the fusion's dh 512: blocks walk many query tiles
+    (4, 1024, 512, 8, 8),     # heads 8 (dh 64), the CLIP bottleneck
+    (2, 333, 768, 32, 8),     # dh 96: a narrow last piece of the q ring
+    (3, 77, 512, 64, 1),      # 64 keys: the scores' register limit
+    (2, 100, 768, 60, 6),     # K/V of 4 of the 6 heads fit a block: two head groups, one partial
+    (2, 50, 1024, 16, 1),     # dh 1024 on the tensor cores (fewer warps)
+    (2, 50, 1024, 64, 1),     # dh 1024 at 64 keys: the long-context path
+    (2, 70, 512, 65, 4),      # 65 keys: the long-context path
+    (2, 40, 60, 5, 3),        # dh 20: element loads and stores
+])
+def test_cross_attention_tensor_core_path(gen, b, length, d, s, heads):
+    from image_segmentation_tpu_torch.ops import cross_attention as ca
+
+    q, k, v = _randn(gen, b, length, d), _randn(gen, b, s, d), _randn(gen, b, s, d)
+    got = _counted(ca.cross_attention, lambda: ca.cross_attention(q, k, v, heads))
+    _close(got, ca.cross_attention_plain(q, k, v, heads))
+
+
+@pytest.mark.parametrize("s,heads", [(8, 1), (77, 4)])
+def test_cross_attention_unaligned_views(gen, s, heads):
+    from image_segmentation_tpu_torch.ops import cross_attention as ca
+
+    q, k, v = _unaligned(gen, 2, 50, 512), _unaligned(gen, 2, s, 512), _unaligned(gen, 2, s, 512)
+    got = _counted(ca.cross_attention, lambda: ca.cross_attention(q, k, v, heads))
+    _close(got, ca.cross_attention_plain(q, k, v, heads))
+
+
+def test_cross_attention_is_deterministic(gen):
+    from image_segmentation_tpu_torch.ops import cross_attention as ca
+
+    q, k, v = _randn(gen, 4, 1024, 512), _randn(gen, 4, 8, 512), _randn(gen, 4, 8, 512)
+    first, second = ca.cross_attention(q, k, v, 1), ca.cross_attention(q, k, v, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_fusion_with_a_multi_token_context_launches_the_kernel_once(gen):
     from image_segmentation_tpu_torch.ops import cross_attention as ca
 
@@ -602,6 +650,51 @@ def test_conv1x1_bwd(gen, shape, co, view, input_grad):
     ref = c11.conv1x1_bwd_plain(x, g, w, input_grad=input_grad)
     assert (got[0] is None) is (not input_grad)
     _close_all(tuple(t for t in got if t is not None), tuple(t for t in ref if t is not None))
+
+
+def _shifted(t):
+    """``t`` copied into a buffer one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("input_grad", [True, False])
+@pytest.mark.parametrize("shape,co,view", [
+    ((2, 512, 512, 3), 32, None),   # the stem: blocks walk many tiles
+    ((2, 512, 512, 32), 3, None),   # the output conv
+    ((2, 19, 37, 8), 7, None),
+    ((2, 19, 37, 3), 7, None),
+    ((1, 30, 40, 63), 32, None),    # Co * (Ci + 1) = 2048, MAX_SUMS: two table blocks
+    ((1, 30, 40, 7), 256, None),    # the same edge, Co 256
+    ((1, 10, 13, 511), 4, None),    # the same edge, Ci 511: eight table blocks, dx by elements
+    ((2, 19, 37, 32), 3, _offset),  # g unaligned (x[1:] stays on 16 bytes at 32 channels)
+    ((2, 19, 37, 32), 3, _shifted),  # both unaligned: the wide x by elements
+])
+def test_conv1x1_bwd_tensor_core_path(gen, shape, co, view, input_grad):
+    from image_segmentation_tpu_torch.ops import conv1x1 as c11
+
+    x, g = _randn(gen, *shape), _randn(gen, *shape[:3], co)
+    if view is not None:
+        x, g = view(x), view(g)
+    w = _randn(gen, co, x.shape[-1], 1, 1, dtype=torch.float32) * 0.3
+    got = _counted(c11.conv1x1_bwd, lambda: c11.conv1x1_bwd(x, g, w, input_grad=input_grad))
+    ref = c11.conv1x1_bwd_plain(x, g, w, input_grad=input_grad)
+    _close_all(tuple(t for t in got if t is not None), tuple(t for t in ref if t is not None))
+
+
+def test_conv1x1_bwd_is_deterministic(gen):
+    """Two launches: bit-identical dx, dw and db (per-warp sums added in
+    warp order, per-block partial rows in a fixed second pass)."""
+    from image_segmentation_tpu_torch.ops import conv1x1 as c11
+
+    for ci, co in ((3, 32), (32, 3)):
+        x, g = _randn(gen, 4, 256, 256, ci), _randn(gen, 4, 256, 256, co)
+        w = _randn(gen, co, ci, 1, 1, dtype=torch.float32) * 0.3
+        first, second = c11.conv1x1_bwd(x, g, w), c11.conv1x1_bwd(x, g, w)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second, strict=True):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,co", [((2, 19, 37, 8), 16), ((1, 9, 5, 3), 7)])
