@@ -143,6 +143,10 @@ FP32_FLOP_PER_S = 67e12
 # The entries whose kernels run on the tensor cores: their lines print the
 # TFLOP/s and the share of the bound reached
 TENSOR_CORE_ENTRIES = ("conv3x3", "convtranspose2x2", "cross_attention", "conv1x1_bwd")
+# The entries whose kernel-phase lines also give the device time of each
+# CUDA kernel of the call (torch.profiler) beside the event time of the
+# wrapper's whole call
+DEVICE_TIMED_ENTRIES = ("row_shift", "col_shift", "preprocess")
 # fp32 operations of the colour stage per pixel: normalize 3, brightness 9,
 # the gray mean 5, contrast 14, saturation 19, the HSV round trip ~70 (with
 # its clips), the two blur passes 60
@@ -274,6 +278,28 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(torch, fn, iters: int) -> dict:
+    """Mean device microseconds per call of ``fn``, by CUDA kernel name,
+    from ``torch.profiler`` after one warm-up call; raises if the trace
+    holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if total > 0:
+            out[evt.key] = total / iters
+    if not out:
+        raise AssertionError("torch.profiler shows no device time for the call")
+    return out
 
 
 def kernel_modules():
@@ -632,9 +658,14 @@ def kernel_cases(torch, mods, groups: list) -> list:
                       "sum" if mode == "sum" else "line", one))
 
     # the augmentor: the shear shifts of 16 drawn angles (rows twice, columns
-    # once per step), |s| up to 511 (not on the main path), the colour stage
+    # once per step), the prompt step's packed stack (2 x 32 planes at
+    # 256x256, its own line), |s| up to 511 (not on the main path), the
+    # colour stage
     params = DataAugmentor(4).sample(BATCH, torch.Generator().manual_seed(SEED)).to(DEVICE)
     _, sx, sy = _shear3_shifts(params.angles, BATCH, SIZE, SIZE)
+    prompt_angles = DataAugmentor(4).sample(
+        PROMPT_BATCH, torch.Generator().manual_seed(SEED)).angles.to(DEVICE).repeat(2)
+    _, psx, psy = _shear3_shifts(prompt_angles, 2 * PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE)
 
     def extreme():
         s = torch.randint(-(SIZE - 1), SIZE, (BATCH, SIZE), generator=g, device=DEVICE,
@@ -642,9 +673,9 @@ def kernel_cases(torch, mods, groups: list) -> list:
         s[:, 0], s[:, -1] = SIZE - 1, -(SIZE - 1)
         return s
 
-    def shift(name, table):
+    def shift(name, table, n=BATCH, size=SIZE):
         def make():
-            x = torch.randint(-2**31, 2**31 - 1, (BATCH, SIZE, SIZE), generator=g,
+            x = torch.randint(-2**31, 2**31 - 1, (n, size, size), generator=g,
                               device=DEVICE, dtype=torch.int32)
             s = table() if callable(table) else table
             kern, plain = getattr(roll, name), getattr(roll, name + "_plain")
@@ -654,6 +685,11 @@ def kernel_cases(torch, mods, groups: list) -> list:
     cases.append(("row_shift", "shear 1 (rows)", "sum", shift("row_shift", sx)))
     cases.append(("col_shift", "shear 2 (columns)", "sum", shift("col_shift", sy)))
     cases.append(("row_shift", "shear 3 (rows)", "sum", shift("row_shift", sx)))
+    stack = 2 * PROMPT_BATCH, PROMPT_SIZE
+    cases.append(("row_shift", f"prompt stack {stack[0]}x{stack[1]}^2 (rows)", "line",
+                  shift("row_shift", psx, *stack)))
+    cases.append(("col_shift", f"prompt stack {stack[0]}x{stack[1]}^2 (columns)", "line",
+                  shift("col_shift", psy, *stack)))
     cases.append(("row_shift", "|s| up to 511", None, shift("row_shift", extreme)))
     cases.append(("col_shift", "|s| up to 511", None, shift("col_shift", extreme)))
 
@@ -774,6 +810,11 @@ def kernel_phase(torch, mods, groups: list) -> dict:
             bound = max(bytes_ms, ops_ms)
             rate = (f" {case.ops / k_ms / 1e9!r} TFLOP/s, {bound / k_ms!r} of the bound"
                     if entry.startswith(TENSOR_CORE_ENTRIES) else "")
+            if entry in DEVICE_TIMED_ENTRIES:
+                dev = device_us(torch, case.kern, iters)
+                total = sum(dev.values())
+                rate += (f" device_us={total!r} ({bound * 1e3 / total!r} of the bound; "
+                         + ", ".join(f"{name[:48]} {us!r}" for name, us in dev.items()) + ")")
             print(f"kernel {entry} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
                   f"bound_ms={bound!r} ({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
                   f"library_ms={lib_ms!r}{rate}{'' if timed == 'sum' else ' (own line)'} ok",

@@ -55,7 +55,7 @@ SIGNATURES = {
     "imgseg_conv1x1_bwd": (_P,) * 6 + (_L, _I, _I, _P),
     # x, shifts, out, N, H, W, axis, stream
     "imgseg_shift": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # img, factors, out, sums, scratch, N, H, W, bf16_out, stream
+    # img, jitter, blur, out, scratch, N, H, W, bf16_out, stream
     "imgseg_preprocess": (_P,) * 5 + (_I,) * 4 + (_P,),
     # q, k, v, out, B, L, S, D, heads, scale, stream
     "imgseg_cross_attention": (_P,) * 4 + (_I,) * 5 + (_F, _P),
@@ -173,7 +173,9 @@ def ptr(t) -> Optional[int]:
 def launch(wrapper, entry: str, *args) -> None:
     """Call C entry point ``entry`` on PyTorch's current stream, raise on a
     CUDA error, and count one launch of ``wrapper``."""
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream's handle; torch.cuda.current_stream() would build a
+    # Python Stream object on every call, more host time than the launch
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     check(getattr(library(), entry)(*args, stream), wrapper.__name__)
     wrapper.launches += 1
 

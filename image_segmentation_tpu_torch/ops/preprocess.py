@@ -129,11 +129,10 @@ def preprocess(
             raise ValueError(f"{name}: factors on {t.device}, images on {images_u8.device}")
     if not images_u8.is_contiguous():
         raise ValueError(f"{name}: images must be contiguous")
-    factors = torch.cat([jitter.float(), blur.float()], dim=1).contiguous()
+    jitter, blur = jitter.float().contiguous(), blur.float().contiguous()
     out = torch.empty((n, h, w, 3), dtype=out_dtype, device=images_u8.device)
-    sums = torch.empty(n, dtype=torch.float32, device=images_u8.device)
     part = scratch("imgseg_preprocess_scratch", images_u8, n, h, w)
-    launch(preprocess, "imgseg_preprocess", ptr(images_u8), ptr(factors), ptr(out), ptr(sums),
+    launch(preprocess, "imgseg_preprocess", ptr(images_u8), ptr(jitter), ptr(blur), ptr(out),
            ptr(part), n, h, w, int(out_dtype == torch.bfloat16))
     return out
 

@@ -11,8 +11,10 @@ Each checkout runs in its own process, which imports that checkout's
 kernels into its own ``build/kernels``.  The processes run in turns:
 other, this, this, other.  Each times, with CUDA events over ``--iters``
 launches after a warm-up, every case of ``chip_smoke.kernel_cases`` of the
-named KERNEL_INFO entries at the main paths' shapes (``path_shapes()``)
-that the smoke run times, and the library call beside it.  The result: per
+named KERNEL_INFO entries (at the main paths' shapes, ``path_shapes()``,
+and the edge cases the smoke run only checks), and the library call
+beside it, and the host time of one wrapper call (a host clock over
+HOST_CALLS calls with no synchronise).  The result: per
 case the mean ms of both checkouts and the library's, and per entry the sum
 over its "sum" cases (the smoke run's JSON line), as JSON lines on stdout.
 With ``--profile`` each case also gets its device time per CUDA kernel
@@ -27,30 +29,26 @@ rate a streaming pass reaches on this card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# calls of a wrapper timed on the host clock, with no synchronise: the host
+# work of one call (checks, allocations, the launch itself)
+HOST_CALLS = 100
 
 
-def device_times(torch, fn, iters: int) -> dict:
-    """Mean device microseconds per call of ``fn``, by CUDA kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-        if total > 0:
-            out[evt.key[:80]] = total / iters
-    return out
+def device_us():
+    """This checkout's ``chip_smoke.device_us`` (the other checkout's
+    ``chip_smoke`` may predate it)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_us
 
 
 def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
@@ -68,8 +66,9 @@ def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
     _build.build()
     _build.library()
     mods = smoke.kernel_modules()
+    device_times = device_us() if with_profile else None
     for entry, label, timed, make in smoke.kernel_cases(torch, mods, smoke.path_shapes()):
-        if entry not in entries or not timed:
+        if entry not in entries:
             continue
         case = make()
         got = case.kern()
@@ -79,7 +78,14 @@ def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
         inputs = [t for t in case.inputs if isinstance(t, torch.Tensor)]
         twins = [torch.empty_like(t) for t in inputs]
         copy_ms = smoke.cuda_ms(torch, lambda: [b.copy_(t) for b, t in zip(twins, inputs)], iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            case.kern()
+        host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
         row = {"entry": entry, "label": label, "timed": timed, "ms": ms, "library_ms": lib,
+               "host_us": host_us,
                "TBps": smoke._nbytes([*case.inputs, got]) / ms / 1e9,
                "copy_TBps": 2 * smoke._nbytes(inputs) / copy_ms / 1e9}
         del got, twins
@@ -119,8 +125,10 @@ def main() -> int:
         for r in run(root, args.entries, args.iters, args.profile):
             t = times.setdefault((r["entry"], r["label"]),
                                  {"timed": r["timed"], "other": [], "this": [], "library": [],
-                                  "TBps": [], "copy_TBps": []})
+                                  "TBps": [], "copy_TBps": [], "other_host_us": [],
+                                  "this_host_us": []})
             t["copy_TBps"].append(r["copy_TBps"])
+            t[who + "_host_us"].append(r["host_us"])
             if who == "this":
                 t["TBps"].append(r["TBps"])
             if "device_us" in r:
@@ -136,7 +144,9 @@ def main() -> int:
     for (entry, label), t in times.items():
         row = {"entry": entry, "label": label, "this_ms": mean(t["this"]),
                "other_ms": mean(t["other"]), "library_ms": mean(t["library"]),
-               "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]), "card": card,
+               "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]),
+               "this_host_us": mean(t["this_host_us"]), "other_host_us": mean(t["other_host_us"]),
+               "card": card,
                **{k: v for k, v in t.items() if k.endswith("_device_us")}}
         print(json.dumps(row), flush=True)
         if t["timed"] == "sum" and t["this"] and t["other"]:

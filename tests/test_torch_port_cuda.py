@@ -446,7 +446,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 # bf16 step in bf16
 
 @pytest.mark.parametrize("axis", ["row", "col"])
-@pytest.mark.parametrize("shape", [(3, 17, 33), (2, 64, 64), (1, 5, 130)])
+@pytest.mark.parametrize("shape", [
+    (3, 17, 33),    # W % 4 != 0: rows start off the 16-byte grid
+    (2, 64, 64),
+    (1, 5, 130),
+    (1, 5, 3),      # W < 4
+    (1, 2100, 40),  # columns: a height no window of one strip holds
+])
 def test_shift(gen, axis, shape):
     from image_segmentation_tpu_torch.ops import roll
 
@@ -455,20 +461,71 @@ def test_shift(gen, axis, shape):
     x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device="cuda", dtype=torch.int32)
     s = torch.randint(-(size - 1), size, (n, length), generator=gen, device="cuda",
                       dtype=torch.int32)
-    s[0, 0], s[-1, -1] = size - 1, -(size - 1)
+    s[0, 0], s[-1, -1], s[0, length // 2] = size - 1, -(size - 1), 0
     wrapper = roll.row_shift if axis == "row" else roll.col_shift
     plain = roll.row_shift_plain if axis == "row" else roll.col_shift_plain
     got = _counted(wrapper, lambda: wrapper(x, s))
     assert torch.equal(got, plain(x, s))
 
 
-@pytest.mark.parametrize("shape", [(3, 37, 45), (2, 64, 32), (1, 3, 3)])
-def test_preprocess(gen, shape):
+@pytest.mark.parametrize("axis", ["row", "col"])
+def test_shift_of_an_unaligned_view_by_any_int32_shift(gen, axis):
+    """x and out 4 bytes past a 16-byte boundary, shifts over all of int32
+    (every one past the plane's size moves the whole row or column out)."""
+    from image_segmentation_tpu_torch.ops import roll
+
+    shape = (2, 19, 37)
+    n, h, w = shape
+    length = h if axis == "row" else w
+    buf = torch.randint(-2**31, 2**31 - 1, (n * h * w + 1,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    x = buf[1:].view(shape)
+    s = torch.randint(-2**31, 2**31 - 1, (n, length), generator=gen, device="cuda", dtype=torch.int32)
+    s[:, ::2] %= 40  # half of them within the plane
+    s[0, 1], s[1, 1] = 2**31 - 1, -2**31
+    wrapper = roll.row_shift if axis == "row" else roll.col_shift
+    plain = roll.row_shift_plain if axis == "row" else roll.col_shift_plain
+    got = _counted(wrapper, lambda: wrapper(x, s))
+    assert torch.equal(got, plain(x, s))
+    out = torch.empty(n * h * w + 1, dtype=torch.int32, device="cuda")[1:].view(shape)
+    with mock.patch("torch.empty_like", return_value=out):
+        wrapper(x, s)
+    assert torch.equal(out, plain(x, s))
+
+
+@pytest.mark.parametrize("n,size", [(16, 512), (64, 256)])
+def test_shift_shears_at_main_path_sizes(gen, n, size):
+    """The three shears of the augmentor's rotation over the large_unet
+    batch and the prompt step's packed stack: many strips and planes."""
+    from image_segmentation_tpu_torch.ops import roll
+    from image_segmentation_tpu_torch.ops.augment import _shear3_shifts
+
+    angles = torch.rand(n, generator=torch.Generator().manual_seed(n)) * 180.0 - 90.0
+    _, sx, sy = _shear3_shifts(angles.to("cuda"), n, size, size)
+    x = torch.randint(-2**31, 2**31 - 1, (n, size, size), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    got = roll.row_shift(roll.col_shift(roll.row_shift(x, sx), sy), sx)
+    ref = roll.row_shift_plain(roll.col_shift_plain(roll.row_shift_plain(x, sx), sy), sx)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,view", [
+    ((3, 37, 45), None),
+    ((2, 64, 32), None),
+    ((1, 3, 3), None),
+    ((1, 3, 200), None),     # H = 3, a tile of 128 columns and a tail
+    ((2, 130, 3), None),     # W = 3, three bands
+    ((2, 150, 261), None),   # neither a multiple of the band nor of the tile
+    ((16, 512, 512), None),  # the augmentor's batch: several bands and tiles an image
+    ((2, 37, 45), "offset"),  # the image 1 byte past a 16-byte boundary
+])
+def test_preprocess(gen, shape, view):
     from image_segmentation_tpu_torch.ops import preprocess as pp
     from image_segmentation_tpu_torch.ops.augment import DataAugmentor
 
     n, h, w = shape
-    u8 = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    u8 = torch.randint(0, 256, (n * h * w * 3 + 1,), generator=gen, device="cuda", dtype=torch.uint8)
+    u8 = (u8[1:] if view == "offset" else u8[:-1]).view(n, h, w, 3)
     p = DataAugmentor(4).sample(n, torch.Generator().manual_seed(n * h)).to("cuda")
     got = _counted(pp.preprocess, lambda: pp.preprocess(u8, p.jitter, p.blur))
     ref = pp.preprocess_plain(u8, p.jitter, p.blur)
