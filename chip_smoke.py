@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
-ClipUnet, fusion and autoencoder paths on one NVIDIA GPU.
+ClipUnet, fusion, autoencoder, ClipRes, segment-classifier and
+ClipAutoencoder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,9 @@ width of the port's presets (``config.preset``), random weights from a seed:
    at 512x512) and the prompt train step (batch 32 at 256x256, the
    1-channel heatmap included) and the autoencoder's train step (batch 32
    at 256x256: the fused blocks and, under ``w2d_impl="pallas"``, the conv
-   kernels in their unfused forms) give it, the 1x1-conv backward (K11) at
+   kernels in their unfused forms) and the clip_res step (batch 32 at
+   256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
+   kernels' element paths) give it, the 1x1-conv backward (K11) at
    the stem and output conv of the large_unet and autoencoder steps, and
    the cross-attention kernel at the CLIP bottleneck of the prompt step's
    batch; with both times from CUDA events, the
@@ -57,8 +60,23 @@ width of the port's presets (``config.preset``), random weights from a seed:
    and its step time; then the same with ``w2d_impl="pallas"`` (each conv
    one kernel launch in its unfused form; BatchNorm, the pools and the
    up-convs in PyTorch);
-10. prints one JSON line of per-kernel results (``launches`` counts the
-   runs of 3-9; the wgrad kernel has a line for its launches beside a dgrad
+10. ClipRes phase: the ``clip_res`` preset (frozen ViT-B/32 tower and
+   ResNet-34, dec5 and the output block on the kernels) trains one epoch
+   at batch 32, 256x256 and evaluates, with exact launch counts and 3
+   kernel-path steps held to the plain path as in 4; the tower's and the
+   backbone's parameters bit-identical after the steps, the backbone's
+   running statistics moved; then the ``segment_classifier`` preset
+   (ClipResSegmentationClassification, the class task: any-animal mask and
+   cat/dog label from palette masks) at its batch 16 and augmentation 2,
+   the same checks, the class head's gradient among those held; then the
+   ``clip_autoencoder`` preset at batch 32 (no kernel on its model: the
+   augmentor's shifts only), one epoch and its step time;
+11. ClipRes serving phase: a ``clip_res`` model written with
+   ``export_model``, read with ``load_model`` on the card, answers
+   ``predict``; its batch-32 eval logits are held against the plain path;
+   batch-32 and batch-1 forward times and the frozen backbone's share;
+12. prints one JSON line of per-kernel results (``launches`` counts the
+   runs of 3-11; the wgrad kernel has a line for its launches beside a dgrad
    and one for its launches alone, and each conv kernel a line for its
    unfused form, which the ``"pallas"`` run launches), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
@@ -243,6 +261,24 @@ PER_AE_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "bn_relu
                "convtranspose2x2": 3, "convtranspose2x2_bwd": 3, "conv1x1_bwd": 2}
 PER_AE_UNFUSED_FORWARD = {"conv3x3": 10}
 PER_AE_UNFUSED_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "conv1x1_bwd": 2}
+# the clip_res preset (batch 32 at 256x256, augmentation 4): dec5 (the
+# ConvTranspose kernel 32 -> 16 from 128x128, then a fused 16 -> 16 block)
+# and the output block, whose conv1 reads [dec5 | image] (16 | 3 -> 3) and
+# whose conv2 is 3 -> 3, on the kernels; dec1-dec4 on cuDNN; no 1x1 kernel.
+# segment_classifier (batch 16, augmentation 2): the same dec5, then a plain
+# 1x1 mask head.  clip_autoencoder (batch 32, augmentation 4): no kernel
+# block; the augmentor's shifts.
+CLIP_RES_LENGTH = 32  # images per split: 5 augmented train steps and 1 eval batch an epoch
+PER_CLIP_RES_FORWARD = {"conv3x3": 4, "convtranspose2x2": 1}
+PER_CLIP_RES_STEP = {"conv3x3": 4, "conv3x3_dgrad": 4, "conv3x3_wgrad": 4, "bn_relu_bwd_reduce": 2,
+                     "convtranspose2x2": 1, "convtranspose2x2_bwd": 1, "row_shift": 2,
+                     "col_shift": 1}
+CLASS_BATCH, CLASS_LENGTH = 16, 16  # the preset's batch; 3 augmented train steps, 1 eval batch
+PER_CLASS_FORWARD = {"conv3x3": 2, "convtranspose2x2": 1}
+PER_CLASS_STEP = {"conv3x3": 2, "conv3x3_dgrad": 2, "conv3x3_wgrad": 2, "bn_relu_bwd_reduce": 1,
+                  "convtranspose2x2": 1, "convtranspose2x2_bwd": 1, "row_shift": 2,
+                  "col_shift": 1}
+PER_AUG_ONLY_STEP = {"row_shift": 2, "col_shift": 1}
 
 
 def train_config():
@@ -433,13 +469,31 @@ def ae_path_shapes(unfused: bool = False) -> dict:
     return {"conv": conv, "pool": pool, "ct": ct, "1x1": stem_out_shapes(b, s, 32)}
 
 
+def clip_res_path_shapes() -> dict:
+    """The kernel blocks of the clip_res preset at batch 32, 256x256: dec5's
+    ConvTranspose (32 -> 16 from 128x128) and block (16 -> 16), and the
+    output block, conv1 on [dec5 | image] (16 | 3 -> 3) and conv2 3 -> 3;
+    the BN-ReLU reductions at 16 and 3 channels come with the decoders'
+    conv2.  No channel count here is a multiple of 8 but 16, so the conv
+    kernels take their element paths."""
+    b, s = PROMPT_BATCH, PROMPT_SIZE
+    conv = [Conv("clip_res dec5.conv1", (b, s, s, 16), 0, 16, False, True),
+            Conv("clip_res dec5.conv2", (b, s, s, 16), 0, 16, True, True),
+            Conv("clip_res out.conv1", (b, s, s, 16), 3, 3, False, True),
+            Conv("clip_res out.conv2", (b, s, s, 3), 0, 3, True, True)]
+    return {"conv": conv, "pool": [], "ct": [("clip_res dec5.up", (b, s // 2, s // 2, 32), 16)],
+            "1x1": []}
+
+
 def path_shapes() -> list:
     """(shapes, mode) of every main path, ``mode`` as in :func:`kernel_cases`:
     the large_unet step summed into the JSON line; the prompt step and the
     autoencoder's kernel blocks checked; the autoencoder's unfused convs
-    summed into the "... unfused" lines."""
+    summed into the "... unfused" lines; the clip_res level timed on lines
+    of their own."""
     return [(main_path_shapes(train_config().model_args), "sum"), (prompt_path_shapes(), None),
-            (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum")]
+            (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum"),
+            (clip_res_path_shapes(), "line")]
 
 
 def prompt_path_shapes() -> dict:
@@ -863,7 +917,8 @@ def randomize_(torch, model, seed: int) -> None:
                 w = m.weight
                 cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
                 normal(w, (cin * w.shape[2] * w.shape[3]) ** -0.5)
-                normal(m.bias, 0.1)
+                if m.bias is not None:  # the ResNet's convs have none
+                    normal(m.bias, 0.1)
             elif isinstance(m, nn.BatchNorm2d):
                 uniform(m.weight, 0.5, 1.5)
                 normal(m.bias, 0.1)
@@ -1135,21 +1190,22 @@ def training_phase(torch, mods, card: str) -> dict:
 # prompt, ClipUnet and fusion phases
 # --------------------------------------------------------------------------
 
-def clip_config(name: str):
-    """The port's ``prompt`` or ``clip_unet`` preset cut to a smoke run: the
-    full-width model (ViT-B/32 tower, random weights from SEED), batch 32,
-    synthetic 256x256 data of PROMPT_LENGTH images per split, one epoch,
-    the preset's augmentation (4), as ``bench_extra.py`` measures it on
-    the JAX side."""
+def clip_config(name: str, batch: int = PROMPT_BATCH, length: int = PROMPT_LENGTH):
+    """A CLIP preset of the port (``prompt``, ``clip_unet``, ``clip_res``,
+    ``segment_classifier``, ``clip_autoencoder``) cut to a smoke run: the
+    full-width model (ViT-B/32 tower, random weights from SEED), batch
+    ``batch`` (32, as ``bench_extra.py`` measures the CLIP models on the
+    JAX side), synthetic 256x256 data of ``length`` images per split, one
+    epoch, the preset's augmentation."""
     from image_segmentation_tpu_torch.config import preset
 
     cfg = preset(name)
     data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=PROMPT_SIZE,
-                               synthetic_length=PROMPT_LENGTH)
-    return dataclasses.replace(cfg, batch_size=PROMPT_BATCH, num_epochs=1, seed=SEED, data=data)
+                               synthetic_length=length)
+    return dataclasses.replace(cfg, batch_size=batch, num_epochs=1, seed=SEED, data=data)
 
 
-def _clip_batch(torch, seed: int, palette: bool):
+def _clip_batch(torch, seed: int, palette: bool, batch: int = PROMPT_BATCH):
     """A uint8 batch on the card: images, and class-id or palette masks."""
     import numpy as np
 
@@ -1157,7 +1213,7 @@ def _clip_batch(torch, seed: int, palette: bool):
         CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE)
 
     rng = np.random.default_rng(seed)
-    shape = (PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE)
+    shape = (batch, PROMPT_SIZE, PROMPT_SIZE)
     images = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
     masks = rng.integers(0, NUM_CLASSES + palette, shape).astype(np.uint8)
     if palette:
@@ -1318,6 +1374,165 @@ def autoencoder_phase(torch, mods, card: str) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# ClipRes, segment_classifier and ClipAutoencoder phases
+# --------------------------------------------------------------------------
+
+def _frozen_check(torch, state: dict):
+    """``after`` for :func:`_kernel_vs_plain`: the tower's and the ResNet's
+    parameters bit-identical to ``state``, the ResNet's running statistics
+    moved by the steps (its BatchNorms run with batch statistics)."""
+    from image_segmentation_tpu_torch.utils.convert import CLIP, RESNET
+
+    def check(t):
+        moved = 0
+        for k, v in t.model.state_dict().items():
+            if not k.startswith((CLIP, RESNET)) or k.endswith("num_batches_tracked"):
+                continue
+            if k.endswith(("running_mean", "running_var")):
+                moved += not torch.equal(v, state[k])
+            elif not torch.equal(v, state[k]):
+                raise AssertionError(f"a frozen parameter moved: {k}")
+        if moved == 0:
+            raise AssertionError("the frozen ResNet's running statistics did not move")
+    return check
+
+
+def _frozen_phase(torch, mods, card: str, name: str, batch: int, length: int, per_step: dict,
+                  per_forward: dict, what: str) -> dict:
+    """A ClipRes preset's train step end to end (the frozen tower and
+    ResNet-34, dec5 and the output on the kernels): one epoch with exact
+    counts, one step's counts, 3 kernel-path steps held to the plain path
+    with the frozen parts checked; returns the launch counts of its run."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = clip_config(name, batch, length)
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    m = trainer.model
+    frozen = sum(p.numel() for p in m.parameters() if not p.requires_grad)
+    print(f"trainer: {name} preset, {trainer.num_params} params ({frozen} frozen: the tower and "
+          f"the ResNet-34), batch {cfg.batch_size}, {cfg.data.image_size}x{cfg.data.image_size}, "
+          f"bf16={cfg.bf16}, task {trainer.task}, augmentor {trainer.augmentor}, model args "
+          f"{cfg.model_args}", flush=True)
+    launches = _train_epoch(torch, mods, trainer, per_step, per_forward, what)
+    # the class task reads palette masks, clip_res class ids
+    images, masks = _clip_batch(torch, SEED + 29, palette=trainer.task == "class", batch=batch)
+    with torch.no_grad():
+        out = m(trainer._prepare_batch(images, masks, augment=False)[0], train=False)
+    logits = out[0] if isinstance(out, tuple) else out
+    if not bool(torch.isfinite(logits).all()) or (trainer.task != "class" and logits.min() < 0):
+        raise AssertionError(f"{what}: eval logits not finite, or negative after the output ReLU")
+    state = {k: v.clone() for k, v in m.state_dict().items()}
+    _step_launches(torch, mods, trainer, images, masks, per_step, what)
+    del trainer, m, out, logits
+    times = _kernel_vs_plain(torch, mods, cfg, state, images, masks, after=_frozen_check(torch, state))
+    print(f"{what}: the frozen tower and ResNet-34 are bit-identical after the steps of both paths, "
+          "the ResNet's running statistics moved", flush=True)
+    _print_times(f"{what}@{PROMPT_SIZE}", batch, times, card)
+    return launches
+
+
+def clip_res_phase(torch, mods, card: str) -> dict:
+    return _frozen_phase(torch, mods, card, "clip_res", PROMPT_BATCH, CLIP_RES_LENGTH,
+                         PER_CLIP_RES_STEP, PER_CLIP_RES_FORWARD, "clip_res")
+
+
+def segment_classifier_phase(torch, mods, card: str) -> dict:
+    return _frozen_phase(torch, mods, card, "segment_classifier", CLASS_BATCH, CLASS_LENGTH,
+                         PER_CLASS_STEP, PER_CLASS_FORWARD, "segment_classifier")
+
+
+def clip_autoencoder_phase(torch, mods, card: str) -> dict:
+    """A train epoch and timed steps of the clip_autoencoder preset (no
+    kernel block: its launches are the augmentor's shifts); returns the
+    launch counts of its run."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = clip_config("clip_autoencoder")
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    print(f"trainer: clip_autoencoder preset, {trainer.num_params} params, batch "
+          f"{cfg.batch_size}, {cfg.data.image_size}x{cfg.data.image_size}", flush=True)
+    launches = _train_epoch(torch, mods, trainer, PER_AUG_ONLY_STEP, {}, "clip_autoencoder")
+    images, masks = _clip_batch(torch, SEED + 31, palette=False)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(torch, trainer, images, masks)
+    _print_times(f"ClipAutoencoder@{PROMPT_SIZE}", PROMPT_BATCH,
+                 {"kernel path": (ms, torch.cuda.max_memory_allocated())}, card)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def clip_res_serving_phase(torch, mods, card: str) -> dict:
+    """A clip_res model (the preset's args) written with ``export_model``,
+    read with ``load_model`` on the card: ``predict`` requests and batch-32
+    and batch-1 eval forwards with exact counts, the batch-32 logits held
+    to the plain path; returns the launch counts of its run."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.config import preset
+    from image_segmentation_tpu_torch.engine.export import export_model, load_model, predict
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+
+    model_args = preset("clip_res").model_args
+    model = build_model("clip_res", device=DEVICE, **model_args)
+    randomize_(torch, model, SEED + 3)
+    with tempfile.TemporaryDirectory() as art:
+        export_model(model, "clip_res", model_args, out_dir=art)
+        served = load_model(art, device=DEVICE)
+    del model
+    rng = np.random.default_rng(SEED + 5)
+    requests = {"u8 256x256": rng.integers(0, 256, (256, 256, 3), dtype=np.uint8),
+                "u8 500x375": rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)}
+    u8 = torch.from_numpy(rng.integers(0, 256, (PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE, 3),
+                                       dtype=np.uint8)).to(DEVICE)
+    x32 = normalize_image(u8)
+    reset_counts(mods)
+    for what, image in requests.items():
+        mask = predict(served, image)
+        if mask.shape != (256, 256) or mask.min() < 0 or mask.max() >= NUM_CLASSES:
+            raise AssertionError(f"clip_res predict {what}: mask {mask.shape}")
+        print(f"clip_res predict {what}: mask {mask.shape}, class counts "
+              f"{np.bincount(mask.ravel(), minlength=NUM_CLASSES).tolist()}", flush=True)
+    with torch.inference_mode():
+        logits = served(x32)
+        logits1 = served(x32[:1])
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    n_forwards = len(requests) + 2
+    if launches != expected(PER_CLIP_RES_FORWARD, n_forwards):
+        raise AssertionError(f"clip_res serving launches {launches} over {n_forwards} forwards")
+    for t, shape in ((logits, (PROMPT_BATCH, PROMPT_SIZE, PROMPT_SIZE, NUM_CLASSES)),
+                     (logits1, (1, PROMPT_SIZE, PROMPT_SIZE, NUM_CLASSES))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()) or t.min() < 0:
+            raise AssertionError(f"clip_res logits {tuple(t.shape)}: not finite or negative")
+    with plain_path(mods), torch.inference_mode():
+        plain = served(x32)
+    diff = (logits - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"clip_res serving: {n_forwards} forwards, launches {launches}; logits b{PROMPT_BATCH} "
+          f"kernel vs plain path max_abs_diff={diff!r} (limit {LOGITS_RTOL} x {scale!r}), argmax "
+          f"agreement={agree!r} (limit {ARGMAX_AGREEMENT})", flush=True)
+    if diff > LOGITS_RTOL * scale or agree < ARGMAX_AGREEMENT:
+        raise AssertionError("clip_res kernel-path logits disagree with the plain path")
+    del plain
+    with torch.inference_mode():
+        x = x32.to(served.dtype)
+        times = {f"forward batch {PROMPT_BATCH}": cuda_ms(torch, lambda: served(x32), 10),
+                 "forward batch 1": cuda_ms(torch, lambda: served(x32[:1]), 20, warmup=3),
+                 f"ResNet-34 alone, batch {PROMPT_BATCH}": cuda_ms(
+                     torch, lambda: served.encoder(x), 10),
+                 "ResNet-34 alone, batch 1": cuda_ms(torch, lambda: served.encoder(x[:1]), 20,
+                                                      warmup=3)}
+    for what, ms in times.items():
+        print(f"serving ClipRes@{PROMPT_SIZE} bf16 {what}: {ms!r} ms on {card}", flush=True)
+    del served
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
 # augmentor phase
 # --------------------------------------------------------------------------
 
@@ -1401,8 +1616,9 @@ def main() -> int:
             augmentor_phase(torch, mods, card), prompt_phase(torch, mods, card),
             clip_unet_phase(torch, mods, card), fusion_phase(torch, mods, card)]
     ae, ae_unfused = autoencoder_phase(torch, mods, card)
-    launched = entry_launches({w: sum(run[w] for run in runs + [ae]) for w in WRAPPER_NAMES},
-                              ae_unfused)
+    runs += [ae, clip_res_phase(torch, mods, card), segment_classifier_phase(torch, mods, card),
+             clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card)]
+    launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 
     kernels = []
     for entry, (name, source, replaces) in KERNEL_INFO.items():

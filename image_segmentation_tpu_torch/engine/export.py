@@ -4,10 +4,12 @@ load_model :154, predict :177).
 
 The artifact format is the JAX package's: ``config.json`` (registry name +
 model args) and ``model.npz`` (flat ``params/...``, ``batch_stats/...``
-keys), so an artifact written by either package loads in the other.  The
+keys), so an artifact written by either package loads in the other, for
+every registry model.  ``predict`` serves the single-input models whose
+output is class logits, as JAX's does; it refuses the two-input prompt
+models and the two-output ``clip_res_class`` with a ``TypeError``.  The
 torch-format, StableHLO and model-card extras of the JAX exporter are not
-ported, nor are the artifacts of the CLIP models (ROADMAP.md Queue 1 item
-11): their entry points raise ``NotImplementedError``.
+ported (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -21,20 +23,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.clip_models import ClipUnet
-from ..models.registry import build_model
+from ..models.clip_models import ClipResSegmentationClassification, ClipUnetPrompt
+from ..models.prompt_fusion import SegmentationModelWithPrompt
+from ..models.registry import MODEL_NAMES, build_model
 from ..utils import convert
 
 PREDICT_SIZE = 256
-# registry names whose artifacts are ported
-EXPORTABLE = ("unet", "large_unet")
-
-
-def _check_exportable(model_name: str) -> None:
-    if model_name not in EXPORTABLE:
-        raise NotImplementedError(
-            f"artifacts of model {model_name!r} are not ported; see ROADMAP.md Queue 1 "
-            f"item 11 (ported: {', '.join(EXPORTABLE)})")
+# models predict cannot serve, and why (JAX's predict cannot either)
+_NOT_SERVED = {
+    ClipUnetPrompt: "it takes a prompt map as a second input",
+    SegmentationModelWithPrompt: "it takes a prompt map as a second input",
+    ClipResSegmentationClassification: "it returns (mask logits, class logits), not class logits",
+}
 
 
 def export_model(
@@ -45,7 +45,8 @@ def export_model(
 ) -> str:
     """Write ``model``'s weights and its registry name/args as an artifact
     directory that both packages' ``load_model`` read."""
-    _check_exportable(model_name)
+    if model_name not in MODEL_NAMES:  # load_model could not rebuild it
+        raise KeyError(f"unknown model {model_name!r}; known: {sorted(MODEL_NAMES)}")
     os.makedirs(out_dir, exist_ok=True)
     params, batch_stats = convert.jax_from_state_dict(model.state_dict())
     convert.write_flat_npz(
@@ -66,7 +67,6 @@ def load_model(
     artifact is for inference."""
     with open(os.path.join(artifact_dir, "config.json")) as f:
         cfg = json.load(f)
-    _check_exportable(cfg["model"])
     model = build_model(
         cfg["model"], device=device, dtype=dtype, **cfg.get("model_args", {})
     )
@@ -83,10 +83,12 @@ def predict(model: nn.Module, image) -> np.ndarray:
     As the JAX ``predict``: uint8-range input (max > 1.5) is scaled to
     [0, 1], grey becomes 3 channels, other sizes are resized bilinearly to
     256x256 (antialiased when shrinking, as ``jax.image.resize`` is), then
-    the forward and an argmax over classes.
+    the forward and an argmax over classes.  A model whose forward takes a
+    second input or returns more than the logits raises ``TypeError``.
     """
-    if isinstance(model, ClipUnet):
-        _check_exportable(type(model).__name__)
+    for cls, why in _NOT_SERVED.items():
+        if isinstance(model, cls):
+            raise TypeError(f"predict cannot serve {type(model).__name__}: {why}")
     arr = np.asarray(image, dtype=np.float32)
     if arr.max() > 1.5:
         arr = arr / 255.0

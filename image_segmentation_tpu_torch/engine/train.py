@@ -5,21 +5,26 @@ One train step: uint8 batch -> the task's inputs on the device (the
 segmentation task: ``DataAugmentor.apply_u8`` with
 ``augmentations_per_datapoint > 0``, else normalisation; the prompt task:
 point prompts and labels from the palette masks, then
-``DataAugmentorPrompt.apply_u8``; the reconstruction task: the normalised
-images, never augmented, are the targets too) -> forward in the compute dtype (bf16 on
-the card, fp32 parameters) -> loss -> backward -> ``torch.optim.Adam``
+``DataAugmentorPrompt.apply_u8``; the class task: the binary any-animal
+mask and the cat/dog label from the palette masks, then
+``DataAugmentor.apply_u8`` on image and mask; the reconstruction task:
+the normalised images, never augmented, are the targets too) -> forward
+in the compute dtype (bf16 on the card, fp32 parameters) -> loss ->
+backward -> ``torch.optim.Adam``
 with L2 added to the gradient before the moments, and the BatchNorm
 running averages committed by the forward.  Batch statistics are over the
 whole batch, as in the JAX Trainer.  The loss of each step stays on the
 device and is read once per epoch.
 
 Two rules keep the optimizer JAX's.  Frozen subtrees (the CLIP tower,
-``FROZEN_PREFIXES``) are not in the optimizer: neither decayed nor updated,
-as JAX's ``set_to_zero`` mask.  Every other parameter is in it, and one
-that autograd leaves without a gradient (in the CLIP models the bottleneck
-block, whose output the one-token fusion does not read) gets a zero
-gradient, so L2 decay and Adam move it as they move JAX's zero-gradient
-leaves.
+``FROZEN_PREFIXES``, and the ClipRes models' ResNet backbone, whose
+parameters do not require grad) are not in the optimizer: neither decayed
+nor updated, as JAX's ``set_to_zero`` mask on ``clip_tower`` and
+``resnet_backbone``.  Every other parameter is in it, and one that
+autograd leaves without a gradient (in ClipUnet and ClipUnetPrompt the
+bottleneck block, whose output the one-token fusion does not read) gets a
+zero gradient, so L2 decay and Adam move it as they move JAX's
+zero-gradient leaves.
 
 The random draws of a step (the augmentation; the prompt task's class and
 pixel uniforms) are made on the host from ``torch.Generator``s seeded by
@@ -29,14 +34,15 @@ CPU and the card draw the same ones; they go to the card from pinned
 memory without a wait.  torch's draws are not JAX's: the tests hold the
 step to JAX by feeding both sides the same draws.
 
-Ported: the segmentation task on the U-Nets and ClipUnet, the prompt task
-on ClipUnetPrompt, the reconstruction task (``loss="mse"``) on the
-autoencoder, with synthetic data.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: run artifacts (run
-folder, ``loss.csv``, checkpoints), the Oxford-IIIT-Pet loader, the losses
-``dice_ce`` and ``class_binary``, the models clip_res, clip_autoencoder,
-clip_res_class and prompt_fusion, ``remat``, ``native_loader`` and
-``n_model_shards``.
+Ported: the segmentation task on the U-Nets, ClipUnet, ClipRes and
+ClipAutoencoder, the prompt task on ClipUnetPrompt, the class task
+(``loss="class_binary"``) on ClipResSegmentationClassification, the
+reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss,
+with synthetic data.  What is not ported raises ``NotImplementedError``
+naming its ROADMAP.md item: run artifacts (run folder, ``loss.csv``,
+checkpoints), the Oxford-IIIT-Pet loader, ``remat``, ``native_loader`` and
+``n_model_shards``.  ``prompt_fusion`` (two inputs and no task in the JAX
+Trainer either) is a model only.
 """
 
 from __future__ import annotations
@@ -50,7 +56,13 @@ import torch
 from torch import nn
 
 from ..config import TrainConfig
-from ..data.datasets import ArrayDataset, synthetic_dataset
+from ..data.datasets import (
+    CAT_PALETTE,
+    DOG_PALETTE,
+    UNCERTAIN_PALETTE,
+    ArrayDataset,
+    synthetic_dataset,
+)
 from ..data.pipeline import BatchPipeline
 from ..data.prompts import PromptDraws, prompt_maps, prompt_points, sample_prompt_draws
 from ..models.clip import ClipEmbeddings
@@ -78,8 +90,11 @@ def adam_l2(cfg, params) -> torch.optim.Optimizer:
 
 
 def trainable_parameters(model: nn.Module):
-    """Every parameter outside the frozen subtrees (``FROZEN_PREFIXES``)."""
-    return [p for name, p in model.named_parameters() if not name.startswith(FROZEN_PREFIXES)]
+    """Every parameter outside the frozen subtrees: those under
+    ``FROZEN_PREFIXES`` and those a frozen module keeps from requiring grad
+    (the ClipRes backbone)."""
+    return [p for name, p in model.named_parameters()
+            if p.requires_grad and not name.startswith(FROZEN_PREFIXES)]
 
 
 def build_optimizer(opt_cfg, model: nn.Module) -> torch.optim.Optimizer:
@@ -91,15 +106,33 @@ def build_optimizer(opt_cfg, model: nn.Module) -> torch.optim.Optimizer:
 def make_loss_fn(name: str) -> Callable:
     if name in ("hybrid", "ce"):
         return lambda logits, batch: L.hybrid_loss(logits, batch["masks"])
+    if name == "dice_ce":
+        return lambda logits, batch: L.dice_ce_loss(logits, batch["masks"])
     if name == "hybrid_binary":
         return lambda logits, batch: L.hybrid_loss_binary(logits, batch["masks"])
     if name == "mse":
         return lambda out, batch: torch.mean((out.float() - batch["images"]) ** 2)
-    if name in ("dice_ce", "class_binary"):
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet; see ROADMAP.md Queue 1 item 2"
-        )
+    if name == "class_binary":
+        return _class_loss
     raise KeyError(f"unknown loss {name!r}")
+
+
+def _class_loss(outputs, batch) -> torch.Tensor:
+    """Mask BCE + class BCE on ``(mask_logits, class_logits)`` (:95-108)."""
+    mask_logits, class_logits = outputs
+    return (L.bce_with_logits(mask_logits[..., 0], batch["masks"].float())
+            + L.bce_with_logits(class_logits[..., 0], batch["labels"].float()))
+
+
+def class_targets(masks_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Palette masks -> the class task's targets (:281-291,
+    ``ClassImageDataset``): the uint8 any-animal mask (cat, dog or the
+    uncertain border) and the fp32 label, 0 for an image with a cat pixel,
+    1 without."""
+    seg = ((masks_u8 == CAT_PALETTE) | (masks_u8 == DOG_PALETTE)
+           | (masks_u8 == UNCERTAIN_PALETTE)).to(torch.uint8)
+    labels = 1.0 - (masks_u8 == CAT_PALETTE).flatten(1).any(1).float()
+    return seg, labels
 
 
 def _lecun_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -168,9 +201,10 @@ class Trainer:
     (the card unless the caller asks for the CPU); the initial weights are
     drawn from a ``torch.Generator`` seeded with ``config.seed``, so they do
     not depend on the device.  The task follows the model and the loss as
-    in JAX (:170-177): ``clip_unet_prompt`` trains the prompt task on the
-    raw palette masks, ``loss="mse"`` the reconstruction task, everything
-    else the segmentation task.  With ``augmentations_per_datapoint > 0``
+    in JAX (:170-177): ``clip_unet_prompt`` trains the prompt task and
+    ``clip_res_class`` the class task, both on the raw palette masks,
+    ``loss="mse"`` the reconstruction task, everything else the
+    segmentation task.  With ``augmentations_per_datapoint > 0``
     the train batches go through the task's augmentor with the JAX
     Trainer's backend and geometry (:190-196) — except for reconstruction,
     which JAX never augments (:313) while its pipeline still repeats each
@@ -206,6 +240,8 @@ class Trainer:
         init_weights_(self.model, torch.Generator().manual_seed(config.seed))
         if config.model == "clip_unet_prompt":
             self.task = "prompt"
+        elif config.model == "clip_res_class":
+            self.task = "class"
         elif config.loss == "mse":
             self.task = "reconstruction"
         else:
@@ -219,7 +255,7 @@ class Trainer:
         aug_cls = DataAugmentorPrompt if self.task == "prompt" else DataAugmentor
         augments = aug_n > 0 and self.task != "reconstruction"
         self.augmentor = aug_cls(aug_n) if augments else None
-        raw = self.task == "prompt"
+        raw = self.task in ("prompt", "class")
         self.train_data = train_data or _dataset_from_config(config, True, raw)
         self.val_data = val_data or _dataset_from_config(config, False, raw)
 
@@ -260,10 +296,12 @@ class Trainer:
         ``{"images": the same}``; segmentation: inputs the [0, 1] fp32
         images, targets the class ids,
         through the augmentor with ``params`` when ``augment`` and the
-        Trainer has one; prompt: inputs ``(images, prompt maps)``, targets
-        the binary labels of the prompts at ``points`` = ``(choice, cy,
-        cx)`` made from the palette masks (:299-312), the three through the
-        prompt augmentor likewise."""
+        Trainer has one; class: the same on the any-animal mask of the
+        palette masks, and ``"labels"`` (:func:`class_targets`, taken
+        before the augmentation); prompt: inputs ``(images, prompt maps)``,
+        targets the binary labels of the prompts at ``points`` =
+        ``(choice, cy, cx)`` made from the palette masks (:299-312), the
+        three through the prompt augmentor likewise."""
         augmenting = augment and self.augmentor is not None
         if augmenting:
             if params is None:
@@ -281,10 +319,13 @@ class Trainer:
                     params, images_u8, labels.to(torch.uint8), heat)
                 return (images, heat), {"masks": masks}
             return (normalize_image(images_u8), heat), {"masks": labels.long()}
+        extra = {}
+        if self.task == "class":
+            masks_u8, extra["labels"] = class_targets(masks_u8)
         if augmenting:
             images, masks = self.augmentor.apply_u8(params, images_u8, masks_u8)
-            return images, {"masks": masks}
-        return normalize_image(images_u8), {"masks": masks_u8.long()}
+            return images, {"masks": masks, **extra}
+        return normalize_image(images_u8), {"masks": masks_u8.long(), **extra}
 
     def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
                    step_key: int = 0) -> torch.Tensor:
@@ -315,8 +356,9 @@ class Trainer:
     def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
                   step_key: int = EVAL_STEP_KEY):
         """(loss, IoU, pixel accuracy, dice) of one batch with the running
-        statistics, on the device; the binary metrics for the binary loss;
-        for reconstruction the loss and three zeros (:372-374)."""
+        statistics, on the device; the binary metrics for the binary loss
+        and, on the mask logits, for the class task; for reconstruction the
+        loss and three zeros (:364-374)."""
         points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
         inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=False, points=points)
         inputs = inputs if isinstance(inputs, tuple) else (inputs,)
@@ -324,16 +366,18 @@ class Trainer:
         if self.task == "reconstruction":
             zero = torch.zeros((), device=logits.device)
             return self.loss_fn(logits, batch), zero, zero, zero
-        masks = batch["masks"]
-        if self.is_binary:
+        masks, loss = batch["masks"], self.loss_fn(logits, batch)
+        if self.task == "class":
+            logits = logits[0]
+        if self.is_binary or self.task == "class":
             metrics = (L.iou_binary, L.pixel_accuracy_binary, L.dice_score_binary)
         else:
             metrics = (L.iou, L.pixel_accuracy, L.dice_score)
-        return (self.loss_fn(logits, batch), *(f(logits, masks) for f in metrics))
+        return (loss, *(f(logits, masks) for f in metrics))
 
     def _pipelines(self):
         cfg = self.config
-        mask_attr = "raw_masks" if self.task == "prompt" else "masks"
+        mask_attr = "raw_masks" if self.task in ("prompt", "class") else "masks"
         train_pipe = BatchPipeline(
             self.train_data, cfg.batch_size, device=self.device,
             augmentations_per_datapoint=cfg.data.augmentations_per_datapoint,

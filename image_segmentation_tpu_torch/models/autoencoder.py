@@ -32,8 +32,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..ops.precision import wide
 from . import fused
-from .blocks import ConvBlock, ConvBlockDownsample, conv_transpose2x2_nhwc, max_pool_2x2
+from .blocks import ConvBlock, ConvBlockDownsample
 
 FOLD_WIDTH = 8  # the JAX gate: width % (2 * FOLD) == 0
 
@@ -41,11 +42,7 @@ FOLD_WIDTH = 8  # the JAX gate: width % (2 * FOLD) == 0
 def _block(block: nn.Module, x: torch.Tensor, train: bool, folded: bool) -> torch.Tensor:
     """``block``'s forward, or with ``folded`` off the standard block's math
     on the same parameters (where JAX builds the standard module)."""
-    if folded:
-        return block(x, train=train)
-    if isinstance(block, ConvBlockDownsample):
-        return max_pool_2x2(ConvBlock.forward(block.block[0], x, train=train))
-    return ConvBlock.forward(block.conv, conv_transpose2x2_nhwc(x, block.up), train=train)
+    return block(x, train=train) if folded else fused.standard_forward(block, x, train=train)
 
 
 class Encoder(nn.Module):
@@ -115,7 +112,7 @@ class Decoder(nn.Module):
         h = _block(self.dec1, bottleneck, train, folded and self.level2)
         h = _block(self.dec2, h, train, folded and self.level1)
         h = _block(self.dec3, h, train, folded)
-        return fused.conv1x1(h, self.out, folded=folded).float()
+        return wide(fused.conv1x1(h, self.out, folded=folded))
 
 
 class Autoencoder(nn.Module):

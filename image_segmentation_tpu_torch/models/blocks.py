@@ -10,7 +10,8 @@ converted by ``utils/convert.py`` loads strictly.  The forwards are
 written on NHWC tensors, as in the JAX package: convolutions take a
 permuted (channels-last) view.  Parameters stay fp32 and are cast to the
 activation dtype at use, like flax's ``dtype=`` modules; eval BatchNorm is
-computed in fp32 and cast back, as flax does.
+computed in fp32 and cast back, as flax does (in float64 for a float64
+model, :func:`~..ops.precision.wide`).
 
 Training mode (``train=True``) normalises with the batch statistics in
 flax's semantics (blocks.py:35-37, folded.py:340-353): biased
@@ -29,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.precision import wide
+
 # torch BatchNorm2d default, and the JAX package's BN_EPS (blocks.py:38).
 BN_EPS = 1e-5
 # flax's running-average decay (blocks.py:37): running = 0.9*running + 0.1*batch.
@@ -45,7 +48,7 @@ def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """``relu(BatchNorm(x))`` in eval mode, computed in fp32."""
     a, b = bn_affine(bn)
-    return F.relu(x.float() * a + b).to(x.dtype)
+    return F.relu(wide(x) * a + b).to(x.dtype)
 
 
 def commit_running_stats(
@@ -61,7 +64,7 @@ def commit_running_stats(
 def batch_stats(x: torch.Tensor, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 batch mean and biased variance of NHWC ``x`` per channel, with
     ``bn``'s running averages committed."""
-    xf = x.float()
+    xf = wide(x)
     mean = xf.mean((0, 1, 2))
     var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
     commit_running_stats(bn, mean.detach(), var.detach())
@@ -73,7 +76,7 @@ def bn_relu_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     the running averages committed."""
     mean, var = batch_stats(x, bn)
     mul = torch.rsqrt(var + BN_EPS) * bn.weight
-    return F.relu((x.float() - mean) * mul + bn.bias).to(x.dtype)
+    return F.relu((wide(x) - mean) * mul + bn.bias).to(x.dtype)
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -126,9 +129,10 @@ def resize_bilinear_align_corners(
     _, h, w, _ = x.shape
     if (h, w) == (height, width):
         return x
-    my = torch.from_numpy(_resize_axis_matrix(h, height)).to(x.device)
-    mx = torch.from_numpy(_resize_axis_matrix(w, width)).to(x.device)
-    top = torch.einsum("oh,bhwc->bowc", my, x.float())
+    xf = wide(x)
+    my = torch.from_numpy(_resize_axis_matrix(h, height)).to(x.device, xf.dtype)
+    mx = torch.from_numpy(_resize_axis_matrix(w, width)).to(x.device, xf.dtype)
+    top = torch.einsum("oh,bhwc->bowc", my, xf)
     return torch.einsum("ow,bhwc->bhoc", mx, top).to(x.dtype)
 
 

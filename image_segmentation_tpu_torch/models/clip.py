@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.precision import wide
+
 CLIP_IMAGE_SIZE = 224
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -55,10 +57,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """flax ``LayerNorm``: fp32 statistics and affine, the result in x's
-    dtype.  torch takes the variance in two passes where flax takes
-    ``E[x^2] - E[x]^2``; the two differ by rounding."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
+    """flax ``LayerNorm``: fp32 statistics and affine (float64 for a
+    float64 x), the result in x's dtype.  torch takes the variance in two
+    passes where flax takes ``E[x^2] - E[x]^2``; the two differ by
+    rounding."""
+    xf = wide(x)
+    return F.layer_norm(xf, ln.normalized_shape, ln.weight.to(xf.dtype), ln.bias.to(xf.dtype),
                         LN_EPS).to(x.dtype)
 
 
@@ -84,7 +88,7 @@ class ClipAttention(nn.Module):
 
         q = linear(x, self.q_proj) * (dh ** -0.5)
         scores = torch.einsum("bhld,bhmd->bhlm", split(q), split(linear(x, self.k_proj)))
-        w = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        w = torch.softmax(wide(scores), dim=-1).to(x.dtype)
         out = torch.einsum("bhlm,bhmd->bhld", w, split(linear(x, self.v_proj)))
         return linear(out.transpose(1, 2).reshape(b, length, d), self.out_proj)
 
@@ -171,7 +175,7 @@ class ClipVisionTower(nn.Module):
         for layer in vm.encoder.layers:
             x = layer(x)
         pooled = layer_norm(x[:, 0], vm.post_layernorm)
-        return linear(pooled, self.visual_projection).float()
+        return wide(linear(pooled, self.visual_projection))
 
 
 class ClipFeatureExtractor(nn.Module):

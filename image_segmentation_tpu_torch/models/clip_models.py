@@ -1,14 +1,20 @@
-"""The CLIP-conditioned U-Net and the prompt model, NHWC; counterpart of
+"""The CLIP-conditioned models, NHWC; counterpart of
 ``image_segmentation_tpu/models/clip_models.py`` (FROZEN_PREFIXES :37,
-ClipUnet :40-139, PromptEncoder :307-358, ClipUnetPrompt :361-455).
+ClipUnet :40-139, ClipResSegmentationModel :142-198, ClipAutoencoder
+:201-235, ClipResSegmentationClassification :238-304, PromptEncoder
+:307-358, ClipUnetPrompt :361-455).
 
 The frozen CLIP tower (:mod:`.clip`) embeds the image; the embedding is
 one context token for :class:`~..ops.cross_attention.CrossAttentionFusion`
 at the 512-wide bottleneck, so the fusion takes its exact one-key path
 (``out_proj(v_proj(embedding))`` broadcast over the map) and no attention
-kernel.  Its output does not depend on the bottleneck block's output: that
-block still runs, and its running statistics update, but its parameters
-get zero gradients (the Trainer fills them in, as JAX's are zeros).
+kernel.  Its output does not depend on the map it is fused with: in
+ClipUnet the bottleneck block still runs, and its running statistics
+update, but its parameters get zero gradients (the Trainer fills them in,
+as JAX's are zeros); in the ClipRes models the map is the frozen ResNet-34
+backbone's (:mod:`.resnet`), which runs all the same (in training its
+running statistics move as JAX's do; in eval its output is unread, where
+XLA drops it and the port runs it as the JAX module is written).
 
 The level 0-1 blocks take the block family of ``w2d_impl`` exactly as the
 U-Nets decide it (``models/unet.py``, :func:`.fused.block_classes`):
@@ -21,15 +27,19 @@ and the output conv train through K11 (:func:`.fused.conv1x1`; JAX's
 plain 1x1 conv.  The prompt encoder's enc1 reads the 1-channel heatmap, a
 model input, with ``input_grad=False`` in the fused family
 (clip_models.py:327-340): its backward runs conv1's wgrad kernel alone, as
-the unfused family's does on its own (the heatmap needs no gradient).
+the unfused family's does on its own (the heatmap needs no gradient).  The
+ClipRes models fold their full-resolution level (dec5, and ``out``, which
+reads ``[dec5 | image]`` as the kernels' two inputs) with ``w2d_level0``
+where JAX's gate holds (:176, :285).
 
 Module names follow the reference torch layout
-(``utils/torch_export.clip_unet_state_dict`` :196 and
+(``utils/torch_export.clip_unet_state_dict`` :196,
+``clip_res_state_dict`` :240, ``clip_autoencoder_state_dict`` :257 and
 ``clip_unet_prompt_state_dict`` :272): ``clip_feature_extractor.
 clip_model.*``, ``cross_attention_fusion.cross_attn.*``, the U-Net keys,
-``prompt_encoder.enc{1-3}.block.0.conv.*``, ``prompt_encoder.conv.conv.*``
-and ``prompt_fusion``, so ``utils.convert.state_dict_from_jax`` loads the
-JAX tree strictly.
+``encoder.model.*`` (the ResNet), ``coupler``, ``prompt_encoder.enc{1-3}.
+block.0.conv.*``, ``prompt_encoder.conv.conv.*`` and ``prompt_fusion``,
+so ``utils.convert.state_dict_from_jax`` loads the JAX tree strictly.
 """
 
 from __future__ import annotations
@@ -37,17 +47,44 @@ from __future__ import annotations
 from typing import Any, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cross_attention import CrossAttentionFusion
+from ..ops.precision import wide
 from . import fused
-from .blocks import ConvBlock, ConvBlockDownsample, ConvBlockUpsampleSkip, conv1x1_nhwc
+from .blocks import (
+    ConvBlock,
+    ConvBlockDownsample,
+    ConvBlockUpsample,
+    ConvBlockUpsampleSkip,
+    conv1x1_nhwc,
+)
 from .clip import ClipFeatureExtractor
+from .resnet import ResNet34Features
 
 # Parameter subtrees that are frozen: not decayed, not updated (the JAX
-# Trainer's set_to_zero mask on "clip_tower"; the ResNet backbone of
-# clip_res comes with that model).
+# Trainer's set_to_zero mask on "clip_tower").  The ClipRes models' ResNet
+# backbone (JAX's "resnet_backbone") is frozen by module: its parameters do
+# not require grad (ClipResSegmentationModel), which keeps them out of the
+# optimizer (engine/train.trainable_parameters) without a prefix that would
+# also match the autoencoder's trainable ``encoder.``.
 FROZEN_PREFIXES = ("clip_feature_extractor.",)
+# JAX's fold gate of the ClipRes decoders' full-resolution level: the width
+# after dec5's up-conv a multiple of the fold (folded.FOLD, clip_models.py:176)
+FOLD = 4
+
+
+def _check_frozen_clip(freeze_clip: bool) -> None:
+    if not freeze_clip:
+        raise NotImplementedError(
+            "freeze_clip=False (training the CLIP tower) is not ported; the tower is "
+            "frozen as in every preset")
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=x.dtype)``: the weight and bias cast to x's dtype."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def level_classes(w2d_level0: bool, w2d_level1_fold2: bool, w2d_impl: str):
@@ -75,10 +112,7 @@ class ClipUnet(nn.Module):
         device=None,
     ):
         super().__init__()
-        if not freeze_clip:
-            raise NotImplementedError(
-                "freeze_clip=False (training the CLIP tower) is not ported; the tower is "
-                "frozen as in every preset")
+        _check_frozen_clip(freeze_clip)
         self.dtype = dtype
         self.folded = bool(w2d_level0)
         l0, l1 = level_classes(w2d_level0, w2d_level1_fold2, w2d_impl)
@@ -112,12 +146,178 @@ class ClipUnet(nn.Module):
     def decode(self, h: torch.Tensor, skips, train: bool) -> torch.Tensor:
         for dec, skip in zip((self.dec1, self.dec2, self.dec3, self.dec4), skips[::-1]):
             h = dec(h.contiguous(), skip, train=train)
-        return fused.conv1x1(h, self.out, folded=self.folded).float()
+        return wide(fused.conv1x1(h, self.out, folded=self.folded))
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         skips, attn = self.encode(x, train)
         return self.decode(attn, skips, train)
+
+
+class ClipResSegmentationModel(nn.Module):
+    """The frozen ResNet-34 features fused with the CLIP embedding, a
+    skip-less decoder (dec1-dec5: 512 -> 256 -> 128 -> 64 -> 32 -> 16, each
+    a ConvTranspose 2x2/2 and a ConvBlock) and an output ConvBlock on
+    ``[dec5 | image]`` (16 + 3 -> out_channels), clip_models.py:142-198:
+    ``forward(x (B, H, W, 3) in [0, 1], H and W multiples of 32) -> logits
+    (B, H, W, out_channels) fp32``.  The output block ends in BatchNorm and
+    ReLU, so the logits are >= 0: the reference's quirk, kept.
+
+    The backbone is frozen: it runs without autograd (JAX's
+    ``stop_gradient``) and its parameters do not require grad, so no
+    optimizer holds them, whatever ``freeze_backbone`` says (the JAX
+    Trainer masks ``resnet_backbone`` in every model, engine/train.py:62-81).
+    ``freeze_backbone=False`` is accepted and changes nothing observable:
+    the one-token fusion does not read the backbone's output.  In training
+    the backbone normalises with its batch statistics and commits its
+    running averages, as the JAX module does.
+
+    With ``w2d_level0``, where JAX folds (the gate of :meth:`decode`), dec5
+    is the ``w2d_impl`` family's Upsample block and ``out`` its ConvBlock,
+    whose conv1 reads the pair ``(dec5 output, image)`` as the kernels' two
+    inputs, never concatenated (``"pallas_fused"``).  dec1-dec4 are the
+    standard blocks (cuDNN)."""
+
+    def __init__(
+        self,
+        out_channels: int = 3,
+        dtype: torch.dtype = torch.bfloat16,
+        freeze_clip: bool = True,
+        freeze_backbone: bool = True,
+        clip_kwargs: Optional[Mapping[str, Any]] = None,
+        w2d_level0: bool = False,
+        w2d_impl: str = "dense",
+        *,
+        device=None,
+    ):
+        super().__init__()
+        _check_frozen_clip(freeze_clip)
+        self.dtype = dtype
+        self.folded = bool(w2d_level0)
+        up = fused.block_classes(w2d_impl, self.folded)[2]
+        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
+        proj_dim = self.clip_feature_extractor.clip_model.proj_dim
+        self.encoder = ResNet34Features(dtype, device=device).requires_grad_(False)
+        self.cross_attention_fusion = CrossAttentionFusion(512, 4, dtype, kv_dim=proj_dim,
+                                                           device=device)
+        self.dec1 = ConvBlockUpsample(512, 256, device=device)
+        self.dec2 = ConvBlockUpsample(256, 128, device=device)
+        self.dec3 = ConvBlockUpsample(128, 64, device=device)
+        self.dec4 = ConvBlockUpsample(64, 32, device=device)
+        self.dec5 = up(32, 16, device=device)
+        self._make_head(out_channels, device)
+
+    def _make_head(self, out_channels: int, device) -> None:
+        self.out = self.dec5.block_cls(16 + 3, out_channels, device=device)
+
+    def trunk(self, x: torch.Tensor, train: bool):
+        """(the CLIP embedding, dec4's output) of x in the compute dtype."""
+        clip_feats = self.clip_feature_extractor(x)
+        with torch.no_grad():  # the frozen backbone (its statistics still commit)
+            res = self.encoder(x, train=train)
+        h = self.cross_attention_fusion(res, clip_feats)
+        for dec in (self.dec1, self.dec2, self.dec3, self.dec4):
+            h = dec(h.contiguous(), train=train)
+        return clip_feats, h
+
+    def decode(self, h: torch.Tensor, train: bool):
+        """dec5 on dec4's output: (its output, whether JAX folds here)."""
+        folded = self.folded and (2 * h.shape[2]) % FOLD == 0
+        if folded:
+            return self.dec5(h.contiguous(), train=train), True
+        return fused.standard_forward(self.dec5, h, train=train), False
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        x = x.to(self.dtype)
+        _, h = self.trunk(x, train)
+        h, folded = self.decode(h, train)
+        if folded:
+            out = self.out(h.contiguous(), x.contiguous(), train=train)
+        else:
+            out = fused.standard_forward(self.out, h, x, train=train)
+        return wide(out)
+
+
+class ClipResSegmentationClassification(ClipResSegmentationModel):
+    """Joint binary segmentation and cat/dog classification
+    (clip_models.py:238-304): the ClipRes trunk and dec5, then a 1x1
+    ``mask_out`` (16 + 3 -> 1) on ``[dec5 | image]`` and a ``class_head``
+    Dense(1) on the CLIP embedding.  ``forward(x) -> (mask_logits (B, H, W,
+    1), class_logits (B, 1))``, both fp32.
+
+    ``mask_out`` is a plain matmul in every configuration (JAX's
+    ``Folded1x1`` with ``in_perm`` never takes the 1x1 backward kernel,
+    folded.py:253-280), so it is :func:`~.blocks.conv1x1_nhwc` on the
+    concat, never K11."""
+
+    def __init__(
+        self,
+        dtype: torch.dtype = torch.bfloat16,
+        freeze_clip: bool = True,
+        freeze_backbone: bool = True,
+        clip_kwargs: Optional[Mapping[str, Any]] = None,
+        w2d_level0: bool = False,
+        w2d_impl: str = "dense",
+        *,
+        device=None,
+    ):
+        super().__init__(1, dtype, freeze_clip, freeze_backbone, clip_kwargs, w2d_level0,
+                         w2d_impl, device=device)
+
+    def _make_head(self, out_channels: int, device) -> None:
+        self.mask_out = nn.Conv2d(16 + 3, 1, 1, device=device)
+        proj_dim = self.clip_feature_extractor.clip_model.proj_dim
+        self.class_head = nn.Linear(proj_dim, 1, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False):
+        x = x.to(self.dtype)
+        clip_feats, h = self.trunk(x, train)
+        h, _ = self.decode(h, train)
+        mask = conv1x1_nhwc(torch.cat([h, x.to(h.dtype)], dim=-1), self.mask_out)
+        return wide(mask), wide(dense(clip_feats.to(self.dtype), self.class_head))
+
+
+class ClipAutoencoder(nn.Module):
+    """The CLIP embedding -> ``coupler`` Dense(512 -> 16384) -> the
+    channel-major view (B, 64, 16, 16) as NHWC -> dec1-dec3 ConvBlockUpsample
+    (64, 64, 32) -> dec4 ConvBlockUpsampleSkip (32) with the 1x1 ``input``
+    stem -> 1x1 ``out`` (clip_models.py:201-235): ``forward(x (B, H, W, 3))
+    -> logits (B, H, W, out_channels) fp32``, a segmentation model despite
+    its name.  No preset folds it: it runs no kernel."""
+
+    def __init__(
+        self,
+        out_channels: int = 3,
+        dtype: torch.dtype = torch.bfloat16,
+        freeze_clip: bool = True,
+        clip_kwargs: Optional[Mapping[str, Any]] = None,
+        *,
+        device=None,
+    ):
+        super().__init__()
+        _check_frozen_clip(freeze_clip)
+        self.dtype = dtype
+        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
+        proj_dim = self.clip_feature_extractor.clip_model.proj_dim
+        self.input = nn.Conv2d(3, 32, 1, device=device)
+        self.coupler = nn.Linear(proj_dim, 64 * 16 * 16, device=device)
+        self.dec1 = ConvBlockUpsample(64, 64, device=device)
+        self.dec2 = ConvBlockUpsample(64, 64, device=device)
+        self.dec3 = ConvBlockUpsample(64, 32, device=device)
+        self.dec4 = ConvBlockUpsampleSkip(32, 32, device=device)
+        self.out = nn.Conv2d(32, out_channels, 1, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        x = x.to(self.dtype)
+        clip_feats = self.clip_feature_extractor(x)
+        stem = conv1x1_nhwc(x, self.input)
+        h = dense(clip_feats.to(self.dtype), self.coupler)
+        # torch's .view(-1, 64, 16, 16) is channel-major: NCHW, then NHWC (:222)
+        h = h.reshape(x.shape[0], 64, 16, 16).permute(0, 2, 3, 1).contiguous()
+        for dec in (self.dec1, self.dec2, self.dec3):
+            h = dec(h, train=train)
+        h = self.dec4(h, stem, train=train)
+        return wide(conv1x1_nhwc(h, self.out))
 
 
 class PromptEncoder(nn.Module):

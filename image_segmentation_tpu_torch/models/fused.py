@@ -49,6 +49,7 @@ from torch import nn
 
 from ..ops import fused_conv
 from ..ops.conv1x1 import Conv1x1Function
+from ..ops.precision import wide
 from .blocks import (
     BN_EPS,
     ConvBlock,
@@ -59,6 +60,8 @@ from .blocks import (
     bn_affine,
     commit_running_stats,
     conv1x1_nhwc,
+    conv_transpose2x2_nhwc,
+    max_pool_2x2,
     resize_bilinear_align_corners,
 )
 
@@ -130,7 +133,7 @@ class FusedConvBlockDownsample(ConvBlockDownsample):
             return fused_conv.maxpool2x2_affine_relu(y2, a2, b2)
         dt = y2.dtype
         # rounded in autograd, so the affine cotangent is rounded back as in JAX
-        return fused_conv.PoolFunction.apply(y2, a2.to(dt).float(), b2.to(dt).float())
+        return fused_conv.PoolFunction.apply(y2, wide(a2.to(dt)), wide(b2.to(dt)))
 
 
 def _up_kernel(up: nn.ConvTranspose2d, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -234,6 +237,20 @@ def block_classes(w2d_impl: str, folded: bool = True) -> tuple:
     as ``models/folded.py`` blocks with ``impl=w2d_impl`` when ``folded``
     (see the module doc); the standard blocks when not."""
     return FAMILIES.get(w2d_impl, STANDARD) if folded else STANDARD
+
+
+def standard_forward(block: nn.Module, x: torch.Tensor, x_b: Optional[torch.Tensor] = None, *,
+                     train: bool) -> torch.Tensor:
+    """The standard twin's math on ``block``'s parameters, whatever its
+    family: where a model's fold gate is off in JAX (the image width), it
+    builds the standard module on the same tree.  ``block`` is a
+    ConvBlock[Downsample|Upsample] or a subclass; ``x_b`` a ConvBlock's
+    second input."""
+    if isinstance(block, ConvBlockDownsample):
+        return max_pool_2x2(ConvBlock.forward(block.block[0], x, train=train))
+    if isinstance(block, ConvBlockUpsample):
+        return ConvBlock.forward(block.conv, conv_transpose2x2_nhwc(x, block.up), train=train)
+    return ConvBlock.forward(block, x, x_b, train=train)
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:

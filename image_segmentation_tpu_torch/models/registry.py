@@ -1,10 +1,11 @@
 """Model registry: config name -> port model; counterpart of
 ``image_segmentation_tpu/models/registry.py``.
 
-Ported: the U-Nets, ClipUnet, the prompt model and the autoencoder.  The
-JAX package's other names (clip_res, clip_autoencoder, clip_res_class,
-prompt_fusion) raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+Every JAX registry name is ported: the U-Nets, the CLIP models (ClipUnet,
+ClipRes, ClipAutoencoder, ClipResSegmentationClassification, the prompt
+model), the autoencoder and ``prompt_fusion``.  JAX registers
+``prompt_fusion`` only once its module is imported (registry.py:24-34);
+the port registers every name here.
 """
 
 from __future__ import annotations
@@ -13,19 +14,21 @@ import torch
 from torch import nn
 
 from .autoencoder import Autoencoder
-from .clip_models import ClipUnet, ClipUnetPrompt
+from .clip_models import (
+    ClipAutoencoder,
+    ClipResSegmentationClassification,
+    ClipResSegmentationModel,
+    ClipUnet,
+    ClipUnetPrompt,
+)
+from .prompt_fusion import SegmentationModelWithPrompt
 from .unet import LargeUNet, UNet
 
 _REGISTRY = {"unet": UNet, "large_unet": LargeUNet, "clip_unet": ClipUnet,
-             "clip_unet_prompt": ClipUnetPrompt, "autoencoder": Autoencoder}
-
-# JAX registry names not ported yet -> the ROADMAP.md Queue 1 item.
-_NOT_PORTED = {
-    "clip_res": "Queue 1 'The remaining models'",
-    "clip_autoencoder": "Queue 1 'The remaining models'",
-    "clip_res_class": "Queue 1 'The remaining models'",
-    "prompt_fusion": "Queue 1 'The remaining models'",
-}
+             "clip_res": ClipResSegmentationModel, "clip_autoencoder": ClipAutoencoder,
+             "clip_unet_prompt": ClipUnetPrompt, "clip_res_class": ClipResSegmentationClassification,
+             "autoencoder": Autoencoder, "prompt_fusion": SegmentationModelWithPrompt}
+MODEL_NAMES = tuple(_REGISTRY)
 
 
 def build_model(
@@ -33,10 +36,6 @@ def build_model(
 ) -> nn.Module:
     """Build registry model ``name`` with parameters on ``device`` and
     compute in ``dtype``; ``kwargs`` are the JAX model args."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; see ROADMAP.md {_NOT_PORTED[name]}"
-        )
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](dtype=dtype, device=device, **kwargs)

@@ -42,7 +42,8 @@ wrappers: :class:`FusedBlockFunction` (a whole BatchNorm'd block),
 The plain versions compute in fp32 from the same operands the kernels see
 (weights and affines rounded to the activation dtype, bias in fp32) and
 round bf16 results the same way, so on the card they are the reference for
-the kernels, and in fp32 on the CPU they are the JAX kernels' math.  Sums
+the kernels, and in fp32 on the CPU they are the JAX kernels' math (a
+float64 operand keeps float64, :func:`~.precision.wide`).  Sums
 over pixels are fp32 in both; the kernels take them as per-block partial
 sums plus a second pass in a fixed order, so they are reproducible but not
 in ``torch.sum``'s order.
@@ -59,11 +60,12 @@ from ._build import launch as _launch
 from ._build import on_cpu as _on_cpu
 from ._build import ptr as _ptr
 from ._build import scratch as _scratch
+from .precision import wide
 
 
 def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``v`` rounded to ``dtype`` and held in fp32."""
-    return v.to(dtype).float()
+    """``v`` rounded to ``dtype`` and held in fp32 (float64 if ``dtype`` is)."""
+    return wide(v.to(dtype))
 
 
 def _channel_sum(t: torch.Tensor) -> torch.Tensor:
@@ -78,11 +80,11 @@ def _activate(x, x_b, a, b):
     """fp32 operand of a conv: ``[x | x_b]``, or ``round(relu(x*a + b))``."""
     dt = x.dtype
     xin = x if x_b is None else torch.cat([x, x_b.to(dt)], dim=-1)
-    xf = xin.float()
+    xf = wide(xin)
     if a is not None:
         # SAME padding pads the ACTIVATED tensor with zeros (pallas_conv.py
         # _build_aug :288-290), which F.conv2d's zero padding does.
-        xf = F.relu(xf * _round(a, dt) + _round(b, dt)).to(dt).float()
+        xf = wide(F.relu(xf * _round(a, dt) + _round(b, dt)).to(dt))
     return xf
 
 
@@ -94,7 +96,7 @@ def _gfold(g, y, c1, c2, a, b):
     if c1 is None:
         return g
     dt = g.dtype
-    gf, yf = g.float(), y.float()
+    gf, yf = wide(g), wide(y)
     if a is not None:
         af, bf = _round(a, dt), _round(b, dt)
         gf = torch.where(yf * af + bf > 0, gf * af, 0.0)
@@ -114,11 +116,11 @@ def conv3x3_plain(
     """3x3 SAME conv of ``act([x | x_b])``; see :func:`conv3x3`."""
     dt = x.dtype
     xf = _activate(x, x_b, a, b)
-    y = F.conv2d(xf.permute(0, 3, 1, 2), _round(w, dt), bias.float(), padding=1)
+    y = F.conv2d(xf.permute(0, 3, 1, 2), _round(w, dt), bias.to(xf.dtype), padding=1)
     y = y.permute(0, 2, 3, 1).to(dt)
     if not stats:
         return y
-    yf = y.float()
+    yf = wide(y)
     return y, _channel_sum(yf), _channel_sum(yf * yf)
 
 
@@ -128,11 +130,11 @@ def conv3x3_dgrad_plain(
 ):
     """Input gradient of a 3x3 SAME conv; see :func:`conv3x3_dgrad`."""
     dt = g.dtype
-    ge = _gfold(g, y, c1, c2, a, b).float()
+    ge = wide(_gfold(g, y, c1, c2, a, b))
     wt = _round(w, dt).flip(2, 3).transpose(0, 1)  # the flipped, transposed kernel
     acc = F.conv2d(ge.permute(0, 3, 1, 2), wt, padding=1).permute(0, 2, 3, 1)
     if x_post is not None:
-        xf = x_post.float()
+        xf = wide(x_post)
         ap, bp = _round(a_post, dt), _round(b_post, dt)
         gu = torch.where(xf * ap + bp > 0, acc, 0.0)
         return (gu * ap).to(dt), _channel_sum(gu * xf), _channel_sum(gu)
@@ -145,7 +147,7 @@ def conv3x3_wgrad_plain(
     g, y, x, c1, c2, *, a=None, b=None, x_b=None, a_pre=None, b_pre=None,
 ):
     """Weight and bias gradient of a 3x3 SAME conv; see :func:`conv3x3_wgrad`."""
-    ge = _gfold(g, y, c1, c2, a, b).float().permute(0, 3, 1, 2)
+    ge = wide(_gfold(g, y, c1, c2, a, b)).permute(0, 3, 1, 2)
     xf = _activate(x, x_b, a_pre, b_pre).permute(0, 3, 1, 2)
     dw = torch.nn.grad.conv2d_weight(xf, (ge.shape[1], xf.shape[1], 3, 3), ge, padding=1)
     return dw, ge.sum((0, 2, 3))
@@ -154,8 +156,8 @@ def conv3x3_wgrad_plain(
 def bn_relu_bwd_reduce_plain(g, y, a, b):
     """``(sum P*y, sum P)`` per channel; see :func:`bn_relu_bwd_reduce`."""
     dt = y.dtype
-    yf = y.float()
-    p = torch.where(yf * _round(a, dt) + _round(b, dt) > 0, g.float(), 0.0)
+    yf = wide(y)
+    p = torch.where(yf * _round(a, dt) + _round(b, dt) > 0, wide(g), 0.0)
     return _channel_sum(p * yf), _channel_sum(p)
 
 
@@ -164,7 +166,7 @@ def maxpool2x2_affine_relu_plain(
 ) -> torch.Tensor:
     """2x2/2 max-pool of ``relu(z*a + b)``; see :func:`maxpool2x2_affine_relu`."""
     dt = z.dtype
-    u = F.relu(z.float() * _round(a, dt) + _round(b, dt))
+    u = F.relu(wide(z) * _round(a, dt) + _round(b, dt))
     return F.max_pool2d(u.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).to(dt)
 
 
@@ -173,7 +175,7 @@ def maxpool2x2_affine_relu_bwd_plain(z, a, b, dp):
     dt = z.dtype
     bsz, h, wd, c = z.shape
     af, bf = _round(a, dt), _round(b, dt)
-    zf = z.float()
+    zf = wide(z)
     pre = zf * af + bf
     u = F.relu(pre).view(bsz, h // 2, 2, wd // 2, 2, c)
     u00, u01, u10, u11 = u[:, :, 0, :, 0], u[:, :, 0, :, 1], u[:, :, 1, :, 0], u[:, :, 1, :, 1]
@@ -181,7 +183,7 @@ def maxpool2x2_affine_relu_bwd_plain(z, a, b, dp):
     # then the left column within the row (pallas_conv.py:1569-1588)
     top = torch.maximum(u00, u01) >= torch.maximum(u10, u11)
     left0, left1 = u00 >= u01, u10 >= u11
-    g, zero = dp.float(), torch.zeros((), device=z.device)
+    g, zero = wide(dp), torch.zeros((), device=z.device)
     routed = torch.stack([
         torch.stack([torch.where(top & left0, g, zero), torch.where(top & ~left0, g, zero)], 3),
         torch.stack([torch.where(~top & left1, g, zero), torch.where(~top & ~left1, g, zero)], 3),
@@ -195,8 +197,9 @@ def convtranspose2x2_plain(
 ) -> torch.Tensor:
     """ConvTranspose(k=2, s=2); see :func:`convtranspose2x2`."""
     dt = x.dtype
+    xf = wide(x)
     y = F.conv_transpose2d(
-        x.float().permute(0, 3, 1, 2), _round(w, dt), bias.float(), stride=2
+        xf.permute(0, 3, 1, 2), _round(w, dt), bias.to(xf.dtype), stride=2
     )
     return y.permute(0, 2, 3, 1).to(dt)
 
@@ -206,10 +209,10 @@ def convtranspose2x2_bwd_plain(x, w, g):
     dt = x.dtype
     bsz, h, wd, ci = x.shape
     co = w.shape[1]
-    gf = g.float()
+    gf = wide(g)
     dx = F.conv2d(gf.permute(0, 3, 1, 2), _round(w, dt), stride=2).permute(0, 2, 3, 1)
     g6 = gf.view(bsz, h, 2, wd, 2, co)
-    dw = torch.einsum("bijc,biyjxo->coyx", x.float(), g6)
+    dw = torch.einsum("bijc,biyjxo->coyx", wide(x), g6)
     return dx.to(dt), dw, _channel_sum(gf)
 
 
@@ -672,7 +675,7 @@ class FusedBlockFunction(torch.autograd.Function):
         if raw_out:
             z = y2
         else:
-            z = F.relu(y2.float() * _round(a2, dt) + _round(b2, dt)).to(dt)
+            z = F.relu(wide(y2) * _round(a2, dt) + _round(b2, dt)).to(dt)
         ctx.save_for_backward(x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
                               scale1, bias1, scale2, bias2, a1, b1, a2, b2)
         ctx.raw_out, ctx.eps, ctx.n, ctx.input_grad = raw_out, eps, n, input_grad

@@ -1,15 +1,16 @@
 """The training losses and the eval metrics, fp32; counterpart of
 ``image_segmentation_tpu/ops/losses.py`` (cross_entropy :33,
 bce_with_logits :50, dice_score :92, dice_score_binary :116, hybrid_loss
-:140, hybrid_loss_binary :162, iou :180, iou_binary :197, pixel_accuracy
-:216, pixel_accuracy_binary :239).
+:140, dice_ce_loss :145, hybrid_loss_binary :162, iou :180, iou_binary
+:197, pixel_accuracy :216, pixel_accuracy_binary :239,
+combined_confusion_loss :252, dice_from_iou :280): all of it.
 
 Multiclass: logits NHWC ``(B, H, W, C)``, targets ``(B, H, W)`` integer
 class ids.  Binary: logits ``(B, H, W, 1)`` or ``(B, H, W)``, targets
 ``(B, H, W)`` in {0, 1}.  The dice terms keep the reference's smp double
 activation (the published numbers pass softmax or sigmoid probabilities
-into smp's DiceLoss, which applies it again).  The other losses of the JAX
-module wait for the models that train with them (ROADMAP.md Queue 1).
+into smp's DiceLoss, which applies it again); ``dice_ce_loss``, the
+intended Dice + CE, takes one softmax, as its JAX original does.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .precision import wide
+
 _SMP_EPS = 1e-7
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over all pixels (``nn.CrossEntropyLoss``)."""
-    logz = F.log_softmax(logits.float(), dim=-1)
+    logz = F.log_softmax(wide(logits), dim=-1)
     return -logz.gather(-1, targets.long().unsqueeze(-1)).mean()
 
 
@@ -35,23 +38,66 @@ def _one_hot(targets: torch.Tensor, num_classes: int) -> torch.Tensor:
     return F.one_hot(targets.long(), num_classes).float()
 
 
-def dice_score(
-    logits: torch.Tensor, targets: torch.Tensor, *, smp_parity: bool = True
-) -> torch.Tensor:
-    """1 - smp ``DiceLoss(mode='multiclass')`` of ``softmax(logits)``:
-    per-class dice over (batch, pixels), smooth 0, eps 1e-7, classes absent
-    from the target count as a loss of 0, mean over all classes."""
-    num_classes = logits.shape[-1]
-    probs = F.softmax(logits.float(), dim=-1)
-    if smp_parity:
-        probs = F.softmax(probs, dim=-1)
+def _dice_loss_of_probs(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """smp multiclass DiceLoss of ``probs`` (B, H, W, C) as given: per-class
+    dice over (batch, pixels), smooth 0, eps 1e-7, classes absent from the
+    target count as a loss of 0, mean over all classes."""
+    num_classes = probs.shape[-1]
     p = probs.reshape(probs.shape[0], -1, num_classes)
     onehot = _one_hot(targets.reshape(targets.shape[0], -1), num_classes)
     inter = (p * onehot).sum((0, 1))
     card = p.sum((0, 1)) + onehot.sum((0, 1))
     loss = 1.0 - 2.0 * inter / card.clamp_min(_SMP_EPS)
     present = onehot.sum((0, 1)) > 0
-    return 1.0 - torch.where(present, loss, torch.zeros_like(loss)).mean()
+    return torch.where(present, loss, torch.zeros_like(loss)).mean()
+
+
+def dice_ce_loss(logits: torch.Tensor, targets: torch.Tensor, *,
+                 dice_weight: float = 1.0) -> torch.Tensor:
+    """CE + ``dice_weight`` x the multiclass soft-dice loss of ONE softmax
+    (the loss the reference's HybridLoss builds but never returns)."""
+    logits = wide(logits)
+    dice = _dice_loss_of_probs(F.softmax(logits, dim=-1), targets)
+    return cross_entropy(logits, targets) + dice_weight * dice
+
+
+def combined_confusion_loss(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    incorrect_penalty: float = 2.0,
+    confusion_pairs: tuple = ((1, 2),),
+    confusion_penalty: float = 2.0,
+) -> torch.Tensor:
+    """Mean per-pixel CE, times ``incorrect_penalty`` where the argmax is
+    wrong and times ``confusion_penalty`` more where it swaps a pair of
+    ``confusion_pairs`` (cat <-> dog)."""
+    logits = wide(logits)
+    targets = targets.long()
+    loss = -F.log_softmax(logits, dim=-1).gather(-1, targets.unsqueeze(-1))[..., 0]
+    preds = logits.argmax(-1)
+    loss = torch.where(preds != targets, loss * incorrect_penalty, loss)
+    for c1, c2 in confusion_pairs:
+        confused = ((preds == c1) & (targets == c2)) | ((preds == c2) & (targets == c1))
+        loss = torch.where(confused, loss * confusion_penalty, loss)
+    return loss.mean()
+
+
+def dice_from_iou(iou_value: torch.Tensor) -> torch.Tensor:
+    """The dice the reference logs, recomputed from IoU: 2 IoU / (1 + IoU)."""
+    return 2.0 * iou_value / (1.0 + iou_value)
+
+
+def dice_score(
+    logits: torch.Tensor, targets: torch.Tensor, *, smp_parity: bool = True
+) -> torch.Tensor:
+    """1 - smp ``DiceLoss(mode='multiclass')`` of ``softmax(logits)``:
+    per-class dice over (batch, pixels), smooth 0, eps 1e-7, classes absent
+    from the target count as a loss of 0, mean over all classes."""
+    probs = F.softmax(logits.float(), dim=-1)
+    if smp_parity:
+        probs = F.softmax(probs, dim=-1)
+    return 1.0 - _dice_loss_of_probs(probs, targets)
 
 
 def iou(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -72,7 +118,8 @@ def _squeeze_channel(t: torch.Tensor) -> torch.Tensor:
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy on logits (``BCEWithLogitsLoss``), in the
     stable form ``max(x, 0) - x*t + log1p(exp(-|x|))``."""
-    x, t = logits.float(), targets.float()
+    x = wide(logits)
+    t = targets.to(x.dtype)
     return (torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
 
 
@@ -101,8 +148,8 @@ def dice_score_binary(
 def hybrid_loss_binary(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """The binary training loss: BCE on logits + smp binary DiceLoss of
     ``sigmoid(logits)`` (double sigmoid)."""
-    x = _squeeze_channel(logits).float()
-    t = targets.float()
+    x = wide(_squeeze_channel(logits))
+    t = targets.to(x.dtype)
     return bce_with_logits(x, t) + _binary_dice_loss(torch.sigmoid(torch.sigmoid(x)), t)
 
 

@@ -2,12 +2,16 @@
 
 Counterpart of ``image_segmentation_tpu/utils/torch_export.py`` (JAX ->
 torch: ``unet_state_dict`` :143, ``clip_tower_to_torch`` :163,
-``clip_unet_state_dict`` :196, ``clip_unet_prompt_state_dict`` :272) and
-``utils/torch_convert.py`` (block helpers :53-104, torch -> JAX), and of
+``clip_unet_state_dict`` :196, ``resnet34_children_to_torch`` :213,
+``clip_res_state_dict`` :240, ``clip_autoencoder_state_dict`` :257,
+``clip_unet_prompt_state_dict`` :272), of ``utils/torch_convert.py``
+(block helpers :53-104, torch -> JAX) and ``models/resnet.py``
+(``resnet34_params_from_torch`` :107), and of
 ``utils/checkpoint.py``'s flat ``.npz`` format (:27-60) for the inference
 artifact.  Ported rather than imported, so the port and ``chip_smoke.py``
 load nothing of the JAX package; tests/test_torch_port_slice.py and
-tests/test_torch_port_clip.py hold both directions to those modules.
+tests/test_torch_port_clip.py and tests/test_torch_port_models.py hold both
+directions to those modules.
 
 The port's modules use the reference torch key layout, so a JAX tree loads
 with ``load_state_dict(strict=True)``:
@@ -24,7 +28,16 @@ with ``load_state_dict(strict=True)``:
   ``cross_attention_fusion.cross_attn.*`` (``nn.MultiheadAttention``'s
   layout; q_proj and k_proj, which the JAX models never create, are
   zero-filled), ``prompt_encoder.enc{i}.block.0.conv.*``,
-  ``prompt_encoder.conv.conv.*`` and ``prompt_fusion``.
+  ``prompt_encoder.conv.conv.*`` and ``prompt_fusion``;
+- the ClipRes models: the JAX ``resnet_backbone`` under ``encoder.model.``
+  in the reference's ``nn.Sequential(*resnet34.children()[:-2])`` indices
+  (``0`` conv1, ``1`` bn1, ``4``-``7`` the stages, each block ``conv1``,
+  ``bn1``, ``conv2``, ``bn2``, ``downsample.{0,1}``), ``dec{1-5}``, and
+  ``out`` (a ConvBlock: ``out.conv.*``) or ``mask_out`` and ``class_head``;
+  the ClipAutoencoder: ``input``, ``coupler``, ``dec{1-4}``, ``out``
+  (Dense kernels ``(I, O)`` <-> ``nn.Linear`` ``(O, I)``);
+- ``prompt_fusion``: ``image_encoder.*`` and ``decoder.*`` (the
+  autoencoder's halves), ``prompt_encoder.*``, ``fusion_conv``.
 """
 
 from __future__ import annotations
@@ -46,9 +59,15 @@ _LAYER_INV = {v: k for k, v in _LAYER.items()}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 # JAX submodules whose subtree keeps its name as a torch key prefix
-_NESTED = ("prompt_encoder", "encoder", "decoder")
+_NESTED = ("prompt_encoder", "encoder", "decoder", "image_encoder")
 CLIP = "clip_feature_extractor.clip_model."
 FUSION = "cross_attention_fusion.cross_attn"
+# the ClipRes models' ResNet-34: the JAX subtree and the torch prefix
+RESNET_JAX = "resnet_backbone"
+RESNET = "encoder.model."
+# ResNet block layers whose torch name differs from the JAX one
+_RESNET_LAYER = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_RESNET_LAYER_INV = {v: k for k, v in _RESNET_LAYER.items()}
 
 
 def read_flat_npz(path: str) -> Dict[str, Tree]:
@@ -98,8 +117,20 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     return ".".join([top, *mid, _LEAF[leaf]])
 
 
+def _jax_leaf(path: List[str], leaf: str) -> Tuple[str, List[str]]:
+    """(collection, ``path`` + the JAX name of the torch ``leaf``)."""
+    if leaf == "weight":
+        bn = path[-1].startswith("bn") or path[-1].endswith("_bn")
+        leaf = "scale" if bn else "kernel"
+    else:
+        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+    return ("batch_stats" if leaf in ("mean", "var") else "params"), path + [leaf]
+
+
 def _jax_path(key: str) -> Tuple[str, List[str]]:
     """Torch key -> (collection, JAX leaf path); inverse of ``_torch_key``."""
+    if key.startswith(RESNET):
+        return _resnet_jax_path(key[len(RESNET):])
     top, *mid, leaf = key.split(".")
     if top in _NESTED:
         coll, path = _jax_path(key[len(top) + 1:])
@@ -109,13 +140,33 @@ def _jax_path(key: str) -> Tuple[str, List[str]]:
         path += ["conv_block", _LAYER_INV[mid[-1]]]
     elif mid[:1] == ["conv"]:  # <ConvBlock>.conv.i
         path += [_LAYER_INV[mid[-1]]]
-    else:  # <dec>.up, or a bare conv (input, out, prompt_fusion)
+    else:  # <dec>.up, or a bare conv or Dense (input, out, prompt_fusion, coupler, ...)
         path += mid
-    if leaf == "weight":
-        leaf = "scale" if path[-1].startswith("bn") else "kernel"
-    else:
-        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
-    return ("batch_stats" if leaf in ("mean", "var") else "params"), path + [leaf]
+    return _jax_leaf(path, leaf)
+
+
+# ---- the ResNet-34 backbone -------------------------------------------------
+
+def _resnet_torch_key(path: Tuple[str, ...]) -> str:
+    """Leaf path below the JAX ``resnet_backbone`` -> torch key
+    (``resnet34_children_to_torch`` :213)."""
+    top, *mid, leaf = path
+    if top in ("conv1", "bn1"):
+        return f"{RESNET}{0 if top == 'conv1' else 1}.{_LEAF[leaf]}"
+    stage, block = re.fullmatch(r"layer(\d)_(\d+)", top).groups()
+    layer = _RESNET_LAYER.get(mid[0], mid[0])
+    return f"{RESNET}{int(stage) + 3}.{block}.{layer}.{_LEAF[leaf]}"
+
+
+def _resnet_jax_path(key: str) -> Tuple[str, List[str]]:
+    """Torch key below ``encoder.model.`` -> (collection, JAX leaf path);
+    inverse of ``_resnet_torch_key``."""
+    parts = key.split(".")
+    if parts[0] in ("0", "1"):
+        return _jax_leaf([RESNET_JAX, "conv1" if parts[0] == "0" else "bn1"], parts[1])
+    layer = ".".join(parts[2:-1])
+    return _jax_leaf([RESNET_JAX, f"layer{int(parts[0]) - 3}_{parts[1]}",
+                      _RESNET_LAYER_INV.get(layer, layer)], parts[-1])
 
 
 # ---- the CLIP tower ---------------------------------------------------------
@@ -188,11 +239,11 @@ def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
 def state_dict_from_jax(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 ) -> Dict[str, torch.Tensor]:
-    """JAX UNet/LargeUNet/ClipUnet/ClipUnetPrompt/Autoencoder ``params``/``batch_stats``
-    -> the port's strict state dict (fp32 CPU tensors).  Conv kernels go
-    from flax ``(kH, kW, I, O)`` to torch ``(O, I, kH, kW)``, Dense kernels
-    from ``(I, O)`` to ``(O, I)``; ConvTranspose kernels to ``(I, O, kH,
-    kW)`` with flax's spatial flip undone (torch_export.py:45-48)."""
+    """``params``/``batch_stats`` of any JAX registry model -> the port's
+    strict state dict (fp32 CPU tensors).  Conv kernels go from flax
+    ``(kH, kW, I, O)`` to torch ``(O, I, kH, kW)``, Dense kernels from
+    ``(I, O)`` to ``(O, I)``; ConvTranspose kernels to ``(I, O, kH, kW)``
+    with flax's spatial flip undone (torch_export.py:45-48)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in [*_leaves(params), *_leaves(batch_stats)]:
         t = torch.from_numpy(np.array(v, dtype=np.float32))
@@ -202,9 +253,12 @@ def state_dict_from_jax(
             key, kind = _clip_torch_key(path[1:])
             sd[CLIP + key] = _to_torch_layout(t, kind).contiguous()
             continue
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and t.dim() == 2:  # Dense
+            t = t.t()
+        elif path[-1] == "kernel":
             t = t.permute(2, 3, 0, 1).flip(2, 3) if "up" in path else t.permute(3, 2, 0, 1)
-        sd[_torch_key(path)] = t.contiguous()
+        key = _resnet_torch_key(path[1:]) if path[0] == RESNET_JAX else _torch_key(path)
+        sd[key] = t.contiguous()
     if "cross_attention_fusion" in params:
         sd.update(mha_state_dict_from_params(params["cross_attention_fusion"], FUSION))
     for key in [k for k in sd if k.endswith(".running_mean")]:
@@ -242,7 +296,9 @@ def jax_from_state_dict(
             put("params", ["clip_tower", *path], _to_jax_layout(t, kind))
         else:
             coll, path = _jax_path(key)
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and t.dim() == 2:  # nn.Linear
+                t = t.t()
+            elif path[-1] == "kernel":
                 t = t.flip(2, 3).permute(2, 3, 0, 1) if "up" in path else t.permute(2, 3, 1, 0)
             put(coll, path, t)
     if fusion:

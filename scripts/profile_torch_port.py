@@ -2,7 +2,7 @@
 """Where the device time of the PyTorch port's serving forward and train
 step goes, on one NVIDIA GPU, and how exact its conv kernel is.
 
-    python3 scripts/profile_torch_port.py [--mode serve|train|prompt|autoencoder|both]
+    python3 scripts/profile_torch_port.py [--mode serve|train|prompt|autoencoder|clip_res|both]
 
 Uses ``chip_smoke.py``'s configuration (the ``large_unet`` preset at full
 width, batch 16 at 512x512, bf16, seeded random weights) and its main-path
@@ -48,6 +48,15 @@ the prompt maps, the packed geometry, the colour jitter and the blur, and
 batch; MSE reconstruction) on the kernel path and the plain path from the
 same weights, and of the same step with ``w2d_impl="pallas"`` (the conv
 kernels in their unfused forms, BatchNorm, pools and up-convs in PyTorch).
+
+``clip_res``: the same trace of the ``clip_res`` preset's train step
+(``chip_smoke.clip_config``: the ViT-B/32 tower and ResNet-34, batch 32 at
+256x256, augmentation 4, one fixed batch and draw) on the kernel path and
+the plain path, of the ``segment_classifier`` step (batch 16,
+augmentation 2, palette masks) on the kernel path, and of the clip_res
+eval forward at batch 32 and 1 (kernel path), with ranges "model: clip
+tower" and "model: ResNet-34" around the frozen parts: the backbone's
+share of each.
 
 ``both`` is ``serve`` and ``train``.
 """
@@ -355,9 +364,55 @@ def autoencoder() -> None:
         del t, step
 
 
+@contextlib.contextmanager
+def frozen_ranges():
+    """Profiler ranges around the ClipRes models' frozen tower and ResNet."""
+    from image_segmentation_tpu_torch.models import clip, resnet
+
+    with contextlib.ExitStack() as stack:
+        for owner, label in ((clip.ClipFeatureExtractor, "clip tower"),
+                             (resnet.ResNet34Features, "ResNet-34")):
+            stack.enter_context(mock.patch.object(
+                owner, "forward", _ranged(MODEL_RANGES + label, owner.forward, prefix="")))
+        yield
+
+
+def clip_res() -> None:
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    mods = smoke.kernel_modules()
+    for name, batch, length in (("clip_res", smoke.PROMPT_BATCH, smoke.CLIP_RES_LENGTH),
+                                ("segment_classifier", smoke.CLASS_BATCH, smoke.CLASS_LENGTH)):
+        cfg = smoke.clip_config(name, batch, length)
+        images, masks = smoke._clip_batch(torch, smoke.SEED + 29, palette=name != "clip_res",
+                                          batch=batch)
+        state = None
+        for label in ("kernels", "plain") if name == "clip_res" else ("kernels",):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = Trainer(cfg, device=DEVICE, make_artifacts=False)
+            if state is None:
+                state = {k: v.clone() for k, v in t.model.state_dict().items()}
+            t.model.load_state_dict(state)
+            step = functools.partial(t.train_step, images, masks, smoke.STEP_KEY)
+            with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
+                with frozen_ranges():
+                    profile(step, f"{name} train step {label} b{batch}, augmented",
+                            calls=TRAIN_STEPS, no_grad=False)
+            print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
+            if name == "clip_res" and label == "kernels":
+                model = t.model.eval()
+                x = A.normalize_image(images)
+                with frozen_ranges():
+                    for b in (batch, 1):
+                        profile(lambda b=b: model(x[:b]), f"clip_res eval forward kernels b{b}")
+            del t, step
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--mode", choices=("serve", "train", "prompt", "autoencoder", "both"),
+    parser.add_argument("--mode", choices=("serve", "train", "prompt", "autoencoder", "clip_res",
+                                           "both"),
                         default="both")
     mode = parser.parse_args().mode
     if not torch.cuda.is_available():
@@ -374,6 +429,8 @@ def main() -> int:
         prompt()
     if mode == "autoencoder":
         autoencoder()
+    if mode == "clip_res":
+        clip_res()
     return 0
 
 

@@ -209,6 +209,10 @@ WIDE_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
     ((2, 11, 23, 64), 64, 64, False),   # dec4.conv1 [64|64]
     ((2, 19, 37, 32), 32, 32, False),   # dec5.conv1 [32|32]
     ((2, 19, 37, 32), 0, 32, True),     # dec5.conv2
+    ((2, 19, 37, 16), 0, 16, False),    # clip_res dec5.conv1
+    ((2, 19, 37, 16), 0, 16, True),     # clip_res dec5.conv2
+    ((2, 19, 37, 16), 3, 3, False),     # clip_res out.conv1 [16|3] -> 3: the element path
+    ((2, 19, 37, 3), 0, 3, True),       # clip_res out.conv2 3 -> 3
 ]
 
 
@@ -237,6 +241,10 @@ WIDE_BWD = [
     ((2, 19, 37, 64), 0, 64, True, None),
     ((2, 19, 37, 64), 0, 64, False, "raw"),      # the unfused family: g itself
     ((2, 11, 23, 32), 0, 64, False, "raw"),
+    ((2, 19, 37, 16), 0, 16, False, None),       # clip_res dec5.conv1
+    ((2, 19, 37, 16), 0, 16, True, "post"),      # clip_res dec5.conv2
+    ((2, 19, 37, 16), 3, 3, False, "split"),     # clip_res out.conv1 [16|3] -> 3
+    ((2, 19, 37, 3), 0, 3, True, "post"),        # clip_res out.conv2 3 -> 3
 ]
 
 
@@ -307,7 +315,7 @@ def test_conv_kernels_are_deterministic(gen):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 7, 9, 5)])
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 7, 9, 5), (4, 64, 64, 3), (4, 64, 64, 16)])
 def test_bn_relu_bwd_reduce(gen, shape):
     g, y = _randn(gen, *shape), _randn(gen, *shape)
     a = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
@@ -348,6 +356,7 @@ WIDE_CT = [
     ((2, 7, 24, 128), 64),   # dec4
     ((3, 5, 32, 64), 32),    # dec5
     ((3, 5, 32, 64), 64),    # the autoencoder's dec1, dec2
+    ((2, 9, 40, 32), 16),    # clip_res dec5
     ((2, 7, 24, 64), 12),
     ((1, 9, 13, 64), 10),
     ((8, 64, 96, 64), 32),
@@ -804,4 +813,54 @@ def test_autoencoder_train_step_kernels_vs_plain(gen, impl, per_step):
         losses.append(loss.item())
         grads.append({k: p.grad.float() for k, p in m.named_parameters()})
     assert abs(losses[0] - losses[1]) <= LOSS_RTOL * abs(losses[1])
+    _close_weight_grads(*grads)
+
+
+# ---- the ClipRes models: dec5 and the output block on the kernels
+
+@pytest.mark.parametrize("name,per_step", [
+    ("clip_res", {"conv3x3": 4, "conv3x3_dgrad": 4, "convtranspose2x2_bwd": 1}),
+    ("clip_res_class", {"conv3x3": 2, "conv3x3_dgrad": 2, "convtranspose2x2_bwd": 1}),
+])
+def test_clip_res_train_step_kernels_vs_plain(gen, name, per_step):
+    """One training step of ClipRes (the ``clip_res`` preset's args) and of
+    ClipResSegmentationClassification (``segment_classifier``'s) with a
+    small CLIP tower at 64x64, batch 2: the kernel path and the plain path
+    give the same loss and weight gradients within the bf16 limits
+    (LOSS_RTOL, and GRAD_RL2 per weight gradient or the fp32 route), the
+    class head's included; the frozen ResNet gets no gradient."""
+    from image_segmentation_tpu_torch.config import preset
+    from image_segmentation_tpu_torch.engine.train import make_loss_fn
+    from image_segmentation_tpu_torch.models.registry import build_model
+
+    torch.manual_seed(0)
+    cls = name == "clip_res_class"
+    args = dict(preset("segment_classifier" if cls else "clip_res").model_args,
+                clip_kwargs=dict(hidden=64, layers=1, heads=2, mlp_dim=128, patch=32, proj_dim=64))
+    x = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    batch = {"masks": torch.randint(0, 2 if cls else 3, (2, 64, 64), generator=gen, device="cuda"),
+             "labels": torch.tensor([0.0, 1.0], device="cuda")}
+    loss_fn = make_loss_fn("class_binary" if cls else "hybrid")
+    wrappers = {"conv3x3": fc.conv3x3, "conv3x3_dgrad": fc.conv3x3_dgrad,
+                "convtranspose2x2_bwd": fc.convtranspose2x2_bwd}
+    grads, losses, sd = [], [], None
+    for plain, dtype in PATHS:
+        m = build_model(name, device="cuda", dtype=dtype, **args)
+        sd = sd or m.state_dict()
+        m.load_state_dict(sd)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                _plain_wrappers(stack, fc)
+            before = {k: w.launches for k, w in wrappers.items()}
+            loss = loss_fn(m(x, train=True), batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        assert launched == ({k: 0 for k in wrappers} if plain else per_step)
+        assert all(p.grad is None for p in m.encoder.parameters())
+        losses.append(loss.item())
+        grads.append({k: p.grad.float() for k, p in m.named_parameters() if p.grad is not None})
+    assert abs(losses[0] - losses[1]) <= LOSS_RTOL * abs(losses[1])
+    if cls:
+        assert "class_head.weight" in grads[0]
     _close_weight_grads(*grads)

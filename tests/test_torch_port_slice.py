@@ -214,8 +214,8 @@ def test_normalize_image_matches_jax():
 
 
 def test_unported_models_and_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("clip_res", device="cpu")
+    with pytest.raises(NotImplementedError, match="freeze_clip"):
+        build_model("clip_res", device="cpu", freeze_clip=False)
     with pytest.raises(NotImplementedError, match="fused_deep"):
         build_model("large_unet", device="cpu", w2d_impl="pallas_fused", fused_deep=True)
     with pytest.raises(KeyError, match="unknown model"):

@@ -237,8 +237,8 @@ def test_trainer_raises_on_what_is_not_ported():
                                ("n_model_shards", 2, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(dataclasses.replace(cfg, **{field: value}), device="cpu", make_artifacts=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        make_loss_fn("dice_ce")
+    with pytest.raises(KeyError, match="unknown loss"):  # every JAX loss is ported
+        make_loss_fn("no_such_loss")
 
 
 # ---- the presets, the data path, losses and metrics ------------------------
