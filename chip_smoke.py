@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
-ClipUnet, fusion, autoencoder, ClipRes, segment-classifier and
-ClipAutoencoder paths on one NVIDIA GPU.
+ClipUnet, fusion, autoencoder, ClipRes, segment-classifier, ClipAutoencoder
+and robustness paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -75,11 +75,24 @@ width of the port's presets (``config.preset``), random weights from a seed:
    ``export_model``, read with ``load_model`` on the card, answers
    ``predict``; its batch-32 eval logits are held against the plain path;
    batch-32 and batch-1 forward times and the frozen backbone's share;
-12. prints one JSON line of per-kernel results (``launches`` counts the
-   runs of 3-11; the wgrad kernel has a line for its launches beside a dgrad
-   and one for its launches alone, and each conv kernel a line for its
-   unfused form, which the ``"pallas"`` run launches), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+12. robustness and artifacts phase, the large_unet preset at 256x256
+   through the CLIs: ``cli.train`` trains one epoch at batch 16 to a run
+   folder (``loss.csv``, ``model_settings.json``, ``model_1.npz``; exact
+   counts), the checkpoint restores bit for bit into a fresh Trainer (its
+   next step's loss equal); ``cli.evaluate --robustness-int --robustness``
+   evaluates it (81-line ``robustness_scores.csv``, 8 float CSVs, values in
+   [0, 1], exact counts: (clean + 80 + 79 points) x batches x the forward's);
+   through the ``Evaluator`` API: the identity points equal ``test()``, both
+   batteries' CSVs byte-equal to the CLI's, the last point of each int
+   family on the kernel path held to the plain path (the trained model's
+   logits; the serving phase's randomized model's logits, argmax agreement
+   and Dice); the battery times (the JAX bench's int grid at 512x512, the
+   float battery, per family, the forward's share);
+13. prints one JSON line of per-kernel results (``launches`` counts the
+   main-path runs of 3-12; the wgrad kernel has a line for its launches
+   beside a dgrad and one for its launches alone, and each conv kernel a
+   line for its unfused form, which the ``"pallas"`` run launches), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the exit code is not 0 and no result line is
 printed.  Without a CUDA device the script exits at once.
@@ -279,6 +292,16 @@ PER_CLASS_STEP = {"conv3x3": 2, "conv3x3_dgrad": 2, "conv3x3_wgrad": 2, "bn_relu
                   "convtranspose2x2": 1, "convtranspose2x2_bwd": 1, "row_shift": 2,
                   "col_shift": 1}
 PER_AUG_ONLY_STEP = {"row_shift": 2, "col_shift": 1}
+# the robustness phase: the large_unet preset through the three CLIs, which
+# take the preset's 256x256 images and 100 synthetic images a split
+# (config.py); the train CLI at batch 16 (the preset's 150 is ~9.8 M pixels a
+# step, twice the training phase's), the evaluate CLI at its default batch
+ROBUST_BATCH, EVAL_BATCH = 16, 8
+# the JAX bench's battery cell (bench_extra.py:267): the int 8x10 grid over
+# synthetic_dataset(64, 512, 512, seed=7) at batch 8
+BENCH_LENGTH, BENCH_SIZE, BENCH_SEED, BENCH_BATCH = 64, 512, 7, 8
+# the Evaluator's two paths and the identity points agree to this
+EVAL_ATOL = 1e-6
 
 
 def train_config():
@@ -1583,6 +1606,295 @@ def augmentor_phase(torch, mods, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# robustness and artifacts phase
+# --------------------------------------------------------------------------
+
+def _csv_rows(path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _check_scores(out: Path) -> int:
+    """The CLI's battery CSVs: 81 lines of the int grid, 8 float files,
+    every metric finite and in [0, 1]; returns the number of values."""
+    from image_segmentation_tpu_torch.data import perturbations as pert
+
+    rows = _csv_rows(out / "results" / "robustness_scores.csv")
+    n_int = sum(len(i["params"]) for i in pert.INT_SWEEPS.values())
+    if len(rows) != n_int + 1 or rows[0] != ["perturbation_type", "param_value", "mean_dice"]:
+        raise AssertionError(f"robustness_scores.csv: {len(rows)} lines, header {rows[0]}")
+    values = [float(r[2]) for r in rows[1:]]
+    files = sorted(p.name for p in (out / "augmentation-results").iterdir())
+    if files != sorted(f"{n}.csv" for n in pert.FLOAT_SWEEPS):
+        raise AssertionError(f"augmentation-results: {files}")
+    for name, info in pert.FLOAT_SWEEPS.items():
+        rows = _csv_rows(out / "augmentation-results" / f"{name}.csv")
+        if len(rows) != len(info["params"]) + 1:
+            raise AssertionError(f"{name}.csv: {len(rows)} lines")
+        values += [float(v) for r in rows[1:] for v in r[1:]]
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        raise AssertionError("a battery metric is not finite or leaves [0, 1]")
+    return len(values)
+
+
+def _same_trainer_state(torch, a, b) -> None:
+    """Parameters, running statistics, Adam's moments and step equal bit
+    for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k in sa:
+        if not torch.equal(sa[k], sb[k]):
+            raise AssertionError(f"restored {k} differs from the trained Trainer's")
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    for name in pa:
+        st_a, st_b = a.optimizer.state.get(pa[name], {}), b.optimizer.state.get(pb[name], {})
+        if sorted(st_a) != sorted(st_b) or not all(torch.equal(st_a[k], st_b[k]) for k in st_a):
+            raise AssertionError(f"restored Adam state of {name} differs")
+    if a.step != b.step:
+        raise AssertionError(f"restored step {b.step} != {a.step}")
+
+
+def _dice_bound(torch, plain_logits, masks, share: float) -> float:
+    """How far the soft Dice (``ops/losses.dice_score``: per class c,
+    D_c = 2 A_c / B_c with A_c = sum(p t), B_c = sum(p) + sum(t), p =
+    softmax(softmax(z))) can move when a ``share`` of the N pixels takes
+    any probabilities in [0, 1] and the rest stay: A_c and B_c move by at
+    most share * N each, so |dD_c| <= (2 + D_c) share N / (B_c - share N);
+    the largest class's bound (the Dice is their mean)."""
+    import torch.nn.functional as F
+
+    p = F.softmax(F.softmax(plain_logits.float(), -1), -1).reshape(-1, NUM_CLASSES)
+    t = F.one_hot(masks.reshape(-1).long(), NUM_CLASSES).float()
+    moved = share * p.shape[0]
+    card = p.sum(0) + t.sum(0)
+    dice = 2 * (p * t).sum(0) / card
+    return ((2 + dice) * moved / (card - moved)).max().item()
+
+
+def _family_times(torch, ev, family_s: dict, card: str) -> None:
+    """Each family's wall seconds, and the device's busy share of one
+    family (int contrast_increase) from ``torch.profiler``: its device
+    time over its unprofiled wall time."""
+    from image_segmentation_tpu_torch.data import perturbations as pert
+
+    for (kind, name), sec in family_s.items():
+        if kind != "clean":
+            print(f"  {kind} {name}: {sec!r} s", flush=True)
+    params = pert.INT_SWEEPS["contrast_increase"]["params"]
+    busy = sum(device_us(torch, lambda: ev._run_sweep_family("int", "contrast_increase", params),
+                         1).values()) / 1e6
+    wall = family_s[("int", "contrast_increase")]
+    print(f"  int contrast_increase: device busy {busy!r} s of {wall!r} s wall, idle share "
+          f"{1.0 - busy / wall!r} on {card}", flush=True)
+
+
+def robustness_phase(torch, mods, card: str) -> dict:
+    """Train -> checkpoint -> evaluate through the CLIs at the large_unet
+    preset's width and 256x256 images, then the Evaluator's checks and the
+    battery times; returns the launch counts of the two CLI runs."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.cli import evaluate as cli_evaluate
+    from image_segmentation_tpu_torch.cli import train as cli_train
+    from image_segmentation_tpu_torch.data import perturbations as pert
+    from image_segmentation_tpu_torch.data.datasets import synthetic_dataset
+    from image_segmentation_tpu_torch.engine.evaluate import Evaluator
+    from image_segmentation_tpu_torch.engine.train import Trainer, _dataset_from_config
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.ops import losses as L
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- the main path, 1: train to a checkpoint (counts from 0, read after)
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        trained = cli_train.main(["--preset", "large_unet", "--dataset", "synthetic", "--epochs",
+                                  "1", "--batch-size", str(ROBUST_BATCH), "--save-dir",
+                                  str(tmp / "runs"), "--device", DEVICE])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = counts(mods)
+        cfg = trained.config
+        n_train = len(trained.train_data) * (cfg.data.augmentations_per_datapoint + 1) // cfg.batch_size
+        n_val = math.ceil(len(trained.val_data) / cfg.batch_size)
+        want = {k: PER_STEP.get(k, 0) * n_train + PER_FORWARD.get(k, 0) * n_val
+                for k in WRAPPER_NAMES}
+        if train_launches != want:
+            raise AssertionError(f"cli.train launches {train_launches}, expected {want}")
+        run = Path(trained.run_dir)
+        files = sorted(p.name for p in run.iterdir())
+        loss_rows = _csv_rows(run / "loss.csv")
+        with open(run / "model_settings.json") as f:
+            settings = json.load(f)
+        if (files != ["loss.csv", "model_1.npz", "model_settings.json"] or len(loss_rows) != 2
+                or loss_rows[0][0] != "Epoch" or settings["model"] != "LargeUNet"
+                or settings["num_params"] != trained.num_params
+                or not all(math.isfinite(float(v)) for v in loss_rows[1])):
+            raise AssertionError(f"run folder {files}, loss.csv {loss_rows}")
+        print(f"cli.train large_unet@{cfg.data.image_size} batch {cfg.batch_size}: {n_train} train "
+              f"steps + {n_val} eval batches in {train_s!r} s, launches {train_launches}; run "
+              f"folder {files}, loss.csv row {loss_rows[1]}", flush=True)
+
+        ckpt = str(run / "model_1.npz")
+        fresh = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        fresh.restore(ckpt)
+        _same_trainer_state(torch, trained, fresh)
+        images = torch.from_numpy(trained.val_data.images[:cfg.batch_size]).to(DEVICE)
+        masks = torch.from_numpy(trained.val_data.masks[:cfg.batch_size]).to(DEVICE)
+        la = float(trained.train_step(images, masks, STEP_KEY))
+        lb = float(fresh.train_step(images, masks, STEP_KEY))
+        print(f"checkpoint {Path(ckpt).name} restored into a fresh Trainer: parameters, running "
+              f"statistics, Adam moments and step (={trained.step - 1}) bit-identical; next "
+              f"step's loss {la!r} (trained) vs {lb!r} (restored)", flush=True)
+        if la != lb:
+            raise AssertionError("the restored Trainer's next step differs")
+        del trained, fresh
+        torch.cuda.empty_cache()
+
+        # ---- the main path, 2: evaluate the checkpoint through the CLI
+        out = tmp / "cli"
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        cli_clean = cli_evaluate.main(["--preset", "large_unet", "--ckpt", ckpt, "--dataset",
+                                       "synthetic", "--robustness-int", "--robustness",
+                                       "--out-dir", str(out), "--device", DEVICE])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        eval_launches = counts(mods)
+        test_data = _dataset_from_config(cfg, False)
+        n_points = {kind: sum(len(i["params"]) for i in pert.SWEEPS[kind].values())
+                    for kind in ("int", "float")}
+        n_batches = math.ceil(len(test_data) / EVAL_BATCH)
+        n_forwards = (1 + n_points["int"] + n_points["float"]) * n_batches
+        if eval_launches != expected(PER_FORWARD, n_forwards):
+            raise AssertionError(f"cli.evaluate launches {eval_launches} over {n_forwards} "
+                                 f"forwards, expected {expected(PER_FORWARD, n_forwards)}")
+        n_values = _check_scores(out)
+        print(f"cli.evaluate --robustness-int --robustness: clean {cli_clean}; (1 + "
+              f"{n_points['int']} + {n_points['float']} points) x {n_batches} batches = "
+              f"{n_forwards} forwards in {cli_s!r} s, launches {eval_launches}; {n_values} "
+              "metrics finite and in [0, 1]", flush=True)
+
+        # ---- the Evaluator API on the same model and split
+        restored = Trainer(cfg, device=DEVICE, make_artifacts=False)
+        restored.restore(ckpt)
+        model = restored.model
+        ev = Evaluator(model, test_data, batch_size=EVAL_BATCH, device=DEVICE)
+        ev.test()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = ev.test()
+        clean_s = time.perf_counter() - t0
+        if clean != cli_clean:
+            raise AssertionError(f"Evaluator.test() {clean} != the CLI's {cli_clean}")
+        api = tmp / "api"
+        t0 = time.perf_counter()
+        int_res = ev.robustness_evaluation(str(api / "results" / "robustness_scores.csv"))
+        int_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        float_res = ev.test_robustness(str(api / "augmentation-results"))
+        float_s = time.perf_counter() - t0
+        family_s = dict(ev.family_seconds)  # the checks below run families again
+        for rel in ["results/robustness_scores.csv"] + [f"augmentation-results/{n}.csv"
+                                                        for n in pert.FLOAT_SWEEPS]:
+            if (api / rel).read_bytes() != (out / rel).read_bytes():
+                raise AssertionError(f"{rel}: the Evaluator's file differs from the CLI's")
+        worst = 0.0
+        for name, pts in int_res.items():
+            worst = max(worst, abs(pts[0][1] - clean["dice"]))
+        for name, rows in float_res.items():
+            if name != "gaussian_noise":  # its first point is 1e-6
+                worst = max(worst, *(abs(a - b) for a, b in zip(rows[0][1:], clean.values())))
+        if worst > EVAL_ATOL:
+            raise AssertionError(f"an identity point is {worst!r} from test()")
+        print(f"Evaluator: test() equals the CLI's; both batteries' CSVs byte-equal to the CLI's; "
+              f"identity points vs test() {worst!r} (limit {EVAL_ATOL})", flush=True)
+
+        # kernel path vs plain path on one 8-image batch, the last point of each
+        # int family, through two models.  The trained one: its logits held as
+        # the serving phase holds them (LOGITS_RTOL); trained one epoch on random
+        # masks, it has near-tied logits, where bf16 rounding flips the argmax.
+        # The serving phase's randomized model (randomize_), whose logits are not
+        # near-tied: held as well to the serving phase's argmax agreement
+        # (ARGMAX_AGREEMENT), and its soft Dice to what the disagreeing share of
+        # pixels, taking any probabilities, can move it (_dice_bound).
+        randomized = build_model("large_unet", device=DEVICE, dtype=restored.dtype,
+                                 **cfg.model_args)
+        randomize_(torch, randomized, SEED)
+        images_u8 = torch.from_numpy(test_data.images[:EVAL_BATCH]).to(DEVICE)
+        masks = torch.from_numpy(test_data.masks[:EVAL_BATCH]).to(DEVICE).long()
+        for name, info in pert.INT_SWEEPS.items():
+            p = info["params"][-1]
+            x = ev.perturb("int", name, images_u8, p, ev.batch_draws("int", name, 0, p,
+                                                                     images_u8.shape))
+            x = normalize_image(x)
+            for what, m in (("trained", model), ("randomized", randomized)):
+                with torch.no_grad():
+                    zk = m(x, train=False)
+                    with plain_path(mods):
+                        zp = m(x, train=False)
+                diff, scale = (zk - zp).abs().max().item(), zp.abs().max().item()
+                line = (f"int {name}={p}, {what} model: logits max_abs_diff {diff!r} (limit "
+                        f"{LOGITS_RTOL} x {scale!r})")
+                ok = diff <= LOGITS_RTOL * scale
+                if what == "randomized":
+                    dk, dp = L.dice_score(zk, masks).item(), L.dice_score(zp, masks).item()
+                    bound = _dice_bound(torch, zp, masks, 1.0 - ARGMAX_AGREEMENT)
+                    agree = (zk.argmax(-1) == zp.argmax(-1)).float().mean().item()
+                    line += (f"; argmax agreement {agree!r} (limit {ARGMAX_AGREEMENT}); dice "
+                             f"kernel {dk!r} plain {dp!r} (|diff| {abs(dk - dp)!r}, limit "
+                             f"{bound!r})")
+                    ok = ok and agree >= ARGMAX_AGREEMENT and abs(dk - dp) <= bound
+                print(line, flush=True)
+                if not ok:
+                    raise AssertionError(f"int {name}={p}, {what} model: the kernel path "
+                                         "disagrees with the plain path")
+        del randomized
+
+        # ---- times
+        n_all = 1 + n_points["int"] + n_points["float"]
+        x8 = normalize_image(images_u8)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(torch, lambda: model(x8, train=False), 10)
+        print(f"battery on the CLI's split ({len(test_data)} images "
+              f"{cfg.data.image_size}x{cfg.data.image_size}, batch {EVAL_BATCH}, {n_batches} "
+              f"batches): int 8x10 grid {int_s!r} s, float battery {float_s!r} s, the CLI's whole "
+              f"run {cli_s!r} s; clean test() {clean_s!r} s, x {n_all} points = "
+              f"{clean_s * n_all!r} s (share {clean_s * n_all / (int_s + float_s + clean_s)!r}); "
+              f"the batch-{EVAL_BATCH} forward "
+              f"{fwd_ms!r} ms (CUDA events), x {n_all * n_batches} forwards = share "
+              f"{fwd_ms * n_all * n_batches / 1e3 / (int_s + float_s + clean_s)!r} on {card}",
+              flush=True)
+        _family_times(torch, ev, family_s, card)
+        bench = synthetic_dataset(BENCH_LENGTH, BENCH_SIZE, BENCH_SIZE, seed=BENCH_SEED)
+        ev = Evaluator(model, bench, batch_size=BENCH_BATCH, device=DEVICE)
+        ev.test()  # warm-up at this size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev.test()
+        bench_clean = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev.robustness_evaluation(str(tmp / "bench.csv"))
+        grid_s = time.perf_counter() - t0
+        xb = normalize_image(torch.from_numpy(bench.images[:BENCH_BATCH]).to(DEVICE))
+        with torch.no_grad():
+            fwd_ms = cuda_ms(torch, lambda: model(xb, train=False), 10)
+        n_bench = math.ceil(len(bench) / BENCH_BATCH) * n_points["int"]
+        print(f"battery bench cell (bench_extra.py:267: synthetic_dataset({BENCH_LENGTH}, "
+              f"{BENCH_SIZE}, {BENCH_SIZE}, seed={BENCH_SEED}), batch {BENCH_BATCH}): int 8x10 grid "
+              f"{grid_s!r} s; clean test() {bench_clean!r} s, x {n_points['int']} points = share "
+              f"{bench_clean * n_points['int'] / grid_s!r}; the batch-{BENCH_BATCH} forward "
+              f"{fwd_ms!r} ms (CUDA events), x {n_bench} forwards = share "
+              f"{fwd_ms * n_bench / 1e3 / grid_s!r} on {card}", flush=True)
+        _family_times(torch, ev, dict(ev.family_seconds), card)
+        del restored, model, ev
+    torch.cuda.empty_cache()
+    return {k: train_launches[k] + eval_launches[k] for k in WRAPPER_NAMES}
+
+
 def main() -> int:
     import torch
 
@@ -1617,7 +1929,8 @@ def main() -> int:
             clip_unet_phase(torch, mods, card), fusion_phase(torch, mods, card)]
     ae, ae_unfused = autoencoder_phase(torch, mods, card)
     runs += [ae, clip_res_phase(torch, mods, card), segment_classifier_phase(torch, mods, card),
-             clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card)]
+             clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card),
+             robustness_phase(torch, mods, card)]
     launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 
     kernels = []

@@ -76,6 +76,15 @@ def load_model(
     return model.eval().requires_grad_(False)
 
 
+def check_servable(model: nn.Module) -> None:
+    """Raise ``TypeError`` for a model whose forward takes a second input
+    or returns more than the class logits: ``predict`` and the
+    ``Evaluator`` serve neither."""
+    for cls, why in _NOT_SERVED.items():
+        if isinstance(model, cls):
+            raise TypeError(f"cannot serve {type(model).__name__}: {why}")
+
+
 @torch.inference_mode()
 def predict(model: nn.Module, image) -> np.ndarray:
     """PIL image or HWC array -> (256, 256) class-id mask.
@@ -86,9 +95,7 @@ def predict(model: nn.Module, image) -> np.ndarray:
     the forward and an argmax over classes.  A model whose forward takes a
     second input or returns more than the logits raises ``TypeError``.
     """
-    for cls, why in _NOT_SERVED.items():
-        if isinstance(model, cls):
-            raise TypeError(f"predict cannot serve {type(model).__name__}: {why}")
+    check_servable(model)
     arr = np.asarray(image, dtype=np.float32)
     if arr.max() > 1.5:
         arr = arr / 255.0

@@ -34,20 +34,35 @@ CPU and the card draw the same ones; they go to the card from pinned
 memory without a wait.  torch's draws are not JAX's: the tests hold the
 step to JAX by feeding both sides the same draws.
 
+Run artifacts as JAX's (:227-245, :470-485): with ``make_artifacts`` a
+run folder ``save_dir/<ModelName>/run-NNN/`` (or ``run_dir``) gets the
+``loss.csv`` header and ``model_settings.json`` at construction, then one
+``loss.csv`` row per epoch and ``model_<epoch+1>.npz`` every
+``checkpoint_every`` epochs: the JAX Trainer's state in its own layout
+(``utils/checkpoint.py``), which :meth:`Trainer.restore` loads, from either
+package.  Training then goes on as if it had not stopped: the Trainer
+counts its epochs, ``train(n)`` runs the next n, and ``restore`` puts the
+count where the checkpoint's step is (``step // steps per epoch``, a
+checkpoint taken mid-epoch going on at its next batch), so the step keys,
+the shuffle order and the draws continue and ``model_<epoch+1>.npz``
+numbers on.  This departs from the JAX Trainer on purpose: its ``train``
+starts again at epoch 0 whatever the step, and replays that epoch's keys.
+
 Ported: the segmentation task on the U-Nets, ClipUnet, ClipRes and
 ClipAutoencoder, the prompt task on ClipUnetPrompt, the class task
 (``loss="class_binary"``) on ClipResSegmentationClassification, the
 reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss,
 with synthetic data.  What is not ported raises ``NotImplementedError``
-naming its ROADMAP.md item: run artifacts (run folder, ``loss.csv``,
-checkpoints), the Oxford-IIIT-Pet loader, ``remat``, ``native_loader`` and
-``n_model_shards``.  ``prompt_fusion`` (two inputs and no task in the JAX
-Trainer either) is a model only.
+naming its ROADMAP.md item: the Oxford-IIIT-Pet loader, ``remat``,
+``native_loader`` and ``n_model_shards``.  ``prompt_fusion`` (two inputs
+and no task in the JAX Trainer either) is a model only.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import os
 import time
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -71,6 +86,9 @@ from ..models.registry import build_model
 from ..ops import losses as L
 from ..ops.augment import AugmentParams, DataAugmentor, DataAugmentorPrompt, normalize_image
 from ..ops.cross_attention import CrossAttentionFusion
+from ..utils import checkpoint as ckpt_lib
+from ..utils import io as io_lib
+from ..utils.convert import jax_from_state_dict
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
 # scale corrected so the variance is 1/fan_in (jax.nn.initializers).
@@ -176,6 +194,18 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
                 m.cross_attn.in_proj_bias.zero_()  # out_proj: the nn.Linear branch
 
 
+def jax_param_count(model: nn.Module) -> int:
+    """The number of parameters of the model's JAX tree
+    (``jax_from_state_dict``): every parameter, less the cross-attention
+    fusion's q_proj and k_proj, which the JAX models, calling it with one
+    context token, never create."""
+    n = sum(p.numel() for p in model.parameters())
+    for m in model.modules():
+        if isinstance(m, CrossAttentionFusion):
+            n -= sum(m.proj_weight(i).numel() for i in (0, 1)) + 2 * m.embed_dim
+    return n
+
+
 def _dataset_from_config(cfg: TrainConfig, train: bool,
                          keep_raw_masks: bool = False) -> ArrayDataset:
     d = cfg.data
@@ -218,13 +248,9 @@ class Trainer:
         device="cuda",
         train_data: Optional[ArrayDataset] = None,
         val_data: Optional[ArrayDataset] = None,
+        run_dir: Optional[str] = None,
         make_artifacts: bool = True,
     ):
-        if make_artifacts:
-            raise NotImplementedError(
-                "run artifacts (run folder, loss.csv, checkpoints) are not ported; "
-                "pass make_artifacts=False (ROADMAP.md Queue 1 item 11)"
-            )
         for field, default, item in (("remat", False, 5), ("native_loader", False, 10),
                                      ("n_model_shards", 1, 10)):
             if getattr(config, field) != default:
@@ -246,9 +272,14 @@ class Trainer:
             self.task = "reconstruction"
         else:
             self.task = "segmentation"
-        self.num_params = sum(p.numel() for p in self.model.parameters())
+        self.model_name = type(self.model).__name__
+        self.num_params = jax_param_count(self.model)
         self.optimizer = build_optimizer(config.optimizer, self.model)
         self.trainable = trainable_parameters(self.model)
+        self.frozen = len(self.trainable) < len(list(self.model.parameters()))
+        self.step = 0
+        # where train() goes on: the next epoch and its next batch
+        self.epoch, self.batch = 0, 0
         self.loss_fn = make_loss_fn(config.loss)
         self.is_binary = config.loss == "hybrid_binary"
         aug_n = config.data.augmentations_per_datapoint
@@ -258,6 +289,20 @@ class Trainer:
         raw = self.task in ("prompt", "class")
         self.train_data = train_data or _dataset_from_config(config, True, raw)
         self.val_data = val_data or _dataset_from_config(config, False, raw)
+
+        self.run_dir = run_dir
+        if make_artifacts:
+            if run_dir is None:
+                self.run_dir = io_lib.get_next_run_folder(
+                    os.path.join(config.save_dir, self.model_name))
+            os.makedirs(self.run_dir, exist_ok=True)
+            io_lib.write_csv_header(self.run_dir)
+            io_lib.save_training_info(
+                self.run_dir, model_name=self.model_name, config=config,
+                num_params=self.num_params,
+                train_dataset_size=len(self.train_data) * (aug_n + 1),
+                val_dataset_size=len(self.val_data),
+                params=jax_from_state_dict(self.model.state_dict())[0])
 
     def _generator(self, step_key: int, stream: int) -> torch.Generator:
         """The host generator of one step's draws; ``stream`` tells the
@@ -350,6 +395,7 @@ class Trainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
+        self.step += 1
         return loss.detach()
 
     @torch.no_grad()
@@ -388,19 +434,24 @@ class Trainer:
         return train_pipe, val_pipe
 
     def train(self, num_epochs: Optional[int] = None, *, verbose: bool = False) -> Dict[str, Any]:
-        """``num_epochs`` epochs, each followed by :meth:`evaluate`; returns
-        ``{"history": [{epoch, train_loss, rate, val_*}, ...]}``."""
+        """The next ``num_epochs`` epochs, each followed by :meth:`evaluate`
+        (after :meth:`restore`, from the checkpoint's next batch on; the
+        train loss of that first epoch is the mean of the batches run here);
+        returns ``{"history": [{epoch, train_loss, rate, val_*}, ...]}``."""
         cfg = self.config
         num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         train_pipe, val_pipe = self._pipelines()
         history = []
-        for epoch in range(num_epochs):
+        for _ in range(num_epochs):
+            epoch, first = self.epoch, self.batch
             t0 = time.perf_counter()
             loss_sum = torch.zeros((), device=self.device)
             n_batches = 0
-            for images, masks in train_pipe.epoch(epoch):
-                loss_sum += self.train_step(images, masks, epoch * 100003 + n_batches)
+            for n, (images, masks) in enumerate(
+                    itertools.islice(train_pipe.epoch(epoch), first, None), first):
+                loss_sum += self.train_step(images, masks, epoch * 100003 + n)
                 n_batches += 1
+            self.epoch, self.batch = epoch + 1, 0
             train_loss = float(loss_sum / max(n_batches, 1))  # one sync per epoch
             dt = time.perf_counter() - t0
             rate = n_batches * cfg.batch_size / dt if dt > 0 else 0.0
@@ -413,6 +464,12 @@ class Trainer:
                       f"Val IoU: {row['val_iou']:.4f}\n"
                       f"Val Pixel Accuracy: {row['val_pixel_accuracy']:.4f}\n"
                       f"Val Dice: {row['val_dice']:.4f}", flush=True)
+            if self.run_dir:
+                io_lib.log_loss_to_csv(epoch, train_loss, row["val_loss"],
+                                       row["val_pixel_accuracy"], row["val_dice"],
+                                       row["val_iou"], self.run_dir)
+                if (epoch + 1) % cfg.checkpoint_every == 0:
+                    self.save(os.path.join(self.run_dir, f"model_{epoch + 1}.npz"))
         return {"history": history}
 
     def evaluate(self, val_pipe: Optional[BatchPipeline] = None) -> Dict[str, float]:
@@ -428,3 +485,23 @@ class Trainer:
             return dict(val_loss=0.0, val_iou=0.0, val_pixel_accuracy=0.0, val_dice=0.0)
         loss, iou_v, pa, dice = (float(s / n) for s in sums)
         return dict(val_loss=loss, val_iou=iou_v, val_pixel_accuracy=pa, val_dice=dice)
+
+    # ------------------------------------------------------------- resume
+    def state_tree(self) -> Dict[str, Any]:
+        """The JAX Trainer state of this Trainer (params, batch_stats, the
+        Adam state, step) as nested numpy dicts (``utils/checkpoint.py``)."""
+        return ckpt_lib.state_tree(self.model, self.optimizer, self.step, self.frozen)
+
+    def save(self, path: str) -> None:
+        """Write :meth:`state_tree` as a checkpoint in JAX's ``.npz`` layout."""
+        ckpt_lib.save_checkpoint(path, self.state_tree())
+
+    def restore(self, path: str) -> None:
+        """Load a checkpoint of either package (JAX :505): the parameters,
+        the BatchNorm running statistics, Adam's moments and count, and the
+        step, from which :meth:`train` goes on (the module doc).  Strict: a
+        missing key or a wrong shape raises."""
+        tree = ckpt_lib.restore_into(self.state_tree(), path)
+        self.step = ckpt_lib.load_state_tree(tree, self.model, self.optimizer, self.frozen)
+        per_epoch = self._pipelines()[0].batches_per_epoch()
+        self.epoch, self.batch = divmod(self.step, max(per_epoch, 1))

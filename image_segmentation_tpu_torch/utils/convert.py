@@ -86,8 +86,9 @@ def read_flat_npz(path: str) -> Dict[str, Tree]:
 
 def write_flat_npz(path: str, tree: Mapping[str, Any]) -> None:
     """Write nested dicts of arrays as the JAX flat ``.npz`` (``/``-joined
-    keys), atomically like ``checkpoint.save_checkpoint``."""
-    flat = {"/".join(p): np.asarray(v) for p, v in _leaves(tree)}
+    keys): to ``path + ".tmp"``, then renamed over ``path`` (JAX
+    ``checkpoint.save_checkpoint``)."""
+    flat = {"/".join(p): np.asarray(v) for p, v in leaves(tree)}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -95,10 +96,11 @@ def write_flat_npz(path: str, tree: Mapping[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def _leaves(node: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
+def leaves(node: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
+    """(path, leaf) of every leaf of nested dicts, in insertion order."""
     for k, v in node.items():
         if isinstance(v, Mapping):
-            yield from _leaves(v, prefix + (k,))
+            yield from leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -245,7 +247,7 @@ def state_dict_from_jax(
     ``(I, O)`` to ``(O, I)``; ConvTranspose kernels to ``(I, O, kH, kW)``
     with flax's spatial flip undone (torch_export.py:45-48)."""
     sd: Dict[str, torch.Tensor] = {}
-    for path, v in [*_leaves(params), *_leaves(batch_stats)]:
+    for path, v in [*leaves(params), *leaves(batch_stats)]:
         t = torch.from_numpy(np.array(v, dtype=np.float32))
         if path[0] == "cross_attention_fusion":
             continue  # below, as one packed module
@@ -280,7 +282,7 @@ def jax_from_state_dict(
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(t.numpy())
+        node[path[-1]] = np.array(t.numpy(), order="C")  # a copy: t may be the live tensor
 
     fusion = {}
     for key, v in state_dict.items():

@@ -864,3 +864,59 @@ def test_clip_res_train_step_kernels_vs_plain(gen, name, per_step):
     if cls:
         assert "class_head.weight" in grads[0]
     _close_weight_grads(*grads)
+
+
+# ---- the robustness battery on the card ------------------------------------
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+def test_perturbations_on_the_card_equal_the_cpu(gen, kind):
+    """Every family at every point, on the same host draws: the card's
+    output equals the CPU's (uint8-equal; the float battery within 1e-6,
+    where the card may divide by 255 as a multiply by its reciprocal), so a
+    card run and a CPU run perturb alike."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.data import perturbations as P
+
+    u8 = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (3, 37, 29, 3),
+                                                             dtype=np.uint8))
+    x = u8 if kind == "int" else u8.float() / 255.0
+    g = torch.Generator().manual_seed(0)
+    for name, info in P.SWEEPS[kind].items():
+        for p in info["params"]:
+            draws = P.sample(kind, name, x.shape, p, g)
+            ref = P.apply(kind, name, x, p, draws)
+            got = P.apply(kind, name, x.cuda(), p,
+                          None if draws is None else tuple(d.cuda() for d in draws)).cpu()
+            if kind == "int":
+                assert torch.equal(got, ref), (name, p)
+            else:
+                assert (got - ref).abs().max().item() <= 1e-6, (name, p)
+
+
+def test_salt_pepper_on_the_card_is_deterministic(gen):
+    """The last draw at a pixel wins on the card too (scatter_reduce amax,
+    not a scatter with repeated indices): two runs and the CPU agree."""
+    from image_segmentation_tpu_torch.data import perturbations as P
+
+    img = torch.randint(0, 256, (2, 8, 8, 3), dtype=torch.uint8, generator=torch.Generator()
+                        .manual_seed(1))
+    pos = torch.randint(0, 64, (2, 4000), generator=torch.Generator().manual_seed(2))
+    salt = torch.rand((2, 4000), generator=torch.Generator().manual_seed(3)) < 0.5
+    ref = P.salt_pepper_draws(img, 4000 / 64, pos, salt)
+    for _ in range(2):
+        got = P.salt_pepper_draws(img.cuda(), 4000 / 64, pos.cuda(), salt.cuda()).cpu()
+        assert torch.equal(got, ref)
+
+
+def test_apply_perturbation_on_the_card_equals_the_cpu(gen):
+    """``apply_perturbation`` on a card batch moves its host draws there:
+    every integer family's last point equals the CPU's (uint8)."""
+    from image_segmentation_tpu_torch.data import perturbations as P
+
+    img = torch.randint(0, 256, (2, 37, 29, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(4))
+    for name, info in P.INT_SWEEPS.items():
+        p = info["params"][-1]
+        got = P.apply_perturbation(name, img.cuda(), p).cpu()
+        assert torch.equal(got, P.apply_perturbation(name, img, p)), name

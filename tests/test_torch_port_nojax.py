@@ -1,11 +1,13 @@
 """The port imports no jax: a fresh interpreter imports every module of
-image_segmentation_tpu_torch (config, data.*, engine.*, models.*, ops.*,
-utils.*) and chip_smoke.py, runs a tiny CPU forward and an augmented train
-step of the preset model through the wrappers, the augmentor and the
-Trainer, an augmented prompt train step of a small clip_unet_prompt (the
-prompt preset's model args, a small CLIP tower) and a reconstruction step
-of the autoencoder on its unfused blocks, and finds no module
-of jax, flax or the JAX package (image_segmentation_tpu) loaded."""
+image_segmentation_tpu_torch (config, cli.*, data.*, engine.*, models.*,
+ops.*, utils.*) and chip_smoke.py, runs a tiny CPU forward and an
+augmented train step of the preset model through the wrappers, the
+augmentor and the Trainer, saves and restores that Trainer's checkpoint,
+runs two points of the robustness battery through the Evaluator, an
+augmented prompt train step of a small clip_unet_prompt (the prompt
+preset's model args, a small CLIP tower) and a reconstruction step of the
+autoencoder on its unfused blocks, and finds no module of jax, flax or the
+JAX package (image_segmentation_tpu) loaded."""
 
 import os
 import subprocess
@@ -40,6 +42,14 @@ t = train.Trainer(cfg, device="cpu", make_artifacts=False)
 assert t.augmentor is not None
 images, masks = next(pipeline.BatchPipeline(t.train_data, 2, device="cpu").epoch(0))
 assert float(t.train_step(images, masks, step_key=3)) > 0
+import tempfile
+from image_segmentation_tpu_torch.engine import evaluate
+with tempfile.TemporaryDirectory() as tmp:
+    t.save(tmp + "/model_1.npz")
+    t.restore(tmp + "/model_1.npz")
+ev = evaluate.Evaluator(t.model, t.val_data, batch_size=2, device="cpu")
+for kind, name, p in (("int", "salt_pepper_noise", 0.1), ("float", "occlusion", 5)):
+    assert 0 <= ev._run_sweep_family(kind, name, [p])[0][2] <= 1
 pcfg = config.preset("prompt")
 pcfg = config.TrainConfig(
     model="clip_unet_prompt", loss=pcfg.loss, bf16=False, batch_size=2,
