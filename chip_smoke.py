@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
-ClipUnet, fusion, autoencoder, ClipRes, segment-classifier, ClipAutoencoder
-and robustness paths on one NVIDIA GPU.
+ClipUnet, fusion, autoencoder, ClipRes, segment-classifier, ClipAutoencoder,
+robustness, data, distributed, export and profiler paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -88,8 +88,28 @@ width of the port's presets (``config.preset``), random weights from a seed:
    logits; the serving phase's randomized model's logits, argmax agreement
    and Dice); the battery times (the JAX bench's int grid at 512x512, the
    float battery, per family, the forward's share);
-13. prints one JSON line of per-kernel results (``launches`` counts the
-   main-path runs of 3-12; the wgrad kernel has a line for its launches
+13. data phase: 64 ``synthetic_shapes_dataset`` images a split at 256x256
+   written as ``<split>_arrays.npz`` (palette ``raw_masks``); ``cli.train
+   --dataset oxford-pet --dataset-loc <dir> --native-loader`` trains the
+   large_unet preset one epoch at batch 16 (exact counts) on the C++
+   loader; its batches equal the Python pipeline's (unshuffled, one rank),
+   and both loaders' rates to the card, in turns;
+14. distributed phase: ``cli.train_distributed`` on NCCL at world size 1
+   (train_config() at 512x512, exact counts, a checkpoint); then two gloo
+   ranks on the card (``mesh.launch``), 8 rows each of a global batch of
+   16 with augmentation, one step: the loss and the averaged gradients
+   against the world-1 step on the whole batch (LOSS_RTOL, GRAD_RL2; the
+   three leaves held directly nearest the limit printed with their bf16
+   distance from the fp32 step), the ranks' parameters bit-identical after
+   it, the gradient all-reduce's time;
+15. export phase: the served LargeUNet at 512x512 written with
+   ``export_model(exported_program=True)`` and read with ``load_program``:
+   the ``imgseg::`` operators in its graph, its batch-16 and batch-1 logits
+   (exact counts) against the eager forward, both timed;
+16. profiler phase: ``cli.profiler --preset large_unet --steps 3`` (batch
+   16, synthetic data) writes a trace (exact counts) and the memory report;
+17. prints one JSON line of per-kernel results (``launches`` counts the
+   main-path runs of 3-16; the wgrad kernel has a line for its launches
    beside a dgrad and one for its launches alone, and each conv kernel a
    line for its unfused form, which the ``"pallas"`` run launches), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1895,6 +1915,364 @@ def robustness_phase(torch, mods, card: str) -> dict:
     return {k: train_launches[k] + eval_launches[k] for k in WRAPPER_NAMES}
 
 
+# --------------------------------------------------------------------------
+# data, distributed, export and profiler phases
+# --------------------------------------------------------------------------
+
+# the data phase: 64 synthetic_shapes_dataset images a split at 256x256 as
+# <split>_arrays.npz with palette raw_masks; cli.train of the large_unet
+# preset at batch 16 (aug 4: 20 steps, then 4 eval batches) on the native loader
+DATA_LENGTH, DATA_SIZE, DATA_BATCH = 64, 256, 16
+# the distributed phase's gloo ranks: 2 on the one card, 8 rows each
+GLOO_RANKS = 2
+# the profiler phase: cli.profiler's warm-up step and its traced steps
+PROFILE_STEPS = 3
+
+
+def _palette(masks):
+    """Class ids -> the Pet palette values (0 background, 38 cat, 75 dog)."""
+    import numpy as np
+
+    return np.array([0, 38, 75], np.uint8)[masks]
+
+
+def _pipeline_rate(torch, pipe, epochs: int = 3) -> float:
+    """Images per second that a pipeline hands to the card over ``epochs``
+    epochs after a first one (its set-up: the native loader's thread and
+    its slots' page-locking), each batch waited for on the card."""
+    for _ in pipe.epoch(0):
+        pass
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    for epoch in range(1, epochs + 1):
+        for images, _ in pipe.epoch(epoch):
+            torch.cuda.current_stream().synchronize()
+            n += images.shape[0]
+    return n / (time.perf_counter() - t0)
+
+
+def data_phase(torch, mods, card: str) -> dict:
+    """The Pet route on disk -> the native loader -> cli.train; returns the
+    launch counts of its run."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.cli import train as cli_train
+    from image_segmentation_tpu_torch.data import native_loader
+    from image_segmentation_tpu_torch.data.datasets import load_pet_dataset, synthetic_shapes_dataset
+    from image_segmentation_tpu_torch.data.pipeline import BatchPipeline
+
+    if not native_loader.native_loader_available():
+        raise AssertionError("the native loader did not build (g++ and runtime/loader.cpp)")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for split, seed in (("train", SEED), ("validation", SEED + 1)):
+            ds = synthetic_shapes_dataset(DATA_LENGTH, DATA_SIZE, DATA_SIZE, seed=seed)
+            np.savez(Path(tmp) / f"{split}_arrays.npz", images=ds.images, masks=ds.masks,
+                     raw_masks=_palette(ds.masks))
+        print(f"data: {DATA_LENGTH} synthetic_shapes_dataset images a split at "
+              f"{DATA_SIZE}x{DATA_SIZE} written as <split>_arrays.npz in "
+              f"{time.perf_counter() - t0!r} s", flush=True)
+        # ---- the main path: counts from 0, read right after
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        trainer = cli_train.main(["--preset", "large_unet", "--dataset", "oxford-pet",
+                                  "--dataset-loc", tmp, "--epochs", "1", "--batch-size",
+                                  str(DATA_BATCH), "--native-loader", "--save-dir",
+                                  str(Path(tmp) / "runs"), "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(mods)
+        train_pipe, val_pipe = trainer._pipelines()
+        if not isinstance(train_pipe, native_loader.NativeBatchPipeline):
+            raise AssertionError(f"the train loader is {type(train_pipe).__name__}, not native")
+        aug = trainer.config.data.augmentations_per_datapoint
+        n_train = DATA_LENGTH * (aug + 1) // DATA_BATCH
+        n_val = math.ceil(DATA_LENGTH / DATA_BATCH)
+        want = {k: PER_STEP.get(k, 0) * n_train + PER_FORWARD.get(k, 0) * n_val
+                for k in WRAPPER_NAMES}
+        if launches != want:
+            raise AssertionError(f"data phase launches {launches}, expected {want}")
+        print(f"data path: loader native, {n_train} train batches of {DATA_BATCH} + {n_val} "
+              f"eval batches, cli.train {wall!r} s, launches {launches}", flush=True)
+
+        # the native batches equal the Python pipeline's through the same
+        # strided shard at R = 1 (unshuffled: the orders come from different
+        # generators), and both pipelines' rates
+        pet = load_pet_dataset("train", tmp)
+        kw = dict(device=DEVICE, augmentations_per_datapoint=aug, shuffle=False)
+        native = native_loader.NativeBatchPipeline(pet, DATA_BATCH, **kw)
+        python = BatchPipeline(pet, DATA_BATCH, **kw)
+        n = 0
+        for (ni, nm), (pi, pm) in zip(native.epoch(0), python.epoch(0)):
+            if not (torch.equal(ni, pi) and torch.equal(nm, pm)):
+                raise AssertionError(f"native batch {n} differs from the Python pipeline's")
+            n += 1
+        if n != n_train:
+            raise AssertionError(f"{n} batches compared, expected {n_train}")
+        kw["shuffle"] = True
+        rates = {"native": [], "python": []}
+        for _ in range(3):  # in turns: the host's speed drifts within a call
+            for name, cls in (("native", native_loader.NativeBatchPipeline),
+                              ("python", BatchPipeline)):
+                rates[name].append(_pipeline_rate(torch, cls(pet, DATA_BATCH, **kw)))
+        print(f"data: the {n} native batches equal the Python pipeline's; loader rates to the "
+              f"card (batch {DATA_BATCH}, {DATA_SIZE}x{DATA_SIZE}, {n_train} batches an epoch, "
+              f"epochs 1-3 of a fresh pipeline, three turns): native {rates['native']!r} img/s, "
+              f"python {rates['python']!r} img/s on {card}", flush=True)
+        del trainer, train_pipe, val_pipe, native, python
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gloo_rank(settings: dict) -> dict:
+    """One of GLOO_RANKS ranks on the card (``mesh.launch``, gloo), with
+    the launching process's ``settings`` (DEVICE, BATCH, SIZE, ...): its 8
+    rows of a fixed global batch of 16 at 512x512 through one augmented
+    train step of train_config(), then a second step, timed.  Rank 0 then
+    computes, alone, the world-1 step on the whole batch (and the same
+    step in fp32 on the plain path) and holds the averaged gradients of the
+    first step to it as the kernel-vs-plain checks do (``_check_gradients``:
+    GRAD_RL2, or for a leaf that bf16 rounding alone moves by more, the
+    fp32 gradient).  Returns the loss, that check's largest error, whether
+    the ranks' parameters are bit-identical, and the times."""
+    import numpy as np
+    import torch
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+    from image_segmentation_tpu_torch.parallel import mesh
+
+    globals().update(settings)
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config()
+    rng = np.random.default_rng(SEED + 11)
+    images = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8))
+    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (BATCH, SIZE, SIZE), dtype=np.uint8))
+    rows = mesh.rows(BATCH)
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    mine = images[rows].to(DEVICE), masks[rows].to(DEVICE)
+    loss = float(trainer.train_step(*mine, STEP_KEY))
+    grads = _grads(trainer.model)
+    stats = {k: v.clone() for k, v in trainer.model.named_buffers() if "running" in k}
+    sync()
+    t0 = time.perf_counter()
+    trainer.train_step(*mine, STEP_KEY + 1)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    flat = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
+    rank0 = flat.clone()
+    mesh.broadcast_([rank0])
+    same = bool(torch.equal(flat, rank0))
+    # the gradient all-reduce alone (the averaged gradients are equal on
+    # every rank, so averaging them again leaves them as they are)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mesh.average_gradients(trainer.trainable)
+    sync()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3 / 3
+    out = {"rank": mesh.rank(), "loss": loss, "params_identical": same,
+           "step_ms": step_ms, "allreduce_ms": allreduce_ms,
+           "grad_bytes": 4 * sum(p.numel() for p in trainer.trainable)}
+    del trainer, flat, rank0
+    if mesh.is_main():
+        full = images.to(DEVICE), masks.to(DEVICE)
+        with mesh.local():
+            ref = Trainer(cfg, device=DEVICE, make_artifacts=False)
+            ref_loss = float(ref.train_step(*full, STEP_KEY))
+            ref_grads = _grads(ref.model)
+            ref_stats = dict(ref.model.named_buffers())
+            del ref
+            with plain_path(kernel_modules()):
+                ref32 = Trainer(dataclasses.replace(cfg, bf16=False), device=DEVICE,
+                                make_artifacts=False)
+                ref32.train_step(*full, STEP_KEY)
+                grads32 = _grads(ref32.model)
+            del ref32
+        err, leaf, held = _check_gradients(torch, grads, ref_grads, grads32)
+        # the leaves held directly nearest the limit, each with how far bf16
+        # rounding alone puts the world-1 step (and the two ranks' step)
+        # from the fp32 step
+        held_names = {n for n, _, _ in held}
+        direct = sorted(((_rel_l2(grads, ref_grads, n), n) for n in ref_grads
+                         if n not in held_names), reverse=True)[:3]
+        nearest = [[n, e, _rel_l2(ref_grads, grads32, n), _rel_l2(grads, grads32, n)]
+                   for e, n in direct]
+        # the running statistics committed by the first step: enc1's first
+        # BatchNorm takes (S, Q) from conv3x3's epilogue over identical rows,
+        # summed over the ranks, so only the order of the fp32 sums differs
+        stat_err = {k: ((v - ref_stats[k]).abs().max() / ref_stats[k].abs().max()).item()
+                    for k, v in stats.items()}
+        out.update(ref_loss=ref_loss, max_rel_err=err, worst_leaf=leaf, nearest=nearest,
+                   held=[[n, p32, k32] for n, p32, k32 in held], stat_err=stat_err)
+    return out
+
+
+def distributed_phase(torch, mods, card: str) -> dict:
+    """cli.train_distributed on NCCL at world size 1 (counted), then
+    GLOO_RANKS gloo ranks on the card against the world-1 step; returns
+    the launch counts of the CLI run."""
+    from image_segmentation_tpu_torch.cli import train_distributed
+    from image_segmentation_tpu_torch.parallel import mesh
+
+    cfg = train_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        trainer = train_distributed.main([
+            "--preset", "large_unet", "--dataset", "synthetic", "--image-size", str(SIZE),
+            "--synthetic-length", str(TRAIN_LENGTH), "--batch-size", str(BATCH), "--epochs", "1",
+            "--coordinator", f"localhost:{mesh.free_port()}", "--num-processes", "1",
+            "--process-id", "0", "--save-dir", tmp, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(mods)
+        backend = torch.distributed.get_backend()
+        world = mesh.world_size()
+        mesh.shutdown()
+        if backend != ("nccl" if DEVICE == "cuda" else "gloo") or world != 1:
+            raise AssertionError(f"train_distributed ran on {backend} at world size {world}")
+        n_train = TRAIN_LENGTH * (cfg.data.augmentations_per_datapoint + 1) // BATCH
+        n_val = math.ceil(TRAIN_LENGTH / BATCH)
+        want = {k: PER_STEP.get(k, 0) * n_train + PER_FORWARD.get(k, 0) * n_val
+                for k in WRAPPER_NAMES}
+        if launches != want:
+            raise AssertionError(f"train_distributed launches {launches}, expected {want}")
+        if not (Path(trainer.run_dir) / "model_1.npz").exists():
+            raise AssertionError("train_distributed wrote no checkpoint")
+        print(f"train_distributed: nccl, world 1, {n_train} steps + {n_val} eval batches at "
+              f"{SIZE}x{SIZE}, {wall!r} s, launches {launches}", flush=True)
+        del trainer
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    settings = {k: globals()[k] for k in ("DEVICE", "SEED", "BATCH", "SIZE", "TRAIN_LENGTH",
+                                          "STEP_KEY")}
+    ranks = mesh.launch("chip_smoke:_gloo_rank", GLOO_RANKS, [settings], backend="gloo",
+                        timeout=600)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    losses = [r["loss"] for r in ranks]
+    loss_err = abs(losses[0] - r0["ref_loss"]) / abs(r0["ref_loss"])
+    print(f"gloo, {GLOO_RANKS} ranks on the card, one augmented step of train_config() "
+          f"(global batch {BATCH}, {BATCH // GLOO_RANKS} rows a rank, {SIZE}x{SIZE}): losses "
+          f"{losses} vs world-1 {r0['ref_loss']!r} (rel {loss_err!r}, limit {LOSS_RTOL}); "
+          f"averaged gradients vs world-1: max relative L2 {r0['max_rel_err']!r} "
+          f"({r0['worst_leaf']}, limit {GRAD_RL2}); the three held directly nearest the limit "
+          f"(leaf, vs world-1, world-1 bf16 vs fp32, 2 ranks vs fp32): {r0['nearest']}; "
+          f"held to the fp32 gradient (leaf, world-1 "
+          f"bf16 vs fp32, 2 ranks vs fp32; limit {BF16_NOISE_FACTOR}x): {r0['held']}; "
+          f"parameters identical across ranks {[r['params_identical'] for r in ranks]}; second "
+          f"step {[r['step_ms'] for r in ranks]} ms, gradient all-reduce "
+          f"{[r['allreduce_ms'] for r in ranks]} ms per step "
+          f"({r0['grad_bytes']} B); {wall!r} s with the processes' start on {card}", flush=True)
+    enc1 = {k: v for k, v in r0["stat_err"].items() if k.startswith("enc1.block.0.conv.1.")}
+    print(f"gloo: running statistics vs world-1, max relative error {max(r0['stat_err'].values())!r}"
+          f" over every BatchNorm, enc1's first (the conv3x3 epilogue's sums) {enc1} (limit "
+          f"{SUM_RTOL})", flush=True)
+    if len(enc1) != 2 or max(enc1.values()) > SUM_RTOL:
+        raise AssertionError(f"enc1's running statistics at {GLOO_RANKS} ranks: {enc1}")
+    if len(set(losses)) != 1 or loss_err > LOSS_RTOL:
+        raise AssertionError(f"gloo losses {losses} vs world-1 {r0['ref_loss']}")
+    if not all(r["params_identical"] for r in ranks):
+        raise AssertionError("the ranks' parameters differ after the step")
+    return launches
+
+
+def export_phase(torch, mods, card: str) -> dict:
+    """The served LargeUNet at 512x512 as an exported program on the card
+    (``export_model(exported_program=True)`` -> ``load_program``); returns
+    the launch counts of the program's two checked calls."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.engine.export import export_model, load_model, load_program
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+
+    model_args = train_config().model_args
+    model = build_model("large_unet", device=DEVICE, **model_args)
+    randomize_(torch, model, SEED)
+    with tempfile.TemporaryDirectory() as art:
+        t0 = time.perf_counter()
+        export_model(model, "large_unet", model_args, out_dir=art, exported_program=True,
+                     image_size=SIZE)
+        export_s = time.perf_counter() - t0
+        served = load_model(art, device=DEVICE)
+        program = load_program(str(Path(art) / "model.pt2"))
+        size_mb = (Path(art) / "model.pt2").stat().st_size / 1e6
+    del model
+    ops = [str(n.target) for n in program.program.graph.nodes if str(n.target).startswith("imgseg.")]
+    per_op = {op: sum(o.startswith(op) for o in ops) for op in
+              ("imgseg.conv3x3", "imgseg.maxpool2x2_affine_relu", "imgseg.convtranspose2x2")}
+    if per_op != {"imgseg.conv3x3": 8, "imgseg.maxpool2x2_affine_relu": 2,
+                  "imgseg.convtranspose2x2": 2}:
+        raise AssertionError(f"the exported graph's imgseg operators: {per_op}")
+    rng = np.random.default_rng(SEED + 3)
+    x16 = normalize_image(torch.from_numpy(
+        rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).to(DEVICE))
+    # ---- the main path: counts from 0, read right after
+    reset_counts(mods)
+    got16, got1 = program(x16), program(x16[:1])
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    if launches != expected(PER_FORWARD, 2):
+        raise AssertionError(f"exported program launches {launches}, expected "
+                             f"{expected(PER_FORWARD, 2)}")
+    with torch.inference_mode():
+        ref16, ref1 = served(x16), served(x16[:1])
+    for name, got, ref in (("b16", got16, ref16), ("b1", got1, ref1)):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"program logits {name}: {tuple(got.shape)}")
+        diff = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"exported program {name} vs the eager forward: max_abs_diff={diff!r} (limit "
+              f"{LOGITS_RTOL} x {scale!r}), argmax agreement={agree!r} (limit "
+              f"{ARGMAX_AGREEMENT})", flush=True)
+        if diff > LOGITS_RTOL * scale or agree < ARGMAX_AGREEMENT:
+            raise AssertionError(f"the exported program's {name} logits disagree")
+    del got16, got1, ref16, ref1
+    with torch.inference_mode():
+        times = {f"{what} b{b}": cuda_ms(torch, lambda: fn(x16[:b]), iters=3 if b > 1 else 20,
+                                         warmup=3)
+                 for b in (BATCH, 1) for what, fn in (("program", program), ("eager", served))}
+    print(f"export: torch.export of LargeUNet@{SIZE} in {export_s!r} s ({size_mb!r} MB, "
+          f"operators {per_op}); ms per call {times} on {card}", flush=True)
+    del served, program
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profiler_phase(torch, mods, card: str) -> dict:
+    """cli.profiler of the large_unet preset: a trace file and the memory
+    report; returns the launch counts of its run."""
+    from image_segmentation_tpu_torch.cli import profiler
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        path = profiler.main(["--preset", "large_unet", "--dataset", "synthetic", "--batch-size",
+                              str(DATA_BATCH), "--steps", str(PROFILE_STEPS), "--log-dir", tmp,
+                              "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(mods)
+        want = expected(PER_STEP, PROFILE_STEPS + 1)  # the warm-up step and the traced ones
+        if launches != want:
+            raise AssertionError(f"profiler launches {launches}, expected {want}")
+        size = Path(path).stat().st_size if Path(path).exists() else 0
+        if size == 0:
+            raise AssertionError(f"cli.profiler wrote no trace at {path}")
+        print(f"profiler: cli.profiler large_unet, {PROFILE_STEPS} traced steps, trace "
+              f"{Path(path).name} {size} B, {wall!r} s, launches {launches} on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1930,7 +2308,9 @@ def main() -> int:
     ae, ae_unfused = autoencoder_phase(torch, mods, card)
     runs += [ae, clip_res_phase(torch, mods, card), segment_classifier_phase(torch, mods, card),
              clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card),
-             robustness_phase(torch, mods, card)]
+             robustness_phase(torch, mods, card), data_phase(torch, mods, card),
+             distributed_phase(torch, mods, card), export_phase(torch, mods, card),
+             profiler_phase(torch, mods, card)]
     launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 
     kernels = []

@@ -24,7 +24,8 @@ def main(argv=None):
     ap.add_argument("--preset", default="clip_unet")
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--split", default="test",
-                    help="test (the synthetic data has one evaluation split)")
+                    help="the Oxford-IIIT-Pet split (the synthetic data has one evaluation split)")
+    ap.add_argument("--dataset-loc", default=None, help="the Oxford-IIIT-Pet folder")
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--robustness", action="store_true",
@@ -45,19 +46,16 @@ def main(argv=None):
     from image_segmentation_tpu_torch.engine.train import Trainer, _dataset_from_config
     from image_segmentation_tpu_torch.utils import plotting
 
-    if args.split != "test":
-        raise NotImplementedError(
-            f"--split {args.split!r}: the synthetic data has one evaluation split; the "
-            "Oxford-IIIT-Pet splits come with its loader, ROADMAP.md Queue 1 item 10")
     if args.plot:
         plotting.require_matplotlib()
     cfg = preset(args.preset)
     if args.dataset is not None:
         cfg.data.dataset = args.dataset
+    if args.dataset_loc is not None:
+        cfg.data.dataset_loc = args.dataset_loc
     trainer = Trainer(cfg, device=args.device, make_artifacts=False)
     trainer.restore(args.ckpt)
-    # the synthetic evaluation split, as JAX's for every split name
-    test_data = _dataset_from_config(cfg, False)
+    test_data = _dataset_from_config(cfg, False, split=args.split)
 
     ev = Evaluator(trainer.model, test_data, batch_size=args.batch_size,
                    binary=cfg.loss == "hybrid_binary", device=args.device)

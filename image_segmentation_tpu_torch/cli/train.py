@@ -6,6 +6,8 @@ same flags and ``--device``:
         --device cpu
     python -m image_segmentation_tpu_torch.cli.train --preset large_unet \\
         --dataset synthetic --resume saved-models/LargeUNet/run-001/model_1.npz
+    python -m image_segmentation_tpu_torch.cli.train --preset large_unet \\
+        --dataset oxford-pet --dataset-loc Data/Oxford-IIIT-Pet-Augmented --native-loader
 
 Writes the run folder ``<save-dir>/<ModelName>/run-NNN/`` (``loss.csv``,
 ``model_settings.json``, ``model_<epoch>.npz``), as the JAX script does.
@@ -27,7 +29,10 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--dataset", default=None, help="oxford-pet | synthetic")
     ap.add_argument("--dataset-loc", default=None,
-                    help="the Oxford-IIIT-Pet folder (its loader is not ported)")
+                    help="the Oxford-IIIT-Pet folder: <split>_arrays.npz files, or a dataset "
+                         "directory that HF datasets reads")
+    ap.add_argument("--native-loader", action="store_true",
+                    help="assemble the train batches with the C++ loader (runtime/loader.cpp)")
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
@@ -45,9 +50,9 @@ def main(argv=None):
     if args.dataset is not None:
         cfg.data.dataset = args.dataset
     if args.dataset_loc is not None:
-        raise NotImplementedError(
-            "--dataset-loc: the Oxford-IIIT-Pet loader is not ported; see ROADMAP.md "
-            "Queue 1 item 10 (synthetic data is)")
+        cfg.data.dataset_loc = args.dataset_loc
+    if args.native_loader:
+        cfg.native_loader = True
     if args.save_dir is not None:
         cfg.save_dir = args.save_dir
     if args.seed is not None:

@@ -6,9 +6,8 @@ that ``dataclasses.asdict(preset(name))`` is equal in both packages.
 Fields that only the JAX package acts on, or that the port does not act on
 yet, are still declared so that the presets compare equal:
 ``compile_cache`` (XLA's compilation cache; nothing to cache here),
-``debug_nans``, ``remat``, ``native_loader`` and ``n_model_shards``.  The
-port's Trainer raises ``NotImplementedError`` on a non-default value of the
-last three.
+``debug_nans``, ``remat`` and ``n_model_shards``.  The port's Trainer
+raises ``NotImplementedError`` on a non-default value of the last two.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ class TrainConfig:
     # XLA's persistent compilation cache directory; the port compiles
     # nothing through XLA and ignores it.
     compile_cache: Optional[str] = None
-    # The C++ background-thread batch loader; not ported.
+    # The C++ background-thread batch loader (data/native_loader.py).
     native_loader: bool = False
     # Tensor-parallel weight shards; not ported.
     n_model_shards: int = 1

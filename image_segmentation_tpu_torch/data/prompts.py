@@ -53,6 +53,10 @@ class PromptDraws:
     def pin_memory(self) -> "PromptDraws":
         return PromptDraws(self.u_class.pin_memory(), self.u_pixel.pin_memory())
 
+    def rows(self, rows: slice) -> "PromptDraws":
+        """The draws of the images ``rows`` of the batch."""
+        return PromptDraws(self.u_class[rows], self.u_pixel[rows])
+
 
 def sample_prompt_draws(n: int, generator: torch.Generator) -> PromptDraws:
     """The draws of n images, on the generator's device."""

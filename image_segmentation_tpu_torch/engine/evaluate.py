@@ -35,12 +35,22 @@ The path never stages the whole split on the device: a batch at a time is
 there, with one batch of look-ahead (``data.pipeline.BatchPipeline``).
 That meets the JAX Evaluator's open fault (``_staged_split``,
 evaluate.py:165, puts the whole split in device memory with no bound) by
-construction.  One device; the mesh and multi-process forms wait for
-ROADMAP.md Queue 1 item 10.
+construction.
+
+Several ranks (``parallel.mesh``; JAX :20-22): each rank takes its rows of
+every batch, the draws are made for the global batch's shape and sliced
+to them, and each batch's metrics are the global batch's, their sums
+taken over ranks before the ratios (``ops/losses``), not a mean of the
+ranks' ratios.  A remainder batch that the ranks do not divide is whole on
+every rank and its metrics are taken there alone (``mesh.local``), so
+every number equals the one-process run's.  The family path stays in use
+at every world size (JAX falls back to one point at a time there,
+:214-218).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -54,6 +64,7 @@ from ..data.datasets import ArrayDataset
 from ..data.pipeline import BatchPipeline
 from ..ops import losses as L
 from ..ops.augment import normalize_image
+from ..parallel import mesh
 from ..utils import io as io_lib
 from .export import check_servable
 
@@ -159,12 +170,20 @@ class Evaluator:
         per_point = kind != "clean" and pert.SWEEPS[kind][name]["per_point"]
         sums: List[Optional[torch.Tensor]] = [None] * len(params)
         n = 0
-        for i, (images, masks) in enumerate(self._pipeline().epoch(0)):
-            shared = None if per_point else self.batch_draws(kind, name, i, params[0], images.shape)
-            for j, p in enumerate(params):
-                draws = self.batch_draws(kind, name, i, p, images.shape) if per_point else shared
-                out = self._batch_metrics(kind, name, images, masks, p, draws)
-                sums[j] = out if sums[j] is None else sums[j] + out
+        pipe = self._pipeline()
+        for i, (images, masks) in enumerate(pipe.epoch(0)):
+            shape, rows = (pipe.global_rows(i),) + tuple(images.shape[1:]), pipe.rows(i)
+
+            def draws_of(p):
+                d = self.batch_draws(kind, name, i, p, shape)
+                return None if d is None else tuple(t[rows] for t in d)
+
+            shared = None if per_point else draws_of(params[0])
+            with mesh.local() if pipe.replicated(i) else contextlib.nullcontext():
+                for j, p in enumerate(params):
+                    draws = draws_of(p) if per_point else shared
+                    out = self._batch_metrics(kind, name, images, masks, p, draws)
+                    sums[j] = out if sums[j] is None else sums[j] + out
             n += 1
         rows = (torch.stack(sums) / n).tolist()
         self.family_seconds[(kind, name)] = time.perf_counter() - t0

@@ -48,18 +48,40 @@ the shuffle order and the draws continue and ``model_<epoch+1>.npz``
 numbers on.  This departs from the JAX Trainer on purpose: its ``train``
 starts again at epoch 0 whatever the step, and replays that epoch's keys.
 
+Data parallelism (JAX :11-21, :152-161): one process a rank, in the
+process group of ``parallel.mesh`` (``cli/train_distributed.py``), every
+rank with the same weights (drawn from the same seed, then broadcast from
+rank 0) and its rows ``[r*b/R, (r+1)*b/R)`` of each global batch.  The
+draws of a step (augmentation, prompts) are made for the whole global
+batch from the step key and sliced to the rank's rows, and the clean slots
+are positions in the global batch, so the draws do not depend on R.  Every
+batch-wide statistic is the global batch's: the BatchNorm statistics
+(``blocks.batch_stats``; the kernel blocks sum their ``(S, Q)`` and
+``(dS, dQ)`` over ranks, ``ops/fused_conv.FusedBlockFunction``), the
+losses and the metrics (``ops/losses``), so the running averages and the
+loss are equal on every rank; after the backward the trainable
+parameters' gradients are averaged over ranks in one all-reduce.  One
+step at R ranks is thus the one-process step on the global batch.  Only
+rank 0 writes artifacts; every rank holds rank 0's run folder and calls
+:meth:`Trainer.save` at each checkpoint, which waits for the write on
+every rank, and :meth:`Trainer.restore` reads on every rank.  At world
+size 1 no collective runs.
+
 Ported: the segmentation task on the U-Nets, ClipUnet, ClipRes and
 ClipAutoencoder, the prompt task on ClipUnetPrompt, the class task
 (``loss="class_binary"``) on ClipResSegmentationClassification, the
-reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss,
-with synthetic data.  What is not ported raises ``NotImplementedError``
-naming its ROADMAP.md item: the Oxford-IIIT-Pet loader, ``remat``,
-``native_loader`` and ``n_model_shards``.  ``prompt_fusion`` (two inputs
-and no task in the JAX Trainer either) is a model only.
+reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss;
+synthetic data or the Oxford-IIIT-Pet split on disk
+(``data.datasets.load_pet_dataset``); the Python pipeline or, with
+``native_loader``, the C++ one.  What is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item: ``remat`` and
+``n_model_shards``.  ``prompt_fusion`` (two inputs and no task in the JAX
+Trainer either) is a model only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -76,6 +98,7 @@ from ..data.datasets import (
     DOG_PALETTE,
     UNCERTAIN_PALETTE,
     ArrayDataset,
+    load_pet_dataset,
     synthetic_dataset,
 )
 from ..data.pipeline import BatchPipeline
@@ -86,8 +109,10 @@ from ..models.registry import build_model
 from ..ops import losses as L
 from ..ops.augment import AugmentParams, DataAugmentor, DataAugmentorPrompt, normalize_image
 from ..ops.cross_attention import CrossAttentionFusion
+from ..parallel import mesh
 from ..utils import checkpoint as ckpt_lib
 from ..utils import io as io_lib
+from ..utils.profiling import format_memory_report
 from ..utils.convert import jax_from_state_dict
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
@@ -129,7 +154,7 @@ def make_loss_fn(name: str) -> Callable:
     if name == "hybrid_binary":
         return lambda logits, batch: L.hybrid_loss_binary(logits, batch["masks"])
     if name == "mse":
-        return lambda out, batch: torch.mean((out.float() - batch["images"]) ** 2)
+        return lambda out, batch: mesh.global_mean((out.float() - batch["images"]) ** 2)
     if name == "class_binary":
         return _class_loss
     raise KeyError(f"unknown loss {name!r}")
@@ -206,14 +231,18 @@ def jax_param_count(model: nn.Module) -> int:
     return n
 
 
-def _dataset_from_config(cfg: TrainConfig, train: bool,
-                         keep_raw_masks: bool = False) -> ArrayDataset:
+def _dataset_from_config(cfg: TrainConfig, train: bool, keep_raw_masks: bool = False,
+                         split: Optional[str] = None) -> ArrayDataset:
+    """The split of ``cfg.data`` (JAX :112-128): synthetic data from the
+    seed (one evaluation split, whatever ``split`` names), or the
+    Oxford-IIIT-Pet split ``split`` (default the config's train or
+    validation split) through ``load_pet_dataset``."""
     d = cfg.data
     if d.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {d.dataset!r}: loading it needs the network and is not "
-            "ported; see ROADMAP.md Queue 1 item 10 (synthetic data is)"
-        )
+        split = split or (d.train_split if train else d.val_split)
+        return load_pet_dataset(split=split,
+                                dataset_loc=d.dataset_loc, cache=d.cache,
+                                keep_raw_masks=keep_raw_masks)
     return synthetic_dataset(
         length=d.synthetic_length, height=d.image_size, width=d.image_size,
         num_classes=d.num_classes, seed=cfg.seed + (0 if train else 1),
@@ -225,7 +254,8 @@ Inputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 class Trainer:
-    """The JAX ``Trainer`` (:131) for one device.
+    """The JAX ``Trainer`` (:131): one device a process, any number of
+    ranks (the module doc).
 
     ``device`` is where the model, the optimizer state and the batches live
     (the card unless the caller asks for the CPU); the initial weights are
@@ -251,19 +281,21 @@ class Trainer:
         run_dir: Optional[str] = None,
         make_artifacts: bool = True,
     ):
-        for field, default, item in (("remat", False, 5), ("native_loader", False, 10),
-                                     ("n_model_shards", 1, 10)):
+        for field, default, item in (("remat", False, "Queue 1 item 5"),
+                                     ("n_model_shards", 1, "Queue 1 item 13 (tensor parallelism)")):
             if getattr(config, field) != default:
                 raise NotImplementedError(
-                    f"{field}={getattr(config, field)!r} is not ported; "
-                    f"see ROADMAP.md Queue 1 item {item}"
-                )
+                    f"{field}={getattr(config, field)!r} is not ported; see ROADMAP.md {item}")
+        if config.batch_size % mesh.world_size():
+            raise ValueError(f"batch_size {config.batch_size} must be divisible by the "
+                             f"{mesh.world_size()} ranks")
         self.config = config
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if config.bf16 else torch.float32
         self.model = build_model(config.model, device=self.device, dtype=self.dtype,
                                  **config.model_args)
         init_weights_(self.model, torch.Generator().manual_seed(config.seed))
+        mesh.broadcast_(self.model.state_dict().values())  # the same on every rank
         if config.model == "clip_unet_prompt":
             self.task = "prompt"
         elif config.model == "clip_res_class":
@@ -291,7 +323,7 @@ class Trainer:
         self.val_data = val_data or _dataset_from_config(config, False, raw)
 
         self.run_dir = run_dir
-        if make_artifacts:
+        if make_artifacts and mesh.is_main():
             if run_dir is None:
                 self.run_dir = io_lib.get_next_run_folder(
                     os.path.join(config.save_dir, self.model_name))
@@ -303,6 +335,8 @@ class Trainer:
                 train_dataset_size=len(self.train_data) * (aug_n + 1),
                 val_dataset_size=len(self.val_data),
                 params=jax_from_state_dict(self.model.state_dict())[0])
+        # every rank checkpoints where rank 0 writes (save waits on all)
+        self.run_dir = mesh.broadcast_object(self.run_dir)
 
     def _generator(self, step_key: int, stream: int) -> torch.Generator:
         """The host generator of one step's draws; ``stream`` tells the
@@ -327,14 +361,25 @@ class Trainer:
             return draws.pin_memory().to(self.device, non_blocking=True)
         return draws.to(self.device)
 
+    @staticmethod
+    def _rows(n: int) -> Tuple[int, slice]:
+        """The global batch's rows and this rank's slice of them, for a
+        rank holding n rows (the global batch itself at world size 1 and
+        inside ``mesh.local``)."""
+        if not mesh.active():
+            return n, slice(0, n)
+        return n * mesh.world_size(), slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+
     def prompt_points(self, masks_u8: torch.Tensor, step_key: int):
-        """``(choice, cy, cx)`` of the step's prompts, on the device."""
-        return prompt_points(masks_u8, self._to_device(self.prompt_draws(masks_u8.shape[0],
-                                                                         step_key)))
+        """``(choice, cy, cx)`` of the step's prompts, on the device: the
+        draws of the global batch, sliced to this rank's rows."""
+        n, rows = self._rows(masks_u8.shape[0])
+        draws = self.prompt_draws(n, step_key).rows(rows)
+        return prompt_points(masks_u8, self._to_device(draws))
 
     def _prepare_batch(self, images_u8: torch.Tensor, masks_u8: torch.Tensor, *,
                        augment: bool, params: Optional[AugmentParams] = None,
-                       points=None) -> Tuple[Inputs, Dict[str, torch.Tensor]]:
+                       points=None, offset: int = 0) -> Tuple[Inputs, Dict[str, torch.Tensor]]:
         """uint8 device batch -> (model inputs, {"masks": int64 targets}).
 
         reconstruction: inputs the [0, 1] fp32 images, targets
@@ -346,7 +391,8 @@ class Trainer:
         before the augmentation); prompt: inputs ``(images, prompt maps)``,
         targets the binary labels of the prompts at ``points`` =
         ``(choice, cy, cx)`` made from the palette masks (:299-312), the
-        three through the prompt augmentor likewise."""
+        three through the prompt augmentor likewise.  ``offset``: the
+        first row's position in the global batch (the clean slots')."""
         augmenting = augment and self.augmentor is not None
         if augmenting:
             if params is None:
@@ -361,32 +407,36 @@ class Trainer:
             heat, labels = prompt_maps(masks_u8, *points, self.config.data.prompt_gaussian_sigma)
             if augmenting:
                 images, masks, heat = self.augmentor.apply_u8(
-                    params, images_u8, labels.to(torch.uint8), heat)
+                    params, images_u8, labels.to(torch.uint8), heat, offset=offset)
                 return (images, heat), {"masks": masks}
             return (normalize_image(images_u8), heat), {"masks": labels.long()}
         extra = {}
         if self.task == "class":
             masks_u8, extra["labels"] = class_targets(masks_u8)
         if augmenting:
-            images, masks = self.augmentor.apply_u8(params, images_u8, masks_u8)
+            images, masks = self.augmentor.apply_u8(params, images_u8, masks_u8, offset=offset)
             return images, {"masks": masks, **extra}
         return normalize_image(images_u8), {"masks": masks_u8.long(), **extra}
 
     def train_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,
                    step_key: int = 0) -> torch.Tensor:
-        """One optimizer step on one batch with the draws of ``step_key``;
-        returns the loss, on the device."""
-        n = images_u8.shape[0]
-        params = self.augment_params(n, step_key) if self.augmentor is not None else None
+        """One optimizer step on one batch (this rank's rows of the global
+        batch) with the draws of ``step_key``; returns the global batch's
+        loss, on the device."""
+        n, rows = self._rows(images_u8.shape[0])
+        params = None
+        if self.augmentor is not None:
+            params = self.augment_params(n, step_key).rows(rows)
         points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
         inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=True, params=params,
-                                            points=points)
+                                            points=points, offset=rows.start)
         return self.optimize(inputs, batch)
 
     def optimize(self, inputs: Inputs, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Forward, loss, backward and Adam on a prepared batch; returns the
-        loss, on the device.  A trainable parameter without a gradient gets
-        a zero one (see the module doc)."""
+        """Forward, loss, backward, the gradients averaged over ranks, and
+        Adam on a prepared batch; returns the loss, on the device.  A
+        trainable parameter without a gradient gets a zero one (see the
+        module doc)."""
         inputs = inputs if isinstance(inputs, tuple) else (inputs,)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(self.model(*inputs, train=True), batch)
@@ -394,6 +444,7 @@ class Trainer:
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.average_gradients(self.trainable)
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -422,16 +473,32 @@ class Trainer:
         return (loss, *(f(logits, masks) for f in metrics))
 
     def _pipelines(self):
+        """The train pipeline (the C++ loader with ``native_loader`` where
+        it builds, else the Python one, as JAX :394-401) and the
+        validation pipeline."""
         cfg = self.config
-        mask_attr = "raw_masks" if self.task in ("prompt", "class") else "masks"
-        train_pipe = BatchPipeline(
-            self.train_data, cfg.batch_size, device=self.device,
-            augmentations_per_datapoint=cfg.data.augmentations_per_datapoint,
-            shuffle=True, drop_last=True, seed=cfg.seed, mask_attr=mask_attr)
+        train_cls = BatchPipeline
+        if cfg.native_loader:
+            from ..data import native_loader
+
+            if native_loader.native_loader_available():
+                train_cls = native_loader.NativeBatchPipeline
+            if mesh.is_main():
+                print("train loader: native" if train_cls is not BatchPipeline
+                      else "train loader: python (the native one did not build)", flush=True)
         val_pipe = BatchPipeline(self.val_data, cfg.batch_size, device=self.device,
                                  shuffle=False, drop_last=False, seed=cfg.seed,
-                                 mask_attr=mask_attr)
-        return train_pipe, val_pipe
+                                 mask_attr=self._mask_attr())
+        return self._train_pipeline(train_cls), val_pipe
+
+    def _mask_attr(self) -> str:
+        return "raw_masks" if self.task in ("prompt", "class") else "masks"
+
+    def _train_pipeline(self, cls=BatchPipeline) -> BatchPipeline:
+        cfg = self.config
+        return cls(self.train_data, cfg.batch_size, device=self.device,
+                   augmentations_per_datapoint=cfg.data.augmentations_per_datapoint,
+                   shuffle=True, drop_last=True, seed=cfg.seed, mask_attr=self._mask_attr())
 
     def train(self, num_epochs: Optional[int] = None, *, verbose: bool = False) -> Dict[str, Any]:
         """The next ``num_epochs`` epochs, each followed by :meth:`evaluate`
@@ -457,28 +524,31 @@ class Trainer:
             rate = n_batches * cfg.batch_size / dt if dt > 0 else 0.0
             row = dict(epoch=epoch, train_loss=train_loss, rate=rate, **self.evaluate(val_pipe))
             history.append(row)
-            if verbose:
+            if verbose and mesh.is_main():
                 print(f"Epoch: {epoch}\nRate: {rate:.1f} datapoints/s\n"
                       f"Train Loss: {train_loss:.4f}\n"
                       f"Validation Loss: {row['val_loss']:.4f}\n"
                       f"Val IoU: {row['val_iou']:.4f}\n"
                       f"Val Pixel Accuracy: {row['val_pixel_accuracy']:.4f}\n"
-                      f"Val Dice: {row['val_dice']:.4f}", flush=True)
-            if self.run_dir:
+                      f"Val Dice: {row['val_dice']:.4f}\n" + format_memory_report(), flush=True)
+            if self.run_dir and mesh.is_main():
                 io_lib.log_loss_to_csv(epoch, train_loss, row["val_loss"],
                                        row["val_pixel_accuracy"], row["val_dice"],
                                        row["val_iou"], self.run_dir)
-                if (epoch + 1) % cfg.checkpoint_every == 0:
-                    self.save(os.path.join(self.run_dir, f"model_{epoch + 1}.npz"))
+            if self.run_dir and (epoch + 1) % cfg.checkpoint_every == 0:
+                self.save(os.path.join(self.run_dir, f"model_{epoch + 1}.npz"))
         return {"history": history}
 
     def evaluate(self, val_pipe: Optional[BatchPipeline] = None) -> Dict[str, float]:
-        """Mean over the validation batches of the eval step's metrics."""
+        """Mean over the validation batches of the eval step's metrics, each
+        the global batch's (a remainder batch that the ranks do not divide
+        is whole on every rank, and its metrics are taken there alone)."""
         if val_pipe is None:
             _, val_pipe = self._pipelines()
         sums, n = None, 0
         for images, masks in val_pipe.epoch(0):
-            out = self.eval_step(images, masks, EVAL_STEP_KEY + n)
+            with mesh.local() if val_pipe.replicated(n) else contextlib.nullcontext():
+                out = self.eval_step(images, masks, EVAL_STEP_KEY + n)
             sums = out if sums is None else tuple(a + b for a, b in zip(sums, out))
             n += 1
         if n == 0:
@@ -493,8 +563,12 @@ class Trainer:
         return ckpt_lib.state_tree(self.model, self.optimizer, self.step, self.frozen)
 
     def save(self, path: str) -> None:
-        """Write :meth:`state_tree` as a checkpoint in JAX's ``.npz`` layout."""
-        ckpt_lib.save_checkpoint(path, self.state_tree())
+        """Write :meth:`state_tree` as a checkpoint in JAX's ``.npz`` layout:
+        rank 0 writes (the state is the same on every rank), every rank
+        returns once the file is there."""
+        if mesh.is_main():
+            ckpt_lib.save_checkpoint(path, self.state_tree())
+        mesh.barrier()
 
     def restore(self, path: str) -> None:
         """Load a checkpoint of either package (JAX :505): the parameters,
@@ -503,5 +577,6 @@ class Trainer:
         missing key or a wrong shape raises."""
         tree = ckpt_lib.restore_into(self.state_tree(), path)
         self.step = ckpt_lib.load_state_tree(tree, self.model, self.optimizer, self.frozen)
-        per_epoch = self._pipelines()[0].batches_per_epoch()
+        # the Python pipeline counts the batches the native one gives
+        per_epoch = self._train_pipeline().batches_per_epoch()
         self.epoch, self.batch = divmod(self.step, max(per_epoch, 1))

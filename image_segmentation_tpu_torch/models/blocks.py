@@ -18,7 +18,8 @@ flax's semantics (blocks.py:35-37, folded.py:340-353): biased
 ``var = max(0, E[x^2] - mean^2)`` in fp32, and running averages
 ``0.9*running + 0.1*batch`` from that same biased variance — not
 ``nn.BatchNorm2d``'s unbiased running update, which this module never
-runs.
+runs.  The statistics are the global batch's when several ranks train
+(:func:`batch_stats`), as JAX's are over its batch-sharded array.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import wide
+from ..parallel import mesh
 
 # torch BatchNorm2d default, and the JAX package's BN_EPS (blocks.py:38).
 BN_EPS = 1e-5
@@ -63,10 +65,19 @@ def commit_running_stats(
 
 def batch_stats(x: torch.Tensor, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 batch mean and biased variance of NHWC ``x`` per channel, with
-    ``bn``'s running averages committed."""
+    ``bn``'s running averages committed.  Over the global batch: with
+    several ranks (``parallel.mesh``) the per-channel sums of x and x^2 are
+    summed over ranks, differentiably, before the ratios, so every rank
+    commits the same running averages."""
     xf = wide(x)
-    mean = xf.mean((0, 1, 2))
-    var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
+    if mesh.active():
+        n = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.world_size()
+        s, q = mesh.all_reduce_sum(torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))]))
+        mean = s / n
+        var = torch.clamp(q / n - mean * mean, min=0.0)
+    else:
+        mean = xf.mean((0, 1, 2))
+        var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
     commit_running_stats(bn, mean.detach(), var.detach())
     return mean, var
 

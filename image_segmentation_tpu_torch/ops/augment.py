@@ -118,6 +118,10 @@ class AugmentParams:
     def pin_memory(self) -> "AugmentParams":
         return self._map(lambda t: t.pin_memory())
 
+    def rows(self, rows: slice) -> "AugmentParams":
+        """The draws of the samples ``rows`` of the batch."""
+        return self._map(lambda t: t[rows])
+
 
 # --------------------------------------------------------------------------
 # geometry (image and mask together)
@@ -379,8 +383,10 @@ def apply_gaussian_blur_5x5(images: torch.Tensor, weights: torch.Tensor) -> torc
 # the augmentor
 # --------------------------------------------------------------------------
 
-def _clean_slots(n: int, step: int, device) -> torch.Tensor:
-    return torch.arange(n, device=device) % step == 0
+def _clean_slots(n: int, step: int, device, offset: int = 0) -> torch.Tensor:
+    """The positions that keep their clean value: every ``step``-th of the
+    global batch, whose rows ``[offset, offset + n)`` these are."""
+    return (torch.arange(n, device=device) + offset) % step == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,17 +421,21 @@ class DataAugmentor:
         return apply_gaussian_blur_5x5(apply_color_jitter(img, params.jitter), params.blur)
 
     def __call__(
-        self, params: AugmentParams, images: torch.Tensor, masks: torch.Tensor
+        self, params: AugmentParams, images: torch.Tensor, masks: torch.Tensor, *,
+        offset: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Float NHWC images and integer (n, h, w) masks -> augmented pair of
-        the same types; every (aug+1)-th position keeps its clean value."""
+        the same types; every (aug+1)-th position of the global batch keeps
+        its clean value (``offset``: the first row's position there, for a
+        rank's rows of a batch)."""
         params = params.to(images.device)
         stacked = torch.cat([images, masks.to(images.dtype)[..., None]], dim=-1)
         stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
         aug_masks = stacked[..., 3].to(masks.dtype)
         aug_images = self._colour_stage(params, stacked[..., :3], from_u8=False,
                                         dtype=images.dtype)
-        clean = _clean_slots(images.shape[0], self.augmentations_per_datapoint + 1, images.device)
+        clean = _clean_slots(images.shape[0], self.augmentations_per_datapoint + 1, images.device,
+                             offset)
         return (torch.where(clean[:, None, None, None], images, aug_images),
                 torch.where(clean[:, None, None], masks, aug_masks))
 
@@ -435,18 +445,21 @@ class DataAugmentor:
         images_u8: torch.Tensor,
         masks_u8: torch.Tensor,
         dtype: torch.dtype = torch.float32,
+        *,
+        offset: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The geometry in uint8 (nearest resampling moves whole values, so
         the result equals ``__call__`` on the normalised images), then the
         colour stage in ``dtype``.  Returns ([0, 1] images in ``dtype``,
-        int64 class-id masks); zero fill is class 0."""
+        int64 class-id masks); zero fill is class 0.  ``offset``: as
+        ``__call__``'s."""
         params = params.to(images_u8.device)
         stacked = torch.cat([images_u8, masks_u8[..., None]], dim=-1)
         stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
         aug_masks = stacked[..., 3].long()
         aug_images = self._colour_stage(params, stacked[..., :3], from_u8=True, dtype=dtype)
         clean = _clean_slots(images_u8.shape[0], self.augmentations_per_datapoint + 1,
-                             images_u8.device)
+                             images_u8.device, offset)
         return (torch.where(clean[:, None, None, None], normalize_image(images_u8, dtype), aug_images),
                 torch.where(clean[:, None, None], masks_u8.long(), aug_masks))
 
@@ -473,13 +486,15 @@ class DataAugmentorPrompt:
         masks_u8: torch.Tensor,
         prompts: torch.Tensor,
         dtype: torch.dtype = torch.float32,
+        *,
+        offset: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """uint8 images (n, h, w, 3), uint8 label masks (n, h, w) and fp32
         prompts (n, h, w[, 1]) -> ([0, 1] images in ``dtype``, int64 masks,
         fp32 prompts (n, h, w, 1)) (:605-657).  The image and mask are
         packed as u8x4 and the heatmap's bits as int32 under them, one
         (2n, h, w) stack through :func:`apply_geometric_packed`; zero fill
-        is class 0 and heat 0.0."""
+        is class 0 and heat 0.0.  ``offset``: as ``DataAugmentor``'s."""
         params = params.to(images_u8.device)
         n = images_u8.shape[0]
         prompts_c = prompts if prompts.dim() == 4 else prompts[..., None]
@@ -490,7 +505,7 @@ class DataAugmentorPrompt:
         aug_prompts = out[n:].contiguous().view(torch.float32)[..., None]
         aug_images = apply_gaussian_blur_5x5(
             apply_color_jitter(normalize_image(four[..., :3], dtype), params.jitter), params.blur)
-        clean = _clean_slots(n, self.augmentations_per_datapoint + 1, images_u8.device)
+        clean = _clean_slots(n, self.augmentations_per_datapoint + 1, images_u8.device, offset)
         return (torch.where(clean[:, None, None, None], normalize_image(images_u8, dtype),
                             aug_images),
                 torch.where(clean[:, None, None], masks_u8.long(), four[..., 3].long()),

@@ -51,11 +51,13 @@ in ``torch.sum``'s order.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from ._build import launch as _launch
 from ._build import on_cpu as _on_cpu
 from ._build import ptr as _ptr
@@ -314,6 +316,8 @@ def conv3x3(
     _check_pair(name, a, b, "a and b")
     if x_b is not None and a is not None:
         raise ValueError("conv3x3: the pre-affine is not taken with a second input")
+    if _routed and not stats:
+        return torch.ops.imgseg.conv3x3(x, w, bias, x_b, a, b)
     if _on_cpu(x):
         return conv3x3_plain(x, w, bias, x_b=x_b, a=a, b=b, stats=stats)
     _check_cuda_operands(name, x, w, bias, x_b, a, b)
@@ -518,6 +522,8 @@ def maxpool2x2_affine_relu(
     second-conv output and ``a, b`` (C,) its bn2 affine, rounded to the
     activation dtype and applied in fp32 (``_ab_lanes``, folded.py:477-482).
     Output (B,H//2,W//2,C), rounded to z's dtype."""
+    if _routed:
+        return torch.ops.imgseg.maxpool2x2_affine_relu(z, a, b)
     if _on_cpu(z):
         return maxpool2x2_affine_relu_plain(z, a, b)
     name = "maxpool2x2_affine_relu"
@@ -567,6 +573,8 @@ def convtranspose2x2(
     ``ConvTranspose2d`` weight (Cin, Co, 2, 2) — flax's flip is undone by
     ``utils.convert.state_dict_from_jax`` — and bias (Co,).
     ``y[b, 2i+dy, 2j+dx, o] = round(bias[o] + sum_c x[b,i,j,c] w[c,o,dy,dx])``."""
+    if _routed:
+        return torch.ops.imgseg.convtranspose2x2(x, w, bias)
     if _on_cpu(x):
         return convtranspose2x2_plain(x, w, bias)
     name = "convtranspose2x2"
@@ -620,6 +628,85 @@ for _w in WRAPPERS:
 
 
 # --------------------------------------------------------------------------
+# registered operators: the eval forward's kernels as graph nodes
+# --------------------------------------------------------------------------
+#
+# ``torch.export`` cannot trace through a ctypes launch, so inside
+# :func:`operators` the eval forward's three wrappers call the operators
+# ``imgseg::conv3x3`` (any eval form: the [x | x_b] pair or the pre-affine,
+# the ClipRes element path included), ``imgseg::maxpool2x2_affine_relu`` and
+# ``imgseg::convtranspose2x2`` instead, and an exported program holds those
+# nodes (``engine/export.export_program``).  Each operator's implementation
+# is its wrapper: on a CPU tensor the plain version, on a CUDA tensor the
+# kernel (counted in the wrapper's ``launches``); its fake implementation
+# gives the output's shape and dtype.  Outside :func:`operators` (the eager
+# forward) the wrappers launch directly, with no dispatcher in between.
+
+_routed = False
+
+
+@contextmanager
+def operators():
+    """Route the eval forward's wrappers through the ``imgseg::``
+    operators while the block runs (for ``torch.export``)."""
+    global _routed
+    before, _routed = _routed, True
+    try:
+        yield
+    finally:
+        _routed = before
+
+
+@contextmanager
+def _direct():
+    global _routed
+    before, _routed = _routed, False
+    try:
+        yield
+    finally:
+        _routed = before
+
+
+@torch.library.custom_op("imgseg::conv3x3", mutates_args=())
+def conv3x3_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               x_b: Optional[torch.Tensor], a: Optional[torch.Tensor],
+               b: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`conv3x3` in an eval form, as an operator."""
+    with _direct():
+        return conv3x3(x, w, bias, x_b=x_b, a=a, b=b)
+
+
+@conv3x3_op.register_fake
+def _(x, w, bias, x_b, a, b):
+    return x.new_empty(tuple(x.shape[:3]) + (w.shape[0],))
+
+
+@torch.library.custom_op("imgseg::maxpool2x2_affine_relu", mutates_args=())
+def maxpool2x2_affine_relu_op(z: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`maxpool2x2_affine_relu` as an operator."""
+    with _direct():
+        return maxpool2x2_affine_relu(z, a, b)
+
+
+@maxpool2x2_affine_relu_op.register_fake
+def _(z, a, b):
+    return z.new_empty((z.shape[0], z.shape[1] // 2, z.shape[2] // 2, z.shape[3]))
+
+
+@torch.library.custom_op("imgseg::convtranspose2x2", mutates_args=())
+def convtranspose2x2_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """:func:`convtranspose2x2` as an operator."""
+    with _direct():
+        return convtranspose2x2(x, w, bias)
+
+
+@convtranspose2x2_op.register_fake
+def _(x, w, bias):
+    return x.new_empty((x.shape[0], 2 * x.shape[1], 2 * x.shape[2], w.shape[1]))
+
+
+
+# --------------------------------------------------------------------------
 # autograd Functions
 # --------------------------------------------------------------------------
 
@@ -643,6 +730,27 @@ def _bn_scalars_vjp(S, Q, scale, bias, n, eps, cts):
         return torch.autograd.grad(bn_scalars(*ins, n, eps), ins, cts)
 
 
+def _global_stats(y, S, Q):
+    """``(y, S, Q)`` with the statistics summed over ranks (the global
+    batch's, ``parallel.mesh``); unchanged at world size 1."""
+    if not mesh.active():
+        return y, S, Q
+    sq = mesh.reduce_sum_(torch.stack([S, Q]))
+    return y, sq[0], sq[1]
+
+
+def _global_cotangents(dS, dQ):
+    """The cotangents of the global ``(S, Q)``, summed over ranks: each
+    rank's local sums feed the one global sum, so each takes the whole
+    cotangent.  ``dscale``/``dbias`` stay local (they are averaged with
+    the other gradients); summing ``da, db`` before the VJP instead would
+    make them R times too large."""
+    if not mesh.active():
+        return dS, dQ
+    sq = mesh.reduce_sum_(torch.stack([dS, dQ]))
+    return sq[0], sq[1]
+
+
 class FusedBlockFunction(torch.autograd.Function):
     """The training-mode [Conv3x3-BN-ReLU] x2 block as ONE autograd node,
     mirroring ``make_folded_block`` (pallas_conv.py:2227).
@@ -661,16 +769,23 @@ class FusedBlockFunction(torch.autograd.Function):
     input_grad=False)`` runs ``_folded_wgrad_pallas`` alone (:2465-2481);
     the caller guarantees the input needs none (``models/fused.py`` raises
     otherwise).
+
+    Several ranks (``parallel.mesh``): the statistics are the global
+    batch's.  The forward sums ``(S1, Q1)`` and ``(S2, Q2)`` over ranks
+    (and counts every rank's pixels in ``n``) before each affine; the
+    backward sums the ``(dS, dQ)`` that the scalar chain's VJP returns
+    over ranks before the dgrad and wgrad kernels consume them.  At world
+    size 1 no collective runs.
     """
 
     @staticmethod
     def forward(ctx, x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out, eps,
                 input_grad=True):
         dt = x.dtype
-        n = x.shape[0] * x.shape[1] * x.shape[2]
-        y1, s1, q1 = conv3x3(x, w1, c1b, x_b=x_b, stats=True)
+        n = x.shape[0] * x.shape[1] * x.shape[2] * (mesh.world_size() if mesh.active() else 1)
+        y1, s1, q1 = _global_stats(*conv3x3(x, w1, c1b, x_b=x_b, stats=True))
         a1, b1, mean1, var1 = bn_scalars(s1, q1, scale1, bias1, n, eps)
-        y2, s2, q2 = conv3x3(y1, w2, c2b, a=a1, b=b1, stats=True)
+        y2, s2, q2 = _global_stats(*conv3x3(y1, w2, c2b, a=a1, b=b1, stats=True))
         a2, b2, mean2, var2 = bn_scalars(s2, q2, scale2, bias2, n, eps)
         if raw_out:
             z = y2
@@ -702,11 +817,13 @@ class FusedBlockFunction(torch.autograd.Function):
             aff = dict(a=a2, b=b2)
         ds2, dq2, dscale2, dbias2 = _bn_scalars_vjp(
             s2, q2, scale2, bias2, n, eps, (da2, db2, ct(dmean2), ct(dvar2)))
+        ds2, dq2 = _global_cotangents(ds2, dq2)
         gy1, da1, db1 = conv3x3_dgrad(dz, y2, w2, ds2, dq2, **aff,
                                       x_post=y1, a_post=a1, b_post=b1)
         dw2, dc2b = conv3x3_wgrad(dz, y2, y1, ds2, dq2, **aff, a_pre=a1, b_pre=b1)
         ds1, dq1, dscale1, dbias1 = _bn_scalars_vjp(
             s1, q1, scale1, bias1, n, eps, (da1, db1, ct(dmean1), ct(dvar1)))
+        ds1, dq1 = _global_cotangents(ds1, dq1)
         dx = dxb = None  # input_grad=False: conv1's wgrad alone
         if ctx.input_grad and x_b is None:
             dx = conv3x3_dgrad(gy1, y1, w1, ds1, dq1)

@@ -6,7 +6,13 @@ bce_with_logits :50, dice_score :92, dice_score_binary :116, hybrid_loss
 combined_confusion_loss :252, dice_from_iou :280): all of it.
 
 Multiclass: logits NHWC ``(B, H, W, C)``, targets ``(B, H, W)`` integer
-class ids.  Binary: logits ``(B, H, W, 1)`` or ``(B, H, W)``, targets
+class ids.
+
+Every batch-wide mean and sum is taken over the GLOBAL batch, as JAX takes
+it over its batch-sharded array: through ``parallel.mesh.global_mean`` /
+``global_sum``, which sum over ranks (differentiably) when several
+processes hold a batch's rows, and are the plain ``mean`` / ``sum`` at
+world size 1.  Binary: logits ``(B, H, W, 1)`` or ``(B, H, W)``, targets
 ``(B, H, W)`` in {0, 1}.  The dice terms keep the reference's smp double
 activation (the published numbers pass softmax or sigmoid probabilities
 into smp's DiceLoss, which applies it again); ``dice_ce_loss``, the
@@ -18,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_mean, global_sum
 from .precision import wide
 
 _SMP_EPS = 1e-7
@@ -26,7 +33,7 @@ _SMP_EPS = 1e-7
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over all pixels (``nn.CrossEntropyLoss``)."""
     logz = F.log_softmax(wide(logits), dim=-1)
-    return -logz.gather(-1, targets.long().unsqueeze(-1)).mean()
+    return global_mean(-logz.gather(-1, targets.long().unsqueeze(-1)))
 
 
 def hybrid_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -45,10 +52,11 @@ def _dice_loss_of_probs(probs: torch.Tensor, targets: torch.Tensor) -> torch.Ten
     num_classes = probs.shape[-1]
     p = probs.reshape(probs.shape[0], -1, num_classes)
     onehot = _one_hot(targets.reshape(targets.shape[0], -1), num_classes)
-    inter = (p * onehot).sum((0, 1))
-    card = p.sum((0, 1)) + onehot.sum((0, 1))
+    inter = global_sum(p * onehot, (0, 1))
+    count = global_sum(onehot, (0, 1))
+    card = global_sum(p, (0, 1)) + count
     loss = 1.0 - 2.0 * inter / card.clamp_min(_SMP_EPS)
-    present = onehot.sum((0, 1)) > 0
+    present = count > 0
     return torch.where(present, loss, torch.zeros_like(loss)).mean()
 
 
@@ -80,7 +88,7 @@ def combined_confusion_loss(
     for c1, c2 in confusion_pairs:
         confused = ((preds == c1) & (targets == c2)) | ((preds == c2) & (targets == c1))
         loss = torch.where(confused, loss * confusion_penalty, loss)
-    return loss.mean()
+    return global_mean(loss)
 
 
 def dice_from_iou(iou_value: torch.Tensor) -> torch.Tensor:
@@ -106,8 +114,8 @@ def iou(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-6) -> to
     num_classes = logits.shape[-1]
     pred = _one_hot(logits.float().argmax(-1), num_classes)
     tgt = _one_hot(targets, num_classes)
-    inter = (pred * tgt).sum((0, 1, 2))
-    union = pred.sum((0, 1, 2)) + tgt.sum((0, 1, 2)) - inter
+    inter = global_sum(pred * tgt, (0, 1, 2))
+    union = global_sum(pred, (0, 1, 2)) + global_sum(tgt, (0, 1, 2)) - inter
     return ((inter + eps) / (union + eps)).mean()
 
 
@@ -120,7 +128,7 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     stable form ``max(x, 0) - x*t + log1p(exp(-|x|))``."""
     x = wide(logits)
     t = targets.to(x.dtype)
-    return (torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs()))).mean()
+    return global_mean(torch.clamp(x, min=0.0) - x * t + torch.log1p(torch.exp(-x.abs())))
 
 
 def _binary_dice_loss(probs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -128,10 +136,11 @@ def _binary_dice_loss(probs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     1e-7, 0 when the target has no positive pixel."""
     p = probs.reshape(probs.shape[0], -1)
     o = t.reshape(t.shape[0], -1)
-    inter = (p * o).sum()
-    card = p.sum() + o.sum()
+    inter = global_sum(p * o)
+    count = global_sum(o)
+    card = global_sum(p) + count
     loss = 1.0 - 2.0 * inter / card.clamp_min(_SMP_EPS)
-    return torch.where(o.sum() > 0, loss, torch.zeros_like(loss))
+    return torch.where(count > 0, loss, torch.zeros_like(loss))
 
 
 def dice_score_binary(
@@ -161,7 +170,7 @@ def iou_binary(logits: torch.Tensor, targets: torch.Tensor, *, eps: float = 1e-6
     t = _squeeze_channel(targets.float())
     inter = (preds * t).sum((1, 2))
     union = preds.sum((1, 2)) + t.sum((1, 2)) - inter
-    return ((inter + eps) / (union + eps)).mean()
+    return global_mean((inter + eps) / (union + eps))
 
 
 def pixel_accuracy_binary(logits: torch.Tensor, targets: torch.Tensor, *,
@@ -169,7 +178,7 @@ def pixel_accuracy_binary(logits: torch.Tensor, targets: torch.Tensor, *,
     """The share of pixels where ``sigmoid(logits) > threshold`` equals the
     target."""
     preds = (torch.sigmoid(_squeeze_channel(logits).float()) > threshold).float()
-    return (preds == _squeeze_channel(targets.float())).float().mean()
+    return global_mean((preds == _squeeze_channel(targets.float())).float())
 
 
 def pixel_accuracy(
@@ -179,7 +188,7 @@ def pixel_accuracy(
     target."""
     correct = (logits.float().argmax(-1) == targets).float()
     tgt = _one_hot(targets, num_classes)
-    total = tgt.sum((0, 1, 2))
-    accs = (correct.unsqueeze(-1) * tgt).sum((0, 1, 2)) / total.clamp_min(1.0)
+    total = global_sum(tgt, (0, 1, 2))
+    accs = global_sum(correct.unsqueeze(-1) * tgt, (0, 1, 2)) / total.clamp_min(1.0)
     present = (total > 0).float()
     return (accs * present).sum() / present.sum().clamp_min(1.0)

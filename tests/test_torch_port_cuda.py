@@ -920,3 +920,85 @@ def test_apply_perturbation_on_the_card_equals_the_cpu(gen):
         p = info["params"][-1]
         got = P.apply_perturbation(name, img.cuda(), p).cpu()
         assert torch.equal(got, P.apply_perturbation(name, img, p)), name
+
+
+@pytest.mark.parametrize("form", ["pair", "pre_affine", "element", "pool", "convtranspose"])
+def test_operator_equals_its_direct_launch(gen, form):
+    """Each ``imgseg::`` operator of an exported program on a card tensor
+    is its wrapper's kernel: the same bits, one launch counted."""
+    if form == "pool":
+        z, a, b = _randn(gen, 2, 32, 32, 64), torch.rand(64, device="cuda") + 0.5, \
+            torch.randn(64, device="cuda")
+        call = lambda: torch.ops.imgseg.maxpool2x2_affine_relu(z, a, b)  # noqa: E731
+        direct, wrapper = lambda: fc.maxpool2x2_affine_relu(z, a, b), fc.maxpool2x2_affine_relu  # noqa: E731
+    elif form == "convtranspose":
+        x, w, bias = _randn(gen, 2, 16, 16, 64), torch.randn(64, 32, 2, 2, device="cuda"), \
+            torch.randn(32, device="cuda")
+        call = lambda: torch.ops.imgseg.convtranspose2x2(x, w, bias)  # noqa: E731
+        direct, wrapper = lambda: fc.convtranspose2x2(x, w, bias), fc.convtranspose2x2  # noqa: E731
+    else:
+        ca, cb, co = {"pair": (32, 32, 32), "pre_affine": (32, 0, 64), "element": (16, 3, 3)}[form]
+        x = _randn(gen, 2, 32, 32, ca)
+        xb = _randn(gen, 2, 32, 32, cb) if cb else None
+        w, bias = torch.randn(co, ca + cb, 3, 3, device="cuda") * 0.1, torch.randn(co, device="cuda")
+        a = torch.rand(ca, device="cuda") + 0.5 if form == "pre_affine" else None
+        b = torch.randn(ca, device="cuda") if form == "pre_affine" else None
+        call = lambda: torch.ops.imgseg.conv3x3(x, w, bias, xb, a, b)  # noqa: E731
+        direct, wrapper = lambda: fc.conv3x3(x, w, bias, x_b=xb, a=a, b=b), fc.conv3x3  # noqa: E731
+    before = wrapper.launches
+    got = call()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, direct())
+
+
+def test_prefetch_to_device_hands_out_batches_in_order(gen):
+    """``prefetch_to_device`` to the card: the batches arrive in order and
+    whole while the consumer's stream is busy with earlier ones (the copies
+    on the side stream, the consumer waiting on each copy's event)."""
+    from image_segmentation_tpu_torch.data.pipeline import prefetch_to_device
+
+    host = [(torch.full((4, 256, 256, 3), i, dtype=torch.uint8),
+             torch.full((4, 256, 256), 255 - i, dtype=torch.uint8)) for i in range(12)]
+    busy = torch.randn(2048, 2048, device="cuda")
+    seen = []
+    for i, (images, masks) in enumerate(prefetch_to_device(iter(host), size=3, device="cuda")):
+        for _ in range(4):  # keep the consumer stream busy past the next copies
+            busy = busy @ busy / 2048
+        assert images.device.type == "cuda" and images.shape == (4, 256, 256, 3)
+        seen.append((int(images.float().mean().item()), int(masks.float().mean().item()),
+                     bool((images == i).all()), bool((masks == 255 - i).all())))
+    assert seen == [(i, 255 - i, True, True) for i in range(12)]
+
+
+@pytest.mark.parametrize("size,batch,count", [(8, 4, 1), (8, 4, 2), (256, 16, 1)])
+def test_native_loader_on_the_card_equals_its_cpu_batches(gen, size, batch, count):
+    """The native loader to the card, each batch copied straight from its
+    page-locked ring slot (slots small enough to share a page, and large
+    ones), equals the batches it copies out on the CPU, over an epoch left
+    after two batches and two whole epochs, while the consumer's stream is
+    busy and every batch is held to the end."""
+    import itertools
+
+    import numpy as np
+
+    from image_segmentation_tpu_torch.data.datasets import ArrayDataset
+    from image_segmentation_tpu_torch.data.native_loader import NativeBatchPipeline
+
+    rng = np.random.default_rng(size + count)
+    data = ArrayDataset(rng.integers(0, 256, (22, size, size, 3), dtype=np.uint8),
+                        rng.integers(0, 3, (22, size, size), dtype=np.uint8))
+    kw = dict(augmentations_per_datapoint=1, shuffle=True, drop_last=True, seed=3,
+              process_index=count - 1, process_count=count)
+    card = NativeBatchPipeline(data, batch, device="cuda", **kw)
+    cpu = NativeBatchPipeline(data, batch, device="cpu", **kw)
+    busy = torch.randn(1024, 1024, device="cuda")
+    for epoch, take in ((0, 2), (1, None), (2, None)):
+        held, want = [], list(itertools.islice(cpu.epoch(epoch), take))
+        for images, masks in itertools.islice(card.epoch(epoch), take):
+            for _ in range(4):  # keep the consumer stream busy past the next copies
+                busy = busy @ busy / 1024
+            held.append((images, masks))
+        assert len(held) == len(want) == (take or 44 // batch)
+        for (gi, gm), (wi, wm) in zip(held, want):
+            assert gi.device.type == "cuda" and torch.equal(gi.cpu(), wi)
+            assert torch.equal(gm.cpu(), wm)

@@ -1,13 +1,15 @@
 """The port imports no jax: a fresh interpreter imports every module of
-image_segmentation_tpu_torch (config, cli.*, data.*, engine.*, models.*,
-ops.*, utils.*) and chip_smoke.py, runs a tiny CPU forward and an
-augmented train step of the preset model through the wrappers, the
-augmentor and the Trainer, saves and restores that Trainer's checkpoint,
+image_segmentation_tpu_torch (config, entry, cli.*, data.*, engine.*,
+models.*, ops.*, parallel.*, utils.*) and chip_smoke.py, runs a tiny CPU
+forward and an augmented train step of the preset model through the
+wrappers, the augmentor and the Trainer, saves and restores that Trainer's checkpoint,
 runs two points of the robustness battery through the Evaluator, an
 augmented prompt train step of a small clip_unet_prompt (the prompt
 preset's model args, a small CLIP tower) and a reconstruction step of the
-autoencoder on its unfused blocks, and finds no module of jax, flax or the
-JAX package (image_segmentation_tpu) loaded."""
+autoencoder on its unfused blocks, the world-size-1 collectives, the Pet
+loader's npz route, the native loader, an exported program and the
+memory report, and finds no module of jax, flax or the JAX package
+(image_segmentation_tpu) loaded."""
 
 import os
 import subprocess
@@ -71,6 +73,30 @@ at = train.Trainer(acfg, device="cpu", make_artifacts=False)
 assert at.task == "reconstruction"
 images, masks = next(pipeline.BatchPipeline(at.train_data, 2, device="cpu").epoch(0))
 assert float(at.train_step(images, masks, step_key=3)) > 0
+from image_segmentation_tpu_torch import entry
+from image_segmentation_tpu_torch.cli import export_torch, profiler, train_distributed
+from image_segmentation_tpu_torch.data import datasets, host_augment, native_loader, records
+from image_segmentation_tpu_torch.engine import export
+from image_segmentation_tpu_torch.parallel import mesh
+from image_segmentation_tpu_torch.utils import profiling
+assert mesh.world_size() == 1 and mesh.is_main() and not mesh.active()
+assert mesh.average_gradients([]) is None and float(mesh.global_mean(torch.ones(3))) == 1.0
+shapes = datasets.synthetic_shapes_dataset(4, 32, 32)
+assert records.remap_mask_batch(shapes.masks.astype("uint8") * 38).max() <= 2
+with tempfile.TemporaryDirectory() as tmp:
+    import numpy as np
+    np.savez(tmp + "/test_arrays.npz", images=shapes.images, masks=shapes.masks)
+    pet = datasets.load_pet_dataset("test", tmp)
+    assert np.array_equal(pet.images, shapes.images)
+    if native_loader.native_loader_available():
+        nat = native_loader.NativeBatchPipeline(pet, 2, device="cpu", shuffle=False)
+        assert len(list(nat.epoch(0))) == 2
+    export.export_model(m, "large_unet", dict(args, stem_features=4, encoder_features=(8, 8, 8, 8)),
+                        out_dir=tmp, exported_program=True, torch_format=True, image_size=32)
+    with torch.no_grad():
+        assert torch.equal(export.load_program(tmp + "/model.pt2")(torch.zeros((2, 32, 32, 3))),
+                           m(torch.zeros((2, 32, 32, 3))))
+assert profiling.format_memory_report() == "no device memory stats available"
 jax_mods = sorted(k for k in sys.modules if k.split(".")[0] in
                   ("jax", "jaxlib", "flax", "image_segmentation_tpu"))
 assert not jax_mods, jax_mods

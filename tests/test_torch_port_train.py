@@ -229,13 +229,22 @@ def test_initial_weights_are_seeded():
     assert torch.count_nonzero(a["enc1.block.0.conv.0.bias"]) == 0
 
 
-def test_trainer_raises_on_what_is_not_ported():
+def test_trainer_raises_on_what_is_not_ported(tmp_path):
+    """``remat`` and ``n_model_shards`` raise, naming their ROADMAP items;
+    the Oxford-IIIT-Pet split and the native loader are ported (the Pet
+    route from its ``<split>_arrays.npz`` files here,
+    tests/test_torch_port_data.py holds both routes to JAX's)."""
     cfg = _cfg(port_config, {})
-    pet = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="oxford-pet"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Trainer(pet, device="cpu")  # raises before it makes a run folder
-    for field, value, item in (("remat", True, "item 5"), ("native_loader", True, "item 10"),
-                               ("n_model_shards", 2, "item 10")):
+    for split, seed in (("train", 1), ("validation", 2)):
+        ds = datasets.synthetic_dataset(4, 32, 32, seed=seed)
+        np.savez(tmp_path / f"{split}_arrays.npz", images=ds.images, masks=ds.masks)
+    pet = dataclasses.replace(cfg, native_loader=True, data=dataclasses.replace(
+        cfg.data, dataset="oxford-pet", dataset_loc=str(tmp_path)))
+    t = Trainer(pet, device="cpu", make_artifacts=False)
+    assert np.array_equal(t.train_data.images, datasets.synthetic_dataset(4, 32, 32, seed=1).images)
+    assert len(t.val_data) == 4
+    for field, value, item in (("remat", True, "item 5"),
+                               ("n_model_shards", 2, "item 13 \\(tensor parallelism\\)")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(dataclasses.replace(cfg, **{field: value}), device="cpu", make_artifacts=False)
     with pytest.raises(KeyError, match="unknown loss"):  # every JAX loss is ported
