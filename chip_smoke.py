@@ -15,7 +15,8 @@ width of the port's presets (``config.preset``), random weights from a seed:
 2. kernel phase: every kernel against its plain PyTorch version at each
    shape the large_unet serving forward, train step and augmentor (batch 16
    at 512x512) and the prompt train step (batch 32 at 256x256, the
-   1-channel heatmap included) and the autoencoder's train step (batch 32
+   1-channel heatmap included), the fold-1 blocks that ``fused_deep``
+   adds to the large_unet step, and the autoencoder's train step (batch 32
    at 256x256: the fused blocks and, under ``w2d_impl="pallas"``, the conv
    kernels in their unfused forms) and the clip_res step (batch 32 at
    256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
@@ -108,8 +109,19 @@ width of the port's presets (``config.preset``), random weights from a seed:
    (exact counts) against the eager forward, both timed;
 16. profiler phase: ``cli.profiler --preset large_unet --steps 3`` (batch
    16, synthetic data) writes a trace (exact counts) and the memory report;
-17. prints one JSON line of per-kernel results (``launches`` counts the
-   main-path runs of 3-16; the wgrad kernel has a line for its launches
+17. options phase, the options that are off in every preset: large_unet
+   with ``fused_deep=True`` (the fold-1 kernel blocks at enc3, enc4, dec2
+   and dec3) trains one epoch (exact counts), its step held to the plain
+   path as in 4 and timed beside the ``fused_deep=False`` step in turns,
+   and serves batch-16 and batch-1 forwards held to the plain path; the
+   ``unet`` preset with ``fused_deep=True`` at 256x256 (the fused
+   bottleneck, dec1 with its non-identity resize) the same way; ``remat``
+   against no ``remat`` over 3 steps (parameters, Adam moments, running
+   statistics bit for bit), step time and peak memory both ways; clip_unet
+   at 256x256, batch 32 with ``freeze_clip=False`` against ``True`` over 3
+   steps, bit for bit, the tower unchanged, step time both ways;
+18. prints one JSON line of per-kernel results (``launches`` counts the
+   main-path runs of 3-17; the wgrad kernel has a line for its launches
    beside a dgrad and one for its launches alone, and each conv kernel a
    line for its unfused form, which the ``"pallas"`` run launches), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -324,16 +336,19 @@ BENCH_LENGTH, BENCH_SIZE, BENCH_SEED, BENCH_BATCH = 64, 512, 7, 8
 EVAL_ATOL = 1e-6
 
 
-def train_config():
-    """The port's ``large_unet`` preset, cut to a smoke run: batch 16,
-    synthetic 512x512 data of TRAIN_LENGTH images per split, one epoch, the
-    preset's augmentation (``augmentations_per_datapoint=4``)."""
+def train_config(name: str = "large_unet", size: Optional[int] = None, **model_args):
+    """The port's ``large_unet`` preset (or the U-Net preset ``name``), cut
+    to a smoke run: batch 16, synthetic ``size`` (SIZE) square data of
+    TRAIN_LENGTH images per split, one epoch, the preset's augmentation
+    (``augmentations_per_datapoint=4``); ``model_args`` added to the
+    preset's."""
     from image_segmentation_tpu_torch.config import preset
 
-    cfg = preset("large_unet")
-    data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=SIZE,
+    cfg = preset(name)
+    data = dataclasses.replace(cfg.data, dataset="synthetic", image_size=size or SIZE,
                                synthetic_length=TRAIN_LENGTH)
-    return dataclasses.replace(cfg, batch_size=BATCH, num_epochs=1, seed=SEED, data=data)
+    return dataclasses.replace(cfg, batch_size=BATCH, num_epochs=1, seed=SEED, data=data,
+                               model_args=dict(cfg.model_args, **model_args))
 
 
 def card_line() -> str:
@@ -435,8 +450,11 @@ def plain_path(mods):
 
 class Conv(NamedTuple):
     """One conv of a kernel block: its input (B, H, W, Ca), the skip's Cb,
-    Co, whether bn1's affine + ReLU is applied on load (conv2), whether it
-    is a decoder's, whether its wgrad runs alone (input_grad=False), and
+    Co, whether bn1's affine + ReLU is applied on load (conv2), whether its
+    block activates its own output (``dec``: the decoders, and the fold-1
+    encoders of ``fused_deep``, whose pool is the standard one; its conv2's
+    backward takes bn2's affine and a BN-ReLU reduction), whether its
+    wgrad runs alone (input_grad=False), and
     whether it is a conv of the unfused family (``w2d_impl="pallas"``: no
     affine, statistics or cotangent transform)."""
 
@@ -528,15 +546,31 @@ def clip_res_path_shapes() -> dict:
             "1x1": []}
 
 
+def deep_path_shapes() -> dict:
+    """The fold-1 blocks that ``fused_deep=True`` adds to a batch-16
+    512x512 LargeUNet (``FUSED_DEEP_BLOCKS``): enc3 (128 -> 256 at 128x128),
+    enc4 (256 -> 512 at 64x64), dec2 ([256 | 256] -> 256 at 64x64) and dec3
+    ([128 | 128] -> 128 at 128x128).  Each activates its own output (the
+    standard pool, the standard up-conv), so each conv2 takes bn2's affine
+    in its backward and a BN-ReLU reduction."""
+    b, s2, s3 = BATCH, SIZE // 4, SIZE // 8
+    conv = []
+    for name, side, ca, cb, co in (("enc3", s2, 128, 0, 256), ("enc4", s3, 256, 0, 512),
+                                   ("dec2", s3, 256, 256, 256), ("dec3", s2, 128, 128, 128)):
+        conv += [Conv(f"fused_deep {name}.conv1", (b, side, side, ca), cb, co, False, True),
+                 Conv(f"fused_deep {name}.conv2", (b, side, side, co), 0, co, True, True)]
+    return {"conv": conv, "pool": [], "ct": [], "1x1": []}
+
+
 def path_shapes() -> list:
     """(shapes, mode) of every main path, ``mode`` as in :func:`kernel_cases`:
     the large_unet step summed into the JSON line; the prompt step and the
     autoencoder's kernel blocks checked; the autoencoder's unfused convs
-    summed into the "... unfused" lines; the clip_res level timed on lines
-    of their own."""
+    summed into the "... unfused" lines; the clip_res level and the
+    ``fused_deep`` blocks timed on lines of their own."""
     return [(main_path_shapes(train_config().model_args), "sum"), (prompt_path_shapes(), None),
             (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum"),
-            (clip_res_path_shapes(), "line")]
+            (clip_res_path_shapes(), "line"), (deep_path_shapes(), "line")]
 
 
 def prompt_path_shapes() -> dict:
@@ -2273,6 +2307,276 @@ def profiler_phase(torch, mods, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# options phase
+# --------------------------------------------------------------------------
+
+# fused_deep=True, off in every preset: the deep blocks that JAX's gate
+# (unet.py:161-178, 6 MiB of conv weight) puts on the fold-1 kernel blocks
+# (models/fused.py); the bottleneck's and dec1's weights exceed the cap in
+# large_unet.  Each adds its two convs to the 8 of levels 0-1, and a BN-ReLU
+# reduction: a fold-1 block activates its own output.
+FUSED_DEEP_BLOCKS = {"large_unet": ["enc3", "enc4", "dec2", "dec3"],
+                     "unet": ["enc3", "bottleneck", "dec1", "dec2"]}
+PER_FD_FORWARD = dict(PER_FORWARD, conv3x3=16)
+PER_FD_STEP = dict(PER_STEP, conv3x3=16, conv3x3_dgrad=16, conv3x3_wgrad=16, bn_relu_bwd_reduce=6)
+# the unet preset's fused_deep run (its only fused bottleneck, and dec1,
+# whose resize is not the identity); batch 16
+UNET_SIZE = 256
+OPTION_STEPS = 3
+
+
+def _fold1_blocks(model) -> list:
+    from image_segmentation_tpu_torch.models import fused
+
+    deep = (fused.FusedDeepConvBlockDownsample, fused.FusedDeepConvBlockUpsampleSkip)
+    return [n for n, m in model.named_children()
+            if isinstance(m, deep) or type(m) is fused.FusedConvBlock]
+
+
+def _u8_batch(torch, seed: int, size: int, batch: Optional[int] = None):
+    import numpy as np
+
+    batch = batch or BATCH
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
+    masks = rng.integers(0, NUM_CLASSES, (batch, size, size)).astype(np.uint8)
+    return torch.from_numpy(images).to(DEVICE), torch.from_numpy(masks).to(DEVICE)
+
+
+def _snapshot(trainer) -> dict:
+    """Parameters, buffers and Adam moments of a Trainer, cloned."""
+    out = {f"state {k}": v.clone() for k, v in trainer.model.state_dict().items()}
+    for i, p in enumerate(trainer.trainable):
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"adam {i} {k}"] = trainer.optimizer.state[p][k].clone()
+    return out
+
+
+def _differ(torch, a: dict, b: dict) -> list:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _timed_turns(torch, images, masks, trainers: dict, card: str, what: str,
+                 steps: int = 3) -> dict:
+    """Step ms of each Trainer in turns (a, b, b, a), each the mean of
+    ``steps`` steps after one, and the peak memory of its steps above what
+    was allocated before them (both Trainers resident); returns {name:
+    [ms, ms]}."""
+    names = list(trainers)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms = _step_ms(torch, trainers[n], images, masks, steps)
+        peak = torch.cuda.max_memory_allocated()
+        times[n].append(ms)
+        print(f"{what}, {n}: {ms!r} ms a step, max_memory_allocated {peak!r} B "
+              f"({peak - resident!r} B above the {resident!r} B resident) on {card}", flush=True)
+    return times
+
+
+def fused_deep_training(torch, mods, card: str, name: str = "large_unet",
+                        size: Optional[int] = None) -> dict:
+    """A U-Net preset with ``fused_deep=True``: one epoch with exact counts
+    (the main path), one step's counts, 3 steps held to the plain path;
+    for large_unet the step timed beside ``fused_deep=False`` in turns.
+    Returns the launch counts of the epoch."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    size = size or SIZE
+    cfg = train_config(name, size, fused_deep=True)
+    what = f"fused_deep {name}@{size}"
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    blocks = _fold1_blocks(trainer.model)
+    if blocks != FUSED_DEEP_BLOCKS[name]:
+        raise AssertionError(f"{what}: fold-1 kernel blocks {blocks}")
+    print(f"trainer: {what}, batch {cfg.batch_size}, fold-1 kernel blocks {blocks}", flush=True)
+    launches = _train_epoch(torch, mods, trainer, PER_FD_STEP, PER_FD_FORWARD, what)
+    images, masks = _u8_batch(torch, SEED + 37, size)
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    _step_launches(torch, mods, trainer, images, masks, PER_FD_STEP, what)
+    if name == "large_unet":
+        off = Trainer(train_config(name, size), device=DEVICE, make_artifacts=False)
+        off.model.load_state_dict(state)
+        trainer.model.load_state_dict(state)
+        turns = _timed_turns(torch, images, masks,
+                             {"fused_deep=False": off, "fused_deep=True": trainer}, card,
+                             f"train step LargeUNet@{size} bf16 batch {BATCH}")
+        print(f"{what}: step ms fused_deep=True {turns['fused_deep=True']} against "
+              f"fused_deep=False {turns['fused_deep=False']} on {card}", flush=True)
+        del off
+    del trainer
+    torch.cuda.empty_cache()
+    times = _kernel_vs_plain(torch, mods, cfg, state, images, masks)
+    _print_times(what, BATCH, times, card)
+    return launches
+
+
+def fused_deep_serving(torch, mods, card: str) -> dict:
+    """A large_unet with ``fused_deep=True`` written with ``export_model``
+    and read with ``load_model``: batch-16 and batch-1 forwards with exact
+    counts (the main path), the batch-16 logits held to the plain path,
+    both timed beside the same weights with ``fused_deep=False``.  Returns
+    the launch counts of the two forwards."""
+    from image_segmentation_tpu_torch.engine.export import export_model, load_model
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+
+    model_args = train_config(fused_deep=True).model_args
+    model = build_model("large_unet", device=DEVICE, **model_args)
+    randomize_(torch, model, SEED + 3)
+    with tempfile.TemporaryDirectory() as art:
+        export_model(model, "large_unet", model_args, out_dir=art)
+        served = load_model(art, device=DEVICE)
+    off = build_model("large_unet", device=DEVICE, **train_config().model_args)
+    off.load_state_dict(model.state_dict())
+    off.eval().requires_grad_(False)
+    del model
+    if _fold1_blocks(served) != FUSED_DEEP_BLOCKS["large_unet"]:
+        raise AssertionError(f"served fused_deep model: fold-1 blocks {_fold1_blocks(served)}")
+    x16 = normalize_image(_u8_batch(torch, SEED + 43, SIZE)[0])
+    with torch.inference_mode():
+        reset_counts(mods)
+        logits = served(x16)
+        logits1 = served(x16[:1])
+        torch.cuda.synchronize()
+        launches = counts(mods)
+        if launches != expected(PER_FD_FORWARD, 2):
+            raise AssertionError(f"fused_deep serving launches {launches}, expected "
+                                 f"{expected(PER_FD_FORWARD, 2)}")
+        with plain_path(mods):
+            plain_logits = served(x16)
+    for t, b in ((logits, BATCH), (logits1, 1)):
+        if tuple(t.shape) != (b, SIZE, SIZE, NUM_CLASSES) or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"fused_deep logits batch {b}: {tuple(t.shape)}, not finite")
+    diff = (logits - plain_logits).abs().max().item()
+    scale = plain_logits.abs().max().item()
+    agree = (logits.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
+    print(f"fused_deep serving: launches {launches}; logits b16 kernel vs plain path: "
+          f"max_abs_diff={diff!r} (limit {LOGITS_RTOL} x {scale!r}), argmax agreement={agree!r} "
+          f"(limit {ARGMAX_AGREEMENT})", flush=True)
+    if diff > LOGITS_RTOL * scale or agree < ARGMAX_AGREEMENT:
+        raise AssertionError("fused_deep kernel-path logits disagree with the plain path")
+    del plain_logits
+    with torch.inference_mode():
+        for m, what in ((off, "fused_deep=False"), (served, "fused_deep=True"),
+                        (served, "fused_deep=True"), (off, "fused_deep=False")):
+            b16 = cuda_ms(torch, lambda: m(x16), iters=3)
+            b1 = cuda_ms(torch, lambda: m(x16[:1]), iters=20, warmup=3)
+            print(f"serving LargeUNet@{SIZE} bf16 {what}: batch {BATCH} {b16!r} ms, batch 1 "
+                  f"{b1!r} ms on {card}", flush=True)
+    del served, off
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_check(torch, mods, card: str) -> None:
+    """train_config() with ``remat`` against without, from one state over
+    OPTION_STEPS steps on one batch and draw: parameters, running
+    statistics and Adam moments bit for bit (or, where two runs without
+    remat already differ, bit for bit under cudnn.deterministic, the
+    leaves named); then step time and peak memory both ways, in turns."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    cfg = train_config()
+    images, masks = _u8_batch(torch, SEED + 47, SIZE)
+    state = {k: v.clone() for k, v in
+             Trainer(cfg, device=DEVICE, make_artifacts=False).model.state_dict().items()}
+
+    def run(remat: bool):
+        t = Trainer(dataclasses.replace(cfg, remat=remat), device=DEVICE, make_artifacts=False)
+        t.model.load_state_dict(state)
+        for _ in range(OPTION_STEPS):
+            t.train_step(images, masks, STEP_KEY)
+        return t
+
+    on, off = run(True), run(False)
+    a, b = _snapshot(on), _snapshot(off)
+    diff = _differ(torch, a, b)
+    if diff:
+        nondet = _differ(torch, b, _snapshot(run(False)))
+        print(f"remat vs no remat: {len(diff)} of {len(b)} leaves differ (first {diff[:4]}); "
+              f"two runs without remat differ in {len(nondet)} (first {nondet[:4]})", flush=True)
+        if not nondet:
+            raise AssertionError(f"remat changes the step: {diff[:8]}")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            diff = _differ(torch, _snapshot(run(True)), _snapshot(run(False)))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if diff:
+            raise AssertionError(f"remat changes the step under cudnn.deterministic: {diff[:8]}")
+        print("remat vs no remat: bit for bit under cudnn.deterministic (cuDNN's default "
+              "backward algorithms are not deterministic run to run)", flush=True)
+    else:
+        print(f"remat vs no remat after {OPTION_STEPS} steps: {len(b)} parameters, running "
+              "statistics and Adam moments bit for bit", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    turns = _timed_turns(torch, images, masks, {"remat=False": off, "remat=True": on}, card,
+                         f"train step LargeUNet@{SIZE} bf16 batch {BATCH}")
+    print(f"remat: step ms {turns['remat=True']} against {turns['remat=False']} without "
+          f"on {card}", flush=True)
+    del on, off
+    torch.cuda.empty_cache()
+
+
+def freeze_clip_check(torch, mods, card: str) -> None:
+    """The clip_unet preset at 256x256, batch 32 with ``freeze_clip=False``
+    against ``True``, from one state over OPTION_STEPS steps: every
+    parameter, buffer and Adam moment bit for bit, the tower unchanged and
+    without a gradient; step time both ways, in turns."""
+    from image_segmentation_tpu_torch.engine.train import Trainer
+    from image_segmentation_tpu_torch.utils.convert import CLIP
+
+    cfg = clip_config("clip_unet")
+    images, masks = _clip_batch(torch, SEED + 53, palette=False)
+    trainers, snaps = {}, {}
+    for freeze in (True, False):
+        c = dataclasses.replace(cfg, model_args=dict(cfg.model_args, freeze_clip=freeze))
+        t = Trainer(c, device=DEVICE, make_artifacts=False)
+        if freeze:
+            state = {k: v.clone() for k, v in t.model.state_dict().items()}
+        t.model.load_state_dict(state)
+        for _ in range(OPTION_STEPS):
+            t.train_step(images, masks, STEP_KEY)
+        for k, p in t.model.named_parameters():
+            if k.startswith(CLIP) and (p.grad is not None or not torch.equal(p, state[k])
+                                       or p.requires_grad == freeze):
+                raise AssertionError(f"freeze_clip={freeze}: the tower's {k} moved, holds a "
+                                     "gradient or has the wrong requires_grad")
+        trainers[f"freeze_clip={freeze}"], snaps[freeze] = t, _snapshot(t)
+    diff = _differ(torch, snaps[True], snaps[False])
+    if diff:
+        raise AssertionError(f"freeze_clip=False changes the step: {diff[:8]}")
+    print(f"freeze_clip=False vs True after {OPTION_STEPS} steps: {len(snaps[True])} "
+          "parameters, buffers and Adam moments bit for bit, the tower unchanged", flush=True)
+    del snaps
+    # the step is host-bound and its time drifts over the first steps of a
+    # Trainer: one untimed turn each, then 10 steps a turn
+    for t in trainers.values():
+        _step_ms(torch, t, images, masks)
+    turns = _timed_turns(torch, images, masks, trainers, card,
+                         f"train step ClipUnet@{PROMPT_SIZE} bf16 batch {PROMPT_BATCH}", 10)
+    print(f"freeze_clip: step ms {turns['freeze_clip=False']} with the tower unfrozen, "
+          f"{turns['freeze_clip=True']} frozen, on {card}", flush=True)
+    del trainers
+    torch.cuda.empty_cache()
+
+
+def options_phase(torch, mods, card: str) -> list:
+    """The options that are off in every preset (see the module doc);
+    returns the launch counts of its main-path runs."""
+    runs = [fused_deep_training(torch, mods, card), fused_deep_serving(torch, mods, card),
+            fused_deep_training(torch, mods, card, "unet", UNET_SIZE)]
+    remat_check(torch, mods, card)
+    freeze_clip_check(torch, mods, card)
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -2310,7 +2614,7 @@ def main() -> int:
              clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card),
              robustness_phase(torch, mods, card), data_phase(torch, mods, card),
              distributed_phase(torch, mods, card), export_phase(torch, mods, card),
-             profiler_phase(torch, mods, card)]
+             profiler_phase(torch, mods, card), *options_phase(torch, mods, card)]
     launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 
     kernels = []

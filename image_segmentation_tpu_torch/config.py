@@ -6,8 +6,8 @@ that ``dataclasses.asdict(preset(name))`` is equal in both packages.
 Fields that only the JAX package acts on, or that the port does not act on
 yet, are still declared so that the presets compare equal:
 ``compile_cache`` (XLA's compilation cache; nothing to cache here),
-``debug_nans``, ``remat`` and ``n_model_shards``.  The port's Trainer
-raises ``NotImplementedError`` on a non-default value of the last two.
+``debug_nans`` and ``n_model_shards``.  The port's Trainer raises
+``NotImplementedError`` on a non-default value of the last.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ class TrainConfig:
     save_dir: str = "saved-models"
     checkpoint_every: int = 1            # epochs
     bf16: bool = True
-    # Rematerialize the forward pass in the backward; not ported.
+    # Rematerialize the forward pass in the backward (torch.utils.checkpoint).
     remat: bool = False
     # Fail fast on NaNs (a JAX debug switch); the port does not act on it.
     debug_nans: bool = False

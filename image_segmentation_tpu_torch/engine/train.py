@@ -74,14 +74,27 @@ reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss;
 synthetic data or the Oxford-IIIT-Pet split on disk
 (``data.datasets.load_pet_dataset``); the Python pipeline or, with
 ``native_loader``, the C++ one.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: ``remat`` and
-``n_model_shards``.  ``prompt_fusion`` (two inputs and no task in the JAX
+``NotImplementedError`` naming its ROADMAP.md item: ``n_model_shards``
+(tensor parallelism).  ``prompt_fusion`` (two inputs and no task in the JAX
 Trainer either) is a model only.
+
+``remat`` (JAX :249-261, ``jax.checkpoint`` around the whole training
+apply): the training forward runs under ``torch.utils.checkpoint``
+(non-reentrant), which keeps the model's inputs and recomputes the forward
+in the backward.  The recomputation commits no running average a second
+time (``blocks.no_commits``), and at R ranks it repeats the statistics'
+all-reduces in the same order on every rank, so the step equals the one
+without ``remat``.  A model built with ``freeze_clip=False`` differentiates
+its tower (JAX drops the ``stop_gradient``), but the Trainer's backward
+goes to the trainable parameters alone (``backward(inputs=...)``), so the
+tower's backward is not run and no gradient piles up on it: JAX's mask
+makes that gradient dead code, and the step equals the frozen one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import math
 import os
@@ -91,6 +104,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TrainConfig
 from ..data.datasets import (
@@ -103,6 +117,7 @@ from ..data.datasets import (
 )
 from ..data.pipeline import BatchPipeline
 from ..data.prompts import PromptDraws, prompt_maps, prompt_points, sample_prompt_draws
+from ..models.blocks import no_commits
 from ..models.clip import ClipEmbeddings
 from ..models.clip_models import FROZEN_PREFIXES
 from ..models.registry import build_model
@@ -281,11 +296,10 @@ class Trainer:
         run_dir: Optional[str] = None,
         make_artifacts: bool = True,
     ):
-        for field, default, item in (("remat", False, "Queue 1 item 5"),
-                                     ("n_model_shards", 1, "Queue 1 item 13 (tensor parallelism)")):
-            if getattr(config, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(config, field)!r} is not ported; see ROADMAP.md {item}")
+        if config.n_model_shards != 1:
+            raise NotImplementedError(
+                f"n_model_shards={config.n_model_shards!r} is not ported; see ROADMAP.md "
+                "Queue 1 item 13 (tensor parallelism)")
         if config.batch_size % mesh.world_size():
             raise ValueError(f"batch_size {config.batch_size} must be divisible by the "
                              f"{mesh.world_size()} ranks")
@@ -309,6 +323,11 @@ class Trainer:
         self.optimizer = build_optimizer(config.optimizer, self.model)
         self.trainable = trainable_parameters(self.model)
         self.frozen = len(self.trainable) < len(list(self.model.parameters()))
+        # an unfrozen tower (freeze_clip=False) requires grad outside the
+        # optimizer: the backward then goes to the trainable leaves alone
+        self._backward_inputs = None
+        if sum(p.requires_grad for p in self.model.parameters()) > len(self.trainable):
+            self._backward_inputs = self.trainable
         self.step = 0
         # where train() goes on: the next epoch and its next batch
         self.epoch, self.batch = 0, 0
@@ -439,8 +458,8 @@ class Trainer:
         module doc)."""
         inputs = inputs if isinstance(inputs, tuple) else (inputs,)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(*inputs, train=True), batch)
-        loss.backward()
+        loss = self.loss_fn(self._train_forward(inputs), batch)
+        loss.backward(inputs=self._backward_inputs)
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -448,6 +467,16 @@ class Trainer:
         self.optimizer.step()
         self.step += 1
         return loss.detach()
+
+    def _train_forward(self, inputs: Tuple[torch.Tensor, ...]):
+        """The training forward; under ``remat`` checkpointed whole, its
+        recomputation committing no running average (module doc)."""
+        forward = functools.partial(self.model, train=True)
+        if not self.config.remat:
+            return forward(*inputs)
+        return checkpoint(
+            forward, *inputs, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), no_commits()))
 
     @torch.no_grad()
     def eval_step(self, images_u8: torch.Tensor, masks_u8: torch.Tensor,

@@ -36,13 +36,6 @@ from ..ops.precision import wide
 from . import fused
 from .blocks import ConvBlock, ConvBlockDownsample
 
-FOLD_WIDTH = 8  # the JAX gate: width % (2 * FOLD) == 0
-
-
-def _block(block: nn.Module, x: torch.Tensor, train: bool, folded: bool) -> torch.Tensor:
-    """``block``'s forward, or with ``folded`` off the standard block's math
-    on the same parameters (where JAX builds the standard module)."""
-    return block(x, train=train) if folded else fused.standard_forward(block, x, train=train)
 
 
 class Encoder(nn.Module):
@@ -72,10 +65,10 @@ class Encoder(nn.Module):
         multiple of 8 (autoencoder.py:40)."""
         x = x.to(self.dtype)
         if folded is None:
-            folded = self.w2d_level0 and x.shape[2] % FOLD_WIDTH == 0
+            folded = self.w2d_level0 and x.shape[2] % fused.FOLD_WIDTH == 0
         x0 = fused.conv1x1(x, self.input, folded=folded)
-        x1 = _block(self.enc1, x0, train, folded)
-        x2 = _block(self.enc2, x1, train, folded and self.level1)
+        x1 = fused.block_forward(self.enc1, x0, train=train, kernels=folded)
+        x2 = fused.block_forward(self.enc2, x1, train=train, kernels=folded and self.level1)
         x3 = self.enc3(x2, train=train)
         return {"x0": x0, "enc1": x1, "enc2": x2, "enc3": x3,
                 "bottleneck": self.bottleneck(x3, train=train)}
@@ -109,9 +102,9 @@ class Decoder(nn.Module):
         """bottleneck (B, h, w, 64) -> (B, 8h, 8w, out_channels) fp32, no
         activation; ``folded`` defaults to ``w2d_level0``."""
         folded = self.w2d_level0 if folded is None else folded
-        h = _block(self.dec1, bottleneck, train, folded and self.level2)
-        h = _block(self.dec2, h, train, folded and self.level1)
-        h = _block(self.dec3, h, train, folded)
+        h = fused.block_forward(self.dec1, bottleneck, train=train, kernels=folded and self.level2)
+        h = fused.block_forward(self.dec2, h, train=train, kernels=folded and self.level1)
+        h = fused.block_forward(self.dec3, h, train=train, kernels=folded)
         return wide(fused.conv1x1(h, self.out, folded=folded))
 
 
@@ -138,6 +131,6 @@ class Autoencoder(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         # one gate for both halves (autoencoder.py:160-163)
-        folded = self.w2d_level0 and x.shape[2] % FOLD_WIDTH == 0
+        folded = self.w2d_level0 and x.shape[2] % fused.FOLD_WIDTH == 0
         feats = self.encoder(x, train=train, folded=folded)
         return torch.sigmoid(self.decoder(feats["bottleneck"], train=train, folded=folded))

@@ -24,6 +24,7 @@ runs.  The statistics are the global batch's when several ranks train
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,11 +54,30 @@ def bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return F.relu(wide(x) * a + b).to(x.dtype)
 
 
+# False while a training forward is recomputed in the backward (the
+# Trainer's ``remat``): its batch statistics were committed by the forward.
+_commits = True
+
+
+@contextmanager
+def no_commits():
+    """Skip :func:`commit_running_stats` while the block runs, so a
+    recomputed forward commits nothing a second time."""
+    global _commits
+    before, _commits = _commits, False
+    try:
+        yield
+    finally:
+        _commits = before
+
+
 def commit_running_stats(
     bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor
 ) -> None:
     """flax's running-average update with the batch mean and BIASED
-    variance (folded.py:348-354)."""
+    variance (folded.py:348-354); nothing under :func:`no_commits`."""
+    if not _commits:
+        return
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)

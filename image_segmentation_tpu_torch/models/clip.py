@@ -1,4 +1,4 @@
-"""The frozen CLIP ViT vision tower, NHWC input; counterpart of
+"""The CLIP ViT vision tower, NHWC input; counterpart of
 ``image_segmentation_tpu/models/clip.py`` (clip_preprocess :38, quick_gelu
 :56, ClipAttention :60, ClipEncoderLayer :86, ClipVisionTower :106).
 
@@ -179,15 +179,25 @@ class ClipVisionTower(nn.Module):
 
 
 class ClipFeatureExtractor(nn.Module):
-    """The frozen tower behind ``clip_preprocess`` (the reference's
-    ClipFeatureExtractor(train=False)): its parameters do not require grad
-    and it runs without autograd, as JAX wraps its output in
-    ``stop_gradient`` and masks its optimizer updates."""
+    """The tower behind ``clip_preprocess`` (the reference's
+    ClipFeatureExtractor).
 
-    def __init__(self, dtype: torch.dtype, clip_kwargs=None, *, device=None):
+    ``freeze`` (the models' ``freeze_clip``, the default): its parameters
+    do not require grad and it runs without autograd, on the cached cast
+    of :meth:`compute_tower`, as JAX wraps its output in ``stop_gradient``.
+    ``freeze=False`` drops the ``stop_gradient``: where grad mode is on,
+    the fp32 tower runs with its casts to the compute dtype in the graph, so
+    its parameters get the gradient ``jax.grad`` gives them; the values are
+    the cached cast's.  Either way the Trainer leaves the tower out of the
+    optimizer, as JAX masks its updates (``FROZEN_PREFIXES``)."""
+
+    def __init__(self, dtype: torch.dtype, clip_kwargs=None, freeze: bool = True, *,
+                 device=None):
         super().__init__()
         self.clip_model = ClipVisionTower(dtype=dtype, device=device, **(clip_kwargs or {}))
-        self.requires_grad_(False)
+        self.freeze = freeze
+        if freeze:
+            self.requires_grad_(False)
         self._cast = {}  # {"key": ..., "tower": ...}, see compute_tower
 
     def compute_tower(self) -> ClipVisionTower:
@@ -200,7 +210,7 @@ class ClipFeatureExtractor(nn.Module):
             return tower
         key = tuple((p.data_ptr(), p._version) for p in tower.parameters())
         if self._cast.get("key") != key:
-            cast = copy.deepcopy(tower)
+            cast = copy.deepcopy(tower).requires_grad_(False)
             for m in cast.modules():
                 if not isinstance(m, nn.LayerNorm):
                     for p in m.parameters(recurse=False):
@@ -209,5 +219,8 @@ class ClipFeatureExtractor(nn.Module):
         return self._cast["tower"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pixels = clip_preprocess(x)
+        if not self.freeze and torch.is_grad_enabled():
+            return self.clip_model(pixels)
         with torch.no_grad():
-            return self.compute_tower()(clip_preprocess(x))
+            return self.compute_tower()(pixels)

@@ -4,9 +4,10 @@ ClipUnet :40-139, ClipResSegmentationModel :142-198, ClipAutoencoder
 :201-235, ClipResSegmentationClassification :238-304, PromptEncoder
 :307-358, ClipUnetPrompt :361-455).
 
-The frozen CLIP tower (:mod:`.clip`) embeds the image; the embedding is
-one context token for :class:`~..ops.cross_attention.CrossAttentionFusion`
-at the 512-wide bottleneck, so the fusion takes its exact one-key path
+The CLIP tower (:mod:`.clip`), frozen unless ``freeze_clip=False``,
+embeds the image; the embedding is one context token for
+:class:`~..ops.cross_attention.CrossAttentionFusion` at the 512-wide
+bottleneck, so the fusion takes its exact one-key path
 (``out_proj(v_proj(embedding))`` broadcast over the map) and no attention
 kernel.  Its output does not depend on the map it is fused with: in
 ClipUnet the bottleneck block still runs, and its running statistics
@@ -21,7 +22,11 @@ U-Nets decide it (``models/unet.py``, :func:`.fused.block_classes`):
 ``w2d_level0`` folds the stem level (enc1, dec4, and the prompt encoder's
 enc1), adding ``w2d_level1_fold2`` also level 1 (enc2, dec3, the prompt
 encoder's enc2); under ``"pallas_fused"`` they are the fused kernel
-blocks, under ``"pallas"`` the unfused ones.  With ``w2d_level0`` the stem
+blocks, under ``"pallas"`` the unfused ones.  They run so only where
+JAX's fold gate holds, an image width that is a multiple of 8
+(clip_models.py:68, :323, :384); at any other width they run the standard
+math on their parameters (:func:`.fused.block_forward`) and the stem and
+output are plain 1x1 convs.  With ``w2d_level0`` the stem
 and the output conv train through K11 (:func:`.fused.conv1x1`; JAX's
 ``Folded1x1``, clip_models.py:75,129,394,447); ``prompt_fusion`` stays a
 plain 1x1 conv.  The prompt encoder's enc1 reads the 1-channel heatmap, a
@@ -70,16 +75,6 @@ from .resnet import ResNet34Features
 # optimizer (engine/train.trainable_parameters) without a prefix that would
 # also match the autoencoder's trainable ``encoder.``.
 FROZEN_PREFIXES = ("clip_feature_extractor.",)
-# JAX's fold gate of the ClipRes decoders' full-resolution level: the width
-# after dec5's up-conv a multiple of the fold (folded.FOLD, clip_models.py:176)
-FOLD = 4
-
-
-def _check_frozen_clip(freeze_clip: bool) -> None:
-    if not freeze_clip:
-        raise NotImplementedError(
-            "freeze_clip=False (training the CLIP tower) is not ported; the tower is "
-            "frozen as in every preset")
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -112,11 +107,11 @@ class ClipUnet(nn.Module):
         device=None,
     ):
         super().__init__()
-        _check_frozen_clip(freeze_clip)
         self.dtype = dtype
         self.folded = bool(w2d_level0)
         l0, l1 = level_classes(w2d_level0, w2d_level1_fold2, w2d_impl)
-        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
+        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, freeze_clip,
+                                                           device=device)
         proj_dim = self.clip_feature_extractor.clip_model.proj_dim
         self.input = nn.Conv2d(3, 32, 1, device=device)
         self.enc1 = l0[0](32, 64, device=device)
@@ -131,22 +126,29 @@ class ClipUnet(nn.Module):
         self.dec4 = l0[1](64, 32, device=device)
         self.out = nn.Conv2d(32, out_channels, 1, device=device)
 
+    def kernels(self, width: int) -> bool:
+        """JAX's fold gate (clip_models.py:68): where it is off, the folded
+        levels run the standard math on their parameters."""
+        return self.folded and width % fused.FOLD_WIDTH == 0
+
     def encode(self, x: torch.Tensor, train: bool):
         """(skips [stem, enc1, enc2, enc3], the fusion's output)."""
+        kernels = self.kernels(x.shape[2])
         clip_feats = self.clip_feature_extractor(x)
-        stem = fused.conv1x1(x, self.input, folded=self.folded)
+        stem = fused.conv1x1(x, self.input, folded=kernels)
         skips = [stem]
         h = stem
         for enc in (self.enc1, self.enc2, self.enc3):
-            h = enc(h, train=train)
+            h = fused.block_forward(enc, h, train=train, kernels=kernels)
             skips.append(h)
         bottleneck = self.bottleneck(h, train=train)
         return skips, self.cross_attention_fusion(bottleneck, clip_feats)
 
     def decode(self, h: torch.Tensor, skips, train: bool) -> torch.Tensor:
+        kernels = self.kernels(skips[0].shape[2])
         for dec, skip in zip((self.dec1, self.dec2, self.dec3, self.dec4), skips[::-1]):
-            h = dec(h.contiguous(), skip, train=train)
-        return wide(fused.conv1x1(h, self.out, folded=self.folded))
+            h = fused.block_forward(dec, h.contiguous(), skip, train=train, kernels=kernels)
+        return wide(fused.conv1x1(h, self.out, folded=kernels))
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -191,11 +193,11 @@ class ClipResSegmentationModel(nn.Module):
         device=None,
     ):
         super().__init__()
-        _check_frozen_clip(freeze_clip)
         self.dtype = dtype
         self.folded = bool(w2d_level0)
         up = fused.block_classes(w2d_impl, self.folded)[2]
-        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
+        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, freeze_clip,
+                                                           device=device)
         proj_dim = self.clip_feature_extractor.clip_model.proj_dim
         self.encoder = ResNet34Features(dtype, device=device).requires_grad_(False)
         self.cross_attention_fusion = CrossAttentionFusion(512, 4, dtype, kv_dim=proj_dim,
@@ -222,20 +224,17 @@ class ClipResSegmentationModel(nn.Module):
 
     def decode(self, h: torch.Tensor, train: bool):
         """dec5 on dec4's output: (its output, whether JAX folds here)."""
-        folded = self.folded and (2 * h.shape[2]) % FOLD == 0
-        if folded:
-            return self.dec5(h.contiguous(), train=train), True
-        return fused.standard_forward(self.dec5, h, train=train), False
+        # JAX's gate of this level: the width after dec5's up-conv a
+        # multiple of the fold (clip_models.py:176)
+        folded = self.folded and (2 * h.shape[2]) % fused.FOLD == 0
+        return fused.block_forward(self.dec5, h.contiguous(), train=train, kernels=folded), folded
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         _, h = self.trunk(x, train)
         h, folded = self.decode(h, train)
-        if folded:
-            out = self.out(h.contiguous(), x.contiguous(), train=train)
-        else:
-            out = fused.standard_forward(self.out, h, x, train=train)
-        return wide(out)
+        return wide(fused.block_forward(self.out, h.contiguous(), x.contiguous(), train=train,
+                                        kernels=folded))
 
 
 class ClipResSegmentationClassification(ClipResSegmentationModel):
@@ -295,9 +294,9 @@ class ClipAutoencoder(nn.Module):
         device=None,
     ):
         super().__init__()
-        _check_frozen_clip(freeze_clip)
         self.dtype = dtype
-        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, device=device)
+        self.clip_feature_extractor = ClipFeatureExtractor(dtype, clip_kwargs, freeze_clip,
+                                                           device=device)
         proj_dim = self.clip_feature_extractor.clip_model.proj_dim
         self.input = nn.Conv2d(3, 32, 1, device=device)
         self.coupler = nn.Linear(proj_dim, 64 * 16 * 16, device=device)
@@ -337,6 +336,7 @@ class PromptEncoder(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
+        self.folded = bool(w2d_level0)
         (down0, _, _), (down1, _, _) = level_classes(w2d_level0, w2d_level1_fold2, w2d_impl)
         # the heatmap is a model input: never differentiated (see module doc)
         fused0 = issubclass(down0, fused.FusedConvBlockDownsample)
@@ -347,8 +347,9 @@ class PromptEncoder(nn.Module):
 
     def forward(self, prompt: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         h = prompt.to(self.dtype)
+        kernels = self.folded and h.shape[2] % fused.FOLD_WIDTH == 0  # clip_models.py:323
         for enc in (self.enc1, self.enc2, self.enc3):
-            h = enc(h, train=train)
+            h = fused.block_forward(enc, h, train=train, kernels=kernels)
         return self.conv(h, train=train)
 
 

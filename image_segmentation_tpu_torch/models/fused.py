@@ -37,6 +37,14 @@ node from ``(mean2, var2)`` and rounded to the activation dtype
 (folded.py:477-482, :500-506), so the pool's affine cotangent reaches bn2
 through autograd as ``mean2``/``var2`` cotangents, as in JAX.  The pool and
 the ConvTranspose train through their Functions with backward kernels.
+
+The deep levels at fold 1 (``fused_deep``, folded.py:646-683, :733-756):
+JAX's fused blocks run there with fold 1, where its raw-output pool
+(``fold > 1``) and its ConvTranspose kernel (``fold > 1``) are not taken,
+so :class:`FusedDeepConvBlockDownsample` is a :class:`FusedConvBlock` and
+the standard max-pool, :class:`FusedDeepConvBlockUpsampleSkip` the
+standard up-conv and resize and a :class:`FusedConvBlock` over the pair
+[up | skip], and a fused bottleneck is a plain :class:`FusedConvBlock`.
 """
 
 from __future__ import annotations
@@ -66,6 +74,12 @@ from .blocks import (
 )
 
 Raw = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# JAX's fold factor (models/folded.py FOLD).  A model takes its folded
+# (kernel) path only where the image width is a multiple of FOLD_WIDTH
+# (unet.py:76, clip_models.py:68, autoencoder.py:160); elsewhere JAX builds
+# its standard modules, and the port runs :func:`standard_forward`.
+FOLD = 4
+FOLD_WIDTH = 2 * FOLD
 
 
 class FusedConvBlock(ConvBlock):
@@ -96,6 +110,8 @@ class FusedConvBlock(ConvBlock):
                 "a block built with input_grad=False got an input that requires grad; "
                 "build it with input_grad=True to differentiate with respect to its input")
         conv1, bn1, conv2, bn2 = (self.conv[i] for i in (0, 1, 3, 4))
+        x = x.contiguous()
+        x_b = None if x_b is None else x_b.contiguous()
         if train:
             z, mean1, var1, mean2, var2 = fused_conv.FusedBlockFunction.apply(
                 x, x_b, conv1.weight, conv1.bias, conv2.weight, conv2.bias,
@@ -167,6 +183,29 @@ class FusedConvBlockUpsample(ConvBlockUpsample):
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         return self.conv(_up_kernel(self.up, x, train), train=train)
+
+
+class FusedDeepConvBlockDownsample(ConvBlockDownsample):
+    """A deep encoder at fold 1 (folded.py:677-683): FusedConvBlock, then
+    the standard max-pool on its activated output."""
+
+    block_cls = FusedConvBlock
+
+
+class FusedDeepConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
+    """A deep decoder at fold 1 (folded.py:741-756): the standard up-conv
+    and align-corners resize (not the identity at dec1, whose skip lives at
+    the bottleneck's resolution), then FusedConvBlock over [up | skip],
+    never concatenated."""
+
+    block_cls = FusedConvBlock
+
+    def forward(
+        self, x: torch.Tensor, skip: torch.Tensor, *, train: bool = False
+    ) -> torch.Tensor:
+        up = conv_transpose2x2_nhwc(x, self.up)
+        up = resize_bilinear_align_corners(up, skip.shape[1], skip.shape[2])
+        return self.conv(up, skip.to(up.dtype), train=train)
 
 
 # --------------------------------------------------------------------------
@@ -244,13 +283,26 @@ def standard_forward(block: nn.Module, x: torch.Tensor, x_b: Optional[torch.Tens
     """The standard twin's math on ``block``'s parameters, whatever its
     family: where a model's fold gate is off in JAX (the image width), it
     builds the standard module on the same tree.  ``block`` is a
-    ConvBlock[Downsample|Upsample] or a subclass; ``x_b`` a ConvBlock's
-    second input."""
+    ConvBlock[Downsample|Upsample|UpsampleSkip] or a subclass; ``x_b`` a
+    ConvBlock's second input or an UpsampleSkip's skip."""
     if isinstance(block, ConvBlockDownsample):
         return max_pool_2x2(ConvBlock.forward(block.block[0], x, train=train))
     if isinstance(block, ConvBlockUpsample):
         return ConvBlock.forward(block.conv, conv_transpose2x2_nhwc(x, block.up), train=train)
+    if isinstance(block, ConvBlockUpsampleSkip):
+        up = conv_transpose2x2_nhwc(x, block.up)
+        up = resize_bilinear_align_corners(up, x_b.shape[1], x_b.shape[2])
+        return ConvBlock.forward(block.conv, up, x_b, train=train)
     return ConvBlock.forward(block, x, x_b, train=train)
+
+
+def block_forward(block: nn.Module, *inputs: torch.Tensor, train: bool,
+                  kernels: bool) -> torch.Tensor:
+    """``block(*inputs)``, or without ``kernels`` (where the model's fold
+    gate is off in JAX) :func:`standard_forward` on its parameters."""
+    if kernels:
+        return block(*inputs, train=train)
+    return standard_forward(block, *inputs, train=train)
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:

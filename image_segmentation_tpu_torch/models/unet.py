@@ -15,9 +15,18 @@ a JAX artifact build the same network here:
 - with ``w2d_level0`` the stem and the output conv are JAX's
   ``Folded1x1``, whose backward the port always runs on K11
   (:func:`.fused.conv1x1`);
-- the deeper levels run the standard blocks, as JAX runs them as XLA
-  (``fused_deep`` is not ported).  The math is the same either way (shared
-  parameter tree, tests/test_folded.py).
+- the deeper levels run the standard blocks, as JAX runs them as XLA,
+  except those that ``fused_deep`` puts on the fused kernel blocks at fold
+  1 (:mod:`.fused`, ``FusedDeep…`` and the bottleneck's
+  ``FusedConvBlock``).  The math is the same either way (shared parameter
+  tree, tests/test_folded.py);
+- all of this holds only where JAX takes its folded path: ``w2d_level0``
+  and an image width that is a multiple of 8 (``fused.FOLD_WIDTH``,
+  unet.py:76).
+  At any other width :meth:`UNet.forward` runs every level on the
+  standard math (:func:`.fused.standard_forward`) and the stem and output
+  as plain 1x1 convs, on the same parameters, as JAX builds its standard
+  modules there.
 
 Module names follow the reference torch key layout, so
 ``utils.convert.state_dict_from_jax`` loads with ``strict=True``.
@@ -32,6 +41,30 @@ from torch import nn
 
 from . import fused
 from .blocks import ConvBlock, ConvBlockDownsample, ConvBlockUpsampleSkip
+
+# JAX's cap on one fused conv's weight operand, (3, 3*cin, co) bf16
+# (unet.py:173-178).  It is the TPU's VMEM budget and means nothing on the
+# H100; the port keeps it so that the same blocks run kernels in both
+# packages.
+FUSED_WEIGHT_BYTES = 6 * 2**20
+
+
+def fused_deep_on(fused_deep: Any, w2d_impl: str, name: str) -> bool:
+    """JAX's ``_fd_on`` (unet.py:161-171): whether ``fused_deep`` (False,
+    True, a comma-joined string or a sequence of module names) selects the
+    deep module ``name``; only under ``w2d_impl="pallas_fused"``."""
+    if w2d_impl != "pallas_fused" or not fused_deep:
+        return False
+    if fused_deep is True:
+        return True
+    names = fused_deep.split(",") if isinstance(fused_deep, str) else fused_deep
+    return name in names
+
+
+def fused_fits(cin: int, feats: int) -> bool:
+    """JAX's ``_fused_fits`` (unet.py:173-178): the larger conv weight of a
+    ``cin -> feats`` block under FUSED_WEIGHT_BYTES."""
+    return max(3 * (3 * cin) * feats, 3 * (3 * feats) * feats) * 2 <= FUSED_WEIGHT_BYTES
 
 
 class UNet(nn.Module):
@@ -56,34 +89,48 @@ class UNet(nn.Module):
         device=None,
     ):
         super().__init__()
-        if fused_deep:
-            raise NotImplementedError(
-                "fused_deep (fused ConvBN kernels on the deep levels) is not "
-                "ported; see ROADMAP.md Queue 2"
-            )
         enc = list(encoder_features or self.default_encoder_features)
+        n = len(enc)
         self.dtype = dtype
         self.folded = bool(w2d_level0)
+        fold_l1 = self.folded and bool(w2d_level1_fold2 or w2d_level1) and n >= 2
         down0, up0, _ = fused.block_classes(w2d_impl, self.folded)
-        down1, up1, _ = fused.block_classes(
-            w2d_impl, self.folded and bool(w2d_level1_fold2 or w2d_level1) and len(enc) >= 2)
-        n = len(enc)
+        down1, up1, _ = fused.block_classes(w2d_impl, fold_l1)
+
+        def deep(name: str, cin: int, feats: int) -> bool:
+            """Whether JAX's folded path runs the deep module ``name`` as a
+            fold-1 fused block (unet.py:180-230)."""
+            return (self.folded and fused_deep_on(fused_deep, w2d_impl, name)
+                    and fused_fits(cin, feats))
 
         self.input = nn.Conv2d(3, stem_features, 1, device=device)
         self.encoders = []
         cin = stem_features
         for i, feats in enumerate(enc, start=1):
-            cls = {1: down0, 2: down1}.get(i, ConvBlockDownsample)
-            self.encoders.append(f"enc{i}")
-            setattr(self, f"enc{i}", cls(cin, feats, device=device))
+            name = f"enc{i}"
+            if i == 1 or (i == 2 and fold_l1):
+                cls = down0 if i == 1 else down1
+            elif deep(name, cin, feats):
+                cls = fused.FusedDeepConvBlockDownsample
+            else:
+                cls = ConvBlockDownsample
+            self.encoders.append(name)
+            setattr(self, name, cls(cin, feats, device=device))
             cin = feats
-        self.bottleneck = ConvBlock(cin, 2 * enc[-1], device=device)
+        bneck = fused.FusedConvBlock if deep("bottleneck", cin, 2 * enc[-1]) else ConvBlock
+        self.bottleneck = bneck(cin, 2 * enc[-1], device=device)
         cin = 2 * enc[-1]
         self.decoders = []
         for i, feats in enumerate(enc[::-1] + [stem_features], start=1):
-            cls = {n + 1: up0, n: up1}.get(i, ConvBlockUpsampleSkip)
-            self.decoders.append(f"dec{i}")
-            setattr(self, f"dec{i}", cls(cin, feats, device=device))
+            name = f"dec{i}"
+            if i == n + 1 or (i == n and fold_l1):
+                cls = up0 if i == n + 1 else up1
+            elif deep(name, 2 * feats, feats):
+                cls = fused.FusedDeepConvBlockUpsampleSkip
+            else:
+                cls = ConvBlockUpsampleSkip
+            self.decoders.append(name)
+            setattr(self, name, cls(cin, feats, device=device))
             cin = feats
         self.out = nn.Conv2d(stem_features, out_channels, 1, device=device)
 
@@ -91,19 +138,23 @@ class UNet(nn.Module):
         """x (B, H, W, Cin) float -> logits (B, H, W, out_channels) fp32.
 
         ``train``: BatchNorm with batch statistics over the whole batch,
-        committing the running averages (flax's ``train=True``)."""
-        h = fused.conv1x1(x.to(self.dtype), self.input, folded=self.folded)
+        committing the running averages (flax's ``train=True``).  Off JAX's
+        fold gate (module doc) every block runs the standard math."""
+        x = x.to(self.dtype)
+        kernels = self.folded and x.shape[2] % fused.FOLD_WIDTH == 0
+        h = fused.conv1x1(x, self.input, folded=kernels)
         # Decoder i pairs with skips[-i]: enc outputs are post-pool, so dec1's
         # skip (the last encoder) has the bottleneck's resolution and its 2x
         # up-conv is resized back down (unet.py:94-99).
         skips = [h]
         for name in self.encoders:
-            h = getattr(self, name)(h, train=train)
+            h = fused.block_forward(getattr(self, name), h, train=train, kernels=kernels)
             skips.append(h)
-        h = self.bottleneck(h, train=train)
+        h = fused.block_forward(self.bottleneck, h, train=train, kernels=kernels)
         for i, name in enumerate(self.decoders, start=1):
-            h = getattr(self, name)(h, skips[-i], train=train)
-        return fused.conv1x1(h, self.out, folded=self.folded).float()
+            h = fused.block_forward(getattr(self, name), h, skips[-i], train=train,
+                                    kernels=kernels)
+        return fused.conv1x1(h, self.out, folded=kernels).float()
 
 
 class LargeUNet(UNet):

@@ -4,6 +4,8 @@ in each of the ranks that ``parallel.mesh.launch`` starts.
 
 ``run(out_dir)`` writes ``<out_dir>/rank<r>.npz`` (every array a check
 reads) and returns the small results as JSON-able values;
+``run_remat(out_dir)`` writes ``<out_dir>/remat<r>.npz``, the state after
+two steps with and without ``remat`` (tests/test_torch_port_options.py);
 ``run_cli(save_dir)`` trains the ``smoke`` preset through
 ``cli.train_distributed`` with its run folder.  The model is
 the ``large_unet`` preset's model args at the narrow widths of
@@ -12,6 +14,7 @@ on the kernel blocks, the deep levels on the plain BatchNorm), 32x32
 images, a global batch of 16, ``bf16=False``, Adam eps 1e-3 (as there).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -111,6 +114,31 @@ def run(out_dir: str) -> dict:
     np.savez(os.path.join(out_dir, f"rank{mesh.rank()}.npz"), **arrays)
     mesh.barrier()
     return result
+
+
+def run_remat(out_dir: str, fused_deep: bool = True) -> dict:
+    """Two augmented steps of the global batch with ``remat`` off and on,
+    the fused deep levels on: each Trainer's parameters, buffers and Adam
+    moments, under ``off/`` and ``on/``.  The recomputed forward repeats
+    the statistics' all-reduces inside the backward."""
+    images, masks = global_batch()
+    arrays = {}
+    for remat in (False, True):
+        c = cfg(1)
+        c = dataclasses.replace(c, remat=remat, model_args=dict(c.model_args,
+                                                                fused_deep=fused_deep))
+        t = Trainer(c, device="cpu", make_artifacts=False)
+        for key in STEP_KEYS:
+            t.train_step(_mine(images), _mine(masks), key)
+        prefix = "on/" if remat else "off/"
+        arrays.update(_state(t, prefix))
+        for i, p in enumerate(t.trainable):
+            st = t.optimizer.state[p]
+            arrays[f"{prefix}adam/{i}/exp_avg"] = st["exp_avg"].numpy().copy()
+            arrays[f"{prefix}adam/{i}/exp_avg_sq"] = st["exp_avg_sq"].numpy().copy()
+    np.savez(os.path.join(out_dir, f"remat{mesh.rank()}.npz"), **arrays)
+    mesh.barrier()
+    return {"world": mesh.world_size()}
 
 
 def run_cli(save_dir: str) -> dict:

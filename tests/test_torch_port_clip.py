@@ -416,6 +416,16 @@ def test_input_grad_false_block_refuses_an_input_that_requires_grad():
 
 
 def test_clip_models_default_to_frozen_and_refuse_unfrozen():
-    with pytest.raises(NotImplementedError, match="freeze_clip"):
-        build_model("clip_unet", device="cpu", clip_kwargs=CLIP_KW, freeze_clip=False)
+    """The tower is frozen by default; ``freeze_clip=False``, refused until
+    the option was ported, builds and loads the JAX tree of the JAX model
+    with the same flag, its tower requiring grad."""
+    x = _model_inputs(False)[0]
+    variables = jax_variables(_jax_model("clip_unet", {"freeze_clip": False}), jnp.asarray(x))
+    for freeze in (None, True, False):
+        kw = {} if freeze is None else {"freeze_clip": freeze}
+        pm = build_model("clip_unet", device="cpu", clip_kwargs=CLIP_KW, **kw)
+        pm.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]),
+                           strict=True)
+        tower = [p for k, p in pm.named_parameters() if k.startswith(CLIP)]
+        assert tower and all(p.requires_grad == (freeze is False) for p in tower)
     assert clip_models.FROZEN_PREFIXES == ("clip_feature_extractor.",)

@@ -403,10 +403,29 @@ def test_the_optimizer_holds_what_jax_trains(name):
                for k, p in pm.named_parameters()) == (name in ("autoencoder", "prompt_fusion"))
 
 
-def test_clip_res_models_refuse_an_unfrozen_tower():
-    for name in ("clip_res", "clip_res_class", "clip_autoencoder"):
-        with pytest.raises(NotImplementedError, match="freeze_clip"):
-            build_model(name, device="cpu", clip_kwargs=CLIP_KW, freeze_clip=False)
+@pytest.mark.parametrize("name", sorted(JAX_CLASSES))
+def test_clip_res_models_refuse_an_unfrozen_tower(name):
+    """``freeze_clip=False``, refused until the option was ported, builds
+    and loads the JAX tree of the JAX model with the same flag; the
+    training forward is the frozen model's, and the tower gets a gradient
+    at the model level (tests/test_torch_port_options.py holds it to
+    ``jax.grad``)."""
+    x = _t(_images(7))
+    variables = jax_variables(_jax_model(name, {"freeze_clip": False}), jnp.asarray(x.numpy()))
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    outs = {}
+    for freeze in (True, False):
+        pm = build_model(name, device="cpu", dtype=torch.float32, clip_kwargs=CLIP_KW,
+                         freeze_clip=freeze)
+        pm.load_state_dict(sd, strict=True)
+        outs[freeze] = _outputs(pm(x, train=True))
+        tower = [p for k, p in pm.named_parameters() if k.startswith(CLIP)]
+        assert tower and all(p.requires_grad != freeze for p in tower)
+    for a, b in zip(outs[True], outs[False], strict=True):
+        assert torch.equal(a.detach(), b.detach())
+    sum(o.sum() for o in outs[False]).backward()
+    assert all(p.grad is not None for p in tower)
+    assert any(float(p.grad.abs().max()) > 0 for p in tower)
     assert clip_models.FROZEN_PREFIXES == ("clip_feature_extractor.",)
 
 

@@ -213,10 +213,22 @@ def test_normalize_image_matches_jax():
     )
 
 
-def test_unported_models_and_options_raise():
-    with pytest.raises(NotImplementedError, match="freeze_clip"):
-        build_model("clip_res", device="cpu", freeze_clip=False)
-    with pytest.raises(NotImplementedError, match="fused_deep"):
-        build_model("large_unet", device="cpu", w2d_impl="pallas_fused", fused_deep=True)
+def test_unported_models_and_options_raise(tree):
+    """An unknown model raises.  ``freeze_clip=False`` and ``fused_deep``,
+    refused until they were ported, build and load the JAX tree
+    (tests/test_torch_port_options.py holds them to JAX)."""
+    from image_segmentation_tpu.models.clip_models import ClipResSegmentationModel
+
+    m = _port(*tree, **PRESET, fused_deep=True)
+    assert isinstance(m.enc3, fused.FusedDeepConvBlockDownsample)
+    clip_kw = dict(hidden=32, layers=1, heads=2, mlp_dim=64, patch=32, proj_dim=32)
+    jm = ClipResSegmentationModel(dtype=jnp.float32, clip_kwargs=clip_kw, freeze_clip=False)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                                            train=False))
+    sd = state_dict_from_jax(*(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes[k])
+                               for k in ("params", "batch_stats")))
+    pm = build_model("clip_res", device="cpu", clip_kwargs=clip_kw, freeze_clip=False)
+    pm.load_state_dict(sd, strict=True)
+    assert all(p.requires_grad for p in pm.clip_feature_extractor.parameters())
     with pytest.raises(KeyError, match="unknown model"):
         build_model("no_such_model", device="cpu")

@@ -230,10 +230,11 @@ def test_initial_weights_are_seeded():
 
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
-    """``remat`` and ``n_model_shards`` raise, naming their ROADMAP items;
-    the Oxford-IIIT-Pet split and the native loader are ported (the Pet
-    route from its ``<split>_arrays.npz`` files here,
-    tests/test_torch_port_data.py holds both routes to JAX's)."""
+    """``n_model_shards`` raises, naming its ROADMAP item; ``remat`` is
+    ported (tests/test_torch_port_options.py holds it to JAX's), as are
+    the Oxford-IIIT-Pet split and the native loader (the Pet route from
+    its ``<split>_arrays.npz`` files here, tests/test_torch_port_data.py
+    holds both routes to JAX's)."""
     cfg = _cfg(port_config, {})
     for split, seed in (("train", 1), ("validation", 2)):
         ds = datasets.synthetic_dataset(4, 32, 32, seed=seed)
@@ -243,10 +244,10 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     t = Trainer(pet, device="cpu", make_artifacts=False)
     assert np.array_equal(t.train_data.images, datasets.synthetic_dataset(4, 32, 32, seed=1).images)
     assert len(t.val_data) == 4
-    for field, value, item in (("remat", True, "item 5"),
-                               ("n_model_shards", 2, "item 13 \\(tensor parallelism\\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(dataclasses.replace(cfg, **{field: value}), device="cpu", make_artifacts=False)
+    assert Trainer(dataclasses.replace(cfg, remat=True), device="cpu",
+                   make_artifacts=False).config.remat
+    with pytest.raises(NotImplementedError, match="item 13 \\(tensor parallelism\\)"):
+        Trainer(dataclasses.replace(cfg, n_model_shards=2), device="cpu", make_artifacts=False)
     with pytest.raises(KeyError, match="unknown loss"):  # every JAX loss is ported
         make_loss_fn("no_such_loss")
 
