@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
 ClipUnet, fusion, autoencoder, ClipRes, segment-classifier, ClipAutoencoder,
-robustness, data, distributed, export and profiler paths on one NVIDIA GPU.
+robustness, data, distributed, export, profiler and tensor-parallel paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,9 @@ width of the port's presets (``config.preset``), random weights from a seed:
    at 256x256: the fused blocks and, under ``w2d_impl="pallas"``, the conv
    kernels in their unfused forms) and the clip_res step (batch 32 at
    256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
-   kernels' element paths) give it, the 1x1-conv backward (K11) at
+   kernels' element paths) give it, the ``Co/2`` slices that the
+   tensor-parallel steps of 18 give the level 0-1 kernels (large_unet at
+   batch 8, 512x512; clip_unet at batch 8, 256x256), the 1x1-conv backward (K11) at
    the stem and output conv of the large_unet and autoencoder steps, and
    the cross-attention kernel at the CLIP bottleneck of the prompt step's
    batch; with both times from CUDA events, the
@@ -120,7 +123,18 @@ width of the port's presets (``config.preset``), random weights from a seed:
    statistics bit for bit), step time and peak memory both ways; clip_unet
    at 256x256, batch 32 with ``freeze_clip=False`` against ``True`` over 3
    steps, bit for bit, the tower unchanged, step time both ways;
-18. prints one JSON line of per-kernel results (``launches`` counts the
+18. tensor-parallel phase: two gloo ranks on the card at (data=1,
+   model=2) (``mesh.launch``), each holding the whole global batch of 8
+   and half the output channels of every weight JAX's ``shard_params_tp``
+   shards: one augmented step of ``train_config()`` at full width (512x512)
+   and of the ``clip_unet`` preset (256x256, the frozen ViT-B/32 tower)
+   against the world-1 step on the same batch (LOSS_RTOL, GRAD_RL2,
+   BF16_NOISE_FACTOR), the gathered parameters equal on both ranks, each
+   rank's launches exactly one world-1 step's with every kernel block's
+   weights on their ``Co/2`` slices; each rank's peak memory, the TP step
+   time beside world 1 and the time of the model group's gathers,
+   reduce-scatters and all-reduces in a step;
+19. prints one JSON line of per-kernel results (``launches`` counts the
    main-path runs of 3-17; the wgrad kernel has a line for its launches
    beside a dgrad and one for its launches alone, and each conv kernel a
    line for its unfused form, which the ``"pallas"`` run launches), the
@@ -562,15 +576,37 @@ def deep_path_shapes() -> dict:
     return {"conv": conv, "pool": [], "ct": [], "1x1": []}
 
 
+def tp_shapes(shapes: dict, label: str, m: int) -> dict:
+    """``shapes`` as the model ranks of a tensor-parallel step launch them:
+    each conv, pool and ConvTranspose on its ``Co/m`` output slice (its
+    input whole); K11 (the stem and output convs, never sharded) left out."""
+    conv = [c._replace(label=f"{label} {c.label}", co=c.co // m) for c in shapes["conv"]]
+    pool = [(f"{label} {n}", (*shp[:3], shp[3] // m)) for n, shp in shapes["pool"]]
+    ct = [(f"{label} {n}", shp, co // m) for n, shp, co in shapes["ct"]]
+    return {"conv": conv, "pool": pool, "ct": ct, "1x1": []}
+
+
+def tp_path_shapes() -> list:
+    """The level 0-1 kernel blocks of the tensor-parallel phase's steps at
+    M = TP_RANKS: large_unet at batch TP_BATCH, 512x512, and clip_unet at
+    batch TP_BATCH, 256x256 (every conv and ConvTranspose there sharded)."""
+    b = TP_BATCH
+    return [tp_shapes(level01_shapes(b, SIZE, 32, 64, 128), "tp large_unet", TP_RANKS),
+            tp_shapes(level01_shapes(b, PROMPT_SIZE, 32, 64, 128, decs=("dec3", "dec4")),
+                      "tp clip_unet", TP_RANKS)]
+
+
 def path_shapes() -> list:
     """(shapes, mode) of every main path, ``mode`` as in :func:`kernel_cases`:
     the large_unet step summed into the JSON line; the prompt step and the
     autoencoder's kernel blocks checked; the autoencoder's unfused convs
-    summed into the "... unfused" lines; the clip_res level and the
-    ``fused_deep`` blocks timed on lines of their own."""
+    summed into the "... unfused" lines; the clip_res level, the
+    ``fused_deep`` blocks and the tensor-parallel slices timed on lines of
+    their own."""
     return [(main_path_shapes(train_config().model_args), "sum"), (prompt_path_shapes(), None),
             (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum"),
-            (clip_res_path_shapes(), "line"), (deep_path_shapes(), "line")]
+            (clip_res_path_shapes(), "line"), (deep_path_shapes(), "line"),
+            *((shapes, "line") for shapes in tp_path_shapes())]
 
 
 def prompt_path_shapes() -> dict:
@@ -1959,6 +1995,9 @@ def robustness_phase(torch, mods, card: str) -> dict:
 DATA_LENGTH, DATA_SIZE, DATA_BATCH = 64, 256, 16
 # the distributed phase's gloo ranks: 2 on the one card, 8 rows each
 GLOO_RANKS = 2
+# the tensor-parallel phase: 2 gloo ranks on the one card, one model group
+# (data=1, model=2), each holding the whole global batch of 8
+TP_RANKS, TP_BATCH = 2, 8
 # the profiler phase: cli.profiler's warm-up step and its traced steps
 PROFILE_STEPS = 3
 
@@ -2216,6 +2255,192 @@ def distributed_phase(torch, mods, card: str) -> dict:
     if not all(r["params_identical"] for r in ranks):
         raise AssertionError("the ranks' parameters differ after the step")
     return launches
+
+
+def _tp_config(name: str, n_model: int):
+    """The tensor-parallel phase's config: ``train_config()`` (512x512) or
+    the clip_unet preset (256x256) at batch TP_BATCH with ``n_model``
+    shards."""
+    cfg = (train_config() if name == "large_unet" else clip_config("clip_unet"))
+    return dataclasses.replace(cfg, batch_size=TP_BATCH, n_model_shards=n_model)
+
+
+def _kernel_block_weights(model) -> dict:
+    """The conv and ConvTranspose weights of the model's fused kernel
+    blocks, by state-dict key."""
+    from image_segmentation_tpu_torch.models import fused
+
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, fused.FusedConvBlock):
+            out[f"{name}.conv.0.weight"], out[f"{name}.conv.3.weight"] = (
+                m.conv[0].weight, m.conv[3].weight)
+        elif isinstance(m, (fused.FusedConvBlockUpsampleSkip, fused.FusedConvBlockUpsample)):
+            out[f"{name}.up.weight"] = m.up.weight
+    return out
+
+
+def _tp_rank(settings: dict, name: str) -> dict:
+    """One of TP_RANKS ranks of the tensor-parallel phase (``mesh.launch``,
+    gloo, one model group) with the launching process's ``settings``: one
+    augmented step of ``_tp_config(name)`` on a fixed global batch with
+    exact launch counts and the kernel blocks' weights checked to be their
+    ``Co/M`` slices, the gathered gradients and parameters, a second step
+    timed, a third with the model group's collectives timed (each waited
+    for), the peak memory.  Rank 0 then computes, alone, the world-1 step
+    on the same batch (and the same step in fp32 on the plain path) and
+    holds the gathered gradients to it as the distributed phase does."""
+    import numpy as np
+    import torch
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+    from image_segmentation_tpu_torch.parallel import mesh, tensor
+
+    globals().update(settings)
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = kernel_modules()
+    cfg = _tp_config(name, TP_RANKS)
+    size = cfg.data.image_size
+    rng = np.random.default_rng(SEED + 13)
+    images = torch.from_numpy(rng.integers(0, 256, (TP_BATCH, size, size, 3), dtype=np.uint8))
+    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (TP_BATCH, size, size),
+                                          dtype=np.uint8))
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
+    rows = mesh.rows(TP_BATCH)  # the data row's: the grid is the Trainer's
+    mine = images[rows].to(DEVICE), masks[rows].to(DEVICE)
+    shards = tensor.shards(trainer.model)
+    halves = {}
+    for key, w in _kernel_block_weights(trainer.model).items():
+        s = shards.get(key)
+        if s is None or w.shape[s.dim] * TP_RANKS != s.length:
+            raise AssertionError(f"{name}: the kernel block weight {key} {tuple(w.shape)} is "
+                                 f"not a 1/{TP_RANKS} slice ({s})")
+        halves[key] = w.shape[s.dim]
+    reset_counts(mods)
+    loss = float(trainer.train_step(*mine, STEP_KEY))
+    sync()
+    launches = counts(mods)
+    grads = tensor.full_state(trainer.model, {k: p.grad.detach().float() for k, p in
+                                              trainer.model.named_parameters() if p.requires_grad})
+    flat = torch.cat([p.detach().reshape(-1) for p in tensor.full_state(
+        trainer.model, dict(trainer.model.named_parameters())).values()])
+    rank0 = flat.clone()
+    mesh.broadcast_([rank0])
+    same = bool(torch.equal(flat, rank0))
+    del flat, rank0
+    sync()
+    t0 = time.perf_counter()
+    trainer.train_step(*mine, STEP_KEY + 1)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    coll = {}
+
+    def timed(what, fn):
+        def run(t, *args, **kwargs):
+            sync()
+            t1 = time.perf_counter()
+            out = fn(t, *args, **kwargs)
+            sync()
+            c = coll.setdefault(what, [0.0, 0, 0])
+            c[0] += (time.perf_counter() - t1) * 1e3
+            c[1] += 1
+            c[2] += t.numel() * t.element_size()
+            return out
+        return run
+
+    with ExitStack() as stack:
+        for what in ("gather", "reduce_scatter", "all_reduce"):
+            stack.enter_context(mock.patch.object(tensor, what, timed(what, getattr(tensor, what))))
+        trainer.train_step(*mine, STEP_KEY + 2)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    out = {"rank": mesh.rank(), "loss": loss, "launches": launches, "params_identical": same,
+           "step_ms": step_ms, "collectives": coll, "peak_bytes": peak,
+           "sharded": len(trainer.tp_plan), "leaves": len(list(trainer.model.parameters())),
+           "kernel_block_co": halves}
+    del trainer
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    if mesh.is_main():
+        full = images.to(DEVICE), masks.to(DEVICE)
+        one = _tp_config(name, 1)
+        with mesh.local():
+            if DEVICE == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ref = Trainer(one, device=DEVICE, make_artifacts=False)
+            ref_loss = float(ref.train_step(*full, STEP_KEY))
+            ref_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+            ref_grads = _grads(ref.model)
+            sync()
+            t0 = time.perf_counter()
+            ref.train_step(*full, STEP_KEY + 1)
+            sync()
+            ref_ms = (time.perf_counter() - t0) * 1e3
+            del ref
+            with plain_path(kernel_modules()):
+                ref32 = Trainer(dataclasses.replace(one, bf16=False), device=DEVICE,
+                                make_artifacts=False)
+                ref32.train_step(*full, STEP_KEY)
+                grads32 = _grads(ref32.model)
+            del ref32
+        err, leaf, held = _check_gradients(torch, grads, ref_grads, grads32)
+        out.update(ref_loss=ref_loss, ref_step_ms=ref_ms, ref_peak_bytes=ref_peak,
+                   max_rel_err=err, worst_leaf=leaf,
+                   held=[[n, p32, k32] for n, p32, k32 in held])
+    return out
+
+
+def tp_phase(torch, mods, card: str) -> None:
+    """TP_RANKS gloo ranks on the card at (data=1, model=TP_RANKS): the
+    large_unet and clip_unet steps against world 1 (see :func:`_tp_rank`)."""
+    from image_segmentation_tpu_torch.parallel import mesh
+
+    settings = {k: globals()[k] for k in ("DEVICE", "SEED", "BATCH", "SIZE", "TRAIN_LENGTH",
+                                          "STEP_KEY", "PROMPT_SIZE", "PROMPT_LENGTH",
+                                          "PROMPT_BATCH", "TP_BATCH")}
+    for name in ("large_unet", "clip_unet"):
+        t0 = time.perf_counter()
+        ranks = mesh.launch("chip_smoke:_tp_rank", TP_RANKS, [settings, name], backend="gloo",
+                            timeout=600)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        losses = [r["loss"] for r in ranks]
+        loss_err = abs(losses[0] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        want = expected(PER_STEP)
+        size = _tp_config(name, 1).data.image_size
+        print(f"tensor parallel {name}: gloo, {TP_RANKS} ranks on the card at (data=1, "
+              f"model={TP_RANKS}), global batch {TP_BATCH} on every rank, {size}x{size}, "
+              f"{r0['sharded']} of {r0['leaves']} parameters sharded; one augmented step: "
+              f"losses {losses} vs world-1 {r0['ref_loss']!r} (rel {loss_err!r}, limit "
+              f"{LOSS_RTOL}); gathered gradients vs world-1: max relative L2 "
+              f"{r0['max_rel_err']!r} ({r0['worst_leaf']}, limit {GRAD_RL2}); held to the fp32 "
+              f"gradient (leaf, world-1 bf16 vs fp32, TP vs fp32; limit {BF16_NOISE_FACTOR}x): "
+              f"{r0['held']}; parameters identical across ranks "
+              f"{[r['params_identical'] for r in ranks]}; launches per rank "
+              f"{[r['launches'] for r in ranks]}; kernel-block output channels {r0['kernel_block_co']}; "
+              f"{wall!r} s with the processes' start on {card}", flush=True)
+        print(f"tensor parallel {name}: step {[r['step_ms'] for r in ranks]} ms at "
+              f"(1, {TP_RANKS}) vs {r0['ref_step_ms']!r} ms at world 1 (batch {TP_BATCH}); "
+              f"model-group collectives in a step, each waited for (ms, calls, bytes): "
+              f"{[r['collectives'] for r in ranks]}; peak memory per rank "
+              f"{[r['peak_bytes'] for r in ranks]} B vs {r0['ref_peak_bytes']!r} B at world 1 "
+              f"(rank 0 alone, the TP step's gradients still held) on {card}", flush=True)
+        if len(set(losses)) != 1 or loss_err > LOSS_RTOL:
+            raise AssertionError(f"tensor parallel {name}: losses {losses} vs world-1 "
+                                 f"{r0['ref_loss']}")
+        if not all(r["params_identical"] for r in ranks):
+            raise AssertionError(f"tensor parallel {name}: the ranks' parameters differ")
+        for r in ranks:
+            if r["launches"] != want:
+                raise AssertionError(f"tensor parallel {name}, rank {r['rank']}: launches "
+                                     f"{r['launches']}, expected {want}")
 
 
 def export_phase(torch, mods, card: str) -> dict:
@@ -2615,6 +2840,7 @@ def main() -> int:
              robustness_phase(torch, mods, card), data_phase(torch, mods, card),
              distributed_phase(torch, mods, card), export_phase(torch, mods, card),
              profiler_phase(torch, mods, card), *options_phase(torch, mods, card)]
+    tp_phase(torch, mods, card)
     launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 
     kernels = []

@@ -1,4 +1,4 @@
-"""Data-parallel training entry point; counterpart of
+"""Data- and tensor-parallel training entry point; counterpart of
 ``scripts/train_distributed.py``, with its flags and ``--device``,
 ``--dataset``, ``--batch-size``, ``--image-size`` and
 ``--synthetic-length``.
@@ -16,8 +16,11 @@ The backend is ``nccl`` with a card (each rank takes the card
 ``LOCAL_RANK``), ``gloo`` on the CPU (``--device cpu``).  NCCL runs one rank
 per card.  Each rank trains on its rows of every global batch, the
 gradients averaged and the BatchNorm statistics taken over the global batch
-(``engine/train.py``); rank 0 writes the run folder.  ``--model-shards``
-other than 1 (tensor parallelism) is not ported.
+(``engine/train.py``); rank 0 writes the run folder.  ``--model-shards M``
+(tensor parallelism, the config's ``n_model_shards``) lays the ranks out
+as ``(data=R/M, model=M)``: the M ranks of a data row share its rows and
+each holds 1/M of the output channels of every large weight
+(``parallel/tensor.py``); R must divide by M and the batch by R/M.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ def main(argv=None):
     ap.add_argument("--preset", default="unet")
     ap.add_argument("--epochs", type=int, default=2)  # the reference trains 2
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="tensor-parallel shards: only 1 (not ported)")
+                    help="tensor-parallel shards M: ranks per model group (default 1)")
     ap.add_argument("--multihost", action="store_true",
                     help="join the process group even as one process")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -49,10 +52,6 @@ def main(argv=None):
 
     if args.coordinator and (args.num_processes is None or args.process_id is None):
         ap.error("--coordinator requires --num-processes and --process-id")
-    if args.model_shards != 1:
-        raise NotImplementedError(
-            f"--model-shards {args.model_shards}: tensor parallelism is not ported; see "
-            "ROADMAP.md Queue 1 item 13 (tensor parallelism)")
 
     from image_segmentation_tpu_torch.config import preset
     from image_segmentation_tpu_torch.engine.train import Trainer
@@ -72,11 +71,13 @@ def main(argv=None):
         cfg.batch_size = args.batch_size
     if args.save_dir is not None:
         cfg.save_dir = args.save_dir
+    cfg.n_model_shards = args.model_shards
     trainer = Trainer(cfg, device=args.device)
     out = trainer.train(verbose=True)
     last = out["history"][-1]
     if mesh.is_main():
-        print(f"done: world={mesh.world_size()} epochs={args.epochs} "
+        print(f"done: world={mesh.world_size()} model_shards={args.model_shards} "
+              f"epochs={args.epochs} "
               f"val_iou={last['val_iou']:.4f}", flush=True)
     return trainer
 

@@ -3,11 +3,12 @@
 TrainConfig :46, preset :84), field for field and preset for preset, so
 that ``dataclasses.asdict(preset(name))`` is equal in both packages.
 
-Fields that only the JAX package acts on, or that the port does not act on
-yet, are still declared so that the presets compare equal:
-``compile_cache`` (XLA's compilation cache; nothing to cache here),
-``debug_nans`` and ``n_model_shards``.  The port's Trainer raises
-``NotImplementedError`` on a non-default value of the last.
+Fields that only the JAX package acts on are still declared so that the
+presets compare equal: ``compile_cache`` (XLA's compilation cache; nothing
+to cache here) and ``debug_nans``.  ``n_model_shards`` (tensor
+parallelism) is ported for ``unet``, ``large_unet``, ``clip_unet`` and
+``clip_unet_prompt``; the Trainer raises ``NotImplementedError`` for it
+with another model, ``fused_deep`` or ``remat``.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class TrainConfig:
     compile_cache: Optional[str] = None
     # The C++ background-thread batch loader (data/native_loader.py).
     native_loader: bool = False
-    # Tensor-parallel weight shards; not ported.
+    # Tensor-parallel weight shards: ranks per model group (parallel/tensor.py).
     n_model_shards: int = 1
 
 

@@ -11,6 +11,11 @@ of every global batch (rank r takes positions r, r+R, ... of the batch;
 its rows of the global batch are then ``[r*b/R, (r+1)*b/R)``, the same
 slot a contiguous shard takes).  ``process_count > 1`` requires
 ``drop_last=True``: a remainder would give the ranks unequal shards.
+Under tensor parallelism (``parallel.mesh`` model groups of M > 1) it
+raises ``ValueError``, as JAX's refuses a sub-row layout (:121-143): each
+process of a model group holds a data row's rows that its neighbours hold
+too, which the C++ shard does not give; ``native_loader=False`` takes the
+Python pipeline there.
 
 The library is built from the checkout's ``runtime/loader.cpp`` with
 ``g++`` into ``build/native/`` (never into ``runtime/``, where the JAX
@@ -38,6 +43,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .pipeline import BatchPipeline
 
 _ROOT = Path(__file__).resolve().parents[2]
@@ -104,6 +110,16 @@ class NativeBatchPipeline(BatchPipeline):
 
     def __init__(self, dataset, batch_size: int, *, ring_depth: int = 3, **kwargs):
         super().__init__(dataset, batch_size, **kwargs)
+        if mesh.model_size() > 1:
+            # JAX's rule (data/native_loader.py:121-143): the C++ shard hands
+            # each process batch/process_count rows, valid only where the
+            # process addresses exactly that many; a process of a model group
+            # holds part of a data row that its neighbours hold too
+            ranks = mesh.world_size()
+            raise ValueError(
+                f"native loader: process addresses {batch_size // self.process_count} batch "
+                f"rows but batch/process_count = {batch_size // ranks}; sub-row process "
+                "layouts need native_loader=False")
         if self.process_count > 1 and not self.drop_last:
             raise ValueError("process_count > 1 requires drop_last=True")
         self._lib = load_library()

@@ -10,11 +10,12 @@ the trainer.  One batch of look-ahead: the copy of batch i+1 is issued
 before batch i is handed out, from pinned memory when the device is a
 card.
 
-Several processes (``process_count`` R > 1, one rank each): every rank
-walks the same order and takes the rows ``[r*n/R, (r+1)*n/R)`` of each
-n-row global batch, the rows JAX's batch-sharded global array places on
-data row r (:137-161).  A batch size that R does not divide raises
-``ValueError``.  A remainder batch (``drop_last=False``) whose rows R does
+Several processes (``process_count`` R > 1 data rows, one rank each, or
+M ranks each under tensor parallelism): every rank walks the same order
+and takes the rows ``[r*n/R, (r+1)*n/R)`` of each n-row global batch for
+its data row r, the rows JAX's batch-sharded global array places on data
+row r (:137-161), so the M ranks of a data row get the same rows.  A batch
+size that R does not divide raises ``ValueError``.  A remainder batch (``drop_last=False``) whose rows R does
 not divide goes to every rank whole, as JAX places it replicated
 (:162-186); :meth:`BatchPipeline.replicated` tells the consumer, which
 then computes that batch's metrics on each rank alone
@@ -55,8 +56,10 @@ class BatchPipeline:
     ``batch_size``.  ``drop_last=True`` keeps every training batch full;
     evaluation uses ``drop_last=False``.  ``mask_attr``: the dataset field
     the masks come from ("raw_masks" for the palette masks).
-    ``process_index`` / ``process_count`` default to the process group's
-    rank and size (``parallel.mesh``)."""
+    ``process_index`` / ``process_count`` default to this rank's data row
+    and the number of data rows (``parallel.mesh.data_rank`` /
+    ``data_size``: the rank and the world size without tensor
+    parallelism)."""
 
     def __init__(
         self,
@@ -80,8 +83,8 @@ class BatchPipeline:
         self.drop_last = drop_last
         self.seed = seed
         self.mask_attr = mask_attr
-        self.process_index = mesh.rank() if process_index is None else process_index
-        self.process_count = mesh.world_size() if process_count is None else process_count
+        self.process_index = mesh.data_rank() if process_index is None else process_index
+        self.process_count = mesh.data_size() if process_count is None else process_count
         if getattr(dataset, mask_attr) is None:
             raise ValueError(f"the dataset has no {mask_attr!r}")
         if batch_size % self.process_count:

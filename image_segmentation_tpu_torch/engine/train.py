@@ -67,16 +67,32 @@ rank 0 writes artifacts; every rank holds rank 0's run folder and calls
 every rank, and :meth:`Trainer.restore` reads on every rank.  At world
 size 1 no collective runs.
 
+Tensor parallelism (JAX :155, :219-223, :507-510): with ``n_model_shards``
+M > 1 the R ranks form the ``(data=R/M, model=M)`` grid of
+``parallel.mesh.make_grid``, rank r on data row ``r // M``; every "over
+ranks" above is over the data group, and the M ranks of a data row hold
+its rows.  After the initial weights are drawn (whole, from the seed, as
+at M = 1) each parameter that JAX's ``shard_params_tp`` shards
+(``utils.convert.tp_plan``) is replaced by this rank's slice of its output
+channels (``parallel.tensor.shard_module_``), so Adam's moments are the
+slice's, and the layers that hold one are column-parallel
+(``parallel/tensor.py``) in the training and the evaluation forwards.
+:meth:`Trainer.save` makes the sharded leaves and their moments whole over
+the model group (rank 0 writes JAX's layout unchanged), and
+:meth:`Trainer.restore` slices them again.  In scope: ``unet``,
+``large_unet``, ``clip_unet`` and ``clip_unet_prompt``; the other models,
+``fused_deep`` and ``remat`` under M > 1 raise ``NotImplementedError``
+naming ROADMAP.md Queue 1 item 13.
+
 Ported: the segmentation task on the U-Nets, ClipUnet, ClipRes and
 ClipAutoencoder, the prompt task on ClipUnetPrompt, the class task
 (``loss="class_binary"``) on ClipResSegmentationClassification, the
 reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss;
 synthetic data or the Oxford-IIIT-Pet split on disk
 (``data.datasets.load_pet_dataset``); the Python pipeline or, with
-``native_loader``, the C++ one.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: ``n_model_shards``
-(tensor parallelism).  ``prompt_fusion`` (two inputs and no task in the JAX
-Trainer either) is a model only.
+``native_loader``, the C++ one; ``n_model_shards`` (tensor parallelism,
+above) for the four models in scope.  ``prompt_fusion`` (two inputs and
+no task in the JAX Trainer either) is a model only.
 
 ``remat`` (JAX :249-261, ``jax.checkpoint`` around the whole training
 apply): the training forward runs under ``torch.utils.checkpoint``
@@ -125,10 +141,11 @@ from ..ops import losses as L
 from ..ops.augment import AugmentParams, DataAugmentor, DataAugmentorPrompt, normalize_image
 from ..ops.cross_attention import CrossAttentionFusion
 from ..parallel import mesh
+from ..parallel import tensor
 from ..utils import checkpoint as ckpt_lib
 from ..utils import io as io_lib
 from ..utils.profiling import format_memory_report
-from ..utils.convert import jax_from_state_dict
+from ..utils.convert import jax_from_state_dict, tp_plan
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
 # scale corrected so the variance is 1/fan_in (jax.nn.initializers).
@@ -137,6 +154,28 @@ _TRUNC_STD = 0.87962566103423978
 _EMBED_STD = 0.02
 # fold_in data of the JAX Trainer's eval batches (:493)
 EVAL_STEP_KEY = 7919
+# the models that train with n_model_shards > 1 (ROADMAP.md Queue 1 item 13)
+TP_MODELS = ("unet", "large_unet", "clip_unet", "clip_unet_prompt")
+
+
+def check_tensor_parallel(config: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for ``n_model_shards > 1`` with what
+    is not ported under it: a model outside ``TP_MODELS``, ``fused_deep``,
+    ``remat``."""
+    m = config.n_model_shards
+    if m == 1:
+        return
+    what = None
+    if config.model not in TP_MODELS:
+        what = f"the model {config.model!r}"
+    elif config.model_args.get("fused_deep"):
+        what = "fused_deep"
+    elif config.remat:
+        what = "remat"
+    if what is not None:
+        raise NotImplementedError(
+            f"n_model_shards={m!r} with {what} is not ported; see ROADMAP.md Queue 1 "
+            "item 13 (tensor parallelism)")
 
 
 def adam_l2(cfg, params) -> torch.optim.Optimizer:
@@ -296,13 +335,12 @@ class Trainer:
         run_dir: Optional[str] = None,
         make_artifacts: bool = True,
     ):
-        if config.n_model_shards != 1:
-            raise NotImplementedError(
-                f"n_model_shards={config.n_model_shards!r} is not ported; see ROADMAP.md "
-                "Queue 1 item 13 (tensor parallelism)")
-        if config.batch_size % mesh.world_size():
+        check_tensor_parallel(config)
+        self.grid = mesh.make_grid(config.n_model_shards)
+        if config.batch_size % self.grid.n_data:
             raise ValueError(f"batch_size {config.batch_size} must be divisible by the "
-                             f"{mesh.world_size()} ranks")
+                             f"{self.grid.n_data} data rows ({mesh.world_size()} ranks, "
+                             f"{self.grid.n_model} a model group)")
         self.config = config
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if config.bf16 else torch.float32
@@ -320,6 +358,13 @@ class Trainer:
             self.task = "segmentation"
         self.model_name = type(self.model).__name__
         self.num_params = jax_param_count(self.model)
+        info_params = None
+        if make_artifacts and mesh.is_main():
+            info_params = jax_from_state_dict(self.model.state_dict())[0]
+        # tensor parallelism: this rank's slices of the sharded weights
+        self.tp_plan = tp_plan({k: tuple(p.shape) for k, p in self.model.named_parameters()},
+                               self.grid.n_model)
+        tensor.shard_module_(self.model, self.tp_plan, self.grid.model_rank, self.grid.n_model)
         self.optimizer = build_optimizer(config.optimizer, self.model)
         self.trainable = trainable_parameters(self.model)
         self.frozen = len(self.trainable) < len(list(self.model.parameters()))
@@ -353,7 +398,7 @@ class Trainer:
                 num_params=self.num_params,
                 train_dataset_size=len(self.train_data) * (aug_n + 1),
                 val_dataset_size=len(self.val_data),
-                params=jax_from_state_dict(self.model.state_dict())[0])
+                params=info_params)
         # every rank checkpoints where rank 0 writes (save waits on all)
         self.run_dir = mesh.broadcast_object(self.run_dir)
 
@@ -382,12 +427,13 @@ class Trainer:
 
     @staticmethod
     def _rows(n: int) -> Tuple[int, slice]:
-        """The global batch's rows and this rank's slice of them, for a
-        rank holding n rows (the global batch itself at world size 1 and
-        inside ``mesh.local``)."""
+        """The global batch's rows and this rank's slice of them (its data
+        row's), for a rank holding n rows (the global batch itself with one
+        data row and inside ``mesh.local``)."""
         if not mesh.active():
             return n, slice(0, n)
-        return n * mesh.world_size(), slice(mesh.rank() * n, (mesh.rank() + 1) * n)
+        r = mesh.data_rank()
+        return n * mesh.data_size(), slice(r * n, (r + 1) * n)
 
     def prompt_points(self, masks_u8: torch.Tensor, step_key: int):
         """``(choice, cy, cx)`` of the step's prompts, on the device: the
@@ -588,24 +634,33 @@ class Trainer:
     # ------------------------------------------------------------- resume
     def state_tree(self) -> Dict[str, Any]:
         """The JAX Trainer state of this Trainer (params, batch_stats, the
-        Adam state, step) as nested numpy dicts (``utils/checkpoint.py``)."""
-        return ckpt_lib.state_tree(self.model, self.optimizer, self.step, self.frozen)
+        Adam state, step) as nested numpy dicts (``utils/checkpoint.py``),
+        the sharded leaves and their moments made whole (every rank of the
+        model group must call)."""
+        whole = functools.partial(tensor.full_state, self.model) if self.tp_plan else None
+        return ckpt_lib.state_tree(self.model, self.optimizer, self.step, self.frozen,
+                                   whole=whole)
 
     def save(self, path: str) -> None:
         """Write :meth:`state_tree` as a checkpoint in JAX's ``.npz`` layout:
-        rank 0 writes (the state is the same on every rank), every rank
-        returns once the file is there."""
+        rank 0 writes (the state is the same on every rank; sharded leaves
+        are gathered on every rank first), every rank returns once the file
+        is there."""
+        tree = self.state_tree() if mesh.is_main() or self.tp_plan else None
         if mesh.is_main():
-            ckpt_lib.save_checkpoint(path, self.state_tree())
+            ckpt_lib.save_checkpoint(path, tree)
         mesh.barrier()
 
     def restore(self, path: str) -> None:
         """Load a checkpoint of either package (JAX :505): the parameters,
         the BatchNorm running statistics, Adam's moments and count, and the
-        step, from which :meth:`train` goes on (the module doc).  Strict: a
-        missing key or a wrong shape raises."""
+        step, from which :meth:`train` goes on (the module doc), each
+        sharded leaf sliced to this rank (JAX :507-510).  Strict: a missing
+        key or a wrong shape raises."""
         tree = ckpt_lib.restore_into(self.state_tree(), path)
-        self.step = ckpt_lib.load_state_tree(tree, self.model, self.optimizer, self.frozen)
+        local = functools.partial(tensor.local_state, self.model) if self.tp_plan else None
+        self.step = ckpt_lib.load_state_tree(tree, self.model, self.optimizer, self.frozen,
+                                             local=local)
         # the Python pipeline counts the batches the native one gives
         per_epoch = self._train_pipeline().batches_per_epoch()
         self.epoch, self.batch = divmod(self.step, max(per_epoch, 1))

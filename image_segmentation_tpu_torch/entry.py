@@ -6,10 +6,12 @@
 - :func:`dryrun_multichip` — ``n`` ranks on the CPU, one process each in a
   gloo process group, each training ONE ClipUnet step with a small CLIP
   tower (uint8 batch -> augmentation -> forward -> loss -> backward ->
-  gradients averaged over ranks -> Adam) over the data axis only (the
-  tensor-parallel ``model`` axis is not ported: ROADMAP.md, the
-  tensor-parallel item); it asserts a finite loss, equal on every rank,
-  and a frozen tower bit-identical after the step.
+  gradients averaged over the data axis -> Adam) on the grid
+  ``(data=n/2, model=2)`` for an even ``n >= 4``, as
+  ``__graft_entry__.py:83-86`` builds its mesh (else ``(data=n, model=1)``);
+  it asserts a finite loss, equal on every rank, the cross-attention
+  fusion's weights sharded over the model axis (with M = 2), and a frozen
+  tower bit-identical after the step.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ def entry(device="cuda"):
     return forward, (model, images)
 
 
+def model_shards(n_devices: int) -> int:
+    """The model axis of the dryrun's grid (``__graft_entry__.py:83``)."""
+    return 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+
+
 def _dryrun_rank(n_ranks: int) -> dict:
     """One rank of :func:`dryrun_multichip`: its rows of the first global
     batch, one train step, the checks."""
@@ -48,12 +55,17 @@ def _dryrun_rank(n_ranks: int) -> dict:
     from .engine.train import Trainer
     from .parallel import mesh
 
+    n_model = model_shards(n_ranks)
+    n_data = n_ranks // n_model
     cfg = TrainConfig(
         model="clip_unet", model_args={"clip_kwargs": SMALL_TOWER},
-        batch_size=2 * n_ranks, num_epochs=1,
-        data=DataConfig(dataset="synthetic", synthetic_length=2 * n_ranks, image_size=32,
+        batch_size=2 * n_data, num_epochs=1, n_model_shards=n_model,
+        data=DataConfig(dataset="synthetic", synthetic_length=2 * n_data, image_size=32,
                         augmentations_per_datapoint=1))
     trainer = Trainer(cfg, device="cpu", make_artifacts=False)
+    fusion = [k for k in trainer.tp_plan if k.startswith("cross_attention_fusion.")]
+    if n_model > 1 and not fusion:
+        raise AssertionError("expected tensor-sharded cross-attention weights, got none")
     tower = {k: v.clone() for k, v in trainer.model.state_dict().items()
              if k.startswith("clip_feature_extractor.")}
     train_pipe, _ = trainer._pipelines()
@@ -68,7 +80,8 @@ def _dryrun_rank(n_ranks: int) -> dict:
     for k, v in tower.items():
         if not torch.equal(v, after[k]):
             raise AssertionError(f"frozen CLIP parameter changed: {k}")
-    return {"rank": mesh.rank(), "rows": int(images.shape[0]), "loss": loss}
+    return {"rank": mesh.rank(), "rows": int(images.shape[0]), "loss": loss,
+            "fusion_sharded": fusion}
 
 
 def dryrun_multichip(n_devices: int) -> float:
@@ -79,7 +92,10 @@ def dryrun_multichip(n_devices: int) -> float:
     results = mesh.launch("image_segmentation_tpu_torch.entry:_dryrun_rank", n_devices,
                           [n_devices])
     loss = results[0]["loss"]
-    print(f"dryrun_multichip({n_devices}): ok, model=ClipUnet, ranks={n_devices} (gloo, data "
-          f"axis), rows per rank={results[0]['rows']}, loss={loss:.4f}, frozen_tower=verified",
-          flush=True)
+    n_model = model_shards(n_devices)
+    sharded = ",".join(results[0]["fusion_sharded"]) or "none"
+    print(f"dryrun_multichip({n_devices}): ok, model=ClipUnet, ranks={n_devices} (gloo), "
+          f"mesh=(data={n_devices // n_model}, model={n_model}), rows per rank="
+          f"{results[0]['rows']}, loss={loss:.4f}, fusion_sharded={sharded}, "
+          "frozen_tower=verified", flush=True)
     return loss

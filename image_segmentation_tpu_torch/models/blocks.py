@@ -20,6 +20,11 @@ flax's semantics (blocks.py:35-37, folded.py:340-353): biased
 ``nn.BatchNorm2d``'s unbiased running update, which this module never
 runs.  The statistics are the global batch's when several ranks train
 (:func:`batch_stats`), as JAX's are over its batch-sharded array.
+
+Tensor parallelism (``parallel/tensor.py``): a conv or ConvTranspose whose
+weight is sharded is column-parallel — it computes its slice of the output
+channels from the full input and the slices are gathered, so the
+BatchNorm, the pools and the resizes after it see the whole tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 
 from ..ops.precision import wide
 from ..parallel import mesh
+from ..parallel import tensor as tp
 
 # torch BatchNorm2d default, and the JAX package's BN_EPS (blocks.py:38).
 BN_EPS = 1e-5
@@ -91,7 +97,7 @@ def batch_stats(x: torch.Tensor, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torc
     commits the same running averages."""
     xf = wide(x)
     if mesh.active():
-        n = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.world_size()
+        n = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.data_size()
         s, q = mesh.all_reduce_sum(torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))]))
         mean = s / n
         var = torch.clamp(q / n - mean * mean, min=0.0)
@@ -111,24 +117,31 @@ def bn_relu_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` (SAME padding) on an NHWC tensor, in ``x``'s dtype."""
-    w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=conv.padding)
-    return y.permute(0, 2, 3, 1)
+    """``conv`` (SAME padding) on an NHWC tensor, in ``x``'s dtype
+    (column-parallel when its weight is sharded)."""
+    def op(x, w, b):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype), padding=conv.padding)
+        return y.permute(0, 2, 3, 1)
+
+    return tp.column(op, x, conv.weight, conv.bias, tp.shard(conv))
 
 
 def conv1x1_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """1x1 conv on an NHWC tensor as one matmul over the channel axis
     (models/folded.py ``Folded1x1`` at fold 1)."""
-    w = conv.weight[:, :, 0, 0].to(x.dtype)
-    return F.linear(x, w, conv.bias.to(x.dtype))
+    def op(x, w, b):
+        return F.linear(x, w[:, :, 0, 0].to(x.dtype), b.to(x.dtype))
+
+    return tp.column(op, x, conv.weight, conv.bias, tp.shard(conv))
 
 
 def conv_transpose2x2_nhwc(x: torch.Tensor, up: nn.ConvTranspose2d) -> torch.Tensor:
     """ConvTranspose(k=2, s=2) on an NHWC tensor, in ``x``'s dtype."""
-    w, b = up.weight.to(x.dtype), up.bias.to(x.dtype)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=2)
-    return y.permute(0, 2, 3, 1)
+    def op(x, w, b):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b.to(x.dtype), stride=2)
+        return y.permute(0, 2, 3, 1)
+
+    return tp.column(op, x, up.weight, up.bias, tp.shard(up))
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

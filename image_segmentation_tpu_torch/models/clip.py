@@ -18,6 +18,10 @@ every forward.  The op order is JAX's: q is scaled before the product, the
 softmax runs in fp32 and is cast back, and LayerNorm takes fp32 statistics.
 The attention, MLP and LayerNorms are stock PyTorch ops: in JAX they are
 plain XLA, not Pallas kernels.
+
+Under tensor parallelism (``parallel/tensor.py``) each Dense and the patch
+conv whose weight is sharded is column-parallel, its output gathered; the
+embeddings are added on the patch conv's channel slice before the gather.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import wide
+from ..parallel import tensor as tp
 
 CLIP_IMAGE_SIZE = 224
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -67,9 +72,12 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer`` in x's dtype (flax ``Dense(dtype=...)`` on fp32 params)."""
-    b = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), b)
+    """``layer`` in x's dtype (flax ``Dense(dtype=...)`` on fp32 params),
+    column-parallel when its weight is sharded."""
+    def op(x, w, b):
+        return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+    return tp.column(op, x, layer.weight, layer.bias, tp.shard(layer))
 
 
 class ClipAttention(nn.Module):
@@ -128,12 +136,23 @@ class ClipEmbeddings(nn.Module):
         self.position_embedding = nn.Embedding(tokens, hidden, device=device)
 
     def forward(self, pixels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """With the patch conv sharded, its hidden channels are this rank's
+        slice, the class and position embeddings are taken on the same
+        slice, and the sum is gathered."""
         b = pixels.shape[0]
+        s = tp.shard(self.patch_embedding)
         w = self.patch_embedding.weight.to(dtype)
         x = F.conv2d(pixels.to(dtype).permute(0, 3, 1, 2), w, stride=self.patch_embedding.stride)
         x = x.flatten(2).transpose(1, 2)  # (B, patches, hidden) in row-major patch order
-        cls = self.class_embedding.to(dtype).expand(b, 1, -1)
-        return torch.cat([cls, x], dim=1) + self.position_embedding.weight.to(dtype)
+        cls = tp.take(self.class_embedding, s).to(dtype).expand(b, 1, -1)
+        pos = self.position_embedding.weight
+        pos_s = tp.shard(self.position_embedding)
+        if pos_s is None:
+            pos = tp.take(pos, s, dim=1)
+        elif s is None:
+            pos = tp.full_tensor(pos, pos_s)
+        x = torch.cat([cls, x], dim=1) + pos.to(dtype)
+        return x if s is None else tp.gather_model(x, -1)
 
 
 class ClipVisionModel(nn.Module):

@@ -45,6 +45,14 @@ so :class:`FusedDeepConvBlockDownsample` is a :class:`FusedConvBlock` and
 the standard max-pool, :class:`FusedDeepConvBlockUpsampleSkip` the
 standard up-conv and resize and a :class:`FusedConvBlock` over the pair
 [up | skip], and a fused bottleneck is a plain :class:`FusedConvBlock`.
+
+Tensor parallelism (``parallel/tensor.py``): every kernel runs on the
+``Co/M`` slice of a sharded weight.  A fused block's sharded convs run in
+the TP form of :class:`~..ops.fused_conv.FusedBlockFunction` (and in eval
+conv1's slice is gathered before conv2); a sharded conv2's output stays a
+slice through the block's own epilogue or the pool kernel (bn2's affine
+is per channel) and is gathered after it; the unfused convs, the
+ConvTranspose kernel and K11 are column-parallel around their Functions.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from torch import nn
 from ..ops import fused_conv
 from ..ops.conv1x1 import Conv1x1Function
 from ..ops.precision import wide
+from ..parallel import tensor as tp
 from .blocks import (
     BN_EPS,
     ConvBlock,
@@ -110,27 +119,37 @@ class FusedConvBlock(ConvBlock):
                 "a block built with input_grad=False got an input that requires grad; "
                 "build it with input_grad=True to differentiate with respect to its input")
         conv1, bn1, conv2, bn2 = (self.conv[i] for i in (0, 1, 3, 4))
+        s1, s2 = tp.shard(conv1), tp.shard(conv2)
         x = x.contiguous()
         x_b = None if x_b is None else x_b.contiguous()
         if train:
             z, mean1, var1, mean2, var2 = fused_conv.FusedBlockFunction.apply(
                 x, x_b, conv1.weight, conv1.bias, conv2.weight, conv2.bias,
                 bn1.weight, bn1.bias, bn2.weight, bn2.bias, raw_out, BN_EPS, self.input_grad,
+                s1, s2,
             )
-            commit_running_stats(bn1, mean1.detach(), var1.detach())
-            commit_running_stats(bn2, mean2.detach(), var2.detach())
+            commit_running_stats(bn1, *_whole(s1, mean1.detach(), var1.detach()))
+            commit_running_stats(bn2, *_whole(s2, mean2.detach(), var2.detach()))
             if not raw_out:
-                return z
-            a2 = torch.rsqrt(var2 + BN_EPS) * bn2.weight
-            return z, a2, bn2.bias - mean2 * a2
-        y1 = fused_conv.conv3x3(x, conv1.weight, conv1.bias, x_b=x_b)
+                return z if s2 is None else tp.gather_model(z)
+            a2 = torch.rsqrt(var2 + BN_EPS) * tp.take(bn2.weight, s2)
+            return z, a2, tp.take(bn2.bias, s2) - mean2 * a2
+        y1 = fused_conv.conv3x3(x, conv1.weight, tp.take(conv1.bias, s1), x_b=x_b)
+        if s1 is not None:
+            y1 = tp.gather(y1)
         a1, b1 = bn_affine(bn1)
-        y2 = fused_conv.conv3x3(y1, conv2.weight, conv2.bias, a=a1, b=b1)
-        a2, b2 = bn_affine(bn2)
+        y2 = fused_conv.conv3x3(y1, conv2.weight, tp.take(conv2.bias, s2), a=a1, b=b1)
+        a2, b2 = (tp.take(t, s2) for t in bn_affine(bn2))
         if raw_out:
             return y2, a2, b2
         dt = y2.dtype
-        return F.relu(y2 * a2.to(dt) + b2.to(dt))
+        z = F.relu(y2 * a2.to(dt) + b2.to(dt))
+        return z if s2 is None else tp.gather(z)
+
+
+def _whole(s: Optional[tp.Shard], *vectors: torch.Tensor):
+    """Per-channel vectors of a conv's slice made whole (no autograd)."""
+    return vectors if s is None else tuple(tp.gather(v) for v in vectors)
 
 
 class FusedConvBlockDownsample(ConvBlockDownsample):
@@ -144,12 +163,17 @@ class FusedConvBlockDownsample(ConvBlockDownsample):
         self.block[0].input_grad = input_grad
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """With conv2 sharded, the pool runs on its channel slice, then
+        the pooled slices are gathered."""
         y2, a2, b2 = self.block[0](x.contiguous(), train=train, raw_out=True)
+        sharded = tp.shard(self.block[0].conv[3]) is not None
         if not train:
-            return fused_conv.maxpool2x2_affine_relu(y2, a2, b2)
+            p = fused_conv.maxpool2x2_affine_relu(y2, a2, b2)
+            return tp.gather(p) if sharded else p
         dt = y2.dtype
         # rounded in autograd, so the affine cotangent is rounded back as in JAX
-        return fused_conv.PoolFunction.apply(y2, wide(a2.to(dt)), wide(b2.to(dt)))
+        p = fused_conv.PoolFunction.apply(y2, wide(a2.to(dt)), wide(b2.to(dt)))
+        return tp.gather_model(p) if sharded else p
 
 
 def _up_kernel(up: nn.ConvTranspose2d, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -157,9 +181,8 @@ def _up_kernel(up: nn.ConvTranspose2d, x: torch.Tensor, train: bool) -> torch.Te
     gates it by folded width (folded.py:586) and runs XLA below 64 folded
     columns; the port runs it at every width, with the same math."""
     x = x.contiguous()
-    if train:
-        return fused_conv.ConvTransposeFunction.apply(x, up.weight, up.bias)
-    return fused_conv.convtranspose2x2(x, up.weight, up.bias)
+    fn = fused_conv.ConvTransposeFunction.apply if train else fused_conv.convtranspose2x2
+    return tp.column(fn, x, up.weight, up.bias, tp.shard(up))
 
 
 class FusedConvBlockUpsampleSkip(ConvBlockUpsampleSkip):
@@ -241,7 +264,8 @@ class UnfusedConvBlock(ConvBlock):
             x = torch.cat([x, x_b.to(x.dtype)], dim=-1)
         for i in (0, 3):
             conv = self.conv[i]
-            y = fused_conv.Conv3x3Function.apply(x.contiguous(), conv.weight, conv.bias)
+            y = tp.column(fused_conv.Conv3x3Function.apply, x.contiguous(), conv.weight,
+                          conv.bias, tp.shard(conv))
             x = folded_bn_relu(y, self.conv[i + 1], train)
         return x
 
@@ -312,4 +336,5 @@ def conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:
     backward is K11; else ``blocks.conv1x1_nhwc``."""
     if not folded:
         return conv1x1_nhwc(x, conv)
-    return Conv1x1Function.apply(x.contiguous(), conv.weight, conv.bias)
+    return tp.column(Conv1x1Function.apply, x.contiguous(), conv.weight, conv.bias,
+                     tp.shard(conv))

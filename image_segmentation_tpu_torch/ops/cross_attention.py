@@ -20,6 +20,9 @@ context ``(B, S, D)``, S > 1.  Every model of the repo passes the pooled
 CLIP embedding, one token, and a softmax over one key is 1: the output is
 ``out_proj(v_proj(context))`` broadcast over all positions, for any query
 and any number of heads (:186-195), two small matmuls and no kernel.
+Under tensor parallelism (``parallel/tensor.py``) the projections whose
+weights are sharded (v_proj, out_proj) are column-parallel, each output
+gathered.
 """
 
 from __future__ import annotations
@@ -32,7 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tensor as tp
 from ._build import launch, on_cpu, ptr
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
 
 def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -129,14 +137,23 @@ class CrossAttentionFusion(nn.Module):
             return mha.in_proj_weight[i * c:(i + 1) * c]
         return (mha.q_proj_weight, mha.k_proj_weight, mha.v_proj_weight)[i]
 
+    def _proj_shard(self, i: int) -> Optional[tp.Shard]:
+        """The shard of projection i's weight: the packed weight's holds v's
+        rows (q and k, absent from the JAX tree, are never sharded)."""
+        mha = self.cross_attn
+        if mha.in_proj_weight is not None:
+            s = tp.shard(mha, "in_proj_weight")
+            return s if s is not None and s.start == i * self.embed_dim else None
+        return tp.shard(mha, f"{'qkv'[i]}_proj_weight")
+
     def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
         c = self.embed_dim
         b = self.cross_attn.in_proj_bias[i * c:(i + 1) * c]
-        return F.linear(x, self.proj_weight(i).to(x.dtype), b.to(x.dtype))
+        return tp.column(_linear, x, self.proj_weight(i), b, self._proj_shard(i))
 
     def _out(self, x: torch.Tensor) -> torch.Tensor:
         o = self.cross_attn.out_proj
-        return F.linear(x, o.weight.to(x.dtype), o.bias.to(x.dtype))
+        return tp.column(_linear, x, o.weight, o.bias, tp.shard(o))
 
     def forward(self, spatial: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, h, w, c = spatial.shape

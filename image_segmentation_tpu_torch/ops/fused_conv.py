@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import mesh
+from ..parallel import tensor as tp
 from ._build import launch as _launch
 from ._build import on_cpu as _on_cpu
 from ._build import ptr as _ptr
@@ -756,7 +757,8 @@ class FusedBlockFunction(torch.autograd.Function):
     mirroring ``make_folded_block`` (pallas_conv.py:2227).
 
     ``apply(x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out,
-    eps, input_grad) -> (z, mean1, var1, mean2, var2)``.  Forward: conv1
+    eps, input_grad, shard1, shard2) -> (z, mean1, var1, mean2, var2)``.
+    Forward: conv1
     with the stats epilogue, bn1's affine from (S1, Q1), conv2 with bn1 +
     ReLU on load and its own stats, bn2's affine; ``z = round(relu(y2*a2 +
     b2))`` in fp32 with ``a2, b2`` rounded to the activation dtype, or with
@@ -771,67 +773,115 @@ class FusedBlockFunction(torch.autograd.Function):
     otherwise).
 
     Several ranks (``parallel.mesh``): the statistics are the global
-    batch's.  The forward sums ``(S1, Q1)`` and ``(S2, Q2)`` over ranks
-    (and counts every rank's pixels in ``n``) before each affine; the
-    backward sums the ``(dS, dQ)`` that the scalar chain's VJP returns
-    over ranks before the dgrad and wgrad kernels consume them.  At world
-    size 1 no collective runs.
+    batch's.  The forward sums ``(S1, Q1)`` and ``(S2, Q2)`` over the data
+    group (and counts every data row's pixels in ``n``) before each affine;
+    the backward sums the ``(dS, dQ)`` that the scalar chain's VJP returns
+    over the data group before the dgrad and wgrad kernels consume them.
+    At world size 1 no collective runs.
+
+    Tensor parallelism (``shard1``/``shard2``, the :class:`~..parallel.
+    tensor.Shard` of w1/w2, or None): a sharded conv runs on its ``Co/M``
+    slice of w (the weight given IS the slice), of its bias and of its
+    BatchNorm's scale and bias (given whole), and its statistics and affine
+    are the slice's.  Conv1's slice ``y1`` and ``(a1, b1)`` are gathered
+    over the model group for conv2, which reads every input channel.  The
+    outputs of a sharded conv2 (``z``, ``mean2``, ``var2``) and a sharded
+    conv1's ``mean1``, ``var1`` are the slices; the caller gathers them.
+    In the backward, conv2's dgrad with the bn1-ReLU adjoint and its
+    ``(da1, db1)`` epilogue is linear in the cotangent, so with conv2
+    sharded each rank's ``gy1, da1, db1`` are partials over its output
+    channels: summed over the model group, and reduced to conv1's slice
+    when conv1 is sharded (a reduce-scatter); conv1's input gradient is a
+    partial the same way and is summed.  The wgrads stay local (they are
+    the slices' gradients), and the gradients of the whole per-channel
+    vectors (conv biases, BatchNorm scales and biases) are gathered, so
+    every model rank applies the same update.
     """
 
     @staticmethod
     def forward(ctx, x, x_b, w1, c1b, w2, c2b, scale1, bias1, scale2, bias2, raw_out, eps,
-                input_grad=True):
+                input_grad=True, shard1=None, shard2=None):
         dt = x.dtype
-        n = x.shape[0] * x.shape[1] * x.shape[2] * (mesh.world_size() if mesh.active() else 1)
-        y1, s1, q1 = _global_stats(*conv3x3(x, w1, c1b, x_b=x_b, stats=True))
+        n = x.shape[0] * x.shape[1] * x.shape[2] * (mesh.data_size() if mesh.active() else 1)
+        c1b, scale1, bias1 = (tp.take(t, shard1) for t in (c1b, scale1, bias1))
+        c2b, scale2, bias2 = (tp.take(t, shard2) for t in (c2b, scale2, bias2))
+        y1l, s1, q1 = _global_stats(*conv3x3(x, w1, c1b, x_b=x_b, stats=True))
         a1, b1, mean1, var1 = bn_scalars(s1, q1, scale1, bias1, n, eps)
+        y1 = y1l
+        if shard1 is not None:  # conv2 reads every channel of bn1's output
+            y1, a1, b1 = tp.gather(y1l), tp.gather(a1), tp.gather(b1)
         y2, s2, q2 = _global_stats(*conv3x3(y1, w2, c2b, a=a1, b=b1, stats=True))
         a2, b2, mean2, var2 = bn_scalars(s2, q2, scale2, bias2, n, eps)
         if raw_out:
             z = y2
         else:
             z = F.relu(wide(y2) * _round(a2, dt) + _round(b2, dt)).to(dt)
-        ctx.save_for_backward(x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
+        ctx.save_for_backward(x, x_b, y1l, y1, y2, w1, w2, s1, q1, s2, q2,
                               scale1, bias1, scale2, bias2, a1, b1, a2, b2)
         ctx.raw_out, ctx.eps, ctx.n, ctx.input_grad = raw_out, eps, n, input_grad
+        ctx.shards = shard1, shard2
         return z, mean1, var1, mean2, var2
 
     @staticmethod
     def backward(ctx, dz, dmean1, dvar1, dmean2, dvar2):
-        (x, x_b, y1, y2, w1, w2, s1, q1, s2, q2,
+        (x, x_b, y1l, y1, y2, w1, w2, s1, q1, s2, q2,
          scale1, bias1, scale2, bias2, a1, b1, a2, b2) = ctx.saved_tensors
         n, eps = ctx.n, ctx.eps
-        zero = torch.zeros_like(s1)
+        shard1, shard2 = ctx.shards
 
-        def ct(t):
-            return zero if t is None else t
+        def ct(t, like):
+            return torch.zeros_like(like) if t is None else t
+
+        def whole(t, s):  # a per-channel vector's gradient, on every model rank
+            return t if s is None else tp.gather(t)
 
         dz = torch.zeros_like(y2) if dz is None else dz.contiguous()
         aff = {}
         if ctx.raw_out:
             # bn2's affine + ReLU adjoint ran in the consumer's backward:
             # dz is the cotangent of raw y2, bn2 gets mean2/var2 cotangents.
-            da2 = db2 = zero
+            da2 = db2 = torch.zeros_like(s2)
         else:
             da2, db2 = bn_relu_bwd_reduce(dz, y2, a2, b2)
             aff = dict(a=a2, b=b2)
         ds2, dq2, dscale2, dbias2 = _bn_scalars_vjp(
-            s2, q2, scale2, bias2, n, eps, (da2, db2, ct(dmean2), ct(dvar2)))
+            s2, q2, scale2, bias2, n, eps, (da2, db2, ct(dmean2, s2), ct(dvar2, s2)))
         ds2, dq2 = _global_cotangents(ds2, dq2)
         gy1, da1, db1 = conv3x3_dgrad(dz, y2, w2, ds2, dq2, **aff,
                                       x_post=y1, a_post=a1, b_post=b1)
+        if shard2 is not None or shard1 is not None:
+            gy1, da1, db1 = _to_conv1(gy1, da1, db1, shard1, shard2)
         dw2, dc2b = conv3x3_wgrad(dz, y2, y1, ds2, dq2, **aff, a_pre=a1, b_pre=b1)
         ds1, dq1, dscale1, dbias1 = _bn_scalars_vjp(
-            s1, q1, scale1, bias1, n, eps, (da1, db1, ct(dmean1), ct(dvar1)))
+            s1, q1, scale1, bias1, n, eps, (da1, db1, ct(dmean1, s1), ct(dvar1, s1)))
         ds1, dq1 = _global_cotangents(ds1, dq1)
         dx = dxb = None  # input_grad=False: conv1's wgrad alone
         if ctx.input_grad and x_b is None:
-            dx = conv3x3_dgrad(gy1, y1, w1, ds1, dq1)
+            dx = conv3x3_dgrad(gy1, y1l, w1, ds1, dq1)
         elif ctx.input_grad:
-            dx, dxb = conv3x3_dgrad(gy1, y1, w1, ds1, dq1, split=x.shape[-1])
-        dw1, dc1b = conv3x3_wgrad(gy1, y1, x, ds1, dq1, x_b=x_b)
-        return (dx, dxb, dw1, dc1b, dw2, dc2b, dscale1, dbias1, dscale2, dbias2,
-                None, None, None)
+            dx, dxb = conv3x3_dgrad(gy1, y1l, w1, ds1, dq1, split=x.shape[-1])
+        if shard1 is not None and dx is not None:  # partials over conv1's output channels
+            dx = tp.all_reduce(dx)
+            dxb = None if dxb is None else tp.all_reduce(dxb)
+        dw1, dc1b = conv3x3_wgrad(gy1, y1l, x, ds1, dq1, x_b=x_b)
+        return (dx, dxb, dw1, whole(dc1b, shard1), dw2, whole(dc2b, shard2),
+                whole(dscale1, shard1), whole(dbias1, shard1), whole(dscale2, shard2),
+                whole(dbias2, shard2), None, None, None, None, None)
+
+
+def _to_conv1(gy1, da1, db1, shard1, shard2):
+    """conv2's dgrad outputs (every channel of conv1's output) -> conv1's
+    part of them: summed over the model group when conv2 is sharded (each
+    rank's is a partial), then conv1's slice when conv1 is."""
+    ab = torch.stack([da1, db1])
+    if shard2 is None:  # whole on every rank: the slice
+        gy1 = gy1.narrow(-1, shard1.offset, shard1.local).contiguous()
+        ab = ab.narrow(-1, shard1.offset, shard1.local)
+    elif shard1 is None:
+        gy1, ab = tp.all_reduce(gy1), tp.all_reduce(ab)
+    else:
+        gy1, ab = tp.reduce_scatter(gy1), tp.reduce_scatter(ab)
+    return gy1, ab[0], ab[1]
 
 
 class Conv3x3Function(torch.autograd.Function):

@@ -7,11 +7,14 @@ every collective itself: the gradient all-reduce, and the sums behind the
 BatchNorm statistics and the losses, which JAX takes over the GLOBAL batch
 (its Trainer, engine/train.py:18-21).  Here each rank is one process with
 its rows of every global batch, and the collectives are explicit.  This
-module is the only place that calls ``torch.distributed``:
+module and ``parallel/tensor.py`` (the model axis) are the only places
+that call ``torch.distributed``:
 
 - :func:`distributed_init` joins the process group (torchrun's environment
   or explicit arguments; ``nccl`` for a card, ``gloo`` for the CPU);
-- :func:`rank`, :func:`world_size`, :func:`is_main`;
+- :func:`rank`, :func:`world_size`, :func:`is_main`; :func:`make_grid` and
+  its :func:`data_size`, :func:`data_rank`, :func:`model_size`,
+  :func:`model_rank`, :func:`model_group` (below);
 - :func:`all_reduce_sum`, differentiable (its backward is the sum
   all-reduce of the cotangents, which is the VJP of a sum over ranks), and
   :func:`global_sum` / :func:`global_mean` on it: the batch-wide sums of
@@ -27,8 +30,17 @@ At world size 1, and inside :func:`local`, every helper is the identity
 (``global_sum``/``global_mean`` the plain ``sum``/``mean``) and launches no
 collective, so a one-process run is the one-device path bit for bit.
 
-The tensor-parallel ``model`` axis (``shard_params_tp`` :105) is not
-ported: see ROADMAP.md, the tensor-parallel item.
+The tensor-parallel ``model`` axis (``make_mesh`` :68 with ``n_model``,
+``shard_params_tp`` :105): :func:`make_grid` lays the R ranks out as JAX's
+row-major mesh, rank r at ``(data r // M, model r % M)``, and makes the
+process groups of both axes.  The helpers above take a ``group``, by
+default the DATA group (the ranks of one model index across the D data
+rows): the statistics, the losses, the gradient average and :func:`rows`
+are over the data axis, so the M ranks of a data row hold the same rows.
+At M = 1 the data group is the world group and every call is the one
+without a grid.  The model group's own collectives, and the sharded
+parameters, are ``parallel/tensor.py``'s; :func:`local` leaves them on
+(a sharded model cannot run without them).
 """
 
 from __future__ import annotations
@@ -36,11 +48,31 @@ from __future__ import annotations
 import contextlib
 import os
 import socket
-from typing import Iterable, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 _local_depth = 0
+
+
+@dataclass(frozen=True)
+class Grid:
+    """The (data, model) layout of the ranks (:func:`make_grid`).  A group
+    of None is the world group; ``model_group`` is None at M = 1."""
+
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+    data_group: Any = None
+    model_group: Any = None
+
+
+_grid: Optional[Grid] = None
+# process groups by M: ``new_group`` is collective, so each layout's groups
+# are made once, in the same order on every rank
+_groups: Dict[int, tuple] = {}
 
 
 def _dist():
@@ -69,9 +101,82 @@ def is_main() -> bool:
     return rank() == 0
 
 
+def make_grid(n_model: int = 1) -> Grid:
+    """The R ranks as a ``(data=R/M, model=M)`` grid, rank r at ``(data
+    r // M, model r % M)``: JAX's row-major ``make_mesh`` (:68-82), whose
+    device d sits on data row ``d // n_model``.  Every rank makes every
+    data group and every model group (``torch.distributed.new_group``, in
+    the same order), once per M.  Unlike JAX, which leaves the devices
+    past ``(R // M) * M`` out of its mesh, an R that M does not divide
+    raises ``ValueError``: a rank has no idle place to go.  The grid is
+    this process's until the next call (or :func:`shutdown`)."""
+    global _grid
+    size, r = world_size(), rank()
+    if n_model < 1 or size % n_model:
+        raise ValueError(f"{size} ranks do not divide into model groups of {n_model}")
+    n_data = size // n_model
+    if n_model == 1:
+        _grid = Grid(n_data, 1, r, 0)
+        return _grid
+    if n_model not in _groups:
+        dist = _dist()
+        data = [dist.new_group([d * n_model + m for d in range(n_data)]) for m in range(n_model)]
+        model = [dist.new_group([d * n_model + m for m in range(n_model)]) for d in range(n_data)]
+        _groups[n_model] = (data, model)
+    data, model = _groups[n_model]
+    _grid = Grid(n_data, n_model, r // n_model, r % n_model, data[r % n_model],
+                 model[r // n_model])
+    return _grid
+
+
+def grid() -> Grid:
+    """The grid of the last :func:`make_grid`, else every rank a data row."""
+    return _grid if _grid is not None else Grid(world_size(), 1, rank(), 0)
+
+
+def data_size() -> int:
+    """D: the data rows (the world size at M = 1)."""
+    return grid().n_data
+
+
+def data_rank() -> int:
+    """This rank's data row."""
+    return grid().data_rank
+
+
+def model_size() -> int:
+    """M: the ranks that share one data row's rows."""
+    return grid().n_model
+
+
+def model_rank() -> int:
+    """This rank's place in its model group."""
+    return grid().model_rank
+
+
+def model_group():
+    """This rank's model group (None at M = 1)."""
+    return grid().model_group
+
+
+def _group_size(group) -> int:
+    return data_size() if group is None else _dist().get_world_size(group)
+
+
+def _data(group):
+    """``group``, or the data group for None."""
+    return grid().data_group if group is None else group
+
+
 def active() -> bool:
-    """Whether the helpers reduce across ranks: world size above 1 and not
-    inside :func:`local`."""
+    """Whether the helpers reduce across the data axis: more than one data
+    row and not inside :func:`local`."""
+    return _local_depth == 0 and data_size() > 1
+
+
+def _world_active() -> bool:
+    """Whether the world-wide helpers (broadcasts, gathers, the barrier)
+    reach the other ranks: world size above 1 and not inside :func:`local`."""
     return _local_depth == 0 and world_size() > 1
 
 
@@ -114,6 +219,8 @@ def distributed_init(
     A second call is tolerated, as JAX's is."""
     if is_initialized():
         return
+    global _grid
+    _grid = None
     dist = _dist()
     env = os.environ
     if coordinator_address is not None:
@@ -134,66 +241,71 @@ def distributed_init(
 
 
 def shutdown() -> None:
-    """Leave the process group, if there is one."""
+    """Leave the process group, if there is one, and forget the grid."""
+    global _grid
+    _grid = None
+    _groups.clear()
     if is_initialized():
         _dist().destroy_process_group()
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks; the backward sums the cotangents over ranks, the VJP
-    of a sum whose every rank's result is used."""
+    """Sum over the ranks of ``group``; the backward sums the cotangents
+    over them, the VJP of a sum whose every rank's result is used."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.detach().clone()
-        _dist().all_reduce(out)
+        _dist().all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.detach().clone()
-        _dist().all_reduce(g)
-        return g
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over ranks, differentiable; ``t`` itself when not
-    :func:`active`."""
-    return _AllReduceSum.apply(t) if active() else t
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group`` (the data group),
+    differentiable; ``t`` itself when not :func:`active`."""
+    return _AllReduceSum.apply(t, _data(group)) if active() else t
 
 
-def global_sum(t: torch.Tensor, dims=None) -> torch.Tensor:
+def global_sum(t: torch.Tensor, dims=None, group=None) -> torch.Tensor:
     """``t.sum(dims)`` over the global batch: the local sum, summed over
-    ranks."""
+    the data group."""
     s = t.sum() if dims is None else t.sum(dims)
-    return all_reduce_sum(s)
+    return all_reduce_sum(s, group)
 
 
-def global_mean(t: torch.Tensor) -> torch.Tensor:
-    """The mean of ``t``'s elements over every rank's ``t`` (any number of
-    elements a rank); ``t.mean()`` when not :func:`active`."""
+def global_mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``t``'s elements over every data row's ``t`` (any
+    number of elements a rank); ``t.mean()`` when not :func:`active`."""
     if not active():
         return t.mean()
-    s = all_reduce_sum(torch.stack([t.sum(), t.new_tensor(float(t.numel()))]))
+    s = all_reduce_sum(torch.stack([t.sum(), t.new_tensor(float(t.numel()))]), group)
     return s[0] / s[1]
 
 
-def reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over ranks in place (no autograd) and returned."""
+def reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the data group in place (no autograd) and returned."""
     if active():
-        _dist().all_reduce(t)
+        _dist().all_reduce(t, group=_data(group))
     return t
 
 
-def average_gradients(params: Sequence[torch.Tensor]) -> None:
-    """Every ``p.grad`` replaced by its mean over ranks, in one all-reduce
-    of one flat buffer."""
+def average_gradients(params: Sequence[torch.Tensor], group=None) -> None:
+    """Every ``p.grad`` replaced by its mean over the data group, in one
+    all-reduce of one flat buffer.  A sharded parameter's gradient is its
+    slice's, the same slice on every rank of the group."""
     if not active():
         return
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    _dist().all_reduce(flat)
-    flat /= world_size()
+    _dist().all_reduce(flat, group=_data(group))
+    flat /= _group_size(group)
     i = 0
     for g in grads:
         g.copy_(flat[i:i + g.numel()].view_as(g))
@@ -203,7 +315,7 @@ def average_gradients(params: Sequence[torch.Tensor]) -> None:
 def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
     """Rank ``src``'s values copied into every rank's ``tensors``, in one
     broadcast of one flat buffer per dtype."""
-    if not active():
+    if not _world_active():
         return
     by_dtype = {}
     for t in tensors:
@@ -221,7 +333,7 @@ def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
 def broadcast_object(obj, src: int = 0):
     """Rank ``src``'s ``obj`` (picklable) on every rank; ``obj`` itself
     when not :func:`active`."""
-    if not active():
+    if not _world_active():
         return obj
     box = [obj]
     _dist().broadcast_object_list(box, src)
@@ -230,7 +342,7 @@ def broadcast_object(obj, src: int = 0):
 
 def all_gather_floats(values: Sequence[float]) -> List[List[float]]:
     """Every rank's ``values`` (the same count on each), by rank."""
-    if not active():
+    if not _world_active():
         return [[float(v) for v in values]]
     device = "cuda" if _dist().get_backend() == "nccl" else "cpu"  # gloo gathers on the host
     t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=device)
@@ -240,16 +352,17 @@ def all_gather_floats(values: Sequence[float]) -> List[List[float]]:
 
 
 def barrier() -> None:
-    if active():
+    if _world_active():
         _dist().barrier()
 
 
 def rows(n: int, rank_: Optional[int] = None, size: Optional[int] = None) -> slice:
-    """The rows ``[r*n/R, (r+1)*n/R)`` of an n-row global batch that rank r
-    holds: those JAX's batch-sharded array places on data row r
-    (data/pipeline.py:137-161).  ``n`` must divide by R."""
-    r = rank() if rank_ is None else rank_
-    size = world_size() if size is None else size
+    """The rows ``[r*n/D, (r+1)*n/D)`` of an n-row global batch that data
+    row r holds (by default this rank's, of the D data rows): those JAX's
+    batch-sharded array places on data row r (data/pipeline.py:137-161),
+    the same for the M ranks of the row.  ``n`` must divide by D."""
+    r = data_rank() if rank_ is None else rank_
+    size = data_size() if size is None else size
     if n % size:
         raise ValueError(f"a batch of {n} rows does not divide over {size} ranks")
     per = n // size

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -99,14 +99,20 @@ def _adam_slot(opt_state: Mapping[str, Any], frozen: bool) -> Mapping[str, Any]:
     return node
 
 
+Values = Callable[[Mapping[str, torch.Tensor]], Mapping[str, torch.Tensor]]
+
+
 def state_tree(model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
-               frozen: bool) -> Tree:
+               frozen: bool, whole: Optional[Values] = None) -> Tree:
     """The JAX Trainer state of ``model`` and its Adam ``optimizer`` after
     ``step`` steps, as nested numpy dicts; ``frozen``: the model has frozen
     parts (JAX's ``multi_transform`` nesting).  A parameter without Adam
     state yet (before the first step) has zero moments, as optax's
-    ``init``."""
-    params, batch_stats = convert.jax_from_state_dict(model.state_dict())
+    ``init``.  ``whole`` maps the state dict, and each moment keyed like
+    it, to the whole tensors (a tensor-parallel model's,
+    ``parallel.tensor.full_state``)."""
+    whole = whole or (lambda values: values)
+    params, batch_stats = convert.jax_from_state_dict(whole(model.state_dict()))
     names = {p: n for n, p in model.named_parameters()}
     moments = {"exp_avg": {}, "exp_avg_sq": {}}
     count = 0
@@ -118,8 +124,8 @@ def state_tree(model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
             if "step" in st:
                 count = int(st["step"])
     adam = {"count": np.asarray(count, np.int32),
-            "mu": convert.jax_from_state_dict(moments["exp_avg"])[0],
-            "nu": convert.jax_from_state_dict(moments["exp_avg_sq"])[0]}
+            "mu": convert.jax_from_state_dict(whole(moments["exp_avg"]))[0],
+            "nu": convert.jax_from_state_dict(whole(moments["exp_avg_sq"]))[0]}
     opt_state: Tree = {ADAM_SLOT: adam}
     for k in reversed(FROZEN_NEST if frozen else ()):
         opt_state = {k: opt_state}
@@ -128,14 +134,18 @@ def state_tree(model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
 
 
 def load_state_tree(tree: Mapping[str, Any], model: nn.Module,
-                    optimizer: torch.optim.Optimizer, frozen: bool) -> int:
+                    optimizer: torch.optim.Optimizer, frozen: bool,
+                    local: Optional[Values] = None) -> int:
     """Load a JAX Trainer state (``state_tree``'s layout) into ``model``
-    (strictly) and its Adam ``optimizer``; returns the step."""
-    sd = convert.state_dict_from_jax(tree["params"], tree.get("batch_stats", {}))
+    (strictly) and its Adam ``optimizer``; returns the step.  ``local``
+    maps whole tensors keyed like the state dict to this rank's parts (a
+    tensor-parallel model's, ``parallel.tensor.local_state``)."""
+    local = local or (lambda values: values)
+    sd = local(convert.state_dict_from_jax(tree["params"], tree.get("batch_stats", {})))
     model.load_state_dict(sd, strict=True)
     adam = _adam_slot(tree["opt_state"], frozen)
-    mu = convert.state_dict_from_jax(adam["mu"], {})
-    nu = convert.state_dict_from_jax(adam["nu"], {})
+    mu = local(convert.state_dict_from_jax(adam["mu"], {}))
+    nu = local(convert.state_dict_from_jax(adam["nu"], {}))
     count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
     names = {p: n for n, p in model.named_parameters()}
     opt = optimizer.state_dict()

@@ -38,6 +38,10 @@ with ``load_state_dict(strict=True)``:
   (Dense kernels ``(I, O)`` <-> ``nn.Linear`` ``(O, I)``);
 - ``prompt_fusion``: ``image_encoder.*`` and ``decoder.*`` (the
   autoencoder's halves), ``prompt_encoder.*``, ``fusion_conv``.
+
+:func:`tp_plan` is ``parallel/mesh.py``'s ``shard_params_tp`` (:105-130)
+on the port's parameters: it decides each leaf on the shape it has in the
+JAX tree, through the same name map.
 """
 
 from __future__ import annotations
@@ -267,6 +271,67 @@ def state_dict_from_jax(
         # torch counts batches; eval never reads it.
         sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     return sd
+
+
+# ``shard_params_tp``'s smallest sharded leaf (its ``min_size``)
+TP_MIN_SIZE = 1 << 12
+
+
+def jax_out_axis(key: str, shape: Tuple[int, ...]):
+    """``(JAX shape, dim, start, length)`` of the torch parameter ``key``
+    of shape ``shape``: its leaf's shape in the JAX tree, and the torch dim
+    that holds the JAX leaf's LAST axis, as the region ``[start, start +
+    length)`` of that dim; None for a parameter the JAX tree lacks (the
+    fusion's q_proj and k_proj).  Conv kernels ``(O, I, kH, kW)``: dim 0;
+    ConvTranspose ``(I, O, kH, kW)``: dim 1; Dense ``(O, I)``: dim 0; the
+    fusion's v_proj: its rows of the packed ``in_proj_weight``."""
+    rev = tuple(reversed(shape))
+    if key.startswith(FUSION + "."):
+        leaf = key[len(FUSION) + 1:]
+        if leaf == "in_proj_weight":  # [q; k; v] rows, (3C, C): v_proj is (C, C) in JAX
+            c = shape[1]
+            return (c, c), 0, 2 * c, c
+        if leaf in ("v_proj_weight", "out_proj.weight"):
+            return rev, 0, 0, shape[0]
+        if leaf == "in_proj_bias":
+            return (shape[0] // 3,), 0, 0, shape[0] // 3
+        return (shape, 0, 0, shape[0]) if leaf == "out_proj.bias" else None
+    if key.startswith(CLIP):
+        path = _clip_jax_path(key[len(CLIP):])
+        if path[0] == "patch_embedding":  # (O, I, kH, kW) -> (kH, kW, I, O)
+            return (shape[2], shape[3], shape[1], shape[0]), 0, 0, shape[0]
+        if path[-1] == "kernel":  # Dense
+            return rev, 0, 0, shape[0]
+        return shape, len(shape) - 1, 0, shape[-1]  # raw: the embeddings, LayerNorms
+    _, path = _jax_path(key)
+    if path[-1] != "kernel" or len(shape) == 1:
+        return shape, 0, 0, shape[0]
+    if len(shape) == 2:  # Dense
+        return rev, 0, 0, shape[0]
+    if "up" in path:  # (I, O, kH, kW) -> (kH, kW, I, O)
+        return (shape[2], shape[3], shape[0], shape[1]), 1, 0, shape[1]
+    return (shape[2], shape[3], shape[1], shape[0]), 0, 0, shape[0]
+
+
+def tp_plan(params: Mapping[str, Tuple[int, ...]], n_model: int,
+            min_size: int = TP_MIN_SIZE) -> Dict[str, Tuple[int, int, int]]:
+    """The parameters that JAX's ``shard_params_tp`` shards over a model
+    axis of ``n_model``: ``{key: (dim, start, length)}`` for each torch
+    parameter (``params``: key -> shape) whose JAX leaf has ``ndim >= 2``, a
+    last axis that ``n_model`` divides and at least ``min_size`` elements
+    (see :func:`jax_out_axis`); every other leaf stays whole, as JAX
+    replicates it.  Empty for ``n_model <= 1``."""
+    plan = {}
+    if n_model <= 1:
+        return plan
+    for key, shape in params.items():
+        axis = jax_out_axis(key, tuple(shape))
+        if axis is None:
+            continue
+        jshape, dim, start, length = axis
+        if len(jshape) >= 2 and jshape[-1] % n_model == 0 and int(np.prod(jshape)) >= min_size:
+            plan[key] = (dim, start, length)
+    return plan
 
 
 def jax_from_state_dict(

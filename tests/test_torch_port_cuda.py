@@ -1002,3 +1002,35 @@ def test_native_loader_on_the_card_equals_its_cpu_batches(gen, size, batch, coun
         for (gi, gm), (wi, wm) in zip(held, want):
             assert gi.device.type == "cuda" and torch.equal(gi.cpu(), wi)
             assert torch.equal(gm.cpu(), wm)
+
+
+# ---- tensor parallelism -------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tp_blocks():
+    """Two gloo ranks on the card, one model group (tests/_torch_port_tp_worker.run_block;
+    imported by its own name: pytest puts tests/ on the path, and the ranks
+    inherit it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from image_segmentation_tpu_torch.parallel import mesh
+
+    ranks = mesh.launch("_torch_port_tp_worker:run_block", 2, [], backend="gloo",
+                        timeout=600)
+    return ranks
+
+
+@pytest.mark.parametrize("case", ["encoder", "decoder", "conv1 only", "conv2 only"])
+def test_tensor_parallel_fused_blocks_vs_plain(tp_blocks, case):
+    """The TP form of FusedBlockFunction (both convs, or one, on their Co/2
+    slices), the pool on the slice and the ConvTranspose kernel at (data=1,
+    model=2) against the whole block on the plain versions: the output, the
+    input gradients and every gathered parameter gradient within GRAD_RL2
+    relative L2, or, where bf16 rounding dominates (plain bf16 itself more
+    than GRAD_RL2 from fp32), no further from fp32 than BF16_NOISE_FACTOR
+    times the plain path; equal on both ranks."""
+    r0, r1 = (r[case] for r in tp_blocks)
+    assert r0 == r1 and r0.pop("sharded")
+    for key, (err, p32, k32) in r0.items():
+        assert err <= GRAD_RL2 or (p32 > GRAD_RL2 and k32 <= BF16_NOISE_FACTOR * p32), (
+            key, err, p32, k32)
