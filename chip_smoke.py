@@ -22,8 +22,11 @@ width of the port's presets (``config.preset``), random weights from a seed:
    kernels in their unfused forms) and the clip_res step (batch 32 at
    256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
    kernels' element paths) give it, the ``Co/2`` slices that the
-   tensor-parallel steps of 18 give the level 0-1 kernels (large_unet at
-   batch 8, 512x512; clip_unet at batch 8, 256x256), the 1x1-conv backward (K11) at
+   tensor-parallel steps of 18 give the kernel blocks (batch 8: the level
+   0-1 blocks of large_unet at 512x512 and of clip_unet at 256x256, the
+   autoencoder's level 0-2 blocks at 256x256, ``Co`` 32 and dec3's 16, its
+   ConvTransposes to 32 and 16, and the unet preset's fold-1
+   ``fused_deep`` blocks at 256x256), the 1x1-conv backward (K11) at
    the stem and output conv of the large_unet and autoencoder steps, and
    the cross-attention kernel at the CLIP bottleneck of the prompt step's
    batch; with both times from CUDA events, the
@@ -124,16 +127,23 @@ width of the port's presets (``config.preset``), random weights from a seed:
    at 256x256, batch 32 with ``freeze_clip=False`` against ``True`` over 3
    steps, bit for bit, the tower unchanged, step time both ways;
 18. tensor-parallel phase: two gloo ranks on the card at (data=1,
-   model=2) (``mesh.launch``), each holding the whole global batch of 8
-   and half the output channels of every weight JAX's ``shard_params_tp``
-   shards: one augmented step of ``train_config()`` at full width (512x512)
-   and of the ``clip_unet`` preset (256x256, the frozen ViT-B/32 tower)
-   against the world-1 step on the same batch (LOSS_RTOL, GRAD_RL2,
-   BF16_NOISE_FACTOR), the gathered parameters equal on both ranks, each
-   rank's launches exactly one world-1 step's with every kernel block's
-   weights on their ``Co/2`` slices; each rank's peak memory, the TP step
-   time beside world 1 and the time of the model group's gathers,
-   reduce-scatters and all-reduces in a step;
+   model=2), one ``mesh.launch`` for all runs, each rank holding the whole
+   global batch of 8 and half the output channels of every weight JAX's
+   ``shard_params_tp`` shards: one step at full width of
+   ``train_config()`` (512x512), of the ``clip_unet``, ``clip_res`` and
+   ``segment_classifier`` presets and of ``clip_autoencoder`` (256x256,
+   the frozen ViT-B/32 tower; in the ClipRes models the frozen ResNet-34
+   sharded too), of the ``autoencoder`` preset (256x256, unaugmented as
+   always) and of the ``unet`` preset with ``fused_deep`` and ``remat``
+   together (256x256), each against the world-1 step on the same batch
+   (LOSS_RTOL, GRAD_RL2, BF16_NOISE_FACTOR), the gathered parameters
+   equal on both ranks, each rank's launches exactly one world-1 step's
+   with every kernel block's weights on their ``Co/2`` slices (whole where
+   the rule leaves them whole: ClipRes's dec5 and output block), the
+   ResNet-34 unchanged by the step and its running statistics moved; each
+   rank's peak memory in a second step (the checks' copies on the host)
+   beside world 1's, the TP step time beside world 1 and the time of the
+   model group's gathers, reduce-scatters and all-reduces in a step;
 19. prints one JSON line of per-kernel results (``launches`` counts the
    main-path runs of 3-17; the wgrad kernel has a line for its launches
    beside a dgrad and one for its launches alone, and each conv kernel a
@@ -338,6 +348,19 @@ PER_CLASS_STEP = {"conv3x3": 2, "conv3x3_dgrad": 2, "conv3x3_wgrad": 2, "bn_relu
                   "convtranspose2x2": 1, "convtranspose2x2_bwd": 1, "row_shift": 2,
                   "col_shift": 1}
 PER_AUG_ONLY_STEP = {"row_shift": 2, "col_shift": 1}
+# fused_deep=True, off in every preset: the deep blocks that JAX's gate
+# (unet.py:161-178, 6 MiB of conv weight) puts on the fold-1 kernel blocks
+# (models/fused.py); the bottleneck's and dec1's weights exceed the cap in
+# large_unet.  Each adds its two convs to the 8 of levels 0-1, and a BN-ReLU
+# reduction: a fold-1 block activates its own output.
+FUSED_DEEP_BLOCKS = {"large_unet": ["enc3", "enc4", "dec2", "dec3"],
+                     "unet": ["enc3", "bottleneck", "dec1", "dec2"]}
+PER_FD_FORWARD = dict(PER_FORWARD, conv3x3=16)
+PER_FD_STEP = dict(PER_STEP, conv3x3=16, conv3x3_dgrad=16, conv3x3_wgrad=16, bn_relu_bwd_reduce=6)
+# the unet preset's fused_deep run (its only fused bottleneck, and dec1,
+# whose resize is not the identity); batch 16
+UNET_SIZE = 256
+OPTION_STEPS = 3
 # the robustness phase: the large_unet preset through the three CLIs, which
 # take the preset's 256x256 images and 100 synthetic images a split
 # (config.py); the train CLI at batch 16 (the preset's 150 is ~9.8 M pixels a
@@ -520,14 +543,14 @@ def main_path_shapes(model_args: dict) -> dict:
     return level01_shapes(BATCH, SIZE, stem, e1, e2)
 
 
-def ae_path_shapes(unfused: bool = False) -> dict:
-    """The kernel blocks of the autoencoder preset at batch 32, 256x256:
-    enc1 (32 -> 64) and enc2 (64 -> 64) with their pools, dec1 (64 -> 64 at
-    64x64), dec2 (64 -> 64 at 128x128) and dec3 (32 -> 32 at 256x256) after
-    their ConvTransposes (64 -> 64, 64 -> 64, 64 -> 32), no skips; K11 at
-    the stem and the output.  With ``unfused``, the same convs in the
-    unfused forms of the ``w2d_impl="pallas"`` blocks, alone."""
-    b, s = AE_BATCH, AE_SIZE
+def ae_path_shapes(unfused: bool = False, b: Optional[int] = None) -> dict:
+    """The kernel blocks of the autoencoder preset at batch ``b`` (AE_BATCH,
+    32), 256x256: enc1 (32 -> 64) and enc2 (64 -> 64) with their pools,
+    dec1 (64 -> 64 at 64x64), dec2 (64 -> 64 at 128x128) and dec3 (32 -> 32
+    at 256x256) after their ConvTransposes (64 -> 64, 64 -> 64, 64 -> 32),
+    no skips; K11 at the stem and the output.  With ``unfused``, the same
+    convs in the unfused forms of the ``w2d_impl="pallas"`` blocks, alone."""
+    b, s = b or AE_BATCH, AE_SIZE
     blocks = [("enc1", s, 32, 64, False), ("enc2", s // 2, 64, 64, False),
               ("dec1", s // 4, 64, 64, True), ("dec2", s // 2, 64, 64, True),
               ("dec3", s, 32, 32, True)]
@@ -560,17 +583,20 @@ def clip_res_path_shapes() -> dict:
             "1x1": []}
 
 
-def deep_path_shapes() -> dict:
-    """The fold-1 blocks that ``fused_deep=True`` adds to a batch-16
-    512x512 LargeUNet (``FUSED_DEEP_BLOCKS``): enc3 (128 -> 256 at 128x128),
-    enc4 (256 -> 512 at 64x64), dec2 ([256 | 256] -> 256 at 64x64) and dec3
-    ([128 | 128] -> 128 at 128x128).  Each activates its own output (the
-    standard pool, the standard up-conv), so each conv2 takes bn2's affine
-    in its backward and a BN-ReLU reduction."""
-    b, s2, s3 = BATCH, SIZE // 4, SIZE // 8
+def deep_path_shapes(model: str = "large_unet", b: Optional[int] = None,
+                     size: Optional[int] = None) -> dict:
+    """The fold-1 blocks that ``fused_deep=True`` adds (``FUSED_DEEP_BLOCKS``)
+    to a batch-``b`` (BATCH) ``size`` x ``size`` (SIZE) U-Net: in LargeUNet
+    enc3 (128 -> 256 at 1/4 of the image side), enc4 (256 -> 512 at 1/8),
+    dec2 ([256 | 256] -> 256 at 1/8) and dec3 ([128 | 128] -> 128 at 1/4);
+    in UNet the same shapes as enc3, the bottleneck, dec1 and dec2.  Each
+    activates its own output (the standard pool, the standard up-conv), so
+    each conv2 takes bn2's affine in its backward and a BN-ReLU reduction."""
+    b, size = b or BATCH, size or SIZE
     conv = []
-    for name, side, ca, cb, co in (("enc3", s2, 128, 0, 256), ("enc4", s3, 256, 0, 512),
-                                   ("dec2", s3, 256, 256, 256), ("dec3", s2, 128, 128, 128)):
+    for name, (div, ca, cb, co) in zip(FUSED_DEEP_BLOCKS[model], (
+            (4, 128, 0, 256), (8, 256, 0, 512), (8, 256, 256, 256), (4, 128, 128, 128))):
+        side = size // div
         conv += [Conv(f"fused_deep {name}.conv1", (b, side, side, ca), cb, co, False, True),
                  Conv(f"fused_deep {name}.conv2", (b, side, side, co), 0, co, True, True)]
     return {"conv": conv, "pool": [], "ct": [], "1x1": []}
@@ -587,13 +613,19 @@ def tp_shapes(shapes: dict, label: str, m: int) -> dict:
 
 
 def tp_path_shapes() -> list:
-    """The level 0-1 kernel blocks of the tensor-parallel phase's steps at
-    M = TP_RANKS: large_unet at batch TP_BATCH, 512x512, and clip_unet at
-    batch TP_BATCH, 256x256 (every conv and ConvTranspose there sharded)."""
+    """The kernel blocks of the tensor-parallel phase's steps at M =
+    TP_RANKS, batch TP_BATCH, every conv and ConvTranspose there sharded:
+    the level 0-1 blocks of large_unet (512x512) and of clip_unet (256x256,
+    the unet run's too), the autoencoder's level 0-2 blocks (``Co/2`` = 32,
+    dec3 16; the ConvTransposes 64 -> 32 and 64 -> 16), and the fold-1
+    blocks of the unet run's ``fused_deep`` (UNET_SIZE).  The ClipRes runs'
+    dec5 and output block are whole: the clip_res rows."""
     b = TP_BATCH
     return [tp_shapes(level01_shapes(b, SIZE, 32, 64, 128), "tp large_unet", TP_RANKS),
             tp_shapes(level01_shapes(b, PROMPT_SIZE, 32, 64, 128, decs=("dec3", "dec4")),
-                      "tp clip_unet", TP_RANKS)]
+                      "tp clip_unet", TP_RANKS),
+            tp_shapes(ae_path_shapes(b=b), "tp autoencoder", TP_RANKS),
+            tp_shapes(deep_path_shapes("unet", b, UNET_SIZE), "tp unet", TP_RANKS)]
 
 
 def path_shapes() -> list:
@@ -1998,6 +2030,17 @@ GLOO_RANKS = 2
 # the tensor-parallel phase: 2 gloo ranks on the one card, one model group
 # (data=1, model=2), each holding the whole global batch of 8
 TP_RANKS, TP_BATCH = 2, 8
+# its runs (one augmented step each; the autoencoder never augments) and
+# the launches of one step, each the world-1 step's: under remat the
+# checkpointed forward runs again in the backward, its kernels with it
+PER_FD_REMAT_STEP = {w: PER_FD_STEP.get(w, 0) + PER_FD_FORWARD.get(w, 0)
+                     for w in {**PER_FD_STEP, **PER_FD_FORWARD}}
+TP_RUNS = {"large_unet": PER_STEP, "clip_unet": PER_STEP, "autoencoder": PER_AE_STEP,
+           "clip_res": PER_CLIP_RES_STEP, "segment_classifier": PER_CLASS_STEP,
+           "clip_autoencoder": PER_AUG_ONLY_STEP, "unet fused_deep remat": PER_FD_REMAT_STEP}
+# the kernel blocks that the rule leaves whole in a run, by key prefix:
+# ClipRes's dec5 (32 -> 16) and output block (19 -> 3), under 4096 elements
+TP_WHOLE = {"clip_res": ("dec5.", "out."), "segment_classifier": ("dec5.",)}
 # the profiler phase: cli.profiler's warm-up step and its traced steps
 PROFILE_STEPS = 3
 
@@ -2258,16 +2301,46 @@ def distributed_phase(torch, mods, card: str) -> dict:
 
 
 def _tp_config(name: str, n_model: int):
-    """The tensor-parallel phase's config: ``train_config()`` (512x512) or
-    the clip_unet preset (256x256) at batch TP_BATCH with ``n_model``
-    shards."""
-    cfg = (train_config() if name == "large_unet" else clip_config("clip_unet"))
+    """A run of the tensor-parallel phase (``TP_RUNS``) at batch TP_BATCH
+    with ``n_model`` shards: ``train_config()`` (512x512), the CLIP presets
+    (``clip_config``, 256x256), the autoencoder preset (``ae_config``,
+    256x256), or the unet preset at UNET_SIZE with ``fused_deep`` and
+    ``remat``."""
+    if name == "large_unet":
+        cfg = train_config()
+    elif name == "autoencoder":
+        cfg = ae_config()
+    elif name == "unet fused_deep remat":
+        cfg = dataclasses.replace(train_config("unet", UNET_SIZE, fused_deep=True), remat=True)
+    else:
+        cfg = clip_config(name)
     return dataclasses.replace(cfg, batch_size=TP_BATCH, n_model_shards=n_model)
+
+
+def tp_batch(name: str, size: int):
+    """The fixed uint8 global batch of the tensor-parallel run ``name``
+    (numpy): TP_BATCH images and masks, class ids or, for the class and
+    prompt tasks, palette masks."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.data.datasets import (
+        CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE)
+
+    rng = np.random.default_rng(SEED + 13)
+    images = rng.integers(0, 256, (TP_BATCH, size, size, 3), dtype=np.uint8)
+    palette = name in ("segment_classifier", "prompt")
+    masks = rng.integers(0, NUM_CLASSES + palette, (TP_BATCH, size, size)).astype(np.uint8)
+    if palette:
+        masks = np.array([0, CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE], np.uint8)[masks]
+    return images, masks
 
 
 def _kernel_block_weights(model) -> dict:
     """The conv and ConvTranspose weights of the model's fused kernel
-    blocks, by state-dict key."""
+    blocks, by state-dict key: each ``FusedConvBlock`` (the level 0-2
+    blocks' own, the ``FusedDeep…`` blocks', a fused bottleneck) and the
+    up-conv of each ``FusedConvBlockUpsample[Skip]`` (the ConvTranspose
+    kernel; the ``FusedDeep…`` decoders' up-conv is cuDNN's)."""
     from image_segmentation_tpu_torch.models import fused
 
     out = {}
@@ -2280,67 +2353,83 @@ def _kernel_block_weights(model) -> dict:
     return out
 
 
-def _tp_rank(settings: dict, name: str) -> dict:
-    """One of TP_RANKS ranks of the tensor-parallel phase (``mesh.launch``,
-    gloo, one model group) with the launching process's ``settings``: one
-    augmented step of ``_tp_config(name)`` on a fixed global batch with
-    exact launch counts and the kernel blocks' weights checked to be their
-    ``Co/M`` slices, the gathered gradients and parameters, a second step
-    timed, a third with the model group's collectives timed (each waited
-    for), the peak memory.  Rank 0 then computes, alone, the world-1 step
-    on the same batch (and the same step in fp32 on the plain path) and
-    holds the gathered gradients to it as the distributed phase does."""
-    import numpy as np
+def _frozen_backbone(torch, trainer) -> tuple:
+    """The ResNet-34's whole parameters and running statistics, cloned."""
+    from image_segmentation_tpu_torch.parallel import tensor
+    from image_segmentation_tpu_torch.utils.convert import RESNET
+
+    params = tensor.full_state(trainer.model, {k: p.detach() for k, p in
+                                               trainer.model.named_parameters()
+                                               if k.startswith(RESNET)})
+    stats = {k: b.clone() for k, b in trainer.model.named_buffers()
+             if k.startswith(RESNET) and not k.endswith("num_batches_tracked")}
+    return {k: v.clone() for k, v in params.items()}, stats
+
+
+def _tp_run(name: str) -> dict:
+    """One run of :func:`_tp_rank`; see there."""
     import torch
 
     from image_segmentation_tpu_torch.engine.train import Trainer
     from image_segmentation_tpu_torch.parallel import mesh, tensor
 
-    globals().update(settings)
-
     def sync():
         if DEVICE == "cuda":
             torch.cuda.synchronize()
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     mods = kernel_modules()
     cfg = _tp_config(name, TP_RANKS)
-    size = cfg.data.image_size
-    rng = np.random.default_rng(SEED + 13)
-    images = torch.from_numpy(rng.integers(0, 256, (TP_BATCH, size, size, 3), dtype=np.uint8))
-    masks = torch.from_numpy(rng.integers(0, NUM_CLASSES, (TP_BATCH, size, size),
-                                          dtype=np.uint8))
+    images, masks = (torch.from_numpy(a) for a in tp_batch(name, cfg.data.image_size))
     if DEVICE == "cuda":
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, device=DEVICE, make_artifacts=False)
     rows = mesh.rows(TP_BATCH)  # the data row's: the grid is the Trainer's
     mine = images[rows].to(DEVICE), masks[rows].to(DEVICE)
     shards = tensor.shards(trainer.model)
-    halves = {}
+    whole = TP_WHOLE.get(name, ())
+    co = {}
     for key, w in _kernel_block_weights(trainer.model).items():
         s = shards.get(key)
-        if s is None or w.shape[s.dim] * TP_RANKS != s.length:
+        if key.startswith(whole):  # left whole by the rule (under its 4096 elements)
+            if s is not None:
+                raise AssertionError(f"{name}: the kernel block weight {key} is sharded ({s})")
+            co[key] = w.shape[1 if key.endswith("up.weight") else 0]
+        elif s is None or w.shape[s.dim] * TP_RANKS != s.length:
             raise AssertionError(f"{name}: the kernel block weight {key} {tuple(w.shape)} is "
                                  f"not a 1/{TP_RANKS} slice ({s})")
-        halves[key] = w.shape[s.dim]
+        else:
+            co[key] = w.shape[s.dim]
+    backbone = _frozen_backbone(torch, trainer) if trainer.frozen and "res" in cfg.model else None
     reset_counts(mods)
     loss = float(trainer.train_step(*mine, STEP_KEY))
     sync()
     launches = counts(mods)
-    grads = tensor.full_state(trainer.model, {k: p.grad.detach().float() for k, p in
-                                              trainer.model.named_parameters() if p.requires_grad})
+    grads = {k: g.cpu() for k, g in tensor.full_state(
+        trainer.model, {k: p.grad.detach().float() for k, p in
+                        trainer.model.named_parameters() if p.requires_grad}).items()}
     flat = torch.cat([p.detach().reshape(-1) for p in tensor.full_state(
         trainer.model, dict(trainer.model.named_parameters())).values()])
     rank0 = flat.clone()
     mesh.broadcast_([rank0])
     same = bool(torch.equal(flat, rank0))
     del flat, rank0
+    frozen = None
+    if backbone is not None:
+        params, stats = _frozen_backbone(torch, trainer)
+        frozen = {"changed": [k for k in params if not torch.equal(params[k], backbone[0][k])],
+                  "moved": sum(not torch.equal(stats[k], backbone[1][k]) for k in stats),
+                  "stats": len(stats), "sharded": sum(k in shards for k in params)}
+        del params, stats, backbone
     sync()
+    if DEVICE == "cuda":  # the peak of a step with none of the checks' copies on the card
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer.train_step(*mine, STEP_KEY + 1)
     sync()
     step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     coll = {}
 
     def timed(what, fn):
@@ -2360,11 +2449,10 @@ def _tp_rank(settings: dict, name: str) -> dict:
         for what in ("gather", "reduce_scatter", "all_reduce"):
             stack.enter_context(mock.patch.object(tensor, what, timed(what, getattr(tensor, what))))
         trainer.train_step(*mine, STEP_KEY + 2)
-    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     out = {"rank": mesh.rank(), "loss": loss, "launches": launches, "params_identical": same,
-           "step_ms": step_ms, "collectives": coll, "peak_bytes": peak,
+           "step_ms": step_ms, "collectives": coll, "peak_bytes": peak, "frozen": frozen,
            "sharded": len(trainer.tp_plan), "leaves": len(list(trainer.model.parameters())),
-           "kernel_block_co": halves}
+           "kernel_block_co": co}
     del trainer
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -2372,66 +2460,102 @@ def _tp_rank(settings: dict, name: str) -> dict:
         full = images.to(DEVICE), masks.to(DEVICE)
         one = _tp_config(name, 1)
         with mesh.local():
-            if DEVICE == "cuda":
-                torch.cuda.reset_peak_memory_stats()
             ref = Trainer(one, device=DEVICE, make_artifacts=False)
             ref_loss = float(ref.train_step(*full, STEP_KEY))
-            ref_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
-            ref_grads = _grads(ref.model)
+            ref_grads = {k: g.cpu() for k, g in _grads(ref.model).items()}
             sync()
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             ref.train_step(*full, STEP_KEY + 1)
             sync()
             ref_ms = (time.perf_counter() - t0) * 1e3
+            ref_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
             del ref
             with plain_path(kernel_modules()):
                 ref32 = Trainer(dataclasses.replace(one, bf16=False), device=DEVICE,
                                 make_artifacts=False)
                 ref32.train_step(*full, STEP_KEY)
-                grads32 = _grads(ref32.model)
+                grads32 = {k: g.cpu() for k, g in _grads(ref32.model).items()}
             del ref32
         err, leaf, held = _check_gradients(torch, grads, ref_grads, grads32)
         out.update(ref_loss=ref_loss, ref_step_ms=ref_ms, ref_peak_bytes=ref_peak,
                    max_rel_err=err, worst_leaf=leaf,
                    held=[[n, p32, k32] for n, p32, k32 in held])
+        del ref_grads, grads32
+    del grads
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
+def _tp_rank(settings: dict, names: list) -> dict:
+    """One of TP_RANKS ranks of the tensor-parallel phase (``mesh.launch``,
+    gloo, one model group) with the launching process's ``settings``, for
+    each run in ``names``: one augmented step (the autoencoder's never is)
+    of ``_tp_config(name)`` on a fixed global batch with exact launch
+    counts and the kernel blocks' weights checked to be their ``Co/M``
+    slices (or whole, where the rule leaves them so: ``TP_WHOLE``), the
+    gathered gradients and parameters, the frozen ResNet-34 of the ClipRes
+    runs made whole before and after the step, a second step timed with its
+    peak memory (the gathered gradients on the host, the backbone's copies
+    freed), a third with the model group's collectives timed (each waited
+    for).  Rank 0 then computes, alone, the world-1 step on the same batch
+    (its second step's time and peak memory the same way, and the first
+    step in fp32 on the plain path) and holds the gathered gradients to it
+    as the distributed phase does.  Returns each
+    run's results by name."""
+    import torch
+
+    globals().update(settings)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {name: _tp_run(name) for name in names}
+
+
 def tp_phase(torch, mods, card: str) -> None:
-    """TP_RANKS gloo ranks on the card at (data=1, model=TP_RANKS): the
-    large_unet and clip_unet steps against world 1 (see :func:`_tp_rank`)."""
+    """TP_RANKS gloo ranks on the card at (data=1, model=TP_RANKS), one
+    ``mesh.launch`` for every run of ``TP_RUNS``: each step against world 1
+    (see :func:`_tp_rank`)."""
     from image_segmentation_tpu_torch.parallel import mesh
 
     settings = {k: globals()[k] for k in ("DEVICE", "SEED", "BATCH", "SIZE", "TRAIN_LENGTH",
                                           "STEP_KEY", "PROMPT_SIZE", "PROMPT_LENGTH",
-                                          "PROMPT_BATCH", "TP_BATCH")}
-    for name in ("large_unet", "clip_unet"):
-        t0 = time.perf_counter()
-        ranks = mesh.launch("chip_smoke:_tp_rank", TP_RANKS, [settings, name], backend="gloo",
-                            timeout=600)
-        wall = time.perf_counter() - t0
+                                          "PROMPT_BATCH", "TP_BATCH", "AE_SIZE", "AE_LENGTH",
+                                          "UNET_SIZE")}
+    t0 = time.perf_counter()
+    runs = mesh.launch("chip_smoke:_tp_rank", TP_RANKS, [settings, list(TP_RUNS)],
+                       backend="gloo", timeout=900)
+    wall = time.perf_counter() - t0
+    print(f"tensor parallel: {len(TP_RUNS)} runs in one launch of {TP_RANKS} gloo ranks, "
+          f"{wall!r} s with the processes' start on {card}", flush=True)
+    for name, per_step in TP_RUNS.items():
+        ranks = [r[name] for r in runs]
         r0 = ranks[0]
         losses = [r["loss"] for r in ranks]
         loss_err = abs(losses[0] - r0["ref_loss"]) / abs(r0["ref_loss"])
-        want = expected(PER_STEP)
-        size = _tp_config(name, 1).data.image_size
+        want = expected(per_step)
+        cfg = _tp_config(name, 1)
+        size = cfg.data.image_size
         print(f"tensor parallel {name}: gloo, {TP_RANKS} ranks on the card at (data=1, "
               f"model={TP_RANKS}), global batch {TP_BATCH} on every rank, {size}x{size}, "
-              f"{r0['sharded']} of {r0['leaves']} parameters sharded; one augmented step: "
+              f"augmentation {cfg.data.augmentations_per_datapoint}, {r0['sharded']} of "
+              f"{r0['leaves']} parameters sharded; one step: "
               f"losses {losses} vs world-1 {r0['ref_loss']!r} (rel {loss_err!r}, limit "
               f"{LOSS_RTOL}); gathered gradients vs world-1: max relative L2 "
               f"{r0['max_rel_err']!r} ({r0['worst_leaf']}, limit {GRAD_RL2}); held to the fp32 "
               f"gradient (leaf, world-1 bf16 vs fp32, TP vs fp32; limit {BF16_NOISE_FACTOR}x): "
               f"{r0['held']}; parameters identical across ranks "
               f"{[r['params_identical'] for r in ranks]}; launches per rank "
-              f"{[r['launches'] for r in ranks]}; kernel-block output channels {r0['kernel_block_co']}; "
-              f"{wall!r} s with the processes' start on {card}", flush=True)
+              f"{[r['launches'] for r in ranks]}; kernel-block output channels "
+              f"{r0['kernel_block_co']}", flush=True)
         print(f"tensor parallel {name}: step {[r['step_ms'] for r in ranks]} ms at "
               f"(1, {TP_RANKS}) vs {r0['ref_step_ms']!r} ms at world 1 (batch {TP_BATCH}); "
               f"model-group collectives in a step, each waited for (ms, calls, bytes): "
               f"{[r['collectives'] for r in ranks]}; peak memory per rank "
               f"{[r['peak_bytes'] for r in ranks]} B vs {r0['ref_peak_bytes']!r} B at world 1 "
-              f"(rank 0 alone, the TP step's gradients still held) on {card}", flush=True)
+              f"(rank 0 alone; each over a second step) on {card}", flush=True)
         if len(set(losses)) != 1 or loss_err > LOSS_RTOL:
             raise AssertionError(f"tensor parallel {name}: losses {losses} vs world-1 "
                                  f"{r0['ref_loss']}")
@@ -2441,6 +2565,14 @@ def tp_phase(torch, mods, card: str) -> None:
             if r["launches"] != want:
                 raise AssertionError(f"tensor parallel {name}, rank {r['rank']}: launches "
                                      f"{r['launches']}, expected {want}")
+        if "res" in cfg.model:
+            frozen = [r["frozen"] for r in ranks]
+            print(f"tensor parallel {name}: the frozen ResNet-34, {frozen[0]['sharded']} convs "
+                  f"sharded, made whole: unchanged by the step on every rank "
+                  f"{[not f['changed'] for f in frozen]}, running statistics moved "
+                  f"{[f['moved'] for f in frozen]} of {frozen[0]['stats']}", flush=True)
+            if any(f["changed"] or f["moved"] != f["stats"] or not f["sharded"] for f in frozen):
+                raise AssertionError(f"tensor parallel {name}: the frozen ResNet-34 {frozen}")
 
 
 def export_phase(torch, mods, card: str) -> dict:
@@ -2536,19 +2668,6 @@ def profiler_phase(torch, mods, card: str) -> dict:
 # options phase
 # --------------------------------------------------------------------------
 
-# fused_deep=True, off in every preset: the deep blocks that JAX's gate
-# (unet.py:161-178, 6 MiB of conv weight) puts on the fold-1 kernel blocks
-# (models/fused.py); the bottleneck's and dec1's weights exceed the cap in
-# large_unet.  Each adds its two convs to the 8 of levels 0-1, and a BN-ReLU
-# reduction: a fold-1 block activates its own output.
-FUSED_DEEP_BLOCKS = {"large_unet": ["enc3", "enc4", "dec2", "dec3"],
-                     "unet": ["enc3", "bottleneck", "dec1", "dec2"]}
-PER_FD_FORWARD = dict(PER_FORWARD, conv3x3=16)
-PER_FD_STEP = dict(PER_STEP, conv3x3=16, conv3x3_dgrad=16, conv3x3_wgrad=16, bn_relu_bwd_reduce=6)
-# the unet preset's fused_deep run (its only fused bottleneck, and dec1,
-# whose resize is not the identity); batch 16
-UNET_SIZE = 256
-OPTION_STEPS = 3
 
 
 def _fold1_blocks(model) -> list:

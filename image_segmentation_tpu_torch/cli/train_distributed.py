@@ -17,10 +17,11 @@ The backend is ``nccl`` with a card (each rank takes the card
 per card.  Each rank trains on its rows of every global batch, the
 gradients averaged and the BatchNorm statistics taken over the global batch
 (``engine/train.py``); rank 0 writes the run folder.  ``--model-shards M``
-(tensor parallelism, the config's ``n_model_shards``) lays the ranks out
-as ``(data=R/M, model=M)``: the M ranks of a data row share its rows and
-each holds 1/M of the output channels of every large weight
-(``parallel/tensor.py``); R must divide by M and the batch by R/M.
+(tensor parallelism, the config's ``n_model_shards``; any preset) lays
+the ranks out as ``(data=R/M, model=M)``: the M ranks of a data row share
+its rows and each holds 1/M of the output channels of every large weight,
+frozen ones included (``parallel/tensor.py``); R must divide by M and the
+batch by R/M.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def main(argv=None):
     ap.add_argument("--preset", default="unet")
     ap.add_argument("--epochs", type=int, default=2)  # the reference trains 2
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="tensor-parallel shards M: ranks per model group (default 1)")
+                    help="tensor-parallel shards M: ranks per model group, any preset "
+                         "(default 1)")
     ap.add_argument("--multihost", action="store_true",
                     help="join the process group even as one process")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",

@@ -79,10 +79,15 @@ slice's, and the layers that hold one are column-parallel
 (``parallel/tensor.py``) in the training and the evaluation forwards.
 :meth:`Trainer.save` makes the sharded leaves and their moments whole over
 the model group (rank 0 writes JAX's layout unchanged), and
-:meth:`Trainer.restore` slices them again.  In scope: ``unet``,
-``large_unet``, ``clip_unet`` and ``clip_unet_prompt``; the other models,
-``fused_deep`` and ``remat`` under M > 1 raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 item 13.
+:meth:`Trainer.restore` slices them again.  Every model and option
+trains so, as in JAX: the frozen parts are sharded too (the ClipRes
+models' ResNet-34, the CLIP tower), since JAX's rule places the whole
+state and its mask only skips their update; the reconstruction and class
+tasks' losses and metrics are the data group's, like the others'; under
+``remat`` the recomputed forward repeats the model group's gathers, in
+the same order on every rank (every rank runs the same graph, so the
+recomputation stops at the same place on each).  The only refusal is
+``make_grid``'s: a world size that M does not divide.
 
 Ported: the segmentation task on the U-Nets, ClipUnet, ClipRes and
 ClipAutoencoder, the prompt task on ClipUnetPrompt, the class task
@@ -91,8 +96,10 @@ reconstruction task (``loss="mse"``) on the autoencoder, every JAX loss;
 synthetic data or the Oxford-IIIT-Pet split on disk
 (``data.datasets.load_pet_dataset``); the Python pipeline or, with
 ``native_loader``, the C++ one; ``n_model_shards`` (tensor parallelism,
-above) for the four models in scope.  ``prompt_fusion`` (two inputs and
-no task in the JAX Trainer either) is a model only.
+above).  ``prompt_fusion`` (two inputs and no task in the JAX Trainer
+either) is a model only: a Trainer builds it at any M, and its first step
+raises the forward's ``TypeError`` (the missing prompt), as JAX's
+Trainer cannot train it.
 
 ``remat`` (JAX :249-261, ``jax.checkpoint`` around the whole training
 apply): the training forward runs under ``torch.utils.checkpoint``
@@ -154,28 +161,6 @@ _TRUNC_STD = 0.87962566103423978
 _EMBED_STD = 0.02
 # fold_in data of the JAX Trainer's eval batches (:493)
 EVAL_STEP_KEY = 7919
-# the models that train with n_model_shards > 1 (ROADMAP.md Queue 1 item 13)
-TP_MODELS = ("unet", "large_unet", "clip_unet", "clip_unet_prompt")
-
-
-def check_tensor_parallel(config: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for ``n_model_shards > 1`` with what
-    is not ported under it: a model outside ``TP_MODELS``, ``fused_deep``,
-    ``remat``."""
-    m = config.n_model_shards
-    if m == 1:
-        return
-    what = None
-    if config.model not in TP_MODELS:
-        what = f"the model {config.model!r}"
-    elif config.model_args.get("fused_deep"):
-        what = "fused_deep"
-    elif config.remat:
-        what = "remat"
-    if what is not None:
-        raise NotImplementedError(
-            f"n_model_shards={m!r} with {what} is not ported; see ROADMAP.md Queue 1 "
-            "item 13 (tensor parallelism)")
 
 
 def adam_l2(cfg, params) -> torch.optim.Optimizer:
@@ -335,7 +320,6 @@ class Trainer:
         run_dir: Optional[str] = None,
         make_artifacts: bool = True,
     ):
-        check_tensor_parallel(config)
         self.grid = mesh.make_grid(config.n_model_shards)
         if config.batch_size % self.grid.n_data:
             raise ValueError(f"batch_size {config.batch_size} must be divisible by the "

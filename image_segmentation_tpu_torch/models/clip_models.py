@@ -37,6 +37,13 @@ ClipRes models fold their full-resolution level (dec5, and ``out``, which
 reads ``[dec5 | image]`` as the kernels' two inputs) with ``w2d_level0``
 where JAX's gate holds (:176, :285).
 
+Tensor parallelism (``parallel/tensor.py``): every layer whose weight
+JAX's rule shards is column-parallel: the blocks (:mod:`.blocks`,
+:mod:`.fused`), the tower and the fusion, the frozen ResNet-34's convs
+(:mod:`.resnet`) and the ClipAutoencoder's ``coupler`` (:func:`dense`).
+In the ClipRes models dec5 and the output block stay whole (their kernels
+are under the rule's 4096 elements), as does the class head's Dense(1).
+
 Module names follow the reference torch layout
 (``utils/torch_export.clip_unet_state_dict`` :196,
 ``clip_res_state_dict`` :240, ``clip_autoencoder_state_dict`` :257 and
@@ -57,6 +64,7 @@ from torch import nn
 
 from ..ops.cross_attention import CrossAttentionFusion
 from ..ops.precision import wide
+from ..parallel import tensor as tp
 from . import fused
 from .blocks import (
     ConvBlock,
@@ -78,8 +86,13 @@ FROZEN_PREFIXES = ("clip_feature_extractor.",)
 
 
 def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=x.dtype)``: the weight and bias cast to x's dtype."""
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    """flax ``nn.Dense(dtype=x.dtype)``: the weight and bias cast to x's
+    dtype; column-parallel when its weight is sharded (the ClipAutoencoder's
+    ``coupler``; the class head's one output stays whole)."""
+    def op(x, w, b):
+        return F.linear(x, w.to(x.dtype), b.to(x.dtype))
+
+    return tp.column(op, x, layer.weight, layer.bias, tp.shard(layer))
 
 
 def level_classes(w2d_level0: bool, w2d_level1_fold2: bool, w2d_impl: str):
@@ -310,6 +323,8 @@ class ClipAutoencoder(nn.Module):
         x = x.to(self.dtype)
         clip_feats = self.clip_feature_extractor(x)
         stem = conv1x1_nhwc(x, self.input)
+        # whole: a sharded coupler's slices are gathered before the view,
+        # since a slice of the 16384 axis is not a slice of the channels
         h = dense(clip_feats.to(self.dtype), self.coupler)
         # torch's .view(-1, 64, 16, 16) is channel-major: NCHW, then NHWC (:222)
         h = h.reshape(x.shape[0], 64, 16, 16).permute(0, 2, 3, 1).contiguous()

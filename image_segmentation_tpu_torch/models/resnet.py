@@ -18,6 +18,14 @@ the fp32 batch statistics (biased variance) and flax's running update
 through ``commit_running_stats``; each BatchNorm's output is cast back to
 the compute dtype, as flax's ``BatchNorm(dtype=...)`` returns it.
 
+Tensor parallelism (``parallel/tensor.py``): JAX's rule shards every
+conv kernel here (each has at least 4096 elements), and the frozen
+backbone's weights are this rank's slices as JAX places them, though no
+optimizer holds them.  Each conv is column-parallel, its slices gathered
+plainly (the backbone runs without autograd), so the BatchNorms, the
+ReLUs, the residual sums and the max-pool see whole tensors, and every
+model rank commits the same running statistics to its own copy.
+
 Module names follow the reference's ``nn.Sequential(*resnet34.children()
 [:-2])`` (processing_blocks.py:262-263, the layout
 ``utils/torch_export.resnet34_children_to_torch`` writes): ``model.0`` the
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.precision import wide
+from ..parallel import tensor as tp
 from .blocks import BN_EPS, batch_stats, bn_affine
 
 RESNET34_LAYERS = (3, 4, 6, 3)
@@ -39,10 +48,14 @@ RESNET34_WIDTHS = (64, 128, 256, 512)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` (no bias) on NHWC x with its own stride and padding, in x's dtype."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None,
-                 stride=conv.stride, padding=conv.padding)
-    return y.permute(0, 2, 3, 1)
+    """``conv`` (no bias) on NHWC x with its own stride and padding, in x's
+    dtype; column-parallel when its weight is sharded."""
+    def op(x, w, b):
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride=conv.stride,
+                     padding=conv.padding)
+        return y.permute(0, 2, 3, 1)
+
+    return tp.column(op, x, conv.weight, None, tp.shard(conv))
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:

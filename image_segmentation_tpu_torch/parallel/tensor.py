@@ -183,9 +183,10 @@ def take(t: Optional[torch.Tensor], s: Optional[Shard], dim: int = 0):
 def column(op: Callable, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            s: Optional[Shard]) -> torch.Tensor:
     """``op(x, w, b)`` of a layer whose output channels are the last dim:
-    with ``s`` (``w`` this rank's slice, ``b`` the whole bias) on the
-    slice, the input's gradient summed over the model group, and the
-    output gathered; ``op(x, w, b)`` without."""
+    with ``s`` (``w`` this rank's slice, ``b`` the whole bias or None) on
+    the slice, the input's gradient summed over the model group, and the
+    output gathered (with grad mode off, as the frozen ResNet-34 runs,
+    the gather records no autograd node); ``op(x, w, b)`` without."""
     if s is None:
         return op(x, w, b)
     if torch.is_grad_enabled() and x.requires_grad:

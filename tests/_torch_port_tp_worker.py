@@ -4,8 +4,9 @@ or in each of the ranks that ``parallel.mesh.launch`` starts.
 
 ``run(out_dir, n_model)`` writes ``<out_dir>/tp<R>_<r>.npz`` (every array a
 check reads, the sharded leaves made whole over the model group) and
-returns the small results as JSON-able values; ``run_cli(save_dir)`` trains
-the ``smoke`` preset through ``cli.train_distributed --model-shards 2``.
+returns the small results as JSON-able values, every preset built at M
+among them (``built_presets``); ``run_cli(save_dir)`` trains the
+``smoke`` preset through ``cli.train_distributed --model-shards 2``.
 The models: ``large_unet`` with the preset's model args at stem 16,
 encoders 32/64 (levels 0-1 on the kernel blocks; at M = 2 the rule shards
 both convs of enc1 and enc2, the dec1/dec2 up-convs, and dec3's conv1 but
@@ -15,6 +16,7 @@ global batch of 8, ``bf16=False``, Adam eps 1e-3.
 """
 
 import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -37,6 +39,9 @@ EVAL_LENGTH = 12
 PRESET = {"large_unet": "large_unet", "clip_unet": "clip_unet", "clip_unet_prompt": "prompt"}
 # the layouts of tests/test_mesh_shapes.py at 4 ranks: M of (data, model)
 LAYOUTS = (1, 2, 4)
+# every name of config.preset
+PRESETS = ("unet", "large_unet", "clip_unet", "clip_res", "clip_autoencoder", "autoencoder",
+           "segment_classifier", "prompt", "smoke")
 
 
 def cfg(model: str = "large_unet", n_model: int = 1, aug: int = 1) -> config.TrainConfig:
@@ -101,6 +106,28 @@ def _norm(t: Trainer) -> float:
     return float(np.sqrt(sum(np.sum(p.detach().double().numpy() ** 2) for p in params.values())))
 
 
+def built_presets(n_model: int) -> dict:
+    """Every preset's Trainer at ``n_model`` shards, and the ``unet``
+    preset's with ``fused_deep`` and with ``remat`` (on 8 synthetic 32x32
+    images, the CLIP models with the small tower): the number of
+    parameters sharded.  Their steps:
+    tests/test_torch_port_tensor_parallel_models.py."""
+    cfgs = {name: config.preset(name) for name in PRESETS}
+    for name, c in cfgs.items():
+        if c.model.startswith("clip"):
+            c.model_args = dict(c.model_args, clip_kwargs=SMALL_TOWER)
+    unet = cfgs["unet"]
+    cfgs["unet fused_deep"] = dataclasses.replace(
+        unet, model_args=dict(unet.model_args, fused_deep=True))
+    cfgs["unet remat"] = dataclasses.replace(unet, remat=True)
+    out = {}
+    for name, c in cfgs.items():
+        c = dataclasses.replace(c, n_model_shards=n_model, data=config.DataConfig(
+            dataset="synthetic", synthetic_length=GLOBAL_BATCH, image_size=SIZE))
+        out[name] = len(Trainer(c, device="cpu", make_artifacts=False).tp_plan)
+    return out
+
+
 def run(out_dir: str, n_model: int, points=None) -> dict:
     """``points``: JAX's prompt points of ``global_batch("clip_unet_prompt")``
     for the unaugmented prompt step."""
@@ -147,6 +174,8 @@ def run(out_dir: str, n_model: int, points=None) -> dict:
         except ValueError as e:
             result["native_loader"] = str(e)
 
+        result["built"] = built_presets(n_model)
+
         # the layouts of tests/test_mesh_shapes.py: loss and updated-parameter norm
         result["layouts"] = {}
         for model in ("clip_unet", "clip_unet_prompt"):
@@ -184,6 +213,13 @@ BLOCK_CASES = {
                 ("up.weight", "conv.conv.0.weight", "conv.conv.3.weight")),
     "conv1 only": ("FusedConvBlock", (32, 64), [(2, 32, 32, 32)], ("conv.0.weight",)),
     "conv2 only": ("FusedConvBlock", (32, 64), [(2, 32, 32, 32)], ("conv.3.weight",)),
+    # the autoencoder's dec3: the ConvTranspose kernel and both convs on Co/2 = 16
+    "upsample": ("FusedConvBlockUpsample", (64, 32), [(2, 16, 16, 64)],
+                 ("up.weight", "conv.conv.0.weight", "conv.conv.3.weight")),
+    # a fold-1 decoder of fused_deep: the standard up-conv, the block over [up | skip]
+    "fold-1 decoder": ("FusedDeepConvBlockUpsampleSkip", (128, 64),
+                       [(2, 8, 8, 128), (2, 16, 16, 64)],
+                       ("up.weight", "conv.conv.0.weight", "conv.conv.3.weight")),
 }
 
 

@@ -1020,7 +1020,8 @@ def tp_blocks():
     return ranks
 
 
-@pytest.mark.parametrize("case", ["encoder", "decoder", "conv1 only", "conv2 only"])
+@pytest.mark.parametrize("case", ["encoder", "decoder", "conv1 only", "conv2 only", "upsample",
+                                  "fold-1 decoder"])
 def test_tensor_parallel_fused_blocks_vs_plain(tp_blocks, case):
     """The TP form of FusedBlockFunction (both convs, or one, on their Co/2
     slices), the pool on the slice and the ConvTranspose kernel at (data=1,

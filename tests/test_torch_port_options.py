@@ -428,9 +428,12 @@ def test_remat_at_two_ranks_equals_no_remat(tmp_path):
 
 
 def test_remat_is_accepted_and_tensor_parallelism_still_raises():
+    """``remat`` builds; with two model shards it is refused only as any
+    model is in one process, which cannot form a model group of 2 (remat
+    at M = 2: tests/test_torch_port_tensor_parallel_models.py)."""
     cfg = dataclasses.replace(port_config.preset("smoke"), remat=True)
     assert Trainer(cfg, device="cpu", make_artifacts=False).config.remat
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="model groups of 2"):
         Trainer(dataclasses.replace(cfg, n_model_shards=2), device="cpu", make_artifacts=False)
 
 

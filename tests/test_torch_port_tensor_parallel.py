@@ -1,7 +1,10 @@
 """The port's tensor parallelism (``parallel.mesh.make_grid``,
 ``parallel/tensor.py``, ``utils.convert.tp_plan``, the column-parallel
 layers and the TP form of the kernel blocks) on the CPU, against the
-port's world-1 step and JAX's Trainer on a ``(data=2, model=2)`` mesh.
+port's world-1 step and JAX's Trainer on a ``(data=2, model=2)`` mesh; the
+sharding rule for all nine registry names, and every preset built at
+M = 2.  The steps of the other models and of ``fused_deep`` and ``remat``:
+tests/test_torch_port_tensor_parallel_models.py.
 
 Four gloo ranks are spawned once for the module (``mesh.launch``); each
 runs ``tests/_torch_port_tp_worker.run`` on the grid (data=2, model=2),
@@ -51,6 +54,7 @@ import jax.numpy as jnp
 
 from image_segmentation_tpu import config as jax_config
 from image_segmentation_tpu.data import prompts as jax_prompts
+from image_segmentation_tpu.engine import train as jax_train
 from image_segmentation_tpu.engine.train import Trainer as JaxTrainer
 from image_segmentation_tpu.models.registry import build_model as jax_build_model
 from image_segmentation_tpu.parallel import mesh as jax_mesh
@@ -113,19 +117,35 @@ MODELS = {
     "large_unet": worker.NARROW,
     "clip_unet": {"clip_kwargs": SMALL_TOWER},
     "clip_unet_prompt": {"clip_kwargs": SMALL_TOWER},
+    "autoencoder": config.preset("autoencoder").model_args,
+    "clip_res": {**config.preset("clip_res").model_args, "clip_kwargs": SMALL_TOWER},
+    "clip_res_class": {**config.preset("segment_classifier").model_args,
+                       "clip_kwargs": SMALL_TOWER},
+    "clip_autoencoder": {"clip_kwargs": SMALL_TOWER},
+    "prompt_fusion": {},
 }
+# leaves that the rule must shard: every ResNet-34 conv, the coupler
+MUST_SHARD = {
+    "clip_res": ("encoder.model.0.weight", "encoder.model.4.0.conv1.weight",
+                 "encoder.model.5.0.downsample.0.weight", "encoder.model.7.2.conv2.weight"),
+    "clip_autoencoder": ("coupler.weight",),
+}
+MUST_SHARD["clip_res_class"] = MUST_SHARD["clip_res"]
 
 
 @pytest.mark.parametrize("n_model", [2, 4])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_the_rule_shards_what_jax_shards(name, n_model):
     """Every leaf's shape on model rank 0 equals the shard of JAX's
-    ``shard_params_tp`` on device 0 of ``make_mesh(n_data=4/M, n_model=M)``."""
+    ``shard_params_tp`` on device 0 of ``make_mesh(n_data=4/M, n_model=M)``,
+    for every registry name (``prompt_fusion`` with its two inputs)."""
+    import image_segmentation_tpu.models.prompt_fusion  # noqa: F401  (registers the name)
+
     args = MODELS[name]
     jmodel = jax_build_model(name, dtype=jnp.float32, **args)
     sample = jnp.zeros((1, 32, 32, 3), jnp.float32)
-    inputs = (sample, jnp.zeros((1, 32, 32, 1), jnp.float32)) if name.endswith("prompt") else (
-        sample,)
+    two = name.endswith("prompt") or name == "prompt_fusion"
+    inputs = (sample, jnp.zeros((1, 32, 32, 1), jnp.float32)) if two else (sample,)
     shapes = jax.eval_shape(lambda *a: jmodel.init(jax.random.PRNGKey(0), *a, train=False),
                             *inputs)["params"]
     jmesh = jax_mesh.make_mesh(n_data=4 // n_model, n_model=n_model, devices=jax.devices()[:4])
@@ -141,6 +161,11 @@ def test_the_rule_shards_what_jax_shards(name, n_model):
            jax.tree_util.tree_flatten_with_path(jax_from_state_dict(model.state_dict())[0])[0]}
     assert got == want
     assert plan  # the narrow widths shard something
+    for key in MUST_SHARD.get(name, ()):
+        assert plan[key][0] == 0, key  # conv (O, I, kH, kW), Dense (O, I): O
+    if name.startswith("clip_res"):  # every ResNet-34 conv, the 7x7 stem and 1x1s included
+        convs = [k for k in plan if k.startswith("encoder.model.")]
+        assert len(convs) == 1 + 2 * 16 + 3
 
 
 def test_the_narrow_large_unet_shards_both_kinds_of_block():
@@ -203,40 +228,40 @@ def _torch(arrays, prefix):
     return {k: torch.from_numpy(v) for k, v in _group(arrays, prefix).items()}
 
 
-@pytest.mark.parametrize("model", ["large_unet", "clip_unet_prompt"])
-def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
-    """One unaugmented step of the JAX Trainer on ``make_mesh(n_data=2,
-    n_model=2)`` with ``shard_params_tp``, from the port's initial weights."""
-    tp0 = runs["arrays"][1]
-    cfg = worker.cfg(model, 2, 0)
-    jpre = jax_config.preset(worker.PRESET[model])
-    jcfg = jax_config.TrainConfig(
-        model=model, model_args=cfg.model_args, loss=cfg.loss, batch_size=cfg.batch_size,
-        num_epochs=1, bf16=False, seed=0, n_model_shards=2,
-        optimizer=jax_config.OptimizerConfig(eps=worker.ADAM_EPS),
-        data=dataclasses.replace(jpre.data, dataset="synthetic",
-                                 synthetic_length=cfg.batch_size, image_size=worker.SIZE,
-                                 augmentations_per_datapoint=0))
-    prefix = f"noaug/{model}/"
-    init = {**_torch(tp0, prefix + "init/param/"), **_torch(tp0, prefix + "init/buffer/")}
+def hold_to_jax_on_a_2x2_mesh(jcfg, arrays, prefix: str, images, masks, port_loss: float,
+                              loss_tol: dict, state_tol: dict, grad_tol=None,
+                              float64: bool = False) -> None:
+    """One unaugmented step of the JAX Trainer of ``jcfg`` on
+    ``make_mesh(n_data=2, n_model=2)`` with ``shard_params_tp``, from the
+    port's initial state (``arrays`` under ``prefix + "init/"``), on the
+    global batch: the port's (2, 2) loss, parameters and running statistics
+    after the step (under ``prefix``) against it, and with ``grad_tol`` its
+    gradients against JAX's, taken back from Adam's first moment.  With
+    ``float64`` the JAX Trainer runs under x64, its model built with
+    ``dtype=float64`` and its state (Adam's included) float64."""
+    init = {**_torch(arrays, prefix + "init/param/"), **_torch(arrays, prefix + "init/buffer/")}
     params, stats = jax_from_state_dict(init)
-    with pytest.MonkeyPatch.context() as mp:
+    wide = jnp.float64 if float64 else jnp.float32
+    params, stats = (jax.tree.map(lambda a: np.asarray(a, wide), t) for t in (params, stats))
+    build = jax_train.build_model
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(float64):
         mp.setenv("IMGSEG_PALLAS_MIN_WP", "1")
+        if float64:
+            mp.setattr(jax_train, "build_model",
+                       lambda model, **kw: build(model, **dict(kw, dtype=jnp.float64)))
         jmesh = jax_mesh.make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
         jt = JaxTrainer(jcfg, mesh=jmesh, make_artifacts=False)
-        jt.state = jax_mesh.shard_params_tp(jt.mesh, dict(
-            jt.state, params=jax.tree.map(jnp.asarray, params),
-            batch_stats=jax.tree.map(jnp.asarray, stats)))
-        images, masks = worker.global_batch(model)
+        state = dict(jt.state, params=jax.tree.map(jnp.asarray, params),
+                     batch_stats=jax.tree.map(jnp.asarray, stats))
+        if float64:
+            state["opt_state"] = jt.tx.init(state["params"])
+        jt.state = jax_mesh.shard_params_tp(jt.mesh, state)
         jt.state, loss = jt._train_step(jt.state, jnp.asarray(images), jnp.asarray(masks),
                                         jax.random.PRNGKey(0))
-    prompt = model == "clip_unet_prompt"
-    loss_tol, state_tol = (PROMPT_TOL["loss"], PROMPT_TOL["state"]) if prompt else (
-        LOSS_TOL, LOSS_TOL)
-    np.testing.assert_allclose(runs["ranks"][0]["noaug"][model], float(loss), **loss_tol)
+    np.testing.assert_allclose(port_loss, float(loss), **loss_tol)
     got_params, got_stats = jax_from_state_dict(
-        {**_torch(tp0, prefix + "param/"), **_torch(tp0, prefix + "buffer/")})
-    got_grads = jax_from_state_dict(_torch(tp0, prefix + "grad/"))[0]
+        {**_torch(arrays, prefix + "param/"), **_torch(arrays, prefix + "buffer/")})
+    got_grads = jax_from_state_dict(_torch(arrays, prefix + "grad/"))[0]
     wd, b1 = jcfg.optimizer.weight_decay, jcfg.optimizer.b1
     frozen = "clip_tower" in params
     adam = jt.state["opt_state"]
@@ -248,8 +273,8 @@ def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
     got_grads = {k: v for k, v in got_grads.items() if k in jax_grads}
     checks = [(got_params, jt.state["params"], state_tol, "param"),
               (got_stats, jt.state["batch_stats"], state_tol, "batch_stats")]
-    if not prompt:  # the prompt model's gradients: against world 1 only
-        checks.append((got_grads, jax_grads, GRAD_TOL, "grad"))
+    if grad_tol is not None:
+        checks.append((got_grads, jax_grads, grad_tol, "grad"))
     for got, want, tol, what in checks:
         flat_want = dict(jax.tree_util.tree_flatten_with_path(jax.device_get(want))[0])
         flat_got = dict(jax.tree_util.tree_flatten_with_path(got)[0])
@@ -257,6 +282,28 @@ def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
         for path, w in flat_want.items():
             np.testing.assert_allclose(np.asarray(flat_got[path]), np.asarray(w),
                                        err_msg=f"{what} {jax.tree_util.keystr(path)}", **tol)
+
+
+@pytest.mark.parametrize("model", ["large_unet", "clip_unet_prompt"])
+def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
+    """One unaugmented step of the JAX Trainer on ``make_mesh(n_data=2,
+    n_model=2)`` with ``shard_params_tp``, from the port's initial weights."""
+    cfg = worker.cfg(model, 2, 0)
+    jpre = jax_config.preset(worker.PRESET[model])
+    jcfg = jax_config.TrainConfig(
+        model=model, model_args=cfg.model_args, loss=cfg.loss, batch_size=cfg.batch_size,
+        num_epochs=1, bf16=False, seed=0, n_model_shards=2,
+        optimizer=jax_config.OptimizerConfig(eps=worker.ADAM_EPS),
+        data=dataclasses.replace(jpre.data, dataset="synthetic",
+                                 synthetic_length=cfg.batch_size, image_size=worker.SIZE,
+                                 augmentations_per_datapoint=0))
+    prompt = model == "clip_unet_prompt"
+    loss_tol, state_tol = (PROMPT_TOL["loss"], PROMPT_TOL["state"]) if prompt else (
+        LOSS_TOL, LOSS_TOL)
+    # the prompt model's gradients: against world 1 only (module doc)
+    hold_to_jax_on_a_2x2_mesh(jcfg, runs["arrays"][1], f"noaug/{model}/",
+                              *worker.global_batch(model), runs["ranks"][0]["noaug"][model],
+                              loss_tol, state_tol, None if prompt else GRAD_TOL)
 
 
 # ---- layouts, checkpoints, rows ---------------------------------------------
@@ -336,14 +383,16 @@ def test_dryrun_multichip_eight_ranks(capsys):
     assert "fusion_sharded=cross_attention_fusion.cross_attn" in out
 
 
-def test_what_is_out_of_scope_raises():
+def test_every_preset_and_option_builds_at_two_model_shards(runs):
+    """What was refused at M > 1 before (the autoencoder, the ClipRes
+    models, ClipAutoencoder, ``fused_deep``, ``remat``) builds at (2, 2)
+    like every other preset, each with weights sharded; one rank cannot
+    form a model group of 2."""
+    built = [r["built"] for r in runs["ranks"]]
+    assert all(b == built[0] for b in built)
+    assert sorted(built[0]) == sorted([*worker.PRESETS, "unet fused_deep", "unet remat"])
+    assert all(n > 0 for n in built[0].values()), built[0]
     smoke = config.preset("smoke")
-    for cfg in (dataclasses.replace(smoke, model="autoencoder", n_model_shards=2),
-                dataclasses.replace(smoke, remat=True, n_model_shards=2),
-                dataclasses.replace(smoke, n_model_shards=2,
-                                    model_args=dict(smoke.model_args, fused_deep=True))):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            Trainer(cfg, device="cpu", make_artifacts=False)
     with pytest.raises(ValueError, match="model groups of 2"):  # one rank, M = 2
         Trainer(dataclasses.replace(smoke, n_model_shards=2), device="cpu",
                 make_artifacts=False)

@@ -230,9 +230,10 @@ def test_initial_weights_are_seeded():
 
 
 def test_trainer_raises_on_what_is_not_ported(tmp_path):
-    """``n_model_shards`` with ``fused_deep`` raises, naming its ROADMAP
-    item (tensor parallelism itself: tests/test_torch_port_tensor_parallel
-    .py); ``remat`` is
+    """``n_model_shards`` with ``fused_deep`` in one process raises, as any
+    model does there: one rank cannot form a model group of 2 (tensor
+    parallelism itself: tests/test_torch_port_tensor_parallel.py and
+    tests/test_torch_port_tensor_parallel_models.py); ``remat`` is
     ported (tests/test_torch_port_options.py holds it to JAX's), as are
     the Oxford-IIIT-Pet split and the native loader (the Pet route from
     its ``<split>_arrays.npz`` files here, tests/test_torch_port_data.py
@@ -248,7 +249,7 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path):
     assert len(t.val_data) == 4
     assert Trainer(dataclasses.replace(cfg, remat=True), device="cpu",
                    make_artifacts=False).config.remat
-    with pytest.raises(NotImplementedError, match="item 13 \\(tensor parallelism\\)"):
+    with pytest.raises(ValueError, match="model groups of 2"):
         Trainer(dataclasses.replace(cfg, n_model_shards=2,
                                     model_args=dict(cfg.model_args, fused_deep=True)),
                 device="cpu", make_artifacts=False)

@@ -8,10 +8,16 @@ comparing two trees' steps bit for bit.
 The step is ``chip_smoke.py``'s: ``train_config()`` (the large_unet preset,
 batch 16 at 512x512, bf16), a fixed batch drawn from ``SEED + 7`` and
 ``STEP_KEY``, from the seeded weights; its loss and every step-0 gradient
-go to OUT.  ``--tree DIR`` runs the ``image_segmentation_tpu_torch`` of
-another checkout (an earlier commit unpacked with ``git archive`` into
-``build/parent``, say); the step's settings always come from this
-checkout's ``chip_smoke.py``.  ``--compare`` prints the largest difference
+go to OUT, beside the world-1 step at batch 8 of each run of
+``chip_smoke.py``'s tensor-parallel phase (``TP_RUNS``: large_unet,
+clip_unet, the autoencoder, clip_res, segment_classifier,
+clip_autoencoder, unet with ``fused_deep`` and ``remat``) and of the
+``prompt`` preset, each on its fixed batch (``tp_batch``), keyed
+``<run>/loss`` and ``<run>/grad/...``.  ``--tree DIR`` runs the
+``image_segmentation_tpu_torch`` of another checkout (an earlier commit
+unpacked with ``git archive`` into ``build/parent``, say); the step's
+settings always come from this checkout's ``chip_smoke.py``.
+``--compare`` prints the largest difference
 and exits 1 if the two files differ.
 """
 
@@ -23,12 +29,30 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _step(smoke, cfg, images, masks, prefix: str) -> dict:
+    """One step of a fresh Trainer of ``cfg`` on the card: its loss and
+    step-0 gradients under ``prefix``."""
+    import torch
+
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    trainer = Trainer(cfg, device="cuda", make_artifacts=False)
+    loss = trainer.train_step(torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda(),
+                              smoke.STEP_KEY)
+    arrays = {f"{prefix}loss": loss.float().cpu().numpy()}
+    arrays.update({f"{prefix}grad/{k}": v.cpu().numpy()
+                   for k, v in smoke._grads(trainer.model).items()})
+    print(f"step state {prefix or cfg.model}: loss {float(loss)!r}, {len(arrays) - 1} "
+          "gradients", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return arrays
+
+
 def step_state(out: str) -> None:
     import importlib.util
 
     import torch
-
-    from image_segmentation_tpu_torch.engine.train import Trainer
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -36,17 +60,17 @@ def step_state(out: str) -> None:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    trainer = Trainer(smoke.train_config(), device="cuda", make_artifacts=False)
     rng = np.random.default_rng(smoke.SEED + 7)
     b, s = smoke.BATCH, smoke.SIZE
-    images = torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda()
-    masks = torch.from_numpy(rng.integers(0, smoke.NUM_CLASSES, (b, s, s), dtype=np.uint8)).cuda()
-    loss = trainer.train_step(images, masks, smoke.STEP_KEY)
-    arrays = {"loss": loss.float().cpu().numpy()}
-    arrays.update({f"grad/{k}": v.cpu().numpy() for k, v in smoke._grads(trainer.model).items()})
+    images = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
+    masks = rng.integers(0, smoke.NUM_CLASSES, (b, s, s), dtype=np.uint8)
+    arrays = _step(smoke, smoke.train_config(), images, masks, "")
+    for name in (*smoke.TP_RUNS, "prompt"):
+        cfg = smoke._tp_config(name, 1)
+        arrays.update(_step(smoke, cfg, *smoke.tp_batch(name, cfg.data.image_size),
+                            f"{name}/"))
     np.savez(out, **arrays)
-    print(f"card: {smoke.card_line()}; step state: loss {float(loss)!r}, {len(arrays) - 1} "
-          f"gradients -> {out}", flush=True)
+    print(f"card: {smoke.card_line()}; step state: {len(arrays)} arrays -> {out}", flush=True)
 
 
 def compare(a: str, b: str) -> bool:
