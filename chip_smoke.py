@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving, training, augmentation, prompt,
 ClipUnet, fusion, autoencoder, ClipRes, segment-classifier, ClipAutoencoder,
-robustness, data, distributed, export, profiler and tensor-parallel paths
-on one NVIDIA GPU.
+robustness, data, distributed, export, profiler, converter and
+tensor-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,7 @@ width of the port's presets (``config.preset``), random weights from a seed:
    kernels in their unfused forms) and the clip_res step (batch 32 at
    256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
    kernels' element paths) give it, the ``Co/2`` slices that the
-   tensor-parallel steps of 18 give the kernel blocks (batch 8: the level
+   tensor-parallel steps of 19 give the kernel blocks (batch 8: the level
    0-1 blocks of large_unet at 512x512 and of clip_unet at 256x256, the
    autoencoder's level 0-2 blocks at 256x256, ``Co`` 32 and dec3's 16, its
    ConvTransposes to 32 and 16, and the unet preset's fold-1
@@ -126,7 +126,16 @@ width of the port's presets (``config.preset``), random weights from a seed:
    statistics bit for bit), step time and peak memory both ways; clip_unet
    at 256x256, batch 32 with ``freeze_clip=False`` against ``True`` over 3
    steps, bit for bit, the tower unchanged, step time both ways;
-18. tensor-parallel phase: two gloo ranks on the card at (data=1,
+18. converter phase: ``cli.convert_pretrained`` on the ViT-B/32 tower of
+   the clip_unet preset (saved in the transformers vision layout) and on a
+   ResNet-34 (in torchvision's), random weights from SEED; each ``.npz``
+   loaded back into fresh modules on the card and held bit for bit (the
+   pooled embedding, batch 8 at 224x224; the feature map, batch 8 at
+   256x256; the served clip_unet logits, batch 8 at 256x256, with the
+   converted tower against the source tower, exact counts); then
+   ``cli.check_prompt_data --device cuda`` (its 4 label checks, its
+   heatmaps against the host's for the same draws);
+19. tensor-parallel phase: two gloo ranks on the card at (data=1,
    model=2), one ``mesh.launch`` for all runs, each rank holding the whole
    global batch of 8 and half the output channels of every weight JAX's
    ``shard_params_tp`` shards: one step at full width of
@@ -144,8 +153,8 @@ width of the port's presets (``config.preset``), random weights from a seed:
    rank's peak memory in a second step (the checks' copies on the host)
    beside world 1's, the TP step time beside world 1 and the time of the
    model group's gathers, reduce-scatters and all-reduces in a step;
-19. prints one JSON line of per-kernel results (``launches`` counts the
-   main-path runs of 3-17; the wgrad kernel has a line for its launches
+20. prints one JSON line of per-kernel results (``launches`` counts the
+   main-path runs of 3-18; the wgrad kernel has a line for its launches
    beside a dgrad and one for its launches alone, and each conv kernel a
    line for its unfused form, which the ``"pallas"`` run launches), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1678,6 +1687,149 @@ def clip_res_serving_phase(torch, mods, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# converter phase
+# --------------------------------------------------------------------------
+
+CONVERT_BATCH = 8
+HEAT_ATOL = 1.2e-7  # two ulps at 1.0: exp on the card and on the host (the prompt tests')
+
+
+def _randomize_norms_(torch, module, seed: int) -> None:
+    """LayerNorm scales in [0.5, 1.5] and biases of scale 0.1, so that a
+    scale and a bias swapped by a converter would show."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g, device=DEVICE) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g, device=DEVICE) * 0.1)
+
+
+def _same_state(torch, got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    for k, v in want.items():
+        if not torch.equal(got[k].to(v.device, v.dtype), v):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def converter_phase(torch, mods, card: str) -> dict:
+    """``cli.convert_pretrained`` on the full-width towers (the ViT-B/32
+    of the clip_unet preset in the transformers vision layout, a
+    ResNet-34 in torchvision's, random weights from SEED), each ``.npz``
+    loaded back with ``state_dict_from_jax`` into fresh modules on the
+    card and held bit for bit: the pooled CLIP embedding (batch 8 at
+    224x224), the ResNet-34 feature map (batch 8 at 256x256), and the
+    served clip_unet logits (batch 8 at 256x256) with the converted tower
+    against the same model with the source tower, exact counts; then
+    ``cli.check_prompt_data --device cuda``, its heatmaps against the
+    host's for the same draws.  Returns the launch counts of its run."""
+    import numpy as np
+
+    from image_segmentation_tpu_torch.cli import check_prompt_data, convert_pretrained
+    from image_segmentation_tpu_torch.config import preset
+    from image_segmentation_tpu_torch.data.datasets import synthetic_dataset
+    from image_segmentation_tpu_torch.data.prompts import make_prompt_batch, sample_prompt_draws
+    from image_segmentation_tpu_torch.engine.export import export_model, load_model
+    from image_segmentation_tpu_torch.engine.train import init_weights_
+    from image_segmentation_tpu_torch.models.clip import ClipFeatureExtractor
+    from image_segmentation_tpu_torch.models.registry import build_model
+    from image_segmentation_tpu_torch.models.resnet import ResNet34Features
+    from image_segmentation_tpu_torch.ops.augment import normalize_image
+    from image_segmentation_tpu_torch.utils.convert import (
+        CLIP, read_flat_npz, state_dict_from_jax, torchvision_resnet34_keys)
+
+    t0 = time.perf_counter()
+    model_args = preset("clip_unet").model_args
+    model = build_model("clip_unet", device=DEVICE, **model_args)
+    init_weights_(model, torch.Generator().manual_seed(SEED + 23))
+    randomize_(torch, model, SEED + 23)
+    _randomize_norms_(torch, model.clip_feature_extractor, SEED + 23)
+    resnet = ResNet34Features(device=DEVICE)
+    randomize_(torch, resnet, SEED + 29)
+    fe = model.clip_feature_extractor
+    sources = {"clip": {k: v.cpu() for k, v in fe.clip_model.state_dict().items()},
+               "resnet34": torchvision_resnet34_keys(
+                   {k: v.cpu() for k, v in resnet.state_dict().items()})}
+    trees = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tower, sd in sources.items():
+            src, out = f"{tmp}/{tower}.pt", f"{tmp}/{tower}.npz"
+            torch.save(sd, src)
+            convert_pretrained.main([tower, "--torch-state-dict", src, "--out", out])
+            trees[tower] = read_flat_npz(out)
+        export_model(model, "clip_unet", model_args, out_dir=f"{tmp}/art")
+        served = load_model(f"{tmp}/art", device=DEVICE)
+
+    # the towers loaded back into fresh modules
+    clip_sd = state_dict_from_jax({"clip_tower": trees["clip"]["params"]}, {})
+    fresh_fe = ClipFeatureExtractor(torch.bfloat16, device=DEVICE)
+    prefix = CLIP[:-len("clip_model.")]
+    fresh_fe.load_state_dict({k[len(prefix):]: v for k, v in clip_sd.items()}, strict=True)
+    _same_state(torch, fresh_fe.state_dict(), fe.state_dict(), "converted CLIP tower")
+    rn = trees["resnet34"]
+    rn_sd = state_dict_from_jax({"resnet_backbone": rn["params"]},
+                                {"resnet_backbone": rn["batch_stats"]})
+    fresh_rn = ResNet34Features(device=DEVICE)
+    fresh_rn.load_state_dict({k[len("encoder."):]: v for k, v in rn_sd.items()}, strict=True)
+    _same_state(torch, fresh_rn.state_dict(), resnet.state_dict(), "converted ResNet-34")
+    rng = np.random.default_rng(SEED + 31)
+    x224 = normalize_image(torch.from_numpy(rng.integers(
+        0, 256, (CONVERT_BATCH, 224, 224, 3), dtype=np.uint8)).to(DEVICE))
+    x256 = normalize_image(torch.from_numpy(rng.integers(
+        0, 256, (CONVERT_BATCH, PROMPT_SIZE, PROMPT_SIZE, 3), dtype=np.uint8)).to(DEVICE))
+    with torch.inference_mode():
+        pairs = {"pooled CLIP embedding": (fresh_fe(x224), fe(x224)),
+                 "ResNet-34 feature map": (fresh_rn(x256), resnet(x256))}
+    del model, resnet, fresh_fe, fresh_rn
+
+    # the served clip_unet: its own (source) tower, then a fresh model's
+    # other weights with the converted tower
+    reset_counts(mods)
+    with torch.inference_mode():
+        want = served(x256, train=False)
+    other = build_model("clip_unet", device=DEVICE, **model_args).requires_grad_(False)
+    patch = CLIP + "vision_model.embeddings.patch_embedding.weight"
+    if torch.equal(other.state_dict()[patch], served.state_dict()[patch]):
+        raise AssertionError("the fresh clip_unet already holds the source tower")
+    other.load_state_dict({**{k: v for k, v in served.state_dict().items()
+                              if not k.startswith(CLIP)}, **clip_sd}, strict=True)
+    _same_state(torch, other.state_dict(), served.state_dict(), "clip_unet, converted tower")
+    with torch.inference_mode():
+        pairs["served clip_unet logits"] = (other(x256, train=False), want)
+    torch.cuda.synchronize()
+    launches = counts(mods)
+    if launches != expected(PER_FORWARD, 2):
+        raise AssertionError(f"converter phase launches {launches} over 2 clip_unet forwards")
+    for what, (got, ref) in pairs.items():
+        if not bool(torch.isfinite(ref).all()) or not torch.equal(got, ref):
+            raise AssertionError(f"{what}: the converted tower's differs from the source's")
+        print(f"converter: {what} {tuple(ref.shape)} {ref.dtype} bit-identical to the source "
+              f"tower's", flush=True)
+    del served, other
+
+    # the prompt check on the card, its heatmaps against the host's
+    result = check_prompt_data.main(["--device", DEVICE, "--dataset", "synthetic", "--no-plot"])
+    checks = [x for x in result["lines"] if x.endswith("label at peak = 1.0 (must be 1.0)")]
+    if len(checks) != check_prompt_data.N:
+        raise AssertionError(f"check_prompt_data: {len(checks)} label checks passed")
+    generator = torch.Generator(device=DEVICE).manual_seed(0)
+    draws = sample_prompt_draws(check_prompt_data.N, generator).to("cpu")
+    raw = torch.from_numpy(synthetic_dataset(length=check_prompt_data.N,
+                                             keep_raw_masks=True).raw_masks)
+    heat, label = make_prompt_batch(raw, draws)
+    heat_err = float(np.abs(result["heat"] - heat[..., 0].numpy()).max())
+    print(f"check_prompt_data on the card: {len(checks)} label checks, heatmaps against the "
+          f"host's max_abs_err={heat_err!r} (limit {HEAT_ATOL}), labels equal "
+          f"{bool(np.array_equal(result['label'], label.numpy()))}", flush=True)
+    if heat_err > HEAT_ATOL or not np.array_equal(result["label"], label.numpy()):
+        raise AssertionError("check_prompt_data: the card's prompts differ from the host's")
+    torch.cuda.empty_cache()
+    print(f"converter phase: {time.perf_counter() - t0!r} s host on {card}", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # augmentor phase
 # --------------------------------------------------------------------------
 
@@ -2958,7 +3110,8 @@ def main() -> int:
              clip_autoencoder_phase(torch, mods, card), clip_res_serving_phase(torch, mods, card),
              robustness_phase(torch, mods, card), data_phase(torch, mods, card),
              distributed_phase(torch, mods, card), export_phase(torch, mods, card),
-             profiler_phase(torch, mods, card), *options_phase(torch, mods, card)]
+             profiler_phase(torch, mods, card), *options_phase(torch, mods, card),
+             converter_phase(torch, mods, card)]
     tp_phase(torch, mods, card)
     launched = entry_launches({w: sum(run[w] for run in runs) for w in WRAPPER_NAMES}, ae_unfused)
 

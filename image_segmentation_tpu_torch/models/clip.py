@@ -45,11 +45,12 @@ def clip_preprocess(images: torch.Tensor) -> torch.Tensor:
     """[0, 1] NHWC images of any size -> (B, 224, 224, 3) normalised with
     the CLIP mean and std, in the images' dtype.  The resize is bilinear
     and antialiased when it shrinks, as ``jax.image.resize`` is (within
-    3e-7 on [0, 1] images); it runs in fp32."""
+    3e-7 on [0, 1] images); it runs in fp32, or in float64 for float64
+    images."""
     dt = images.dtype
     if images.shape[1:3] != (CLIP_IMAGE_SIZE, CLIP_IMAGE_SIZE):
         images = F.interpolate(
-            images.float().permute(0, 3, 1, 2), size=(CLIP_IMAGE_SIZE, CLIP_IMAGE_SIZE),
+            wide(images).permute(0, 3, 1, 2), size=(CLIP_IMAGE_SIZE, CLIP_IMAGE_SIZE),
             mode="bilinear", align_corners=False, antialias=True,
         ).permute(0, 2, 3, 1).to(dt)
     mean = torch.tensor(CLIP_MEAN, dtype=dt, device=images.device)

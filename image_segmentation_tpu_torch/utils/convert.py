@@ -5,8 +5,9 @@ torch: ``unet_state_dict`` :143, ``clip_tower_to_torch`` :163,
 ``clip_unet_state_dict`` :196, ``resnet34_children_to_torch`` :213,
 ``clip_res_state_dict`` :240, ``clip_autoencoder_state_dict`` :257,
 ``clip_unet_prompt_state_dict`` :272), of ``utils/torch_convert.py``
-(block helpers :53-104, torch -> JAX) and ``models/resnet.py``
-(``resnet34_params_from_torch`` :107), and of
+(block helpers :53-104, ``strip_compile_prefix`` :76, torch -> JAX),
+``models/clip.py`` (``clip_params_from_torch`` :157) and
+``models/resnet.py`` (``resnet34_params_from_torch`` :107), and of
 ``utils/checkpoint.py``'s flat ``.npz`` format (:27-60) for the inference
 artifact.  Ported rather than imported, so the port and ``chip_smoke.py``
 load nothing of the JAX package; tests/test_torch_port_slice.py and
@@ -224,6 +225,13 @@ def _clip_jax_path(key: str) -> List[str]:
             ("scale" if is_ln else "kernel") if leaf == "weight" else "bias"]
 
 
+def _clip_kind(path: List[str]) -> str:
+    """The kernel layout of the JAX ``clip_tower`` leaf at ``path``."""
+    if path[0] == "patch_embedding":
+        return "conv"
+    return "dense" if path[-1] == "kernel" else "raw"
+
+
 def _to_torch_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "conv":  # flax (kH, kW, I, O) -> torch (O, I, kH, kW)
         return t.permute(3, 2, 0, 1)
@@ -238,6 +246,65 @@ def _to_jax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "dense":
         return t.t()
     return t
+
+
+# ---- pretrained towers in their torch checkpoints' own layouts -------------
+
+_TORCHVISION = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5", "layer3": "6",
+                "layer4": "7"}
+_TORCHVISION_INV = {v: k for k, v in _TORCHVISION.items()}
+
+
+def strip_compile_prefix(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """``sd`` without ``torch.compile``'s ``_orig_mod.`` key prefix."""
+    return {(k[len("_orig_mod."):] if k.startswith("_orig_mod.") else k): v
+            for k, v in sd.items()}
+
+
+def _put(tree: Tree, path: List[str], t: torch.Tensor) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def clip_tree_from_torch(sd: Mapping[str, torch.Tensor]) -> Tree:
+    """A transformers CLIP state dict -> the JAX ``clip_tower`` params, in
+    the tensors' dtype: a ``CLIPVisionModelWithProjection``'s or a whole
+    ``CLIPModel``'s (the same ``vision_model.*`` and ``visual_projection``
+    keys; ``text_model.*``, ``text_projection``, ``logit_scale`` and the
+    ``position_ids`` buffer are not the tower's)."""
+    tree: Tree = {}
+    for key, v in sd.items():
+        if key.startswith(("vision_model.", "visual_projection.")) and \
+                not key.endswith("position_ids"):
+            path = _clip_jax_path(key)
+            _put(tree, path, _to_jax_layout(v, _clip_kind(path)))
+    return tree
+
+
+def resnet34_tree_from_torch(sd: Mapping[str, torch.Tensor]) -> Tuple[Tree, Tree]:
+    """A torchvision ResNet-34 state dict (``conv1``, ``bn1``,
+    ``layer{1-4}.{b}.{conv1,bn1,conv2,bn2,downsample.{0,1}}``) -> the JAX
+    ``ResNet34Features`` ``(params, batch_stats)``, in the tensors' dtype;
+    ``fc`` and ``num_batches_tracked`` are not the features'."""
+    trees: Dict[str, Tree] = {"params": {}, "batch_stats": {}}
+    for key, v in sd.items():
+        top, _, rest = key.partition(".")
+        if top not in _TORCHVISION or key.endswith("num_batches_tracked"):
+            continue
+        coll, path = _resnet_jax_path(f"{_TORCHVISION[top]}.{rest}")
+        _put(trees[coll], path[1:], _to_jax_layout(v, "conv") if path[-1] == "kernel" else v)
+    return trees["params"], trees["batch_stats"]
+
+
+def torchvision_resnet34_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``ResNet34Features`` state dict (``model.{0,1,4-7}``) in
+    torchvision's key layout (``conv1``, ``bn1``, ``layer{1-4}``)."""
+    out = {}
+    for key, v in sd.items():
+        idx, _, rest = key[len("model."):].partition(".")
+        out[f"{_TORCHVISION_INV[idx]}.{rest}"] = v
+    return out
 
 
 # ---- whole models -----------------------------------------------------------
@@ -358,9 +425,7 @@ def jax_from_state_dict(
             fusion[key] = v
         elif key.startswith(CLIP):
             path = _clip_jax_path(key[len(CLIP):])
-            kind = "conv" if path[0] == "patch_embedding" else (
-                "dense" if path[-1] == "kernel" else "raw")
-            put("params", ["clip_tower", *path], _to_jax_layout(t, kind))
+            put("params", ["clip_tower", *path], _to_jax_layout(t, _clip_kind(path)))
         else:
             coll, path = _jax_path(key)
             if path[-1] == "kernel" and t.dim() == 2:  # nn.Linear

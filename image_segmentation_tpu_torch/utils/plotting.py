@@ -2,7 +2,8 @@
 ``image_segmentation_tpu/utils/plotting.py`` (plot_segmentations :34,
 plot_loss_curves :76, plot_robustness_scores :103,
 plot_perturbation_examples :135, plot_autoencoder_pairs :159), the
-reference's helperFunctions.py:210-266 and scripts/plot_*.py.  It takes
+reference's helperFunctions.py:210-266, scripts/plot_*.py and the grid of
+scripts/test_prompt_data.py (:55-74, :func:`plot_prompt_check`).  It takes
 numpy arrays (``tensor.cpu().numpy()``).  matplotlib is imported inside
 the functions, with the Agg backend: importing this module needs none, and
 a call without matplotlib raises an ``ImportError`` that says so.
@@ -178,3 +179,27 @@ def plot_autoencoder_pairs(
     return plot_perturbation_examples(
         np.asarray(inputs), np.asarray(reconstructions), save_path
     )
+
+
+def plot_prompt_check(images_u8: np.ndarray, heat: np.ndarray, labels: np.ndarray,
+                      save_path: str) -> str:
+    """One row per sample: the image, its prompt heatmap and its label mask
+    (scripts/test_prompt_data.py :55-74)."""
+    plt = _plt()
+    n = len(images_u8)
+    fig, axes = plt.subplots(n, 3, figsize=(9, 3 * n))
+    axes = np.atleast_2d(axes)
+    for i in range(n):
+        axes[i, 0].imshow(images_u8[i])
+        axes[i, 0].set_title("image")
+        axes[i, 1].imshow(heat[i], cmap="hot")
+        axes[i, 1].set_title("prompt heatmap")
+        axes[i, 2].imshow(labels[i], cmap="gray")
+        axes[i, 2].set_title("label mask")
+        for ax in axes[i]:
+            ax.axis("off")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+    fig.savefig(save_path, dpi=100)
+    plt.close(fig)
+    return save_path

@@ -19,7 +19,8 @@ blocks, each conv one ``Conv3x3Function``), the ``clip_res``, ``segment_classifi
 and the ``unet`` preset's at stem 16, encoders 16/32/64 with
 ``fused_deep=True`` and ``remat=True``, together and each alone; 32x32
 images, a global batch of 8, ``bf16=False``, Adam eps 1e-3.  The
-segmentation and class tasks take one augmented step; the
+segmentation and class tasks take one augmented step, and the ClipRes
+models one more unaugmented (``*_noaug``, the step held to JAX); the
 reconstruction task never augments, and ``clip_autoencoder`` steps
 unaugmented, as the JAX Trainer it is held to does there.
 
@@ -34,7 +35,6 @@ same float64 step at (2, 2) is the one held to JAX's Trainer in float64.
 """
 
 import os
-from unittest import mock
 
 import numpy as np
 import torch
@@ -46,13 +46,12 @@ from image_segmentation_tpu_torch.data.datasets import (
     UNCERTAIN_PALETTE,
     ArrayDataset,
 )
-from image_segmentation_tpu_torch.engine import train
 from image_segmentation_tpu_torch.engine.train import Trainer
 from image_segmentation_tpu_torch.entry import SMALL_TOWER
 from image_segmentation_tpu_torch.models.resnet import BasicBlock
 from image_segmentation_tpu_torch.parallel import mesh, tensor
 from image_segmentation_tpu_torch.utils.convert import leaves
-from tests._torch_port_tp_worker import _mine
+from tests._torch_port_tp_worker import _mine, float64_compute
 from tests._torch_port_tp_worker import _state as state
 
 GLOBAL_BATCH = 8
@@ -68,12 +67,15 @@ CONFIGS = {
     "clip_res": ("clip_res", {"clip_kwargs": SMALL_TOWER}, {}, 1),
     "clip_res_class": ("segment_classifier", {"clip_kwargs": SMALL_TOWER}, {}, 1),
     "clip_autoencoder": ("clip_autoencoder", {"clip_kwargs": SMALL_TOWER}, {}, 0),
+    # unaugmented, for JAX's Trainer
+    "clip_res_noaug": ("clip_res", {"clip_kwargs": SMALL_TOWER}, {}, 0),
+    "clip_res_class_noaug": ("segment_classifier", {"clip_kwargs": SMALL_TOWER}, {}, 0),
     "unet_fused_deep_remat": ("unet", dict(UNET, fused_deep=True), {"remat": True}, 1),
     "unet_fused_deep": ("unet", dict(UNET, fused_deep=True), {}, 1),
     "unet_remat": ("unet", UNET, {"remat": True}, 1),
 }
 # held to JAX's Trainer on a (2, 2) mesh too: their initial state is kept at (2, 2)
-JAX_HELD = ("autoencoder", "clip_autoencoder")
+JAX_HELD = ("autoencoder", "clip_autoencoder", "clip_res_noaug", "clip_res_class_noaug")
 # the ResNet-34 backbone's keys in the ClipRes models
 BACKBONE = "encoder.model."
 
@@ -92,9 +94,7 @@ def cfg(name: str, n_model: int = 1) -> config.TrainConfig:
 def trainer(name: str, n_model: int = 1) -> Trainer:
     """The Trainer of ``cfg(name, n_model)`` on the CPU, its model computing
     in float64 (the module doc)."""
-    build = train.build_model
-    with mock.patch.object(train, "build_model",
-                           lambda model, **kw: build(model, **dict(kw, dtype=torch.float64))):
+    with float64_compute():
         return Trainer(cfg(name, n_model), device="cpu", make_artifacts=False)
 
 
@@ -103,7 +103,7 @@ def global_batch(name: str, seed: int = 21, n: int = GLOBAL_BATCH):
     masks in which every other image has no cat."""
     rng = np.random.default_rng(seed)
     masks = rng.integers(0, 3, (n, SIZE, SIZE)).astype(np.uint8)
-    if name == "clip_res_class":
+    if name.startswith("clip_res_class"):
         palette = np.array([0, CAT_PALETTE, DOG_PALETTE, UNCERTAIN_PALETTE], np.uint8)
         masks = palette[rng.integers(0, 4, (n, SIZE, SIZE))]
         masks[::2][masks[::2] == CAT_PALETTE] = DOG_PALETTE

@@ -12,12 +12,16 @@ encoders 32/64 (levels 0-1 on the kernel blocks; at M = 2 the rule shards
 both convs of enc1 and enc2, the dec1/dec2 up-convs, and dec3's conv1 but
 not its conv2), and ``clip_unet``/``clip_unet_prompt`` with the small tower
 of ``__graft_entry__.py`` (their presets' model args), 32x32 images, a
-global batch of 8, ``bf16=False``, Adam eps 1e-3.
+global batch of 8, ``bf16=False``, Adam eps 1e-3.  The unaugmented
+``clip_unet_prompt`` step runs twice: in fp32, and with the model
+computing in float64 (:func:`float64_compute`), the step held to JAX's
+float64 Trainer.
 """
 
 import contextlib
 import dataclasses
 import os
+from unittest import mock
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ from image_segmentation_tpu_torch import config
 from image_segmentation_tpu_torch.data.datasets import ArrayDataset
 from image_segmentation_tpu_torch.data.native_loader import NativeBatchPipeline
 from image_segmentation_tpu_torch.data.pipeline import BatchPipeline
+from image_segmentation_tpu_torch.engine import train
 from image_segmentation_tpu_torch.engine.train import Trainer
 from image_segmentation_tpu_torch.entry import SMALL_TOWER
 from image_segmentation_tpu_torch.parallel import mesh, tensor
@@ -64,6 +69,17 @@ def global_batch(model: str = "large_unet", seed: int = 21):
     return rng.integers(0, 256, (GLOBAL_BATCH, SIZE, SIZE, 3), dtype=np.uint8), masks
 
 
+@contextlib.contextmanager
+def float64_compute():
+    """Trainers built inside build their model computing in float64
+    (``build_model(dtype=torch.float64)``; its parameters, gradients and
+    Adam state stay fp32)."""
+    build = train.build_model
+    with mock.patch.object(train, "build_model",
+                           lambda model, **kw: build(model, **dict(kw, dtype=torch.float64))):
+        yield
+
+
 def _mine(a: np.ndarray) -> torch.Tensor:
     """This rank's rows: its data row's."""
     return torch.from_numpy(a[mesh.rows(len(a))])
@@ -82,12 +98,14 @@ def _state(t: Trainer, prefix: str) -> dict:
 
 
 def _step(model: str, n_model: int, aug: int, prefix: str, arrays: dict,
-          points=None) -> Trainer:
+          points=None, float64: bool = False) -> Trainer:
     """One train step of the global batch, its initial and final state in
     ``arrays``; the prompt task takes the global batch's ``points``
-    ``(choice, cy, cx)`` when given (JAX's draws)."""
+    ``(choice, cy, cx)`` when given (JAX's draws); with ``float64`` the
+    model computes in float64."""
     images, masks = global_batch(model)
-    t = Trainer(cfg(model, n_model, aug), device="cpu", make_artifacts=False)
+    with float64_compute() if float64 else contextlib.nullcontext():
+        t = Trainer(cfg(model, n_model, aug), device="cpu", make_artifacts=False)
     arrays.update(_state(t, f"{prefix}init/"))
     if points is None:
         loss = t.train_step(_mine(images), _mine(masks), STEP_KEYS[0])
@@ -128,9 +146,10 @@ def built_presets(n_model: int) -> dict:
     return out
 
 
-def run(out_dir: str, n_model: int, points=None) -> dict:
-    """``points``: JAX's prompt points of ``global_batch("clip_unet_prompt")``
-    for the unaugmented prompt step."""
+def run(out_dir: str, n_model: int, points=None, points64=None) -> dict:
+    """``points``, ``points64``: JAX's prompt points of
+    ``global_batch("clip_unet_prompt")`` for the unaugmented prompt step,
+    as its Trainer draws them in fp32 and under x64."""
     arrays = {}
     result = {"world": mesh.world_size(), "rank": mesh.rank()}
 
@@ -162,6 +181,11 @@ def run(out_dir: str, n_model: int, points=None) -> dict:
                    points if model == "clip_unet_prompt" else None)
         result["noaug"][model] = nt.last_loss
         del nt
+    # the prompt step again in float64: the one held to JAX's float64 Trainer
+    nt = _step("clip_unet_prompt", n_model, 0, "noaug64/clip_unet_prompt/", arrays, points64,
+               float64=True)
+    result["noaug64"] = {"clip_unet_prompt": nt.last_loss}
+    del nt
 
     if mesh.world_size() > 1:
         # the rows of the first batch, and the native loader's refusal

@@ -112,6 +112,20 @@ def test_clip_preprocess_matches_jax(size):
     _close(got, ref, dict(rtol=0, atol=1e-5))
 
 
+@pytest.mark.parametrize("size", [32, 256])
+def test_clip_preprocess_keeps_float64(size):
+    """Float64 images are resized in float64: JAX's resize under x64 to
+    1e-12.  Through fp32 the two were up to 7e-5 apart, which moved a ReLU
+    of a float64 ClipRes step past its kink (its decoder's gradients then
+    missed JAX's float64 ones by up to 5 % of a leaf's largest)."""
+    x = np.random.default_rng(size).uniform(0, 1, (2, size, size, 3))
+    with jax.enable_x64(True):
+        ref = jax_clip.clip_preprocess(jnp.asarray(x, jnp.float64))
+    got = clip.clip_preprocess(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    _close(got, ref, dict(rtol=0, atol=1e-12))
+
+
 def _tower_state_dict(params):
     sd = state_dict_from_jax({"clip_tower": params}, {})
     return {k[len(CLIP):]: v for k, v in sd.items()}

@@ -26,16 +26,17 @@ Tolerances, each with its reason:
   replicated leaves that every model rank updates alike);
 - (2, 2) against JAX's Trainer on ``make_mesh(n_data=2, n_model=2)``, one
   step without augmentation from the port's initial weights (JAX's prompt
-  points fed to the port): for ``large_unet``
-  tests/test_torch_port_distributed.py's ``LOSS_TOL`` and ``GRAD_TOL``.
-  For ``clip_unet_prompt`` those do not hold even between the port's
-  world-1 step and JAX on one device (about 1 % of dec1's conv1 gradient
-  is off by up to 3e-6 on values near 1e-4: fp32 rounding through the
-  prompt branch, which tests/test_torch_port_prompt.py measures at up to
-  14 % from float64 on the JAX side alone), so that model is held to
-  tests/test_torch_port_prompt.py's Trainer tolerances (loss rtol 1e-3,
-  atol 1e-4; parameters and running statistics rtol 5e-4, atol 1e-3), and
-  its (2, 2) gradients to the port's world-1 step at ``STEP_TOL``;
+  points fed to the port): tests/test_torch_port_distributed.py's
+  ``LOSS_TOL`` (loss, parameters after Adam, running statistics) and
+  ``GRAD_TOL``.  ``large_unet`` steps in fp32.  ``clip_unet_prompt`` steps
+  in float64 on both sides, at (2, 2) and at world 1 against JAX on one
+  device (the port's model computing in float64, JAX under x64 with its
+  model built in float64 on its standard blocks, the prompt points of its
+  x64 draws): in fp32 about 1 % of dec1's conv1 gradient is off by up to
+  3e-6 on values near 1e-4, fp32 rounding through the prompt branch
+  (tests/test_torch_port_prompt.py measures JAX's own fp32 gradient at up
+  to 14 % from its float64 one).  In float64 the world-1 gradients agree
+  to 7.4e-8, the loss to 1.7e-7 relative (JAX's losses take fp32);
 - the layouts (4, 1), (2, 2), (1, 4): the loss at rtol 1e-5 and the
   updated-parameter norm at rtol 1e-6 (one augmented fp32 step; the layouts
   differ only in the order of fp32 sums);
@@ -53,9 +54,9 @@ import jax
 import jax.numpy as jnp
 
 from image_segmentation_tpu import config as jax_config
-from image_segmentation_tpu.data import prompts as jax_prompts
 from image_segmentation_tpu.engine import train as jax_train
 from image_segmentation_tpu.engine.train import Trainer as JaxTrainer
+from image_segmentation_tpu.models.clip_models import FROZEN_PREFIXES
 from image_segmentation_tpu.models.registry import build_model as jax_build_model
 from image_segmentation_tpu.parallel import mesh as jax_mesh
 from image_segmentation_tpu_torch import config
@@ -66,14 +67,12 @@ from image_segmentation_tpu_torch.parallel import mesh, tensor
 from image_segmentation_tpu_torch.utils import checkpoint as ckpt_lib
 from image_segmentation_tpu_torch.utils.convert import jax_from_state_dict, tp_plan
 from tests import _torch_port_tp_worker as worker
+from tests.test_torch_port_scripts import jax_points
 
 jax.config.update("jax_default_matmul_precision", "highest")
 STEP_TOL = dict(rtol=1e-5, atol=1e-7)
 LOSS_TOL = dict(rtol=5e-4, atol=5e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
-# tests/test_torch_port_prompt.py's Trainer tolerances: the prompt model's
-# fp32 gradients are not JAX's to GRAD_TOL even at world 1 (module doc)
-PROMPT_TOL = {"loss": dict(rtol=1e-3, atol=1e-4), "state": dict(rtol=5e-4, atol=1e-3)}
 RANKS = 4
 
 
@@ -81,16 +80,7 @@ def _points(raw: np.ndarray, key) -> list:
     """JAX's prompt points ``(choice, cy, cx)`` of the step ``key``, as its
     ``_prepare_batch`` draws them from the key's first half
     (prompts.py:49-62)."""
-    kc, kp = jax.random.split(jax.random.split(key)[0])
-    cat, dog, bg = jax_prompts.palette_to_class_masks(jnp.asarray(raw))
-    masks = jnp.stack([cat, dog, bg], axis=1)
-    logits = jnp.log(jnp.clip(jnp.sum(masks, axis=(2, 3)), 1e-9, None))
-    choice = jax.random.categorical(kc, logits, axis=-1)
-    sel = jnp.take_along_axis(masks, choice[:, None, None, None], axis=1)[:, 0]
-    u = jax.random.uniform(kp, sel.shape)
-    idx = np.asarray(jnp.argmax(jnp.where(sel > 0, u, -1.0).reshape(raw.shape[0], -1), -1))
-    w = raw.shape[2]
-    return [np.asarray(choice).tolist(), (idx // w).tolist(), (idx % w).tolist()]
+    return jax_points(raw, jax.random.split(key)[0])
 
 
 @pytest.fixture(scope="module")
@@ -98,9 +88,11 @@ def runs(tmp_path_factory):
     one_dir, tp_dir = tmp_path_factory.mktemp("world1"), tmp_path_factory.mktemp("tp")
     raw = worker.global_batch("clip_unet_prompt")[1]
     points = _points(raw, jax.random.PRNGKey(0))
-    one = worker.run(str(one_dir), 1, points)
-    ranks = mesh.launch("tests._torch_port_tp_worker:run", RANKS, [str(tp_dir), 2, points],
-                        timeout=600)
+    with jax.enable_x64(True):  # the float64 step's: x64 draws other uniforms
+        points64 = _points(raw, jax.random.PRNGKey(0))
+    one = worker.run(str(one_dir), 1, points, points64)
+    ranks = mesh.launch("tests._torch_port_tp_worker:run", RANKS,
+                        [str(tp_dir), 2, points, points64], timeout=600)
     arrays = [np.load(one_dir / "tp1_0.npz")] + [np.load(tp_dir / f"tp{RANKS}_{r}.npz")
                                                  for r in range(RANKS)]
     return dict(one=one, ranks=ranks, arrays=arrays, dirs=(one_dir, tp_dir))
@@ -192,7 +184,8 @@ def test_the_ranks_form_the_grid(runs):
     assert runs["one"]["plan"] == []
 
 
-@pytest.mark.parametrize("step", ["aug/", "noaug/large_unet/", "noaug/clip_unet_prompt/"])
+@pytest.mark.parametrize("step", ["aug/", "noaug/large_unet/", "noaug/clip_unet_prompt/",
+                                  "noaug64/clip_unet_prompt/"])
 @pytest.mark.parametrize("what", ["grad", "buffer", "param"])
 def test_step_at_2x2_equals_world_1(runs, what, step):
     one, tp0 = runs["arrays"][:2]
@@ -228,13 +221,13 @@ def _torch(arrays, prefix):
     return {k: torch.from_numpy(v) for k, v in _group(arrays, prefix).items()}
 
 
-def hold_to_jax_on_a_2x2_mesh(jcfg, arrays, prefix: str, images, masks, port_loss: float,
-                              loss_tol: dict, state_tol: dict, grad_tol=None,
-                              float64: bool = False) -> None:
+def hold_to_jax(jcfg, arrays, prefix: str, images, masks, port_loss: float,
+                loss_tol: dict, state_tol: dict, grad_tol=None, float64: bool = False,
+                layout=(2, 2)) -> None:
     """One unaugmented step of the JAX Trainer of ``jcfg`` on
-    ``make_mesh(n_data=2, n_model=2)`` with ``shard_params_tp``, from the
-    port's initial state (``arrays`` under ``prefix + "init/"``), on the
-    global batch: the port's (2, 2) loss, parameters and running statistics
+    ``make_mesh(n_data, n_model)`` of ``layout`` with ``shard_params_tp``,
+    from the port's initial state (``arrays`` under ``prefix + "init/"``),
+    on the global batch: the port's loss, parameters and running statistics
     after the step (under ``prefix``) against it, and with ``grad_tol`` its
     gradients against JAX's, taken back from Adam's first moment.  With
     ``float64`` the JAX Trainer runs under x64, its model built with
@@ -249,7 +242,9 @@ def hold_to_jax_on_a_2x2_mesh(jcfg, arrays, prefix: str, images, masks, port_los
         if float64:
             mp.setattr(jax_train, "build_model",
                        lambda model, **kw: build(model, **dict(kw, dtype=jnp.float64)))
-        jmesh = jax_mesh.make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
+        n_data, n_model = layout
+        jmesh = jax_mesh.make_mesh(n_data=n_data, n_model=n_model,
+                                   devices=jax.devices()[:n_data * n_model])
         jt = JaxTrainer(jcfg, mesh=jmesh, make_artifacts=False)
         state = dict(jt.state, params=jax.tree.map(jnp.asarray, params),
                      batch_stats=jax.tree.map(jnp.asarray, stats))
@@ -263,11 +258,10 @@ def hold_to_jax_on_a_2x2_mesh(jcfg, arrays, prefix: str, images, masks, port_los
         {**_torch(arrays, prefix + "param/"), **_torch(arrays, prefix + "buffer/")})
     got_grads = jax_from_state_dict(_torch(arrays, prefix + "grad/"))[0]
     wd, b1 = jcfg.optimizer.weight_decay, jcfg.optimizer.b1
-    frozen = "clip_tower" in params
+    trainable = {k: v for k, v in params.items() if k not in FROZEN_PREFIXES}
     adam = jt.state["opt_state"]
-    adam = (adam.inner_states["train"].inner_state if frozen else adam)[1]
+    adam = (adam.inner_states["train"].inner_state if len(trainable) < len(params) else adam)[1]
     mu = jax.device_get(adam.mu)
-    trainable = {k: v for k, v in params.items() if k != "clip_tower"}
     jax_grads = jax.tree.map(lambda m, p: m / (1 - b1) - wd * p,
                              {k: mu[k] for k in trainable}, trainable)
     got_grads = {k: v for k, v in got_grads.items() if k in jax_grads}
@@ -284,26 +278,44 @@ def hold_to_jax_on_a_2x2_mesh(jcfg, arrays, prefix: str, images, masks, port_los
                                        err_msg=f"{what} {jax.tree_util.keystr(path)}", **tol)
 
 
-@pytest.mark.parametrize("model", ["large_unet", "clip_unet_prompt"])
-def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
-    """One unaugmented step of the JAX Trainer on ``make_mesh(n_data=2,
-    n_model=2)`` with ``shard_params_tp``, from the port's initial weights."""
-    cfg = worker.cfg(model, 2, 0)
+def _jax_cfg(model: str, n_model: int, float64: bool) -> jax_config.TrainConfig:
+    """JAX's TrainConfig of the worker's unaugmented step of ``model``; in
+    float64 its model on the standard blocks (``w2d_*`` off: JAX's folded
+    Pallas kernels take no float64), the reference tests/test_folded.py
+    holds the folded ones to, over the same parameter tree."""
+    cfg = worker.cfg(model, n_model, 0)
     jpre = jax_config.preset(worker.PRESET[model])
-    jcfg = jax_config.TrainConfig(
-        model=model, model_args=cfg.model_args, loss=cfg.loss, batch_size=cfg.batch_size,
-        num_epochs=1, bf16=False, seed=0, n_model_shards=2,
+    args = {k: v for k, v in cfg.model_args.items() if not (float64 and k.startswith("w2d"))}
+    return jax_config.TrainConfig(
+        model=model, model_args=args, loss=cfg.loss, batch_size=cfg.batch_size,
+        num_epochs=1, bf16=False, seed=0, n_model_shards=n_model,
         optimizer=jax_config.OptimizerConfig(eps=worker.ADAM_EPS),
         data=dataclasses.replace(jpre.data, dataset="synthetic",
                                  synthetic_length=cfg.batch_size, image_size=worker.SIZE,
                                  augmentations_per_datapoint=0))
-    prompt = model == "clip_unet_prompt"
-    loss_tol, state_tol = (PROMPT_TOL["loss"], PROMPT_TOL["state"]) if prompt else (
-        LOSS_TOL, LOSS_TOL)
-    # the prompt model's gradients: against world 1 only (module doc)
-    hold_to_jax_on_a_2x2_mesh(jcfg, runs["arrays"][1], f"noaug/{model}/",
-                              *worker.global_batch(model), runs["ranks"][0]["noaug"][model],
-                              loss_tol, state_tol, None if prompt else GRAD_TOL)
+
+
+@pytest.mark.parametrize("model", ["large_unet", "clip_unet_prompt"])
+def test_step_at_2x2_equals_jax_on_a_2x2_mesh(runs, model):
+    """One unaugmented step of the JAX Trainer on ``make_mesh(n_data=2,
+    n_model=2)`` with ``shard_params_tp``, from the port's initial weights;
+    the prompt model's step in float64 on both sides (module doc)."""
+    float64 = model == "clip_unet_prompt"
+    prefix = f"noaug64/{model}/" if float64 else f"noaug/{model}/"
+    loss = runs["ranks"][0]["noaug64" if float64 else "noaug"][model]
+    hold_to_jax(_jax_cfg(model, 2, float64), runs["arrays"][1], prefix,
+                *worker.global_batch(model), loss, LOSS_TOL, LOSS_TOL, GRAD_TOL,
+                float64=float64)
+
+
+def test_prompt_step_at_world_1_equals_jax_in_float64(runs):
+    """The port's world-1 ``clip_unet_prompt`` step against JAX's Trainer on
+    one device, both in float64: loss, gradients and the state after Adam
+    at ``LOSS_TOL`` / ``GRAD_TOL`` (module doc)."""
+    model = "clip_unet_prompt"
+    hold_to_jax(_jax_cfg(model, 1, True), runs["arrays"][0], f"noaug64/{model}/",
+                *worker.global_batch(model), runs["one"]["noaug64"][model],
+                LOSS_TOL, LOSS_TOL, GRAD_TOL, float64=True, layout=(1, 1))
 
 
 # ---- layouts, checkpoints, rows ---------------------------------------------
