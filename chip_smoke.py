@@ -20,8 +20,8 @@ width of the port's presets (``config.preset``), random weights from a seed:
    adds to the large_unet step, and the autoencoder's train step (batch 32
    at 256x256: the fused blocks and, under ``w2d_impl="pallas"``, the conv
    kernels in their unfused forms) and the clip_res step (batch 32 at
-   256x256: dec5 32 -> 16 and the output block [16 | 3] -> 3, on the
-   kernels' element paths) give it, the ``Co/2`` slices that the
+   256x256: dec5 32 -> 16 on the conv kernels' vector path, the output
+   block [16 | 3] -> 3 on their narrow path) give it, the ``Co/2`` slices that the
    tensor-parallel steps of 19 give the kernel blocks (batch 8: the level
    0-1 blocks of large_unet at 512x512 and of clip_unet at 256x256, the
    autoencoder's level 0-2 blocks at 256x256, ``Co`` 32 and dec3's 16, its
@@ -294,6 +294,10 @@ KERNEL_INFO = {
                               "image_segmentation_tpu/ops/pallas_conv.py:1932"),
 }
 WRAPPER_NAMES = tuple(dict.fromkeys(w for w, _, _ in KERNEL_INFO.values()))
+# The conv launches whose channel counts (not multiples of 8) the conv
+# kernels take on their narrow path: the kernel phase prints each conv
+# launch's path and fails if one of these took the vector path
+NARROW_LABELS = ("clip_res out.conv1", "clip_res out.conv2", "prompt enc1.conv1")
 # launches of one serving forward, one train step, one eval batch and one
 # augmentor call with backend="pallas" of the large_unet preset; the stem's
 # and the output conv's backward are K11 (conv1x1_bwd) in every train step
@@ -581,8 +585,8 @@ def clip_res_path_shapes() -> dict:
     ConvTranspose (32 -> 16 from 128x128) and block (16 -> 16), and the
     output block, conv1 on [dec5 | image] (16 | 3 -> 3) and conv2 3 -> 3;
     the BN-ReLU reductions at 16 and 3 channels come with the decoders'
-    conv2.  No channel count here is a multiple of 8 but 16, so the conv
-    kernels take their element paths."""
+    conv2.  dec5 (16 channels) takes the conv kernels' vector path; the
+    output block (3 channels) their narrow path."""
     b, s = PROMPT_BATCH, PROMPT_SIZE
     conv = [Conv("clip_res dec5.conv1", (b, s, s, 16), 0, 16, False, True),
             Conv("clip_res dec5.conv2", (b, s, s, 16), 0, 16, True, True),
@@ -997,6 +1001,12 @@ def kernel_phase(torch, mods, groups: list) -> dict:
     for entry, label, timed, make in kernel_cases(torch, mods, groups):
         case = make()
         got = case.kern()
+        path = ""
+        if entry.startswith("conv3x3"):  # the conv kernels' path: narrow or vector
+            taken = mods[0].last_path(getattr(mods[0], KERNEL_INFO[entry][0]))
+            path = f" path={taken}"
+            if label.startswith(NARROW_LABELS) and taken != "narrow":
+                raise AssertionError(f"{entry} {label}: took the {taken} path, not the narrow one")
         r = results[entry]
         r["max_abs_err"] = max(r["max_abs_err"], compare(torch, f"{entry} {label}", got,
                                                          case.plain(), case.tol))
@@ -1023,7 +1033,7 @@ def kernel_phase(torch, mods, groups: list) -> dict:
                 total = sum(dev.values())
                 rate += (f" device_us={total!r} ({bound * 1e3 / total!r} of the bound; "
                          + ", ".join(f"{name[:48]} {us!r}" for name, us in dev.items()) + ")")
-            print(f"kernel {entry} {label}: ms={k_ms!r} plain_ms={p_ms!r} "
+            print(f"kernel {entry} {label}:{path} ms={k_ms!r} plain_ms={p_ms!r} "
                   f"bound_ms={bound!r} ({'bytes' if bytes_ms >= ops_ms else 'operations'}) "
                   f"library_ms={lib_ms!r}{rate}{'' if timed == 'sum' else ' (own line)'} ok",
                   flush=True)

@@ -39,15 +39,39 @@
 // (16 bytes, zero-filled outside the image); a transformed operand (the
 // affine + ReLU, the cotangent transform) is read 16 bytes a thread into
 // registers before the stage's mma, transformed and stored after, so both
-// loads overlap the tensor cores.  Channel counts that are not a multiple of
-// 8 (the 1-channel heatmap, odd test shapes) take a path of the same kernel
-// that loads element by element and pads K and N with zeros.  The zero
-// border (after the transform, as in JAX) is the zero fill.  The epilogues
+// loads overlap the tensor cores.  The zero border (after the transform, as
+// in JAX) is the zero fill.  The epilogues
 // run on the fragments: the bias, the bf16 rounding, the statistics of the
 // ROUNDED output or the ReLU adjoint with its sums, the split of dx; sums
 // go over each lane's pixels, then warp shuffles, then the four row warps in
 // order through shared memory, and each block writes one row of partial
 // sums that a second pass (reduce.cuh) adds in a fixed order.  No atomics.
+//
+// The narrow path (narrow_kernel) takes every other shape: a channel count
+// that is not a multiple of 8 (ClipRes's output block, [16 | 3] -> 3 and
+// 3 -> 3, its dx from a 3-channel cotangent; the prompt heatmap, 1 -> 32),
+// an odd split, an operand off a 16-byte boundary.  What bounds it on the
+// card: bytes.  At 3 output channels a pixel does 2*9*19*3 FLOPs against
+// ~44 bytes moved, far below the ridge.  What cost was the staging: a
+// 128-pixel block padded K and N to 32, so 94 % of the weights it staged
+// for out.conv1 were zeros, each element with its own load and index
+// arithmetic.  What the design does about it: a tile's operand arrives as
+// runs, the stretches of NHWC memory it covers (a halo row of IW pixels x
+// C channels is one run where one stage holds every channel), each run one
+// bulk copy of the TMA engine (cp.async.bulk, aligned down at the head and
+// up at the tail) counted on an mbarrier; a second pass places 8 channels
+// of a pixel a thread, transformed in registers (mul and add rounded
+// apart), into rows padded only to KP = Cin rounded up to 8 (32 a stage
+// past 32 channels).  N is 8, 16 or 32 (8 for 3 outputs, not 32).  A block
+// stays on the card (as many as fit) and walks its 16x16-pixel tiles, its
+// weights staged once, the next tile's runs copied while this tile's mma
+// and epilogue run.  K is 9 taps x KP in 8-wide halves on the vector
+// path's ldmatrix / mma.sync core: with KP = 8 one k16 step carries two
+// taps (per-lane ldmatrix row pointers), 5 steps, not 9.  The epilogue
+// writes each tile row through shared memory in the output's own layout
+// and stores it as 16-byte words (16 pixels x 3 channels are one 96-byte
+// run); a block's sums are one row of partials.  Measured share of the
+// bound: PERF.md (section 6, the output block's rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,117 +135,57 @@ struct Args {
   __nv_bfloat16* out_b;        // kEpiSplit: (B,H,W,Co-Na)
   float* partial;              // kEpiStats/kEpiPost: (blocks, 2, Co)
   int H, W, Ca, Cb, Co, Na, co_tiles;
-  int avec;  // the operand in 16-byte vectors (channel counts multiples of 8, aligned)
-  int wvec;  // the weights in 16-byte vectors (Co a multiple of 8)
-  int pair;  // outputs stored two channels at a time (Co and Na even)
+  int kp;  // the narrow path: channels per stage, padded to a multiple of 8
+  int tiles_x, tiles_y, nblk;  // the narrow path: pixel tiles; blocks along them
+  long long tiles;
 };
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+// The post adjoint of one element (the fp32 sum v, xpost's value xv, the
+// affine a, b): gu = v*[xv*a + b > 0], out = round(gu*a), and the sums of
+// gu*xv and gu (mul and add rounded separately, as the plain version does).
+__device__ __forceinline__ __nv_bfloat16 post1(float v, float xv, float a, float b, float& s1,
+                                               float& s2) {
+  const float gu = __fadd_rn(__fmul_rn(xv, a), b) > 0.f ? v : 0.f;
+  s1 += __fmul_rn(gu, xv);
+  s2 += gu;
+  return __float2bfloat16(__fmul_rn(gu, a));
 }
 
-// The staged operand at pixel `pix`, input channel `gc` (in the image), one
-// element: the path for channel counts that are not a multiple of 8.  mul
-// and add are rounded separately, as the plain PyTorch version does, so
-// ReLU masks agree bit for bit.
-template <int LOAD>
-__device__ __forceinline__ float load_operand(const Args& p, size_t pix, int gc) {
-  if constexpr (LOAD == kLoadX) {
-    if (gc >= p.Ca) return __bfloat162float(p.xb[pix * p.Cb + (gc - p.Ca)]);
-    float v = __bfloat162float(p.x[pix * p.Ca + gc]);
-    if (p.ab != nullptr) {
-      const float t = __fadd_rn(__fmul_rn(v, p.ab[gc]), p.ab[p.Ca + gc]);
-      v = round_bf16(fmaxf(t, 0.f));
-    }
-    return v;
-  } else if constexpr (LOAD == kLoadG) {
-    return __bfloat162float(p.x[pix * p.Ca + gc]);
+// The epilogue of one output element (channel c < Co at pixel `pix`, the
+// fp32 sum v): its bf16 value, and the sums of the statistics or the post
+// adjoint.
+template <int EPI>
+__device__ __forceinline__ __nv_bfloat16 epi1(const Args& p, size_t pix, int c, float v, float& s1,
+                                              float& s2) {
+  if constexpr (EPI == kEpiPost) {
+    const int Co = p.Co;
+    return post1(v, __bfloat162float(p.xpost[pix * Co + c]), p.abpost[c], p.abpost[Co + c], s1, s2);
   } else {
-    const int C = p.Ca;
-    const float g = __bfloat162float(p.x[pix * C + gc]);
-    const float y = __bfloat162float(p.xb[pix * C + gc]);
-    float gv = g;
-    int row = 0;
-    if constexpr (LOAD == kLoadGeAffine) {
-      const float a = p.ab[gc], b = p.ab[C + gc];
-      gv = __fadd_rn(__fmul_rn(y, a), b) > 0.f ? __fmul_rn(g, a) : 0.f;
-      row = 2;
+    const __nv_bfloat16 r = __float2bfloat16(v);
+    if constexpr (EPI == kEpiStats) {  // statistics of the ROUNDED output
+      const float f = __bfloat162float(r);
+      s1 += f;
+      s2 += __fmul_rn(f, f);
     }
-    const float c1 = p.ab[row * C + gc], c2 = p.ab[(row + 1) * C + gc];
-    return round_bf16(__fadd_rn(__fadd_rn(gv, c1), __fmul_rn(__fmul_rn(2.f, y), c2)));
+    return r;
   }
 }
 
-// Two bf16 outputs at channels c, c+1 of row `base` (c+1 only if `has1`).
-__device__ __forceinline__ void put2(__nv_bfloat16* base, int c, __nv_bfloat16 r0, __nv_bfloat16 r1,
-                                     bool has1, bool pair) {
-  if (has1 && pair) {
-    *reinterpret_cast<__nv_bfloat162*>(base + c) = __halves2bfloat162(r0, r1);
-  } else {
-    base[c] = r0;
-    if (has1) base[c + 1] = r1;
-  }
-}
-
-// The epilogue of output channels gco, gco+1 (gco < Co) at pixel `pix`.
+// The vector path's epilogue of output channels gco, gco+1 at pixel `pix`
+// (Co and Na multiples of 8 and 2): one 4-byte store.
 template <int EPI>
 __device__ __forceinline__ void emit(const Args& p, size_t pix, int gco, const float (&v)[2],
                                      float (&s1)[2], float (&s2)[2]) {
-  const int Co = p.Co;
-  const bool has1 = gco + 1 < Co;
-  const bool pair = p.pair != 0;
-  if constexpr (EPI == kEpiStore || EPI == kEpiStats) {
-    const __nv_bfloat16 r0 = __float2bfloat16(v[0]), r1 = __float2bfloat16(v[1]);
-    put2(p.out + pix * Co, gco, r0, r1, has1, pair);
-    if constexpr (EPI == kEpiStats) {  // statistics of the ROUNDED output
-      const float f0 = __bfloat162float(r0), f1 = __bfloat162float(r1);
-      s1[0] += f0;
-      s2[0] += __fmul_rn(f0, f0);
-      if (has1) {
-        s1[1] += f1;
-        s2[1] += __fmul_rn(f1, f1);
-      }
-    }
-  } else if constexpr (EPI == kEpiPost) {
-    __nv_bfloat16 r[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (e == 1 && !has1) {
-        r[1] = r[0];
-        break;
-      }
-      const int c = gco + e;
-      const float xv = __bfloat162float(p.xpost[pix * Co + c]);
-      const float a = p.abpost[c];
-      const float gu = __fadd_rn(__fmul_rn(xv, a), p.abpost[Co + c]) > 0.f ? v[e] : 0.f;
-      r[e] = __float2bfloat16(__fmul_rn(gu, a));
-      s1[e] += __fmul_rn(gu, xv);
-      s2[e] += gu;
-    }
-    put2(p.out + pix * Co, gco, r[0], r[1], has1, pair);
+  const __nv_bfloat16 r0 = epi1<EPI>(p, pix, gco, v[0], s1[0], s2[0]);
+  const __nv_bfloat16 r1 = epi1<EPI>(p, pix, gco + 1, v[1], s1[1], s2[1]);
+  __nv_bfloat162* dst;
+  if (EPI == kEpiSplit && gco >= p.Na) {
+    dst = reinterpret_cast<__nv_bfloat162*>(p.out_b + pix * (p.Co - p.Na) + (gco - p.Na));
   } else {
-    const __nv_bfloat16 r0 = __float2bfloat16(v[0]), r1 = __float2bfloat16(v[1]);
-    const int Na = p.Na, Nb = Co - Na;
-    if (pair && has1) {  // Na is even: both channels on one side
-      if (gco < Na) {
-        put2(p.out + pix * Na, gco, r0, r1, true, true);
-      } else {
-        put2(p.out_b + pix * Nb, gco - Na, r0, r1, true, true);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = gco + e;
-        if (c >= Co) break;
-        const __nv_bfloat16 r = e ? r1 : r0;
-        if (c < Na) {
-          p.out[pix * Na + c] = r;
-        } else {
-          p.out_b[pix * Nb + (c - Na)] = r;
-        }
-      }
-    }
+    const int C = EPI == kEpiSplit ? p.Na : p.Co;
+    dst = reinterpret_cast<__nv_bfloat162*>(p.out + pix * C + gco);
   }
+  *dst = __halves2bfloat162(r0, r1);
 }
 
 template <int LOAD, int EPI, int TCO>
@@ -245,7 +209,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
   const size_t img = static_cast<size_t>(n) * H;
   // the operand goes shared <- global by cp.async; else through registers
   const bool direct = LOAD == kLoadG || (LOAD == kLoadX && p.ab == nullptr);
-  const bool regs = p.avec && !direct;
+  const bool regs = !direct;
 
   uint4 pg[AV] = {}, py[AV] = {};  // a transformed operand's next stage, in flight
 
@@ -260,40 +224,18 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
   };
 
   // Start stage `c0` into buffer `buf`: the weights and a direct operand by
-  // cp.async, a transformed one into registers, the element path at once.
+  // cp.async, a transformed one into registers.
   auto begin_stage = [&](int c0, int buf) {
     __nv_bfloat16* sA = smem + buf * T::STAGE;
     __nv_bfloat16* sW = sA + T::A;
-    if (p.wvec) {
-      constexpr int WV = TCO / 8;
-      for (int i = tid; i < 9 * CK * WV; i += THREADS) {
-        const int v = i % WV, c = (i / WV) % CK, tap = i / (WV * CK);
-        const int gc = c0 + c, gco = co0 + 8 * v;
-        const bool ok = gc < cin && gco < Co;
-        const __nv_bfloat16* src =
-            ok ? p.w + (static_cast<size_t>(tap) * cin + gc) * Co + gco : p.w;
-        cp_async16(sW + (tap * CK + c) * T::WS + 8 * v, src, ok);
-      }
-    } else {
-      for (int i = tid; i < 9 * CK * TCO; i += THREADS) {
-        const int co = i % TCO, c = (i / TCO) % CK, tap = i / (TCO * CK);
-        const int gc = c0 + c, gco = co0 + co;
-        sW[(tap * CK + c) * T::WS + co] =
-            (gc < cin && gco < Co) ? p.w[(static_cast<size_t>(tap) * cin + gc) * Co + gco]
-                                   : __float2bfloat16(0.f);
-      }
-    }
-    if (!p.avec) {
-      for (int i = tid; i < HALO * CK; i += THREADS) {
-        const int c = i % CK, q = i / CK;
-        const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1, gc = c0 + c;
-        float v = 0.f;  // SAME padding: zero AFTER the operand's transform
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < cin) {
-          v = load_operand<LOAD>(p, (img + gy) * W + gx, gc);
-        }
-        sA[q * AS + c] = __float2bfloat16(v);
-      }
-      return;
+    constexpr int WV = TCO / 8;
+    for (int i = tid; i < 9 * CK * WV; i += THREADS) {
+      const int v = i % WV, c = (i / WV) % CK, tap = i / (WV * CK);
+      const int gc = c0 + c, gco = co0 + 8 * v;
+      const bool ok = gc < cin && gco < Co;
+      const __nv_bfloat16* src =
+          ok ? p.w + (static_cast<size_t>(tap) * cin + gc) * Co + gco : p.w;
+      cp_async16(sW + (tap * CK + c) * T::WS + 8 * v, src, ok);
     }
 #pragma unroll
     for (int j = 0; j < AV; ++j) {
@@ -460,11 +402,399 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
   }
 }
 
+// ---- the narrow path: every shape the vector path does not take (a
+// channel count that is not a multiple of 8, an operand off a 16-byte
+// boundary, an odd split).  A block walks tiles of NTH x TW output pixels
+// by TCO = 8, 16 or 32 output channels; each warp NMR output rows (m16
+// tiles) by all TCO channels.  K is the stage's 9 taps x KP channels in
+// 8-wide halves: with KP = 8 one k16 step carries two taps.
+constexpr int NTH = 16;  // output rows per block
+constexpr int NMR = NTH / 8;
+constexpr int NHALO = (NTH + 2) * IW;
+constexpr int NKP = 32;          // the most channels per stage
+constexpr int NKS = 9 * NKP / 16;  // the most k16 steps per stage
+
+__host__ __device__ constexpr int narrow_krows(int kp) { return (9 * kp + 15) / 16 * 16; }
+
+// Shared-memory bytes of the runs of a C-channel operand over the halo.
+__host__ __device__ inline int narrow_raw(int C, bool single) {
+  return imgseg::raw_bytes(C, single, NTH + 2, IW);
+}
+
+// The narrow kernel's shared memory: the padded halo, the weights, each
+// warp's output runs, and the runs of the operand (ca channels: x, or g)
+// and of its second part (cb: xb, or y beside g), for a conv of cin input
+// channels.
+__host__ __device__ inline size_t narrow_bytes(int kp, int nt, int cin, int ca, int cb) {
+  const bool single = cin <= NKP;
+  return (static_cast<size_t>(NHALO) * imgseg::odd16(kp) +
+          static_cast<size_t>(narrow_krows(kp)) * imgseg::odd16(8 * nt) +
+          static_cast<size_t>(THREADS / 32) * (TW * 8 * nt + 32)) * sizeof(__nv_bfloat16) +
+         narrow_raw(ca, single) + narrow_raw(cb, single);
+}
+
+// bf16 elements e0 .. e0+7 of `base`, each zero unless lo <= e < hi: the
+// aligned 4-byte words that hold a wanted element, read through the
+// read-only cache and shifted into place (one 16-byte load where all 8 are
+// wanted and aligned).  A word that holds a wanted element lies on the
+// tensor's own pages, however the tensor is aligned; no other is read.
+__device__ __forceinline__ uint4 gather8(const __nv_bfloat16* base, long long e0, long long lo,
+                                         long long hi) {
+  const long long first = e0 > lo ? e0 : lo, last = e0 + 8 < hi ? e0 + 8 : hi;
+  if (first >= last) return make_uint4(0u, 0u, 0u, 0u);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
+  const uintptr_t a = b + static_cast<uintptr_t>(2 * e0);
+  if (first == e0 && last == e0 + 8 && (a & 15) == 0) {
+    return __ldg(reinterpret_cast<const uint4*>(a));
+  }
+  const uintptr_t fa = b + static_cast<uintptr_t>(2 * first), la = b + static_cast<uintptr_t>(2 * last);
+  const uintptr_t w0 = a & ~static_cast<uintptr_t>(3);
+  uint32_t w[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    const uintptr_t wa = w0 + 4 * m;
+    w[m] = (wa + 4 > fa && wa < la) ? __ldg(reinterpret_cast<const unsigned int*>(wa)) : 0u;
+  }
+  const bool odd = (a & 2) != 0;  // e0 in the upper half of its word
+  const int k0 = static_cast<int>(first - e0), k1 = static_cast<int>(last - e0);
+  uint32_t out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t v = odd ? __funnelshift_r(w[k], w[k + 1], 16) : w[k];
+    const uint32_t keep = (2 * k >= k0 && 2 * k < k1 ? 0x0000ffffu : 0u) |
+                          (2 * k + 1 >= k0 && 2 * k + 1 < k1 ? 0xffff0000u : 0u);
+    out[k] = v & keep;
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// Copy n bf16 from shared `src` to global `dst`, where src and dst lie at
+// the same offset within 16 bytes: 16-byte stores between the unaligned
+// head and tail, by the 32 lanes of a warp.
+__device__ __forceinline__ void copy_run(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
+                                         int lane) {
+  const int head = min(n, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / 2);
+  for (int i = lane; i < head; i += 32) dst[i] = src[i];
+  const int nv = (n - head) / 8;
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  const uint4* sv = reinterpret_cast<const uint4*>(src + head);
+  for (int i = lane; i < nv; i += 32) dv[i] = sv[i];
+  for (int i = head + 8 * nv + lane; i < n; i += 32) dst[i] = src[i];
+}
+
+// Where a block's output channels [lo, lo + L) of one destination (Cd
+// channels a pixel) go in its warp's run buffer: pixel q, channel c at
+// base + q * L + c - lo.  Where the block writes whole pixels (L == Cd)
+// the row is one run, held at the output's own offset within 16 bytes.
+struct Dest {
+  __nv_bfloat16* ptr;
+  int Cd, lo, L, base;
+  bool whole;
+};
+
+__device__ __forceinline__ Dest dest_of(__nv_bfloat16* ptr, int Cd, int lo, int hi, size_t pix0,
+                                        int at) {
+  Dest d{ptr, Cd, lo, hi > lo ? hi - lo : 0, at, false};
+  d.whole = d.L == Cd;
+  if (d.whole) d.base += static_cast<int>((reinterpret_cast<uintptr_t>(ptr + pix0 * Cd) & 15) / 2);
+  return d;
+}
+
+// Write one row's run of a destination from the warp's run buffer.
+__device__ __forceinline__ void write_run(const Dest& d, const __nv_bfloat16* run, size_t pix0,
+                                          int np, int lane) {
+  if (d.L == 0) return;
+  if (d.whole) {
+    copy_run(d.ptr + pix0 * d.Cd, run + d.base, np * d.Cd, lane);
+    return;
+  }
+  for (int e = lane; e < np * d.L; e += 32) {
+    const int q = e / d.L;
+    d.ptr[(pix0 + q) * d.Cd + d.lo + (e - q * d.L)] = run[d.base + e];
+  }
+}
+
+template <int LOAD, int EPI, int NT>
+__global__ void __launch_bounds__(THREADS, NT == 4 ? 2 : 3) narrow_kernel(const Args p) {
+  constexpr int TCO = 8 * NT;
+  constexpr int WS = imgseg::odd16(TCO);
+  constexpr int NRUN = TW * TCO + 32;  // bf16 of a warp's output runs of one row
+  constexpr bool kGe = LOAD == kLoadGeStats || LOAD == kLoadGeAffine;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int off[2 * NKS];
+  __shared__ __align__(16) float rows[4][32];
+  __shared__ float red[2][8][TCO];
+  __shared__ unsigned char mis[2][NHALO];
+  __shared__ uint64_t bar;  // a phase a step: its runs have landed
+  __shared__ float sbias[TCO];
+  __shared__ float sab[2][TCO];  // kEpiPost: the post affine of the block's channels
+
+  const int H = p.H, W = p.W, Co = p.Co, cin = p.Ca + p.Cb;
+  const int KP = p.kp, AS = imgseg::odd16(KP), G = KP / 8;
+  const int krows = narrow_krows(KP), nks = krows / 16;
+  const bool single = cin <= NKP;
+  const int nst = single ? 1 : (cin + KP - 1) / KP;  // stages of K a tile
+  const int cb = LOAD == kLoadX ? p.Cb : kGe ? p.Ca : 0;  // xb's channels, or y's beside g
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sW = sA + NHALO * AS;
+  unsigned char* rawa = smem_raw + (NHALO * AS + krows * WS) * sizeof(__nv_bfloat16);
+  unsigned char* rawb = rawa + narrow_raw(p.Ca, single);
+  __nv_bfloat16* run = reinterpret_cast<__nv_bfloat16*>(rawb + narrow_raw(cb, single)) + (threadIdx.x >> 5) * NRUN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr0 = warp * NMR;  // this warp's first output row in a tile
+  const int co0 = blockIdx.y * TCO;
+  const int nrows = LOAD == kLoadX ? (p.ab != nullptr ? 2 : 0) : LOAD == kLoadGeAffine ? 4 : kGe ? 2 : 0;
+
+  // half h of k16 step s: tap t, channels c.. of the stage (past the 9 taps
+  // the weights are zero; the operand is tap 8's, finite)
+  for (int i = tid; i < 2 * nks; i += THREADS) {
+    int tap = 8 * i / KP, c = 8 * i % KP;
+    if (tap > 8) tap = 8, c = 0;
+    off[i] = ((tap / 3) * IW + tap % 3) * AS + c;
+  }
+  // the transform's rows and the weights of a stage: row k = tap * KP + c,
+  // zero past the taps, channels and Co
+  auto stage_weights = [&](int c0) {
+    if (nrows) imgseg::stage_rows(rows, p.ab, nrows, p.Ca, c0, tid, THREADS);
+    for (int i = tid; i < krows * NT; i += THREADS) {
+      const int k = i / NT, g = i % NT, tap = k / KP, gc = c0 + k % KP;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (tap < 9 && gc < cin) {
+        const long long row = (static_cast<long long>(tap) * cin + gc) * Co;
+        v = gather8(p.w, row + co0 + 8 * g, row, row + Co);
+      }
+      *reinterpret_cast<uint4*>(sW + k * WS + 8 * g) = v;
+    }
+  };
+  // step s of this block: its k-th pixel tile (the halo from (y0-1, x0-1)),
+  // stage s % nst, and the runs of the operand and of its second part
+  auto tile_of = [&](long long s) {
+    const long long t = blockIdx.x + (s / nst) * gridDim.x;
+    const int x0 = static_cast<int>(t % p.tiles_x) * TW;
+    const int y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * NTH;
+    const size_t img = static_cast<size_t>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y)) * H;
+    return imgseg::Tile{y0 - 1, x0 - 1, NTH + 2, IW, H, W, img};
+  };
+  auto srcs_of = [&](int c0, imgseg::Src& a, imgseg::Src& b) {
+    a = imgseg::src_of(p.x, p.Ca, min(c0, p.Ca), min(c0 + KP, p.Ca), single, IW, rawa, mis[0]);
+    const int blo = LOAD == kLoadX ? max(c0, p.Ca) - p.Ca : a.lo;
+    const int bhi = LOAD == kLoadX ? min(c0 + KP, cin) - p.Ca : a.lo + a.n;
+    b = imgseg::src_of(p.xb, cb, cb ? blo : 0, cb ? bhi : 0, single, IW, rawb, mis[1]);
+  };
+  // warp 0 starts step s's copies (after the reads of the runs' space, in
+  // the other proxy) and arrives on the barrier
+  auto issue = [&](long long s) {
+    if (warp != 0) return;
+    imgseg::Src a, b;
+    srcs_of(static_cast<int>(s % nst) * KP, a, b);
+    const imgseg::Tile t = tile_of(s);
+    imgseg::fence_proxy_async();
+    imgseg::issue_runs(a, t, lane, &bar);
+    imgseg::issue_runs(b, t, lane, &bar);
+    __syncwarp();
+    if (lane == 0) imgseg::mbar_arrive(&bar);
+  };
+
+  float acc[NMR][NT][4];
+  // the epilogue's sums (statistics, or the post adjoint's), over every tile
+  // of the block; lane holds channels 2(lane%4) (+1) of each n8 tile
+  float s1[NT][2], s2[NT][2];
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) s1[ni][e] = s2[ni][e] = 0.f;
+  if (tid < TCO) {
+    const bool ok = co0 + tid < Co;
+    sbias[tid] = (p.bias != nullptr && ok) ? p.bias[co0 + tid] : 0.f;
+    if constexpr (EPI == kEpiPost) {
+      sab[0][tid] = ok ? p.abpost[co0 + tid] : 0.f;
+      sab[1][tid] = ok ? p.abpost[Co + co0 + tid] : 0.f;
+    }
+  }
+  const int na = EPI == kEpiSplit ? p.Na : Co;
+
+  // this lane's ldmatrix rows: A (pixel, k half), B (k row, 8-channel half)
+  const int a_pix = (lane & 7) + ((lane >> 3) & 1) * 8, a_half = lane >> 4;
+  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
+
+  // the block walks its pixel tiles, each in nst steps; step s + 1's runs
+  // are copied while step s's mma and epilogue run
+  const long long mine = blockIdx.x < p.tiles ? (p.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long steps = mine * nst;
+  if (tid == 0) imgseg::mbar_init(&bar, 1);
+  if (single) stage_weights(0);
+  __syncthreads();
+  if (steps > 0) issue(0);
+  for (long long s = 0; s < steps; ++s) {
+    const int st = static_cast<int>(s % nst), c0 = st * KP;
+    const imgseg::Tile t = tile_of(s);
+    const int y0 = t.gy0 + 1, x0 = t.gx0 + 1;
+    imgseg::mbar_wait(&bar, static_cast<int>(s & 1));
+    __syncthreads();  // step s's runs are in; step s - 1's mma is done
+    if (!single) {
+      stage_weights(c0);
+      __syncthreads();
+    }
+    imgseg::Src a, b;
+    srcs_of(c0, a, b);
+    // the halo, 8 channels of a pixel a thread, into rows of KP channels;
+    // SAME padding: zero AFTER the operand's transform
+    if constexpr (LOAD == kLoadX) {
+      if (nrows) {
+        imgseg::place_tile<imgseg::kOpAffineRelu>(sA, AS, G, a, b, t, c0, rows, tid, THREADS);
+      } else {
+        imgseg::place_tile<imgseg::kOpCat>(sA, AS, G, a, b, t, c0, rows, tid, THREADS);
+      }
+    } else if constexpr (LOAD == kLoadG) {
+      imgseg::place_tile<imgseg::kOpCat>(sA, AS, G, a, b, t, c0, rows, tid, THREADS);
+    } else {
+      constexpr int OP = LOAD == kLoadGeAffine ? imgseg::kOpCotAffine : imgseg::kOpCot;
+      imgseg::place_tile<OP>(sA, AS, G, a, b, t, c0, rows, tid, THREADS);
+    }
+    __syncthreads();
+    if (s + 1 < steps) issue(s + 1);
+    const int mrows = min(NMR, H - y0 - wr0);  // this warp's rows in the image
+    const int np = min(TW, W - x0);
+    // kEpiPost: this lane's xpost values, loaded now for the epilogue after the mma
+    float xq[NMR][2][NT][2];
+    if constexpr (EPI == kEpiPost) {
+      if (st == nst - 1) {
+#pragma unroll
+        for (int mr = 0; mr < NMR; ++mr)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int q = (lane >> 2) + 8 * h, c = co0 + ni * 8 + 2 * (lane & 3) + e;
+                const size_t pix = (t.img + y0 + wr0 + mr) * W + x0 + q;
+                xq[mr][h][ni][e] = mr < mrows && q < np && c < Co
+                                       ? __bfloat162float(p.xpost[pix * Co + c]) : 0.f;
+              }
+      }
+    }
+    if (st == 0) {
+#pragma unroll
+      for (int mr = 0; mr < NMR; ++mr)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mr][ni][e] = 0.f;
+    }
+#pragma unroll 1
+    for (int k = 0; k < nks; ++k) {
+      const int o = off[2 * k + a_half];
+      uint32_t bf[NT][2];
+#pragma unroll
+      for (int pr = 0; pr < NT / 2; ++pr) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, sW + (16 * k + b_k) * WS + pr * 16 + b_n);
+        bf[2 * pr][0] = r[0], bf[2 * pr][1] = r[1];
+        bf[2 * pr + 1][0] = r[2], bf[2 * pr + 1][1] = r[3];
+      }
+      if constexpr (NT % 2) {
+        uint32_t r[2];
+        imgseg::ldsm_x2_trans(r, sW + (16 * k + b_k) * WS + (NT - 1) * 8);
+        bf[NT - 1][0] = r[0], bf[NT - 1][1] = r[1];
+      }
+#pragma unroll
+      for (int mr = 0; mr < NMR; ++mr) {
+        if (mr >= mrows) break;
+        uint32_t af[4];
+        ldsm_x4(af, sA + ((wr0 + mr) * IW + a_pix) * AS + o);
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mr][ni], af, bf[ni][0], bf[ni][1]);
+      }
+    }
+    if (st != nst - 1) continue;
+
+    // ---- the tile's epilogue: the fragments through this warp's run
+    // buffer, one row at a time, out as 16-byte stores; lane holds pixels
+    // lane/4 (+8) of each row
+#pragma unroll
+    for (int mr = 0; mr < NMR; ++mr) {
+      if (mr >= mrows) break;
+      const size_t pix0 = (t.img + y0 + wr0 + mr) * W + x0;
+      const Dest d0 = dest_of(p.out, na, co0, min(co0 + TCO, na), pix0, 0);
+      Dest d1{};
+      if constexpr (EPI == kEpiSplit) {
+        const int at = (d0.base + TW * d0.L + 7) / 8 * 8;
+        d1 = dest_of(p.out_b, Co - na, max(co0, na) - na, min(co0 + TCO, Co) - na, pix0, at);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = (lane >> 2) + 8 * h;
+        if (q >= np) continue;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = co0 + ni * 8 + 2 * (lane & 3) + e;
+            if (c >= Co) continue;
+            const float v = acc[mr][ni][2 * h + e] + sbias[c - co0];
+            __nv_bfloat16 r;
+            if constexpr (EPI == kEpiPost) {
+              r = post1(v, xq[mr][h][ni][e], sab[0][c - co0], sab[1][c - co0], s1[ni][e], s2[ni][e]);
+            } else {
+              r = epi1<EPI>(p, pix0 + q, c, v, s1[ni][e], s2[ni][e]);
+            }
+            if (EPI == kEpiSplit && c >= na) {
+              run[d1.base + q * d1.L + (c - na - d1.lo)] = r;
+            } else {
+              run[d0.base + q * d0.L + (c - d0.lo)] = r;
+            }
+          }
+      }
+      __syncwarp();
+      write_run(d0, run, pix0, np, lane);
+      if constexpr (EPI == kEpiSplit) write_run(d1, run, pix0, np, lane);
+      __syncwarp();
+    }
+  }
+  if constexpr (EPI == kEpiStats || EPI == kEpiPost) {
+    // the 8 lanes of one channel pair: butterfly sums; then the 8 warps in
+    // order; one row of partial sums a block
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s1[ni][e] += __shfl_xor_sync(0xffffffffu, s1[ni][e], o);
+          s2[ni][e] += __shfl_xor_sync(0xffffffffu, s2[ni][e], o);
+        }
+    if (lane < 4) {
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          red[0][warp][ni * 8 + 2 * lane + e] = s1[ni][e];
+          red[1][warp][ni * 8 + 2 * lane + e] = s2[ni][e];
+        }
+    }
+    __syncthreads();
+    if (tid < TCO && co0 + tid < Co) {
+      const size_t blk = blockIdx.x;
+      float a = red[0][0][tid], q = red[1][0][tid];
+#pragma unroll
+      for (int r = 1; r < 8; ++r) {
+        a += red[0][r][tid];
+        q += red[1][r][tid];
+      }
+      p.partial[(blk * 2) * Co + co0 + tid] = a;
+      p.partial[(blk * 2 + 1) * Co + co0 + tid] = q;
+    }
+  }
+}
+
 int tco_of(int Co) { return Co > 32 ? 64 : 32; }
 
 long long blocks_per_channel(int B, int H, int W) {
   return static_cast<long long>(B) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
+
+int g_last_narrow = 0;  // the path of the latest launch (imgseg_conv3x3_path)
 
 template <int LOAD, int EPI, int TCO>
 int launch_tiles(const Args& p, int B, cudaStream_t stream) {
@@ -478,8 +808,46 @@ int launch_tiles(const Args& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The narrow kernel: as many blocks as fit on the card at once, each walking
+// every gridDim.x-th pixel tile of one N tile (blockIdx.y).  The grid, so
+// the order of every sum, depends only on the shape and the card.
+template <int LOAD, int EPI, int NT>
+int launch_narrow(Args& p, int B, cudaStream_t stream) {
+  static bool opted = false;
+  auto* kernel = narrow_kernel<LOAD, EPI, NT>;
+  // opted in once to the most any shape takes: 32-channel stages of x and xb
+  cudaError_t err = imgseg::allow_smem(kernel, narrow_bytes(NKP, NT, 2 * NKP + 1, NKP, NKP), opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr bool kGe = LOAD == kLoadGeStats || LOAD == kLoadGeAffine;
+  const int cb = LOAD == kLoadX ? p.Cb : kGe ? p.Ca : 0;
+  const size_t bytes = narrow_bytes(p.kp, NT, p.Ca + p.Cb, p.Ca, cb);
+  static size_t asked = 0;  // the last size asked about, and its answer
+  static int resident = 0;
+  if (bytes != asked) {
+    err = imgseg::resident_blocks(kernel, THREADS, bytes, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    asked = bytes;
+  }
+  p.tiles_x = (p.W + TW - 1) / TW;
+  p.tiles_y = (p.H + NTH - 1) / NTH;
+  p.tiles = static_cast<long long>(B) * p.tiles_x * p.tiles_y;
+  const long long per = resident / p.co_tiles > 1 ? resident / p.co_tiles : 1;
+  p.nblk = static_cast<int>(p.tiles < per ? p.tiles : per);
+  if (p.co_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<dim3(p.nblk, p.co_tiles), THREADS, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LOAD, int EPI>
-int launch(Args p, int B, cudaStream_t stream) {
+int launch(Args& p, int B, cudaStream_t stream) {
+  g_last_narrow = p.kp != 0;
+  if (p.kp != 0) {
+    const int nt = p.Co <= 8 ? 1 : p.Co <= 16 ? 2 : 4;  // N = 8, 16 or 32
+    p.co_tiles = (p.Co + 8 * nt - 1) / (8 * nt);
+    return nt == 1   ? launch_narrow<LOAD, EPI, 1>(p, B, stream)
+           : nt == 2 ? launch_narrow<LOAD, EPI, 2>(p, B, stream)
+                     : launch_narrow<LOAD, EPI, 4>(p, B, stream);
+  }
   const int tco = tco_of(p.Co);
   p.co_tiles = (p.Co + tco - 1) / tco;
   return tco == 64 ? launch_tiles<LOAD, EPI, 64>(p, B, stream)
@@ -488,25 +856,34 @@ int launch(Args p, int B, cudaStream_t stream) {
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-// The vector paths' conditions, from the channel counts and the pointers.
+// The path, from the channel counts and the pointers: the vector path for
+// channel counts that are multiples of 8 (an even split), its operands on
+// 16-byte boundaries (kp = 0); else the narrow path, kp channels a stage.
 void set_paths(Args& p) {
-  p.avec = p.Ca % 8 == 0 && p.Cb % 8 == 0 && aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab);
-  p.wvec = p.Co % 8 == 0 && aligned16(p.w);
-  p.pair = p.Co % 2 == 0 && p.Na % 2 == 0;
+  const bool vec = p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 &&
+                   aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab) && aligned16(p.w);
+  const int cin = p.Ca + p.Cb;
+  p.kp = vec ? 0 : cin > NKP ? NKP : (cin + 7) / 8 * 8;
 }
 
 // The second pass of the sum epilogues: (blocks, 2, Co) rows -> (2, Co).
 int finish_sums(const Args& p, int B, float* sums, cudaStream_t stream) {
-  return static_cast<int>(
-      imgseg::sum_rows(p.partial, sums, blocks_per_channel(B, p.H, p.W), 2LL * p.Co, stream));
+  const long long rows = p.kp ? p.nblk : blocks_per_channel(B, p.H, p.W);
+  return static_cast<int>(imgseg::sum_rows(p.partial, sums, rows, 2LL * p.Co, stream));
 }
 
 }  // namespace
 
-// Floats of scratch the sum epilogues need: one (2, Co) row per pixel block.
+// Floats of scratch the sum epilogues need: one (2, Co) row per pixel block
+// (the vector path's blocks, which outnumber the narrow path's: at most one
+// a 16x16 pixel tile).
 extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
   return blocks_per_channel(B, H, W) * 2LL * Co;
 }
+
+// 1 if the latest launch of imgseg_conv3x3 or imgseg_conv3x3_dgrad took the
+// narrow path, 0 if the vector path.
+extern "C" int imgseg_conv3x3_path() { return g_last_narrow; }
 
 // y = conv(act([x | xb])) + bias; with `stats` (2, Co) also the sums of y
 // and y*y over (B, H, W), using `scratch`.

@@ -42,16 +42,32 @@
 // own vectors, 16 bytes at a time through registers, after the mma.  (Held
 // in registers across the mma instead, the next tile's raw vectors took 40
 // registers a thread and spilled 400-700 bytes at the 168-register cap of a
-// 384-thread block.)
-// Channel counts that are not a multiple of 8 (the 1-channel heatmap, odd
-// test shapes) load element by element into zero-padded tiles.  db is a
-// separate fp32 sum: each thread adds one channel of the staged cotangent
-// over a fixed share of the tile's pixels, and the block adds the shares in
-// a fixed order.  Each block writes
-// its tile of partial sums once; a second pass (reduce.cuh) adds the chunks
+// 384-thread block.)  db is a separate fp32 sum: each thread adds one
+// channel of the staged cotangent over a fixed share of the tile's pixels,
+// and the block adds the shares in a fixed order.  Each block writes its
+// tile of partial sums once; a second pass (reduce.cuh) adds the chunks
 // in a fixed order.  No atomics.  The chunks are short (about 4 blocks per
 // SM over the whole image) so that no block's fp32 sum runs over more than
 // a few thousand pixels.
+//
+// The narrow path (wgrad_narrow_kernel) takes every other shape: a channel
+// count that is not a multiple of 8 (ClipRes's output block, [16 | 3] -> 3
+// and 3 -> 3; the prompt heatmap's K10, 1 -> 32), an operand off a
+// 16-byte boundary.  What bounds it on the card: bytes (2*9*19*3 FLOPs a
+// pixel against ~50 bytes).  What cost was the staging, as in conv3x3.cu's
+// narrow path: padded to 32 x 32 channels a tap group, most of each tile
+// was zeros, staged one element at a time.  What the design does about it:
+// x [| xb] over the halo and g (and y) over the tile arrive as runs of NHWC
+// memory, one bulk copy (TMA) a run on an mbarrier (mma.cuh), the next
+// tile's while this tile's mma runs, and are placed 8 channels of a pixel
+// a thread, transformed in registers, into rows padded only to CP = Cin
+// rounded up to 8 (24 a tile past 24 channels) and TCO = 8, 16 or 32.  M is
+// 9 taps x CP in m16 tiles of two 8-channel halves (CP = 8: two taps a
+// tile, 5 tiles, not 9), N = TCO; warp w owns the M tiles w and w+8 by all
+// of N over the chunk, so no sums cross warps.  A tile is 16x16 pixels, a
+// k16 step a tile row; there are as many chunks as blocks fit on the card
+// (one wave).  The partial rows and the second pass are the vector path's.
+// Measured share of the bound: PERF.md (section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,13 +123,9 @@ struct Args {
   float* part_w;            // (chunks, 9, Cin, Co)
   float* part_b;            // (chunks, Co)
   int B, H, W, Ca, Cb, Co, tiles_x, tiles_y;
-  int xvec, gvec;  // x / the cotangent in 16-byte vectors (channels multiples of 8, aligned)
+  int cp;  // the narrow path: input channels per tile, padded to a multiple of 8
   long long tiles, per_chunk;
 };
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // How the cotangent is read.
 enum Ge {
@@ -121,34 +133,6 @@ enum Ge {
   kGeStats = 1,   // round(g + c1 + 2*y*c2)
   kGeAffine = 2,  // round(g*a*[y*a + b > 0] + c1 + 2*y*c2)
 };
-
-// One element (the path for channel counts that are not a multiple of 8).
-template <int GE>
-__device__ __forceinline__ float load_ge(const Args& p, size_t pix, int co) {
-  const int C = p.Co;
-  const float g = __bfloat162float(p.g[pix * C + co]);
-  if constexpr (GE == kGePlain) return g;
-  const float y = __bfloat162float(p.y[pix * C + co]);
-  float gv = g;
-  int row = 0;
-  if constexpr (GE == kGeAffine) {
-    const float a = p.gf[co], b = p.gf[C + co];
-    gv = __fadd_rn(__fmul_rn(y, a), b) > 0.f ? __fmul_rn(g, a) : 0.f;
-    row = 2;
-  }
-  const float c1 = p.gf[row * C + co], c2 = p.gf[(row + 1) * C + co];
-  return round_bf16(__fadd_rn(__fadd_rn(gv, c1), __fmul_rn(__fmul_rn(2.f, y), c2)));
-}
-
-__device__ __forceinline__ float load_act(const Args& p, size_t pix, int ci) {
-  if (ci >= p.Ca) return __bfloat162float(p.xb[pix * p.Cb + (ci - p.Ca)]);
-  float v = __bfloat162float(p.x[pix * p.Ca + ci]);
-  if (p.ab != nullptr) {
-    const float t = __fadd_rn(__fmul_rn(v, p.ab[ci]), p.ab[p.Ca + ci]);
-    v = round_bf16(fmaxf(t, 0.f));
-  }
-  return v;
-}
 
 template <int GE, int MI, int NI>
 __global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
@@ -170,15 +154,9 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
   const int nh = wg / (3 * MI);       // its output channels co0 + 32nh ..
   const bool direct_x = p.ab == nullptr;
   const bool direct_g = GE == kGePlain;
-  const bool xraw = p.xvec && !direct_x, graw = p.gvec && !direct_g;
+  const bool xraw = !direct_x, graw = !direct_g;
   const bool with_db = ci0 == 0;
   const bool mi1 = ci0 + mh * 32 + 16 < cin;  // the warp's second m16 tile holds channels
-
-  // zero both stages: the element paths write only the tile's real channels
-  for (int i = tid; i < 2 * T::STAGE / 8; i += THREADS) {
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
 
   // a transformed operand's next tile in flight, as loaded
   __nv_bfloat16* raw_x = smem + 2 * T::STAGE;
@@ -209,60 +187,36 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
   };
 
   // Start tile t into buffer `buf` by cp.async: an operand with no
-  // transform into the tile, a transformed one raw; the element paths at once.
+  // transform into the tile, a transformed one raw.
   auto begin_tile = [&](long long t, int buf) {
     int n, y0, x0;
     tile_origin(t, n, y0, x0);
     __nv_bfloat16* sX = smem + buf * T::STAGE;
     __nv_bfloat16* sG = sX + T::X;
-    if (p.xvec) {
 #pragma unroll
-      for (int j = 0; j < T::XV; ++j) {
-        const int i = tid + j * THREADS;
-        if (i >= HALO * XW) break;
-        int q, gc;
-        size_t pix;
-        const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
-        const __nv_bfloat16* src = p.x;
-        if (ok) src = gc < p.Ca ? p.x + pix * p.Ca + gc : p.xb + pix * p.Cb + (gc - p.Ca);
-        cp_async16(direct_x ? sX + q * T::XS + (i % XW) * 8 : raw_x + 8 * i, src, ok);
-      }
-    } else {
-      const int nci = cin - ci0 < TCI ? cin - ci0 : TCI;
-      for (int i = tid; i < HALO * nci; i += THREADS) {
-        const int c = i % nci, q = i / nci;
-        const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1;
-        float v = 0.f;  // zero outside the image, after the activation
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          v = load_act(p, (static_cast<size_t>(n) * H + gy) * W + gx, ci0 + c);
-        }
-        sX[q * T::XS + c] = __float2bfloat16(v);
-      }
+    for (int j = 0; j < T::XV; ++j) {
+      const int i = tid + j * THREADS;
+      if (i >= HALO * XW) break;
+      int q, gc;
+      size_t pix;
+      const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
+      const __nv_bfloat16* src = p.x;
+      if (ok) src = gc < p.Ca ? p.x + pix * p.Ca + gc : p.xb + pix * p.Cb + (gc - p.Ca);
+      cp_async16(direct_x ? sX + q * T::XS + (i % XW) * 8 : raw_x + 8 * i, src, ok);
     }
-    if (p.gvec) {
 #pragma unroll
-      for (int j = 0; j < T::GV; ++j) {
-        const int i = tid + j * THREADS;
-        if (i >= TILE * GW) break;
-        int q, gc;
-        size_t pix;
-        const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
-        const __nv_bfloat16* src = ok ? p.g + pix * Co + gc : p.g;
-        if (direct_g) {
-          cp_async16(sG + q * T::GS + (i % GW) * 8, src, ok);
-        } else {
-          cp_async16(raw_g + 8 * i, src, ok);
-          cp_async16(raw_y + 8 * i, ok ? p.y + pix * Co + gc : p.g, ok);
-        }
-      }
-    } else {
-      const int nco = Co - co0 < TCO ? Co - co0 : TCO;
-      for (int i = tid; i < TILE * nco; i += THREADS) {
-        const int c = i % nco, q = i / nco;
-        const int gy = y0 + q / TW, gx = x0 + q % TW;
-        float v = 0.f;  // no cotangent outside the image
-        if (gy < H && gx < W) v = load_ge<GE>(p, (static_cast<size_t>(n) * H + gy) * W + gx, co0 + c);
-        sG[q * T::GS + c] = __float2bfloat16(v);
+    for (int j = 0; j < T::GV; ++j) {
+      const int i = tid + j * THREADS;
+      if (i >= TILE * GW) break;
+      int q, gc;
+      size_t pix;
+      const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
+      const __nv_bfloat16* src = ok ? p.g + pix * Co + gc : p.g;
+      if (direct_g) {
+        cp_async16(sG + q * T::GS + (i % GW) * 8, src, ok);
+      } else {
+        cp_async16(raw_g + 8 * i, src, ok);
+        cp_async16(raw_y + 8 * i, ok ? p.y + pix * Co + gc : p.g, ok);
       }
     }
   };
@@ -434,19 +388,224 @@ __global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
   }
 }
 
+// ---- the narrow path: every shape the vector path does not take (a
+// channel count that is not a multiple of 8, an operand off a 16-byte
+// boundary).  A 256-thread block owns a dw tile of 9 taps x CP input
+// channels (M, in m16 tiles of two 8-channel halves: with CP = 8 one tile
+// carries two taps) by TCO = 8, 16 or 32 output channels (N), and walks a
+// chunk of 16x16-pixel tiles, one k16 step a tile row.  Warp w owns the M
+// tiles w and w+8 by all of N, over every pixel of the chunk.
+constexpr int NTH = 16;  // tile rows
+constexpr int NHALO = (NTH + 2) * IW;
+constexpr int NTILE = NTH * TW;
+constexpr int NTHREADS = 256;
+constexpr int NCP = 24;              // the most input channels per tile
+constexpr int NMT = (9 * NCP + 15) / 16;  // the most m16 tiles
+constexpr int NMPW = (NMT + 7) / 8;  // m16 tiles a warp
+
+// The narrow kernel's shared memory: the padded act(x) halo and cotangent
+// tile, and the runs of x, xb, g and y (Cb = 0: no xb; no y for the raw
+// cotangent).
+__host__ __device__ inline size_t narrow_bytes(int cp, int nt, int Ca, int Cb, int Co, bool y) {
+  const bool xsingle = Ca + Cb <= NCP, gsingle = Co <= 8 * nt;
+  return (static_cast<size_t>(NHALO) * imgseg::odd16(cp) +
+          static_cast<size_t>(NTILE) * imgseg::odd16(8 * nt)) * sizeof(__nv_bfloat16) +
+         imgseg::raw_bytes(Ca, xsingle, NTH + 2, IW) + imgseg::raw_bytes(Cb, xsingle, NTH + 2, IW) +
+         imgseg::raw_bytes(Co, gsingle, NTH, TW) * (y ? 2 : 1);
+}
+
+template <int GE, int NT>
+__global__ void __launch_bounds__(NTHREADS, 3) wgrad_narrow_kernel(const Args p) {
+  constexpr int TCO = 8 * NT;
+  constexpr int GS = imgseg::odd16(TCO);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int off[2 * NMT];
+  __shared__ __align__(16) float xrows[2][32];
+  __shared__ __align__(16) float grows[4][32];
+  __shared__ float dbs[NTHREADS];
+  __shared__ unsigned char mis[4][NHALO];
+  __shared__ uint64_t bar;  // a phase a tile: its runs have landed
+
+  const int H = p.H, W = p.W, Co = p.Co, cin = p.Ca + p.Cb;
+  const int CP = p.cp, XS = imgseg::odd16(CP), GX = CP / 8, mtiles = (9 * CP + 15) / 16;
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sG = sX + NHALO * XS;
+  const int co_tiles = (Co + TCO - 1) / TCO;
+  const int ci0 = (blockIdx.x / co_tiles) * CP;
+  const int co0 = (blockIdx.x % co_tiles) * TCO;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool with_db = ci0 == 0;
+
+  // half h of m16 tile i: tap t, channels c.. of the tile (past the 9 taps
+  // the rows are not written; the operand is tap 8's)
+  for (int i = tid; i < 2 * mtiles; i += NTHREADS) {
+    int tap = 8 * i / CP, c = 8 * i % CP;
+    if (tap > 8) tap = 8, c = 0;
+    off[i] = ((tap / 3) * IW + tap % 3) * XS + c;
+  }
+  if (p.ab != nullptr) imgseg::stage_rows(xrows, p.ab, 2, p.Ca, ci0, tid, NTHREADS);
+  if constexpr (GE != kGePlain) {
+    imgseg::stage_rows(grows, p.gf, GE == kGeAffine ? 4 : 2, Co, co0, tid, NTHREADS);
+  }
+  // the runs of x [| xb] over the halo and of g (and y) over the tile
+  const bool xsingle = cin <= NCP, gsingle = Co <= TCO;
+  unsigned char* rawxa = smem_raw + (NHALO * XS + NTILE * GS) * sizeof(__nv_bfloat16);
+  unsigned char* rawxb = rawxa + imgseg::raw_bytes(p.Ca, xsingle, NTH + 2, IW);
+  unsigned char* rawga = rawxb + imgseg::raw_bytes(p.Cb, xsingle, NTH + 2, IW);
+  unsigned char* rawgb = rawga + imgseg::raw_bytes(Co, gsingle, NTH, TW);
+  const imgseg::Src rxa =
+      imgseg::src_of(p.x, p.Ca, min(ci0, p.Ca), min(ci0 + CP, p.Ca), xsingle, IW, rawxa, mis[0]);
+  const imgseg::Src rxb = imgseg::src_of(p.xb, p.Cb, p.Cb ? max(ci0, p.Ca) - p.Ca : 0,
+                                         p.Cb ? min(ci0 + CP, cin) - p.Ca : 0, xsingle, IW, rawxb, mis[1]);
+  const imgseg::Src rga = imgseg::src_of(p.g, Co, co0, min(co0 + TCO, Co), gsingle, TW, rawga, mis[2]);
+  const imgseg::Src rgb =
+      GE == kGePlain ? imgseg::src_of(nullptr, 0, 0, 0, gsingle, TW, rawgb, mis[3])
+                     : imgseg::src_of(p.y, Co, co0, min(co0 + TCO, Co), gsingle, TW, rawgb, mis[3]);
+  auto tiles_of = [&](long long t, imgseg::Tile& tx, imgseg::Tile& tg) {
+    const int x0 = static_cast<int>(t % p.tiles_x) * TW;
+    const int y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * NTH;
+    const size_t img = static_cast<size_t>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y)) * H;
+    tx = imgseg::Tile{y0 - 1, x0 - 1, NTH + 2, IW, H, W, img};
+    tg = imgseg::Tile{y0, x0, NTH, TW, H, W, img};
+  };
+  // warp 0 starts the copies of tile t's runs (after the reads of their
+  // space, in the other proxy) and arrives on the barrier
+  auto issue = [&](long long t) {
+    if (warp != 0) return;
+    imgseg::Tile tx, tg;
+    tiles_of(t, tx, tg);
+    imgseg::fence_proxy_async();
+    imgseg::issue_runs(rxa, tx, lane, &bar);
+    imgseg::issue_runs(rxb, tx, lane, &bar);
+    imgseg::issue_runs(rga, tg, lane, &bar);
+    imgseg::issue_runs(rgb, tg, lane, &bar);
+    __syncwarp();
+    if (lane == 0) imgseg::mbar_arrive(&bar);
+  };
+
+  float acc[NMPW][NT][4];
+#pragma unroll
+  for (int i = 0; i < NMPW; ++i)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][ni][e] = 0.f;
+  // db: this thread's channel co0 + tid % TCO over the tile pixels tid / TCO + k * DG
+  constexpr int DG = NTHREADS / TCO;
+  float db = 0.f;
+
+  // this lane's ldmatrix rows: A (pixel, channel half), B (pixel, 8-channel half)
+  const int a_px = (lane & 7) + (lane >> 4) * 8, a_half = (lane >> 3) & 1;
+  const int b_px = (lane & 7) + ((lane >> 3) & 1) * 8, b_c = (lane >> 4) * 8;
+
+  const long long t_begin = static_cast<long long>(blockIdx.y) * p.per_chunk;
+  const long long t_end = t_begin + p.per_chunk < p.tiles ? t_begin + p.per_chunk : p.tiles;
+  // tile t + 1's runs are copied while tile t's mma runs
+  if (tid == 0) imgseg::mbar_init(&bar, 1);
+  __syncthreads();
+  if (t_begin < t_end) issue(t_begin);
+  for (long long t = t_begin; t < t_end; ++t) {
+    imgseg::Tile tx, tg;
+    tiles_of(t, tx, tg);
+    const int y0 = tg.gy0;
+    imgseg::mbar_wait(&bar, static_cast<int>((t - t_begin) & 1));
+    __syncthreads();  // tile t's runs are in; the previous tile's mma is done
+    // act(x) on the halo (zero outside the image, after the activation) and
+    // the transformed cotangent on the tile (zero outside the image), 8
+    // channels of a pixel a thread, into rows of CP and TCO channels
+    if (p.ab != nullptr) {
+      imgseg::place_tile<imgseg::kOpAffineRelu>(sX, XS, GX, rxa, rxb, tx, ci0, xrows, tid, NTHREADS);
+    } else {
+      imgseg::place_tile<imgseg::kOpCat>(sX, XS, GX, rxa, rxb, tx, ci0, xrows, tid, NTHREADS);
+    }
+    constexpr int OP = GE == kGePlain  ? imgseg::kOpCat
+                       : GE == kGeStats ? imgseg::kOpCot
+                                        : imgseg::kOpCotAffine;
+    imgseg::place_tile<OP>(sG, GS, NT, rga, rgb, tg, co0, grows, tid, NTHREADS);
+    __syncthreads();
+    if (t + 1 < t_end) issue(t + 1);
+    if (with_db) {  // the bias gradient: one channel, a fixed share of the pixels
+      for (int q = tid / TCO; q < NTILE; q += DG) db += __bfloat162float(sG[q * GS + tid % TCO]);
+    }
+#pragma unroll 1
+    for (int r = 0; r < NTH; ++r) {
+      if (y0 + r >= H) break;  // rows past the image: a zero cotangent
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int pr = 0; pr < NT / 2; ++pr) {
+        uint32_t q4[4];
+        ldsm_x4_trans(q4, sG + (r * TW + b_px) * GS + pr * 16 + b_c);
+        b[2 * pr][0] = q4[0], b[2 * pr][1] = q4[1];
+        b[2 * pr + 1][0] = q4[2], b[2 * pr + 1][1] = q4[3];
+      }
+      if constexpr (NT % 2) {
+        uint32_t q2[2];
+        imgseg::ldsm_x2_trans(q2, sG + (r * TW + b_px) * GS + (NT - 1) * 8);
+        b[NT - 1][0] = q2[0], b[NT - 1][1] = q2[1];
+      }
+#pragma unroll
+      for (int i = 0; i < NMPW; ++i) {
+        const int mt = warp + 8 * i;
+        if (mt >= mtiles) break;
+        uint32_t a[4];
+        ldsm_x4_trans(a, sX + (r * IW + a_px) * XS + off[2 * mt + a_half]);
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[i][ni], a, b[ni][0], b[ni][1]);
+      }
+    }
+  }
+
+  // this block's partial sums: every (tap, ci, co) of its tile, zeros included
+  const size_t chunk = blockIdx.y;
+  float* pw = p.part_w + chunk * 9 * static_cast<size_t>(cin) * Co;
+#pragma unroll
+  for (int i = 0; i < NMPW; ++i) {
+    const int mt = warp + 8 * i;
+    if (mt >= mtiles) break;
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 16 * mt + (lane >> 2) + (e >> 1) * 8;
+        const int tap = m / CP, ci = ci0 + m % CP;
+        const int co = co0 + ni * 8 + 2 * (lane & 3) + (e & 1);
+        if (tap < 9 && ci < cin && co < Co) {
+          pw[(static_cast<size_t>(tap) * cin + ci) * Co + co] = acc[i][ni][e];
+        }
+      }
+  }
+  if (with_db) {  // the threads' db sums, added in pixel-share order per channel
+    dbs[tid] = db;
+    __syncthreads();
+    if (tid < TCO && co0 + tid < Co) {
+      float s = 0.f;
+      for (int g = 0; g < DG; ++g) s += dbs[g * TCO + tid];
+      p.part_b[chunk * Co + co0 + tid] = s;
+    }
+  }
+}
+
 struct Plan {
   int tiles_x, tiles_y, mi, ni, combos;
+  int cp, nt;  // the narrow path's input channels per tile and n8 tiles (cp = 0: the vector path)
   long long tiles, chunks, per_chunk;
 };
 
-Plan plan(int B, int H, int W, int Cin, int Co) {
+Plan plan(int B, int H, int W, int Cin, int Co, bool narrow) {
   Plan q{};
+  const int th = narrow ? NTH : TH;
   q.tiles_x = (W + TW - 1) / TW;
-  q.tiles_y = (H + TH - 1) / TH;
+  q.tiles_y = (H + th - 1) / th;
   q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
-  q.mi = Cin > 32 ? 2 : 1;
-  q.ni = Co > 32 ? 2 : 1;
-  q.combos = ((Cin + 32 * q.mi - 1) / (32 * q.mi)) * ((Co + 32 * q.ni - 1) / (32 * q.ni));
+  if (narrow) {
+    q.cp = Cin > NCP ? NCP : (Cin + 7) / 8 * 8;
+    q.nt = Co <= 8 ? 1 : Co <= 16 ? 2 : 4;
+    q.combos = ((Cin + q.cp - 1) / q.cp) * ((Co + 8 * q.nt - 1) / (8 * q.nt));
+  } else {
+    q.mi = Cin > 32 ? 2 : 1;
+    q.ni = Co > 32 ? 2 : 1;
+    q.combos = ((Cin + 32 * q.mi - 1) / (32 * q.mi)) * ((Co + 32 * q.ni - 1) / (32 * q.ni));
+  }
   q.chunks = imgseg::chunks_for(q.tiles, q.combos);
   q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
   return q;
@@ -462,8 +621,40 @@ cudaError_t launch_tiles(const Args& p, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The narrow kernel: no more chunks than blocks fit on the card at once, so
+// that one wave runs them all; the count depends only on the shape and
+// the card, and so does the order of every sum.
+template <int GE, int NT>
+cudaError_t launch_narrow(Args& p, Plan& q, cudaStream_t s) {
+  static bool opted = false;
+  auto* kernel = wgrad_narrow_kernel<GE, NT>;
+  // opted in once to the most any shape takes: 24-channel tiles of x and xb, 32 of g and y
+  cudaError_t err = imgseg::allow_smem(kernel, narrow_bytes(NCP, NT, NCP, NCP, 8 * NT + 1, true), opted);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = narrow_bytes(p.cp, NT, p.Ca, p.Cb, p.Co, GE != kGePlain);
+  static size_t asked = 0;  // the last size asked about, and its answer
+  static int resident = 0;
+  if (bytes != asked) {
+    err = imgseg::resident_blocks(kernel, NTHREADS, bytes, resident);
+    if (err != cudaSuccess) return err;
+    asked = bytes;
+  }
+  const long long per = resident / q.combos > 1 ? resident / q.combos : 1;
+  if (per < q.chunks) {
+    q.chunks = per;
+    q.per_chunk = p.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
+  }
+  kernel<<<dim3(q.combos, static_cast<unsigned>(q.chunks)), NTHREADS, bytes, s>>>(p);
+  return cudaGetLastError();
+}
+
 template <int GE>
-cudaError_t launch(const Args& p, const Plan& q, cudaStream_t s) {
+cudaError_t launch(Args& p, Plan& q, cudaStream_t s) {
+  if (q.cp != 0) {
+    return q.nt == 1 ? launch_narrow<GE, 1>(p, q, s)
+           : q.nt == 2 ? launch_narrow<GE, 2>(p, q, s)
+                       : launch_narrow<GE, 4>(p, q, s);
+  }
   const dim3 grid(q.combos, static_cast<unsigned>(q.chunks));
   if (q.mi == 2) {
     return q.ni == 2 ? launch_tiles<GE, 2, 2>(p, grid, s) : launch_tiles<GE, 2, 1>(p, grid, s);
@@ -473,13 +664,21 @@ cudaError_t launch(const Args& p, const Plan& q, cudaStream_t s) {
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
+int g_last_narrow = 0;  // the path of the latest launch (imgseg_conv3x3_wgrad_path)
+
 }  // namespace
 
-// Floats of scratch: a (9, Cin, Co) and a (Co) row per chunk.
+// Floats of scratch: a (9, Cin, Co) and a (Co) row per chunk, for the path
+// with more chunks.
 extern "C" long long imgseg_conv3x3_wgrad_scratch(int B, int H, int W, int Cin, int Co) {
-  const Plan q = plan(B, H, W, Cin, Co);
-  return q.chunks * (9LL * Cin * Co + Co);
+  const long long vec = plan(B, H, W, Cin, Co, false).chunks;
+  const long long nar = plan(B, H, W, Cin, Co, true).chunks;
+  return (vec > nar ? vec : nar) * (9LL * Cin * Co + Co);
 }
+
+// 1 if the latest launch of imgseg_conv3x3_wgrad took the narrow path, 0 if
+// the vector path.
+extern "C" int imgseg_conv3x3_wgrad_path() { return g_last_narrow; }
 
 // dw (9, Ca+Cb, Co) and db (Co), fp32.  g, y (B,H,W,Co); gf (2|4, Co) rows
 // of the cotangent transform, `affine` selecting the 4-row form, or no gf
@@ -491,8 +690,12 @@ extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf
                                     int affine, void* stream) {
   const int cin = Ca + Cb;
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || cin <= 0) return static_cast<int>(cudaSuccess);
-  const Plan q = plan(B, H, W, cin, Co);
+  // the vector path: channel counts multiples of 8, operands on 16-byte boundaries
+  const bool vec = Ca % 8 == 0 && Cb % 8 == 0 && Co % 8 == 0 && aligned16(x) && aligned16(xb) &&
+                   aligned16(ab) && aligned16(g) && aligned16(y) && aligned16(gf);
+  Plan q = plan(B, H, W, cin, Co, !vec);
   if (q.chunks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  g_last_narrow = !vec;
   Args p{};
   p.g = static_cast<const __nv_bfloat16*>(g);
   p.y = static_cast<const __nv_bfloat16*>(y);
@@ -501,11 +704,10 @@ extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf
   p.xb = static_cast<const __nv_bfloat16*>(xb);
   p.ab = static_cast<const float*>(ab);
   p.part_w = static_cast<float*>(scratch);
-  p.part_b = p.part_w + q.chunks * 9LL * cin * Co;
+  p.part_b = p.part_w + q.chunks * 9LL * cin * Co;  // the narrow launch may take fewer chunks
   p.B = B, p.H = H, p.W = W, p.Ca = Ca, p.Cb = Cb, p.Co = Co;
   p.tiles_x = q.tiles_x, p.tiles_y = q.tiles_y, p.tiles = q.tiles, p.per_chunk = q.per_chunk;
-  p.xvec = Ca % 8 == 0 && Cb % 8 == 0 && aligned16(x) && aligned16(xb) && aligned16(ab);
-  p.gvec = Co % 8 == 0 && aligned16(g) && aligned16(y) && aligned16(gf);
+  p.cp = q.cp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (gf == nullptr) {

@@ -1,8 +1,10 @@
 // Tensor-core and asynchronous-copy primitives shared by the tensor-core
 // kernels (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu, conv1x1_bwd.cu,
 // cross_attention.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
-// fp32 sums, cp.async with zero fill, 8-wide bf16 vector helpers and the
-// operand transforms applied on load.
+// fp32 sums, cp.async with zero fill, bulk copies on an mbarrier, 8-wide
+// bf16 vector helpers, the operand transforms applied on load, and the
+// narrow conv paths' staging of operands of any channel count and
+// alignment.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16"): lane l holds A elements
 // (row l/4 [+8], cols 2(l%4)+{0,1} [+8]) in 4 registers, B elements
@@ -78,6 +80,48 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---- Hopper's bulk copy (the TMA engine, no tensor map): one instruction
+// copies a contiguous global range (16-byte aligned, a multiple of 16 bytes)
+// into shared memory and counts its bytes on an mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Expect `bytes` more of this phase's copies on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the barrier's phase of this parity to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses before the bulk
+// copies it issues next (the copies are in another proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // 8 bf16 <-> 16 bytes
 struct Vec8 {
   __nv_bfloat16 v[8];
@@ -105,12 +149,10 @@ __device__ __forceinline__ void load_row8(const float* row, int c, float (&out)[
 // rounded separately as the plain PyTorch versions do (so ReLU masks agree
 // bit for bit); per-channel rows of width C.
 
-// round(relu(x*a + b)), with rows ab = [a, b].
-__device__ __forceinline__ uint4 affine_relu8(const float* ab, int C, int c, const uint4& raw) {
+// round(relu(x*a + b)) of 8 channels, with their a and b.
+__device__ __forceinline__ uint4 affine_relu8(const float (&a)[8], const float (&b)[8],
+                                              const uint4& raw) {
   const Vec8 x = as_vec8(raw);
-  float a[8], b[8];
-  load_row8(ab, c, a);
-  load_row8(ab + C, c, b);
   Vec8 out;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -120,31 +162,221 @@ __device__ __forceinline__ uint4 affine_relu8(const float* ab, int C, int c, con
   return as_raw(out);
 }
 
+// The same, with rows ab = [a, b].
+__device__ __forceinline__ uint4 affine_relu8(const float* ab, int C, int c, const uint4& raw) {
+  float a[8], b[8];
+  load_row8(ab, c, a);
+  load_row8(ab + C, c, b);
+  return affine_relu8(a, b, raw);
+}
+
 // The transformed cotangent of a BatchNorm'd conv output y: round(g + c1 +
-// 2*y*c2), with rows gf = [c1, c2]; with AFFINE round(g*a*[y*a + b > 0] +
-// c1 + 2*y*c2), rows gf = [a, b, c1, c2].
+// 2*y*c2); with AFFINE round(g*a*[y*a + b > 0] + c1 + 2*y*c2).  r holds
+// the rows [c1, c2], or [a, b, c1, c2] with AFFINE.
 template <bool AFFINE>
-__device__ __forceinline__ uint4 cotangent8(const float* gf, int C, int c, const uint4& graw,
+__device__ __forceinline__ uint4 cotangent8(const float (&r)[4][8], const uint4& graw,
                                             const uint4& yraw) {
   const Vec8 g = as_vec8(graw), y = as_vec8(yraw);
-  float a[8], b[8], c1[8], c2[8];
-  if constexpr (AFFINE) {
-    load_row8(gf, c, a);
-    load_row8(gf + C, c, b);
-    gf += 2 * C;
-  }
-  load_row8(gf, c, c1);
-  load_row8(gf + C, c, c2);
+  constexpr int R = AFFINE ? 2 : 0;
   Vec8 out;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float gv = __bfloat162float(g.v[k]), yv = __bfloat162float(y.v[k]);
     float t = gv;
-    if constexpr (AFFINE) t = __fadd_rn(__fmul_rn(yv, a[k]), b[k]) > 0.f ? __fmul_rn(gv, a[k]) : 0.f;
-    out.v[k] = __float2bfloat16(__fadd_rn(__fadd_rn(t, c1[k]), __fmul_rn(__fmul_rn(2.f, yv), c2[k])));
+    if constexpr (AFFINE) t = __fadd_rn(__fmul_rn(yv, r[0][k]), r[1][k]) > 0.f ? __fmul_rn(gv, r[0][k]) : 0.f;
+    out.v[k] = __float2bfloat16(
+        __fadd_rn(__fadd_rn(t, r[R][k]), __fmul_rn(__fmul_rn(2.f, yv), r[R + 1][k])));
   }
   return as_raw(out);
 }
+
+// The same, with rows gf = [c1, c2] or, with AFFINE, [a, b, c1, c2] of width C.
+template <bool AFFINE>
+__device__ __forceinline__ uint4 cotangent8(const float* gf, int C, int c, const uint4& graw,
+                                            const uint4& yraw) {
+  float r[4][8];
+#pragma unroll
+  for (int i = 0; i < (AFFINE ? 4 : 2); ++i) load_row8(gf + i * C, c, r[i]);
+  return cotangent8<AFFINE>(r, graw, yraw);
+}
+
+// ---- the narrow path of the conv kernels: operands whose channel count is
+// not a multiple of 8, or that do not start on a 16-byte boundary, staged 8
+// channels of a pixel at a time into rows padded to a multiple of 8 channels.
+
+__device__ __forceinline__ uint4 or4(const uint4& a, const uint4& b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+
+// ---- runs: the stretches of an NHWC operand that a tile needs, copied
+// into shared memory as they lie in global memory, one bulk copy a run
+// (aligned down to 16 bytes at the head, up at the tail: a 16-byte block
+// that holds a wanted byte lies on the tensor's own pages), then placed 8
+// channels of a pixel at a time into the padded rows the mma reads (the
+// conv kernels' narrow paths).
+
+// A tile: rows x cols pixels from (gy0, gx0) of the image whose first row
+// is img (n * H).
+struct Tile {
+  int gy0, gx0, rows, cols, H, W;
+  size_t img;
+};
+
+// The channels [lo, lo + n) of a C-channel operand that a block takes (n
+// <= 0: none), and where its runs land: `whole` (all C channels, one stage)
+// one run a tile row, else one run a pixel (n <= 32); each run in a slot
+// of `slot` bytes of raw, starting mis[s] bytes into its first 16.
+struct Src {
+  const __nv_bfloat16* ptr;
+  int C, lo, n;
+  bool whole;
+  int slot;
+  unsigned char* raw;
+  unsigned char* mis;
+};
+
+__device__ __forceinline__ Src src_of(const __nv_bfloat16* ptr, int C, int lo, int hi, bool single,
+                                      int cols, unsigned char* raw, unsigned char* mis) {
+  Src r{ptr, C, lo, hi - lo, false, 0, raw, mis};
+  r.whole = single && lo == 0 && r.n == C;
+  const int len = r.whole ? cols * C : 32;  // elements of a run, at most
+  r.slot = r.n > 0 ? (2 * len + 14 + 15) / 16 * 16 : 0;
+  return r;
+}
+
+// Shared-memory bytes of the runs of a C-channel operand over a rows x
+// cols tile (as src_of lays them out).
+__host__ __device__ inline int raw_bytes(int C, bool single, int rows, int cols) {
+  if (C <= 0) return 0;
+  return single ? rows * ((2 * cols * C + 29) / 16 * 16) : rows * cols * 80;
+}
+
+// Start the copies of an operand's runs over a tile, by the lanes of one
+// warp: a bulk copy a run (aligned down at the head, up at the tail), its
+// bytes expected on `bar` before it is issued; each run's offset within its
+// first 16 bytes goes to mis.  The warp then arrives on `bar` once
+// (issue_arrive) and every thread waits for the phase (mbar_wait).
+__device__ __forceinline__ void issue_runs(const Src& r, const Tile& t, int lane, uint64_t* bar) {
+  if (r.n <= 0) return;
+  const int nruns = r.whole ? t.rows : t.rows * t.cols;
+  for (int s = lane; s < nruns; s += 32) {
+    long long eb, ee;
+    if (r.whole) {
+      const int gy = t.gy0 + s;
+      const int xa = max(t.gx0, 0), xb = min(t.gx0 + t.cols, t.W);
+      if (gy < 0 || gy >= t.H || xa >= xb) continue;
+      const long long row = static_cast<long long>(t.img + gy) * t.W;
+      eb = (row + xa) * r.C;
+      ee = (row + xb) * r.C;
+    } else {
+      const int gy = t.gy0 + s / t.cols, gx = t.gx0 + s % t.cols;
+      if (gy < 0 || gy >= t.H || gx < 0 || gx >= t.W) continue;
+      eb = (static_cast<long long>(t.img + gy) * t.W + gx) * r.C + r.lo;
+      ee = eb + r.n;
+    }
+    const uintptr_t a = reinterpret_cast<uintptr_t>(r.ptr + eb);
+    const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+    const uintptr_t a1 = (reinterpret_cast<uintptr_t>(r.ptr + ee) + 15) & ~static_cast<uintptr_t>(15);
+    r.mis[s] = static_cast<unsigned char>(a & 15);
+    mbar_expect_tx(bar, static_cast<uint32_t>(a1 - a0));
+    bulk_copy(r.raw + s * r.slot, reinterpret_cast<const void*>(a0), static_cast<uint32_t>(a1 - a0), bar);
+  }
+}
+
+// Where in-image tile pixel q (tile row tr, column tc) of an operand lies
+// in its runs: channel c (lo <= c < lo + n) at byte at + 2c.
+__device__ __forceinline__ int pixel_at(const Src& r, const Tile& t, int q, int tr, int tc) {
+  if (r.n <= 0) return 0;
+  return r.whole ? tr * r.slot + r.mis[tr] + 2 * (tc + min(t.gx0, 0)) * r.C
+                 : q * r.slot + r.mis[q] - 2 * r.lo;
+}
+
+// Channels c .. c+7 (the operand's own numbering) of a pixel at `at`
+// (pixel_at), zero outside [lo, lo + n).
+__device__ __forceinline__ uint4 read8(const Src& r, int at, int c) {
+  const int k0 = max(r.lo - c, 0), k1 = min(r.lo + r.n - c, 8);
+  if (k0 >= k1) return make_uint4(0u, 0u, 0u, 0u);
+  at += 2 * c;
+  if (k0 == 0 && k1 == 8 && (at & 15) == 0) return *reinterpret_cast<const uint4*>(r.raw + at);
+  Vec8 v;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    v.v[k] = k >= k0 && k < k1 ? *reinterpret_cast<const __nv_bfloat16*>(r.raw + at + 2 * k)
+                               : __float2bfloat16(0.f);
+  }
+  return as_raw(v);
+}
+
+// How a narrow operand is read.
+enum NarrowOp {
+  kOpCat = 0,        // [a | b] (b may have no channels): a conv's input, or g itself
+  kOpAffineRelu = 1,  // round(relu(a*r0 + r1)), no b
+  kOpCot = 2,        // round(a + r0 + 2*b*r1): a = g, b = y (as many channels)
+  kOpCotAffine = 3,  // round(a*r0*[b*r0 + r1 > 0] + r2 + 2*b*r3)
+};
+
+// Channels c .. c+7 (of [a | b], or of a beside b = y) of an in-image
+// pixel at pa in a's runs and pb in b's, after the transform; rows[i][j]:
+// row i of the transform at channel c0 + j (c - c0 a multiple of 8, below
+// 32; zero past the channels).
+template <int OP>
+__device__ __forceinline__ uint4 place8(const Src& a, int pa, const Src& b, int pb, int c,
+                                        const float (*rows)[32], int c0) {
+  const uint4 v = read8(a, pa, c);
+  if constexpr (OP == kOpCat) {
+    return or4(v, read8(b, pb, c - a.C));
+  } else {
+    float f[4][8];
+#pragma unroll
+    for (int i = 0; i < (OP == kOpCotAffine ? 4 : 2); ++i) {
+      const float4* row = reinterpret_cast<const float4*>(rows[i] + (c - c0));
+      const float4 lo = row[0], hi = row[1];
+      f[i][0] = lo.x, f[i][1] = lo.y, f[i][2] = lo.z, f[i][3] = lo.w;
+      f[i][4] = hi.x, f[i][5] = hi.y, f[i][6] = hi.z, f[i][7] = hi.w;
+    }
+    if constexpr (OP == kOpAffineRelu) {
+      return affine_relu8(f[0], f[1], v);
+    } else {
+      return cotangent8<OP == kOpCotAffine>(f, v, read8(b, pb, c));
+    }
+  }
+}
+
+// Place the tile's pixels, a thread a pixel: its G vectors (channels c0 +
+// 8j) at dst + q * stride + 8j; zero for a pixel outside the image (after
+// the transform, as SAME padding is).
+template <int OP>
+__device__ __forceinline__ void place_tile(__nv_bfloat16* dst, int stride, int G, const Src& a,
+                                           const Src& b, const Tile& t, int c0,
+                                           const float (*rows)[32], int tid, int nthreads) {
+  for (int q = tid; q < t.rows * t.cols; q += nthreads) {
+    const int tr = q / t.cols, tc = q - tr * t.cols;
+    const int gy = t.gy0 + tr, gx = t.gx0 + tc;
+    uint4* d = reinterpret_cast<uint4*>(dst + q * stride);
+    if (gy < 0 || gy >= t.H || gx < 0 || gx >= t.W) {
+      for (int j = 0; j < G; ++j) d[j] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const int pa = pixel_at(a, t, q, tr, tc), pb = pixel_at(b, t, q, tr, tc);
+    for (int j = 0; j < G; ++j) d[j] = place8<OP>(a, pa, b, pb, c0 + 8 * j, rows, c0);
+  }
+}
+
+// Stage the `nrows` per-channel rows of width C (row i at src + i*C) for
+// channels c0 .. c0+31 into rows[i][0..32), zeros past C.
+__device__ __forceinline__ void stage_rows(float (*rows)[32], const float* src, int nrows, int C,
+                                           int c0, int tid, int nthreads) {
+  for (int i = tid; i < nrows * 32; i += nthreads) {
+    const int r = i / 32, j = i % 32;
+    rows[r][j] = c0 + j < C ? src[r * C + c0 + j] : 0.f;
+  }
+}
+
+// Shared-memory row stride (bf16) for `c` channels (a multiple of 8) at
+// which the 8 rows of an ldmatrix fall in distinct banks: an odd number of
+// 16-byte units.
+__host__ __device__ constexpr int odd16(int c) { return (c / 8) % 2 ? c : c + 8; }
+
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once.
 template <typename Kernel>

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: name -> argtypes.  Every entry returns cudaError_t as int.
+# C entry points: name -> argtypes.  Every entry returns cudaError_t as int,
+# but the two path queries.
 SIGNATURES = {
     # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, stream
     "imgseg_conv3x3": (_P,) * 8 + (_I,) * 6 + (_P,),
@@ -59,6 +60,9 @@ SIGNATURES = {
     "imgseg_preprocess": (_P,) * 5 + (_I,) * 4 + (_P,),
     # q, k, v, out, B, L, S, D, heads, scale, stream
     "imgseg_cross_attention": (_P,) * 4 + (_I,) * 5 + (_F, _P),
+    # the path of the latest conv launch: 1 narrow, 0 vector (no error code)
+    "imgseg_conv3x3_path": (),
+    "imgseg_conv3x3_wgrad_path": (),
 }
 # Scratch sizes (fp32 elements) of the kernels with a second summing pass:
 # name -> argtypes; each returns long long.

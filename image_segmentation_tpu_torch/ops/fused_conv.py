@@ -493,6 +493,19 @@ def conv3x3_wgrad(
     return dw.view(3, 3, cin, co).permute(3, 2, 0, 1).contiguous(), db
 
 
+def last_path(wrapper) -> str:
+    """``"narrow"`` or ``"vector"``: the path that the latest kernel launch
+    of :func:`conv3x3` and :func:`conv3x3_dgrad` (one kernel), or of
+    :func:`conv3x3_wgrad`, took.  The vector path takes channel counts that
+    are multiples of 8 on 16-byte aligned operands; the narrow path every
+    other shape."""
+    from ._build import library
+
+    query = {conv3x3: "imgseg_conv3x3_path", conv3x3_dgrad: "imgseg_conv3x3_path",
+             conv3x3_wgrad: "imgseg_conv3x3_wgrad_path"}[wrapper]
+    return "narrow" if getattr(library(), query)() else "vector"
+
+
 def bn_relu_bwd_reduce(
     g: torch.Tensor, y: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 ):
@@ -635,7 +648,7 @@ for _w in WRAPPERS:
 # ``torch.export`` cannot trace through a ctypes launch, so inside
 # :func:`operators` the eval forward's three wrappers call the operators
 # ``imgseg::conv3x3`` (any eval form: the [x | x_b] pair or the pre-affine,
-# the ClipRes element path included), ``imgseg::maxpool2x2_affine_relu`` and
+# the ClipRes narrow path included), ``imgseg::maxpool2x2_affine_relu`` and
 # ``imgseg::convtranspose2x2`` instead, and an exported program holds those
 # nodes (``engine/export.export_program``).  Each operator's implementation
 # is its wrapper: on a CPU tensor the plain version, on a CUDA tensor the

@@ -5,6 +5,8 @@ checkout (an earlier commit), on one NVIDIA GPU, in turns.
     git archive <commit> | tar -x -C build/parent      # build/ is ignored by git
     python3 scripts/compare_kernels.py --other build/parent \\
         --entries cross_attention conv1x1_bwd
+    python3 scripts/compare_kernels.py --other build/parent \\
+        --entries conv3x3 conv3x3_dgrad --labels "clip_res out."
 
 Each checkout runs in its own process, which imports that checkout's
 ``chip_smoke.py`` and ``image_segmentation_tpu_torch`` and builds its
@@ -12,7 +14,8 @@ kernels into its own ``build/kernels``.  The processes run in turns:
 other, this, this, other.  Each times, with CUDA events over ``--iters``
 launches after a warm-up, every case of ``chip_smoke.kernel_cases`` of the
 named KERNEL_INFO entries (at the main paths' shapes, ``path_shapes()``,
-and the edge cases the smoke run only checks), and the library call
+and the edge cases the smoke run only checks; with ``--labels``, only the
+cases whose label starts with one of them), and the library call
 beside it, and the host time of one wrapper call (a host clock over
 HOST_CALLS calls with no synchronise).  The result: per
 case the mean ms of both checkouts and the library's, and per entry the sum
@@ -51,7 +54,7 @@ def device_us():
     return mod.device_us
 
 
-def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
+def child(root: Path, entries: list, labels: list, iters: int, with_profile: bool) -> None:
     """Time the cases in this process, from ``root``'s modules."""
     sys.path.insert(0, str(root))
     import torch
@@ -68,10 +71,13 @@ def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
     mods = smoke.kernel_modules()
     device_times = device_us() if with_profile else None
     for entry, label, timed, make in smoke.kernel_cases(torch, mods, smoke.path_shapes()):
-        if entry not in entries:
+        if entry not in entries or (labels and not label.startswith(tuple(labels))):
             continue
         case = make()
         got = case.kern()
+        last_path = getattr(mods[0], "last_path", None)  # the conv kernels' path, where known
+        path = (last_path(getattr(mods[0], smoke.KERNEL_INFO[entry][0]))
+                if last_path is not None and entry.startswith("conv3x3") else None)
         smoke.compare(torch, f"{entry} {label}", got, case.plain(), case.tol)
         ms = smoke.cuda_ms(torch, case.kern, iters)
         lib = None if case.library is None else smoke.cuda_ms(torch, case.library, iters)
@@ -85,7 +91,7 @@ def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
         host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
         torch.cuda.synchronize()
         row = {"entry": entry, "label": label, "timed": timed, "ms": ms, "library_ms": lib,
-               "host_us": host_us,
+               "host_us": host_us, "path": path,
                "TBps": smoke._nbytes([*case.inputs, got]) / ms / 1e9,
                "copy_TBps": 2 * smoke._nbytes(inputs) / copy_ms / 1e9}
         del got, twins
@@ -96,9 +102,10 @@ def child(root: Path, entries: list, iters: int, with_profile: bool) -> None:
         torch.cuda.empty_cache()
 
 
-def run(root: Path, entries: list, iters: int, with_profile: bool) -> list:
+def run(root: Path, entries: list, labels: list, iters: int, with_profile: bool) -> list:
     cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root),
-           "--iters", str(iters), "--entries", *entries] + (["--profile"] if with_profile else [])
+           "--iters", str(iters), "--entries", *entries, "--labels", *labels]
+    cmd += ["--profile"] if with_profile else []
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
     if res.returncode != 0:
         raise RuntimeError(f"{root}: exit {res.returncode}\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
@@ -109,12 +116,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the checkout to compare with")
     ap.add_argument("--entries", nargs="+", required=True, help="KERNEL_INFO entries")
+    ap.add_argument("--labels", nargs="*", default=[], help="case label prefixes (default: all)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true", help="device time per CUDA kernel")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve(), args.entries, args.iters, args.profile)
+        child(args.child.resolve(), args.entries, args.labels, args.iters, args.profile)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -122,15 +130,16 @@ def main() -> int:
              ("other", args.other.resolve())]
     times = {}  # (entry, label) -> {"timed", "other": [ms], "this": [ms], "library": [ms]}
     for who, root in order:
-        for r in run(root, args.entries, args.iters, args.profile):
+        for r in run(root, args.entries, args.labels, args.iters, args.profile):
             t = times.setdefault((r["entry"], r["label"]),
                                  {"timed": r["timed"], "other": [], "this": [], "library": [],
                                   "TBps": [], "copy_TBps": [], "other_host_us": [],
-                                  "this_host_us": []})
+                                  "this_host_us": [], "path": None})
             t["copy_TBps"].append(r["copy_TBps"])
             t[who + "_host_us"].append(r["host_us"])
             if who == "this":
                 t["TBps"].append(r["TBps"])
+                t["path"] = r.get("path")
             if "device_us" in r:
                 t.setdefault(who + "_device_us", r["device_us"])
             t[who].append(r["ms"])
@@ -146,7 +155,7 @@ def main() -> int:
                "other_ms": mean(t["other"]), "library_ms": mean(t["library"]),
                "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]),
                "this_host_us": mean(t["this_host_us"]), "other_host_us": mean(t["other_host_us"]),
-               "card": card,
+               "this_path": t["path"], "card": card,
                **{k: v for k, v in t.items() if k.endswith("_device_us")}}
         print(json.dumps(row), flush=True)
         if t["timed"] == "sum" and t["this"] and t["other"]:

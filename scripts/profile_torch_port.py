@@ -88,12 +88,16 @@ MODEL_ARGS = smoke.train_config().model_args
 DEVICE = smoke.DEVICE
 FORWARDS = 5
 TRAIN_STEPS = 3
-# device kernel name -> group; conv3x3_kernel<LOAD, EPI>: LOAD 0 is the
-# forward, 1 to 3 the dgrad (3: the raw cotangent of an unfused conv)
+# device kernel name -> group (the first that matches); conv3x3_kernel<LOAD,
+# EPI> and its narrow path narrow_kernel<LOAD, ...>: LOAD 0 is the forward,
+# 1 to 3 the dgrad (3: the raw cotangent of an unfused conv)
 OWN_KERNELS = (
     ("conv3x3_kernel<0", "conv3x3 (forward)"), ("conv3x3_kernel<1", "conv3x3_dgrad"),
     ("conv3x3_kernel<2", "conv3x3_dgrad"), ("conv3x3_kernel<3", "conv3x3_dgrad"),
-    ("wgrad_kernel", "conv3x3_wgrad"), ("conv1x1_bwd_kernel", "conv1x1_bwd"),
+    ("wgrad_kernel", "conv3x3_wgrad"), ("wgrad_narrow_kernel", "conv3x3_wgrad (narrow)"),
+    ("narrow_kernel<0", "conv3x3 (forward, narrow)"), ("narrow_kernel<1", "conv3x3_dgrad (narrow)"),
+    ("narrow_kernel<2", "conv3x3_dgrad (narrow)"), ("narrow_kernel<3", "conv3x3_dgrad (narrow)"),
+    ("conv1x1_bwd_kernel", "conv1x1_bwd"),
     ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
     ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_bwd_kernel", "convtranspose2x2_bwd"),
     ("ct_fwd_kernel", "convtranspose2x2"),

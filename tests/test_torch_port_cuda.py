@@ -211,9 +211,28 @@ WIDE_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
     ((2, 19, 37, 32), 0, 32, True),     # dec5.conv2
     ((2, 19, 37, 16), 0, 16, False),    # clip_res dec5.conv1
     ((2, 19, 37, 16), 0, 16, True),     # clip_res dec5.conv2
-    ((2, 19, 37, 16), 3, 3, False),     # clip_res out.conv1 [16|3] -> 3: the element path
+    ((2, 19, 37, 16), 3, 3, False),     # clip_res out.conv1 [16|3] -> 3: the narrow path
     ((2, 19, 37, 3), 0, 3, True),       # clip_res out.conv2 3 -> 3
+    # the narrow path: Cin 1, 3, 5, [16|3], [8|5], Co 1, 3, 5, 12, past one
+    # 32-channel stage and one 32-channel N tile; H and W ragged against its
+    # 32x16 pixel tile
+    ((2, 37, 21, 1), 0, 32, False),     # prompt enc1.conv1, the heatmap
+    ((2, 37, 21, 3), 0, 5, True),
+    ((2, 37, 21, 5), 0, 12, True),
+    ((2, 37, 21, 8), 5, 1, False),      # [8|5] -> 1
+    ((1, 70, 19, 16), 3, 3, False),     # [16|3] -> 3 over three tile rows
+    ((2, 19, 37, 40), 0, 3, True),      # two stages of K
+    ((1, 11, 23, 45), 0, 12, False),
+    ((1, 9, 13, 3), 0, 40, False),      # two N tiles
+    ((2, 37, 21, 5), 0, 20, True),      # 20 of a 32-wide N tile
 ]
+
+
+def _narrow(*channels, split=None) -> bool:
+    """Whether the conv kernels take their narrow path for these channel
+    counts (on operands at 16-byte boundaries): any count not a multiple of
+    8, or an odd split."""
+    return any(c % 8 for c in channels) or (split is not None and split % 2 == 1)
 
 
 @pytest.mark.parametrize("stats", [False, True])
@@ -227,6 +246,7 @@ def test_conv3x3_at_main_path_widths(gen, shape, cb, co, pre, stats):
     ab = dict(a=torch.rand(ca, generator=gen, device="cuda") + 0.5,
               b=_randn(gen, ca, dtype=torch.float32) * 0.5) if pre else {}
     got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, x_b=xb, stats=stats, **ab))
+    assert fc.last_path(fc.conv3x3) == ("narrow" if _narrow(ca, cb, co) else "vector")
     _close_all(got, fc.conv3x3_plain(x, w, bias, x_b=xb, stats=stats, **ab))
 
 
@@ -245,6 +265,17 @@ WIDE_BWD = [
     ((2, 19, 37, 16), 0, 16, True, "post"),      # clip_res dec5.conv2
     ((2, 19, 37, 16), 3, 3, False, "split"),     # clip_res out.conv1 [16|3] -> 3
     ((2, 19, 37, 3), 0, 3, True, "post"),        # clip_res out.conv2 3 -> 3
+    # the narrow path in every load mode and epilogue
+    ((2, 37, 21, 1), 0, 32, False, None),        # prompt enc1.conv1: the wgrad at Cin 1
+    ((2, 37, 21, 3), 0, 5, True, "post"),
+    ((2, 37, 21, 5), 0, 12, False, "raw"),
+    ((2, 37, 21, 5), 0, 3, True, None),
+    ((2, 37, 21, 8), 5, 1, False, "split"),      # [8|5]
+    ((2, 37, 21, 5), 3, 3, True, "split"),       # [5|3]: dx split at an odd Na
+    ((1, 70, 19, 16), 3, 3, False, "split"),     # [16|3] over three tile rows
+    ((1, 11, 23, 3), 0, 40, False, "post"),      # dx: two stages of K; dw: two N tiles
+    ((2, 19, 37, 40), 0, 3, False, None),        # dw: two input-channel tiles
+    ((2, 19, 37, 20), 0, 3, True, "post"),       # dx: 20 of a 32-wide N tile, the post adjoint
 ]
 
 
@@ -271,6 +302,8 @@ def _wide_bwd(gen, shape, cb, co, affine, epi):
 def test_conv3x3_dgrad_at_main_path_widths(gen, shape, cb, co, affine, epi):
     g, y, c1, c2, w, _, kw, _ = _wide_bwd(gen, shape, cb, co, affine, epi)
     got = _counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **kw))
+    narrow = _narrow(co, shape[-1] + cb, split=kw.get("split"))
+    assert fc.last_path(fc.conv3x3_dgrad) == ("narrow" if narrow else "vector")
     _close_all(got, fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **kw))
 
 
@@ -278,6 +311,7 @@ def test_conv3x3_dgrad_at_main_path_widths(gen, shape, cb, co, affine, epi):
 def test_conv3x3_wgrad_at_main_path_widths(gen, shape, cb, co, affine, epi):
     g, y, c1, c2, _, x, _, kw = _wide_bwd(gen, shape, cb, co, affine, epi)
     got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **kw))
+    assert fc.last_path(fc.conv3x3_wgrad) == ("narrow" if _narrow(shape[-1], cb, co) else "vector")
     _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2, **kw))
 
 
@@ -299,7 +333,8 @@ def test_conv3x3_forward_and_wgrad_at_one_input_channel(gen, co, stats):
 
 def test_conv_kernels_are_deterministic(gen):
     """Two launches on the same inputs: bit-identical outputs and sums (the
-    cross-block sums are partial rows added in a fixed order, no atomics)."""
+    cross-block sums are partial rows added in a fixed order, no atomics),
+    on the vector path and on the narrow path (ClipRes's output block)."""
     shape, co = (2, 19, 37, 64), 64
     g, y, c1, c2, w, x, dkw, wkw = _wide_bwd(gen, shape, 0, co, True, "post")
     bias = _randn(gen, co, dtype=torch.float32)
@@ -307,6 +342,13 @@ def test_conv_kernels_are_deterministic(gen):
         lambda: fc.conv3x3(x, w, bias, a=dkw["a_post"], b=dkw["b_post"], stats=True),
         lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **dkw),
         lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **wkw),
+    ]
+    ng, ny, nc1, nc2, nw, nx, ndkw, nwkw = _wide_bwd(gen, (2, 70, 37, 16), 3, 3, False, "split")
+    nbias = _randn(gen, 3, dtype=torch.float32)
+    calls += [
+        lambda: fc.conv3x3(nx, nw, nbias, x_b=nwkw["x_b"], stats=True),
+        lambda: fc.conv3x3_dgrad(ng, ny, nw, nc1, nc2, **ndkw),
+        lambda: fc.conv3x3_wgrad(ng, ny, nx, nc1, nc2, **nwkw),
     ]
     for call in calls:
         first, second = call(), call()
@@ -761,6 +803,32 @@ def test_conv1x1_bwd_is_deterministic(gen):
         torch.cuda.synchronize()
         for a, b in zip(first, second, strict=True):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,cb,co,affine,epi", [
+    ((2, 37, 21, 16), 0, 16, False, "post"),   # would be the vector path, but for the offset
+    ((2, 37, 21, 32), 0, 32, True, None),
+    ((2, 37, 21, 16), 3, 3, False, "split"),   # clip_res out.conv1
+    ((2, 37, 21, 8), 8, 8, False, "raw"),
+])
+def test_conv3x3_kernels_on_unaligned_operands(gen, shape, cb, co, affine, epi):
+    """Operands one element past a 16-byte boundary (``_shifted``) take the
+    narrow path of the forward (x), the dgrad (g and y) and the wgrad (x,
+    g and y), whatever their channel counts."""
+    g, y, c1, c2, w, x, dkw, wkw = _wide_bwd(gen, shape, cb, co, affine, epi)
+    g, x = _shifted(g), _shifted(x)
+    y = None if y is None else _shifted(y)
+    bias = _randn(gen, co, dtype=torch.float32)
+    pre = dict(a=dkw["a_post"], b=dkw["b_post"]) if epi == "post" else {}
+    got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, x_b=wkw["x_b"], stats=True, **pre))
+    assert fc.last_path(fc.conv3x3) == "narrow"
+    _close_all(got, fc.conv3x3_plain(x, w, bias, x_b=wkw["x_b"], stats=True, **pre))
+    got = _counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **dkw))
+    assert fc.last_path(fc.conv3x3_dgrad) == "narrow"
+    _close_all(got, fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **dkw))
+    got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **wkw))
+    assert fc.last_path(fc.conv3x3_wgrad) == "narrow"
+    _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2, **wkw))
 
 
 @pytest.mark.parametrize("shape,co", [((2, 19, 37, 8), 16), ((1, 9, 5, 3), 7)])

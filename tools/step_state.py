@@ -17,8 +17,9 @@ clip_autoencoder, unet with ``fused_deep`` and ``remat``) and of the
 ``image_segmentation_tpu_torch`` of another checkout (an earlier commit
 unpacked with ``git archive`` into ``build/parent``, say); the step's
 settings always come from this checkout's ``chip_smoke.py``.
-``--compare`` prints the largest difference
-and exits 1 if the two files differ.
+``--compare`` prints, per step, whether it is bit for bit the other
+file's and its largest leaf difference, and exits 1 if the two files
+differ.
 """
 
 import sys
@@ -74,13 +75,24 @@ def step_state(out: str) -> None:
 
 
 def compare(a: str, b: str) -> bool:
+    """Whether two dumps are bit-identical; prints, per step (the
+    large_unet step, then each ``<run>/``), whether it is and its largest
+    leaf difference."""
     za, zb = np.load(a), np.load(b)
     same = sorted(za.files) == sorted(zb.files)
-    worst = 0.0
+    worst, steps = 0.0, {}
     for k in za.files:
         if k in zb.files:
-            same &= bool(np.array_equal(za[k], zb[k]))
-            worst = max(worst, float(np.max(np.abs(za[k] - zb[k]))))
+            equal = bool(np.array_equal(za[k], zb[k]))
+            diff = float(np.max(np.abs(za[k] - zb[k])))
+            step = k.split("/")[0] + "/" if "/" in k.split("grad/")[0] else "large_unet"
+            eq, big, leaf = steps.get(step, (True, 0.0, ""))
+            steps[step] = (eq and equal, max(big, diff), k if diff > big else leaf)
+            same &= equal
+            worst = max(worst, diff)
+    for step, (eq, big, leaf) in steps.items():
+        print(f"  {step}: bit-identical {eq}" + ("" if eq else f", largest |difference| {big!r} "
+                                                 f"at {leaf}"), flush=True)
     print(f"step states {a} and {b}: bit-identical {same}, largest |difference| {worst!r} "
           f"({len(za.files)} arrays)", flush=True)
     return same
