@@ -462,6 +462,13 @@ def reset_counts(mods) -> None:
     for m in mods:
         for w in m.WRAPPERS:
             w.launches = 0
+    for w in mods[0].CONV_WRAPPERS:
+        w.deep_launches = 0
+
+
+def deep_counts(mods) -> dict:
+    """The conv wrappers' launches on their deep path since reset_counts."""
+    return {w.__name__: w.deep_launches for w in mods[0].CONV_WRAPPERS}
 
 
 def expected(per: dict, times: int = 1) -> dict:
@@ -998,15 +1005,21 @@ def kernel_phase(torch, mods, groups: list) -> dict:
     results = {entry: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                        "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None}
                for entry in KERNEL_INFO}
+    # the path the rule (fused_conv.conv_path) gives each conv
+    rule = {c.label: mods[0].conv_path(c.shape[-1], c.cb, c.co)
+            for shapes, _ in groups for c in shapes["conv"]}
     for entry, label, timed, make in kernel_cases(torch, mods, groups):
         case = make()
         got = case.kern()
         path = ""
-        if entry.startswith("conv3x3"):  # the conv kernels' path: narrow or vector
+        if entry.startswith("conv3x3"):  # the conv kernels' path: vector, narrow or deep
             taken = mods[0].last_path(getattr(mods[0], KERNEL_INFO[entry][0]))
             path = f" path={taken}"
             if label.startswith(NARROW_LABELS) and taken != "narrow":
                 raise AssertionError(f"{entry} {label}: took the {taken} path, not the narrow one")
+            want = rule.get(label.removesuffix(" stats"))
+            if (want == "deep") != (taken == "deep"):
+                raise AssertionError(f"{entry} {label}: took the {taken} path, the rule gives {want}")
         r = results[entry]
         r["max_abs_err"] = max(r["max_abs_err"], compare(torch, f"{entry} {label}", got,
                                                          case.plain(), case.tol))
@@ -2900,6 +2913,10 @@ def fused_deep_training(torch, mods, card: str, name: str = "large_unet",
         raise AssertionError(f"{what}: fold-1 kernel blocks {blocks}")
     print(f"trainer: {what}, batch {cfg.batch_size}, fold-1 kernel blocks {blocks}", flush=True)
     launches = _train_epoch(torch, mods, trainer, PER_FD_STEP, PER_FD_FORWARD, what)
+    deep = deep_counts(mods)  # the fold-1 convs' launches on the conv kernels' deep path
+    print(f"{what}: the epoch's launches on the deep path {deep}", flush=True)
+    if not all(deep.values()):
+        raise AssertionError(f"{what}: a conv kernel never took the deep path: {deep}")
     images, masks = _u8_batch(torch, SEED + 37, size)
     state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     _step_launches(torch, mods, trainer, images, masks, PER_FD_STEP, what)

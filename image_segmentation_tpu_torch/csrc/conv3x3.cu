@@ -72,6 +72,38 @@
 // and stores it as 16-byte words (16 pixels x 3 channels are one 96-byte
 // run); a block's sums are one row of partials.  Measured share of the
 // bound: PERF.md (section 6, the output block's rows).
+//
+// The deep path (deep_kernel) takes Ca, Cb and Co multiples of 64 with 256
+// or more channels in or out, as the caller's rule (ops/fused_conv.
+// conv_path) says: the fold-1 blocks of fused_deep, 128-512 channels at
+// 1/4 and 1/8 of the image side, which the vector path above was not
+// designed for.  What bounds it: the tensor cores (2*9*Cin*Co FLOPs a pixel
+// against ~2*(Cin+Co) bytes).  What held the vector path back there: each
+// 128-pixel block staged the whole 9 x Cin x 64 weight slice again (2.4 GB
+// of L2 traffic for enc4.conv2, 512 -> 512 at 64^2), and ldmatrix feeding
+// mma.sync from shared memory capped the tensor cores near half their rate.
+// What the design does about it: an implicit GEMM on Hopper's wgmma (bf16
+// in, fp32 sums) with both operands read from shared memory by descriptor.
+// A persistent block (one an SM) walks tiles of 4 x 64 output pixels (M =
+// 256, one image row a m64 wgmma tile) by N = 64 or 128 output channels; K
+// is 9 taps x Cin in 64-channel stages, so a block reads the weights once
+// per 256 pixels.  Warpgroup 0 produces: warp 0 keeps a ring of 4 weight
+// tiles (one tap x 64 channels x N, packed by the wrapper as the wgmma's
+// K-major core matrices) full with one bulk copy each, on mbarriers; warps
+// 1-3 stage each 64-channel stage of the (4+2) x (64+2) halo, transformed
+// in registers (the affine + ReLU, [x | xb], or the cotangent transform)
+// and zero outside the image after the transform, into 8-channel planes of
+// 16-byte pixel rows, double-buffered: a plane's 8 consecutive pixels are
+// a core matrix of A, so a tap's shift of one pixel is a start address
+// 16 bytes on (no swizzle).  Warpgroups 1 and 2 each run two m64 x N x 16
+// wgmmas a k16 step, one commit group a tap, and free a ring slot or a
+// halo once the group after it is committed and the one before it is done;
+// a tile's epilogue overlaps the producer's next loads.  The epilogues are
+// the vector path's, on the wgmma accumulators (the m16n8 layout repeated
+// over N/8); sums go to one row of partials a block (reduce.cuh).  No
+// atomics, and no fallback: a shape the rule gives this path launches this
+// kernel or the call fails.  Measured share of the bound: PERF.md
+// (section 6, the fold-1 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,7 +168,8 @@ struct Args {
   float* partial;              // kEpiStats/kEpiPost: (blocks, 2, Co)
   int H, W, Ca, Cb, Co, Na, co_tiles;
   int kp;  // the narrow path: channels per stage, padded to a multiple of 8
-  int tiles_x, tiles_y, nblk;  // the narrow path: pixel tiles; blocks along them
+  int tiles_x, tiles_y, nblk;  // the narrow and deep paths: pixel tiles; blocks along them
+  int deep;  // the deep path: its N tile (64 or 128), else 0
   long long tiles;
 };
 
@@ -788,13 +821,290 @@ __global__ void __launch_bounds__(THREADS, NT == 4 ? 2 : 3) narrow_kernel(const 
   }
 }
 
+// ---- the deep path: Ca, Cb and Co multiples of 64 with 256 or more
+// channels in or out (the fold-1 blocks' levels).  A block walks tiles of
+// DR x DW output pixels by N = 8 * NT output channels (blockIdx.y); K is 9
+// taps x Cin in stages of DK channels.  Warpgroup 0 is the producer: warp 0
+// keeps the weights' ring full by bulk copies, warps 1-3 stage the
+// transformed halo of each DK-channel group; warpgroups 1 and 2 each own
+// two tile rows (two m64 wgmma tiles) by all N channels.
+constexpr int DR = 4;                       // output rows a tile
+constexpr int DW = 64;                      // output columns a tile: one m64 tile a row
+constexpr int DHALO = (DR + 2) * (DW + 2);  // halo pixels
+constexpr int DK = 64;                      // channels a K stage
+constexpr int DPLANE = DHALO * 8;           // bf16 of one 8-channel plane of the halo
+constexpr int DA = 8 * DPLANE;              // bf16 of one staged halo
+constexpr int DSTAGES = 4;                  // the weights' ring
+constexpr int DTHREADS = 384;
+constexpr int DPRODUCERS = 96;              // warps 1-3: the halo
+// registers a thread after the producer warpgroup gives some to the two
+// consumer warpgroups (168 at the launch: 128 x 48 given, 256 x 24 taken);
+// setmaxnreg also keeps ptxas from serializing the consumers' wgmmas
+// behind the branch between the roles
+constexpr int DPRODUCER_REGS = 120;
+constexpr int DCONSUMER_REGS = 192;
+
+__host__ __device__ constexpr size_t deep_bytes(int nt) {
+  return (2 * static_cast<size_t>(DA) + DSTAGES * static_cast<size_t>(8 * nt) * DK) *
+         sizeof(__nv_bfloat16);
+}
+
+__host__ __device__ inline long long deep_tiles(int B, int H, int W) {
+  return static_cast<long long>(B) * ((H + DR - 1) / DR) * ((W + DW - 1) / DW);
+}
+
+// The block's k-th tile: image n, origin (y0, x0).
+__device__ __forceinline__ void deep_tile_of(const Args& p, long long k, int& n, int& y0, int& x0) {
+  const long long t = blockIdx.x + k * gridDim.x;
+  x0 = static_cast<int>(t % p.tiles_x) * DW;
+  y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * DR;
+  n = static_cast<int>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y));
+}
+
+// Warp 0 of the producer: the weights' ring, one bulk copy of N x DK a
+// (tile, K stage, tap), packed by the wrapper as the wgmma's K-major core
+// matrices (ops/fused_conv.deep_pack), by lane 0.
+template <int NT>
+__device__ __forceinline__ void deep_weights(const Args& p, __nv_bfloat16* sW, uint64_t* full_w,
+                                             uint64_t* empty_w, long long mine, int nk) {
+  constexpr int WSTAGE = 8 * NT * DK;
+  if ((threadIdx.x & 31) != 0) return;
+  long long q = 0;
+  for (long long k = 0; k < mine; ++k)
+    for (int c = 0; c < nk; ++c)
+      for (int tap = 0; tap < 9; ++tap, ++q) {
+        const int s = static_cast<int>(q % DSTAGES);
+        imgseg::mbar_wait(&empty_w[s], static_cast<int>((q / DSTAGES) & 1) ^ 1);
+        imgseg::mbar_arrive_tx(&full_w[s], WSTAGE * 2);
+        const size_t at = ((static_cast<size_t>(blockIdx.y) * nk + c) * 9 + tap) * WSTAGE;
+        imgseg::bulk_copy(sW + s * WSTAGE, p.w + at, WSTAGE * 2, &full_w[s]);
+      }
+}
+
+// Warps 1-3 of the producer: the halo of each (tile, K stage), 8 channels
+// of a pixel a thread (pt: 0..95), transformed in registers, into 8-channel
+// planes of 16-byte pixel rows (the K-major core matrices of A: 8
+// consecutive pixels a core matrix); zero outside the image AFTER the
+// transform.
+template <int LOAD>
+__device__ __forceinline__ void deep_halo(const Args& p, __nv_bfloat16* sA, uint64_t* full_a,
+                                          uint64_t* empty_a, long long mine, int nk, int pt) {
+  constexpr bool kGe = LOAD == kLoadGeStats || LOAD == kLoadGeAffine;
+  constexpr int NR = LOAD == kLoadGeAffine ? 4 : kGe ? 2 : LOAD == kLoadX ? 2 : 0;
+  constexpr int PL = DPRODUCERS / 8;  // pixel lanes
+  constexpr int U = 8;                // vectors in flight a thread
+  const int H = p.H, W = p.W;
+  const int j = pt & 7;  // this thread's plane: the stride is a multiple of 8
+  long long g = 0;
+  for (long long k = 0; k < mine; ++k) {
+    int n, y0, x0;
+    deep_tile_of(p, k, n, y0, x0);
+    const size_t img = static_cast<size_t>(n) * H;
+    for (int c = 0; c < nk; ++c, ++g) {
+      const int b = static_cast<int>(g & 1);
+      const int gc = c * DK + 8 * j;  // channel of [x | xb], or of g
+      const bool in_b = LOAD == kLoadX && gc >= p.Ca;
+      const __nv_bfloat16* src = in_b ? p.xb : p.x;
+      const int cs = in_b ? p.Cb : p.Ca, cc = in_b ? gc - p.Ca : gc;
+      // this stage's transform rows at the thread's 8 channels
+      const bool rows = kGe || (LOAD == kLoadX && p.ab != nullptr && !in_b);
+      float r[4][8];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (rows) imgseg::load_row8(p.ab + i * p.Ca, gc, r[i]);
+      }
+      imgseg::mbar_wait(&empty_a[b], static_cast<int>((g >> 1) & 1) ^ 1);
+      __nv_bfloat16* dst = sA + b * DA + j * DPLANE;
+      for (int q0 = pt >> 3; q0 < DHALO; q0 += U * PL) {
+        uint4 v[U], yv[U];
+        bool ok[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = q0 + u * PL;
+          const int gy = y0 - 1 + q / (DW + 2), gx = x0 - 1 + q % (DW + 2);
+          ok[u] = q < DHALO && gy >= 0 && gy < H && gx >= 0 && gx < W;
+          v[u] = yv[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (ok[u]) {
+            const size_t pix = (img + gy) * W + gx;
+            v[u] = __ldg(reinterpret_cast<const uint4*>(src + pix * cs + cc));
+            if constexpr (kGe) yv[u] = __ldg(reinterpret_cast<const uint4*>(p.xb + pix * cs + cc));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int q = q0 + u * PL;
+          if (q >= DHALO) break;
+          uint4 val = v[u];
+          if (ok[u] && rows) {
+            if constexpr (LOAD == kLoadX) {
+              val = imgseg::affine_relu8(r[0], r[1], v[u]);
+            } else if constexpr (kGe) {
+              val = imgseg::cotangent8<LOAD == kLoadGeAffine>(r, v[u], yv[u]);
+            }
+          }
+          *reinterpret_cast<uint4*>(dst + q * 8) = val;
+        }
+      }
+      imgseg::fence_proxy_async();  // the stores, before the wgmma reads them
+      imgseg::mbar_arrive(&full_a[b]);
+    }
+  }
+}
+
+template <int LOAD, int EPI, int NT>
+__global__ void __launch_bounds__(DTHREADS, 1) deep_kernel(const Args p) {
+  constexpr int N = 8 * NT;
+  constexpr int WSTAGE = N * DK;  // bf16 of one (tap, K stage) weight tile
+  constexpr bool kSums = EPI == kEpiStats || EPI == kEpiPost;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // two staged halos
+  __nv_bfloat16* sW = sA + 2 * DA;                                  // the weights' ring
+  __shared__ uint64_t full_a[2], empty_a[2], full_w[DSTAGES], empty_w[DSTAGES];
+  __shared__ float red[8][2][N];  // the sum epilogues: one row a consumer warp
+
+  const int H = p.H, W = p.W, Co = p.Co, cin = p.Ca + p.Cb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int co0 = blockIdx.y * N;
+  const int nk = cin / DK;  // K stages a tile
+  const long long mine = (p.tiles - 1 - blockIdx.x) / gridDim.x + 1;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      imgseg::mbar_init(&full_a[i], DPRODUCERS);
+      imgseg::mbar_init(&empty_a[i], 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < DSTAGES; ++i) {
+      imgseg::mbar_init(&full_w[i], 1);
+      imgseg::mbar_init(&empty_w[i], 8);
+    }
+    imgseg::fence_barrier_init();
+  }
+  for (int i = tid; i < 8 * 2 * N; i += DTHREADS) (&red[0][0][0])[i] = 0.f;
+  __syncthreads();
+
+  if (warp < 4) {  // ---- the producer warpgroup
+    imgseg::reg_dealloc<DPRODUCER_REGS>();
+    if (warp == 0) {
+      deep_weights<NT>(p, sW, full_w, empty_w, mine, nk);
+    } else {
+      deep_halo<LOAD>(p, sA, full_a, empty_a, mine, nk, tid - 32);
+    }
+  } else {
+    // ---- the consumers: warpgroup cw owns tile rows 2cw, 2cw+1 (m64 tiles
+    // jm = 0, 1: one image row of DW pixels each) by all N channels
+    imgseg::reg_alloc<DCONSUMER_REGS>();
+    const int cw = warp / 4 - 1, w = warp & 3;
+    float acc[2][4 * NT];
+    long long g = 0, q = 0;
+    int pend_w = -1, pend_a = -1;  // what the group in flight reads
+    auto release = [&]() {
+      if (lane == 0) {
+        if (pend_w >= 0) imgseg::mbar_arrive(&empty_w[pend_w]);
+        if (pend_a >= 0) imgseg::mbar_arrive(&empty_a[pend_a]);
+      }
+      pend_w = pend_a = -1;
+    };
+    for (long long k = 0; k < mine; ++k) {
+      int n, y0, x0;
+      deep_tile_of(p, k, n, y0, x0);
+      for (int c = 0; c < nk; ++c, ++g) {
+        const int b = static_cast<int>(g & 1);
+        imgseg::mbar_wait(&full_a[b], static_cast<int>((g >> 1) & 1));
+        const __nv_bfloat16* a0 = sA + b * DA;
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap, ++q) {
+          const int s = static_cast<int>(q % DSTAGES);
+          imgseg::mbar_wait(&full_w[s], static_cast<int>((q / DSTAGES) & 1));
+          const int ky = tap / 3, kx = tap % 3;
+          const __nv_bfloat16* w0 = sW + s * WSTAGE;
+          imgseg::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < DK / 16; ++ks) {
+            // B: K-major cores (n/8, k/8) of 128 bytes: K-adjacent 128 apart, N-adjacent 1024
+            const uint64_t db = imgseg::wgmma_desc(w0 + ks * 128, 128, 1024);
+#pragma unroll
+            for (int jm = 0; jm < 2; ++jm) {
+              // A: pixel rows of plane 2ks, shifted by the tap; K-adjacent planes DPLANE apart
+              const __nv_bfloat16* at = a0 + 2 * ks * DPLANE + ((2 * cw + jm + ky) * (DW + 2) + kx) * 8;
+              const uint64_t da = imgseg::wgmma_desc(at, DPLANE * 2, 128);
+              imgseg::wgmma<0, 0, NT>(acc[jm], da, db, (c | tap | ks) != 0);
+            }
+          }
+          imgseg::wgmma_commit();
+          imgseg::wgmma_wait<1>();  // the previous group is done: free what it read
+          release();
+          pend_w = s;
+          if (tap == 8) pend_a = b;
+        }
+      }
+      imgseg::wgmma_wait<0>();
+      imgseg::fence_acc(acc[0]);
+      imgseg::fence_acc(acc[1]);
+      release();
+
+      // ---- the epilogue on the accumulators: lane holds pixels 16w +
+      // lane/4 (+8) of rows 2cw + jm, channels 8t + 2(lane%4) (+1)
+      const size_t img = static_cast<size_t>(n) * H;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int gco = co0 + 8 * t + 2 * (lane & 3);
+        float bias[2] = {0.f, 0.f};
+        if (p.bias != nullptr) bias[0] = p.bias[gco], bias[1] = p.bias[gco + 1];
+        float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jm = 0; jm < 2; ++jm) {
+          const int gy = y0 + 2 * cw + jm;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gx = x0 + 16 * w + (lane >> 2) + 8 * h;
+            if (gy >= H || gx >= W) continue;
+            const float v[2] = {acc[jm][4 * t + 2 * h] + bias[0], acc[jm][4 * t + 2 * h + 1] + bias[1]};
+            emit<EPI>(p, (img + gy) * W + gx, gco, v, s1, s2);
+          }
+        }
+        if constexpr (kSums) {
+          // the 8 lanes of one channel pair, then this warp's row over its tiles
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
+              s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
+            }
+          if (lane < 4) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              red[warp - 4][0][8 * t + 2 * lane + e] += s1[e];
+              red[warp - 4][1][8 * t + 2 * lane + e] += s2[e];
+            }
+          }
+        }
+      }
+    }
+    if constexpr (kSums) {
+      // one row of partial sums a block: the consumer warps' rows in order
+      imgseg::named_sync(1, 256);
+      for (int i = tid - 128; i < 2 * N; i += 256) {
+        const int r = i / N, c = i % N;
+        float s = 0.f;
+#pragma unroll
+        for (int wr = 0; wr < 8; ++wr) s += red[wr][r][c];
+        p.partial[(static_cast<size_t>(blockIdx.x) * 2 + r) * Co + co0 + c] = s;
+      }
+    }
+  }
+}
+
 int tco_of(int Co) { return Co > 32 ? 64 : 32; }
 
 long long blocks_per_channel(int B, int H, int W) {
   return static_cast<long long>(B) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
 
-int g_last_narrow = 0;  // the path of the latest launch (imgseg_conv3x3_path)
+// The kernels' paths (imgseg_conv3x3_path).
+enum Path { kVector = 0, kNarrow = 1, kDeep = 2 };
+
+int g_last_path = kVector;  // the path of the latest launch
 
 template <int LOAD, int EPI, int TCO>
 int launch_tiles(const Args& p, int B, cudaStream_t stream) {
@@ -838,9 +1148,38 @@ int launch_narrow(Args& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The deep kernel: one block an SM (its shared memory takes more than half
+// of one), each walking every gridDim.x-th pixel tile of one N tile
+// (blockIdx.y).  The grid depends only on the shape and the card.
+template <int LOAD, int EPI, int NT>
+int launch_deep(Args& p, int B, cudaStream_t stream) {
+  static bool opted = false;
+  auto* kernel = deep_kernel<LOAD, EPI, NT>;
+  cudaError_t err = imgseg::allow_smem(kernel, deep_bytes(NT), opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static int resident = 0;
+  if (resident == 0) {
+    err = imgseg::resident_blocks(kernel, DTHREADS, deep_bytes(NT), resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  p.tiles_x = (p.W + DW - 1) / DW;
+  p.tiles_y = (p.H + DR - 1) / DR;
+  p.tiles = deep_tiles(B, p.H, p.W);
+  p.co_tiles = p.Co / (8 * NT);
+  const long long per = resident / p.co_tiles > 1 ? resident / p.co_tiles : 1;
+  p.nblk = static_cast<int>(p.tiles < per ? p.tiles : per);
+  if (p.co_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<dim3(p.nblk, p.co_tiles), DTHREADS, deep_bytes(NT), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LOAD, int EPI>
 int launch(Args& p, int B, cudaStream_t stream) {
-  g_last_narrow = p.kp != 0;
+  g_last_path = p.deep ? kDeep : p.kp != 0 ? kNarrow : kVector;
+  if (p.deep) {
+    return p.deep == 128 ? launch_deep<LOAD, EPI, 16>(p, B, stream)
+                         : launch_deep<LOAD, EPI, 8>(p, B, stream);
+  }
   if (p.kp != 0) {
     const int nt = p.Co <= 8 ? 1 : p.Co <= 16 ? 2 : 4;  // N = 8, 16 or 32
     p.co_tiles = (p.Co + 8 * nt - 1) / (8 * nt);
@@ -856,41 +1195,52 @@ int launch(Args& p, int B, cudaStream_t stream) {
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-// The path, from the channel counts and the pointers: the vector path for
-// channel counts that are multiples of 8 (an even split), its operands on
-// 16-byte boundaries (kp = 0); else the narrow path, kp channels a stage.
-void set_paths(Args& p) {
-  const bool vec = p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 &&
-                   aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab) && aligned16(p.w);
+// The path, from the caller's `deep` (ops/fused_conv.conv_path: 0, or the
+// deep path's N tile, 64 or 128), the channel counts and the pointers: the
+// deep path takes K and N multiples of 64 on 16-byte aligned operands, or
+// the call fails (returns false); else the vector path for channel counts
+// that are multiples of 8 (an even split), its operands on 16-byte
+// boundaries (kp = 0); else the narrow path, kp channels a stage.
+bool set_paths(Args& p, int deep) {
+  const bool aligned = aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab) && aligned16(p.w);
+  if (deep) {
+    p.deep = deep;
+    return (deep == 64 || deep == 128) && p.Ca % DK == 0 && p.Cb % DK == 0 && p.Co % deep == 0 &&
+           p.Na % 2 == 0 && aligned;
+  }
+  const bool vec = p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 && aligned;
   const int cin = p.Ca + p.Cb;
   p.kp = vec ? 0 : cin > NKP ? NKP : (cin + 7) / 8 * 8;
+  return true;
 }
 
 // The second pass of the sum epilogues: (blocks, 2, Co) rows -> (2, Co).
 int finish_sums(const Args& p, int B, float* sums, cudaStream_t stream) {
-  const long long rows = p.kp ? p.nblk : blocks_per_channel(B, p.H, p.W);
+  const long long rows = p.kp || p.deep ? p.nblk : blocks_per_channel(B, p.H, p.W);
   return static_cast<int>(imgseg::sum_rows(p.partial, sums, rows, 2LL * p.Co, stream));
 }
 
 }  // namespace
 
 // Floats of scratch the sum epilogues need: one (2, Co) row per pixel block
-// (the vector path's blocks, which outnumber the narrow path's: at most one
-// a 16x16 pixel tile).
+// of the vector path (at most one a 16x16 pixel tile on the narrow path)
+// or per tile of the deep path (no more blocks than tiles), whichever is more.
 extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
-  return blocks_per_channel(B, H, W) * 2LL * Co;
+  const long long vec = blocks_per_channel(B, H, W), deep = deep_tiles(B, H, W);
+  return (vec > deep ? vec : deep) * 2LL * Co;
 }
 
-// 1 if the latest launch of imgseg_conv3x3 or imgseg_conv3x3_dgrad took the
-// narrow path, 0 if the vector path.
-extern "C" int imgseg_conv3x3_path() { return g_last_narrow; }
+// The path of the latest launch of imgseg_conv3x3 or imgseg_conv3x3_dgrad:
+// 0 vector, 1 narrow, 2 deep.
+extern "C" int imgseg_conv3x3_path() { return g_last_path; }
 
 // y = conv(act([x | xb])) + bias; with `stats` (2, Co) also the sums of y
-// and y*y over (B, H, W), using `scratch`.
+// and y*y over (B, H, W), using `scratch`.  `deep`: see set_paths (w is
+// then packed as ops/fused_conv.deep_pack packs it).
 extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
                               const void* bias, const void* ab, void* out, void* stats,
                               void* scratch, int B, int H, int W, int Ca, int Cb, int Co,
-                              void* stream) {
+                              int deep, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
   if (ab != nullptr && Cb != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args p{};
@@ -902,7 +1252,7 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
   p.out = static_cast<__nv_bfloat16*>(out);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Ca, p.Cb = Cb, p.Co = Co, p.Na = Co;
-  set_paths(p);
+  if (!set_paths(p, deep)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stats == nullptr) return launch<kLoadX, kEpiStore>(p, B, s);
   const int err = launch<kLoadX, kEpiStats>(p, B, s);
@@ -913,11 +1263,11 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
 // (2|4, Cg) rows `gf`; `affine` selects the 4-row form), or without `gf`
 // of g itself (y unread; neither `xpost` nor `out_b`).  With `xpost`: the
 // post adjoint, `sums` (2, Co) = [sum gu*xpost, sum gu]; with `out_b`: dx
-// split at channel Na.
+// split at channel Na.  `deep`: as imgseg_conv3x3's.
 extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf,
                                     const void* w, const void* xpost, const void* abpost,
                                     void* out, void* out_b, void* sums, void* scratch, int B,
-                                    int H, int W, int Cg, int Co, int Na, int affine,
+                                    int H, int W, int Cg, int Co, int Na, int affine, int deep,
                                     void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
   Args p{};
@@ -931,7 +1281,7 @@ extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf
   p.out_b = static_cast<__nv_bfloat16*>(out_b);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Cg, p.Cb = 0, p.Co = Co, p.Na = Na;
-  set_paths(p);
+  if (!set_paths(p, deep)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gf == nullptr) {
     if (xpost != nullptr || out_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -68,6 +68,30 @@
 // k16 step a tile row; there are as many chunks as blocks fit on the card
 // (one wave).  The partial rows and the second pass are the vector path's.
 // Measured share of the bound: PERF.md (section 6).
+//
+// The deep path (wgrad_deep_kernel) takes Ca, Cb and Co multiples of 64
+// with 256 or more channels in or out, as the caller's rule (ops/
+// fused_conv.conv_path) says: the fold-1 blocks of fused_deep.  What held
+// the vector path back there: 64 x 64 dw tiles on mma.sync, 4.36 waves of
+// blocks with the last a third full, and 85 MB of partial rows at enc4.conv2.
+// What the design does about it: (1) a prepass (wgrad_ge_prepass,
+// wgrad_x_prepass) transforms each operand once, where the products' blocks
+// would repeat the transform Cin/64 or Co/64 times, and lays it out in
+// 8-channel planes padded to whole tiles (DeepLayout), so that each tile
+// row of a plane is one contiguous run; it also writes db's rows of
+// partials.  (2) The products: a block owns a 9-tap x 64 x 64 tile of dw
+// and walks a chunk of 2 x 64-pixel tiles, as many chunks as fill one wave
+// beside the dw tiles; warp 12 brings each tile's operands by 48 bulk
+// copies (the TMA engine) into a ring of 4 stages on mbarriers (2-row
+// tiles: the copies run 3 tiles ahead; a 4-row tile fit only 2 stages), in
+// the wgmma's MN-major core-matrix layout (8 consecutive pixels a core
+// matrix, so a tap's shift is a start address); warpgroup ky runs the
+// taps (ky, 0..2) as m64 (input channels) x n64 (output channels) x k16
+// (16 pixels) wgmmas with both operands read by descriptor.  Each block sums
+// at most DSUB tiles (4096 pixels) in registers and then adds them into its
+// chunk's rows; the second pass (reduce.cuh) reads chunks x 9 x Cin x Co,
+// 19 MB at enc4.conv2.  No atomics, and no fallback.  Measured share of the
+// bound: PERF.md (section 6, the fold-1 rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -585,14 +609,312 @@ __global__ void __launch_bounds__(NTHREADS, 3) wgrad_narrow_kernel(const Args p)
   }
 }
 
+// ---- the deep path: Ca, Cb and Co multiples of 64 with 256 or more
+// channels in or out (the fold-1 blocks' levels).  A block owns a 9-tap x
+// 64 input x 64 output channel tile of dw and walks a chunk of DR x DW
+// pixel tiles; one k16 step is 16 pixels of a tile row.  Warpgroup ky
+// (0..2) owns the taps (ky, 0..2) in registers; warp 12 copies each tile's
+// operands, which the prepass transformed and laid out.
+constexpr int DR = 2;                       // tile rows
+constexpr int DW = 64;                      // tile columns: 4 k16 steps a row
+constexpr int DHALO = (DR + 2) * (DW + 2);  // halo pixels
+constexpr int DPX = DR * DW;                // tile pixels
+constexpr int DXP = DHALO * 8;              // bf16 of one 8-channel plane of the halo
+constexpr int DGP = DPX * 8;                // bf16 of one 8-channel plane of the cotangent
+constexpr int DSTAGE = 8 * (DXP + DGP);     // bf16 of one staged tile
+constexpr int DTHREADS = 512;               // warpgroups 0-2: taps (ky, 0..2); 3: the copies
+// registers a thread after the copies' warpgroup hands some to the others
+// (128 at the launch): 128 x 32 given, 384 x 8 taken.  Both roles run
+// setmaxnreg (warpgroup-wide): without it ptxas serialized the wgmmas of
+// the products' role (C7520) behind the branch between the roles.
+constexpr int DCOPY_REGS = 96;
+constexpr int DPRODUCT_REGS = 136;
+constexpr int DCOPIES = 8 * (DR + 2) + 8 * DR;  // bulk copies a tile: halo rows, cotangent rows
+constexpr int DSUB = 4096 / DPX;            // tiles a block sums in registers before it flushes
+constexpr int DRING = 4;                    // staged tiles in flight
+constexpr size_t DBYTES = DRING * static_cast<size_t>(DSTAGE) * sizeof(__nv_bfloat16);
+constexpr int DPRE_THREADS = 256;           // the prepass: 32 pixel lanes x 8 planes
+constexpr int DPRE_BLOCKS = 132;            // the prepass's blocks along the pixels: its rows of db partials
+
+// Where the deep path's operands lie: the prepass writes them in 8-channel
+// planes, rows padded to whole tiles (Hp x Wp pixels) with zeros, so that
+// each tile row of a plane is one contiguous run (one bulk copy): ge as
+// (B, Co/8, Hp, Wp, 8), act(x) with a one-pixel zero border as (B, Cin/8,
+// Hp + 2, Wp + 2, 8).
+struct DeepLayout {
+  int Hp, Wp;
+  __host__ __device__ DeepLayout(int tiles_y, int tiles_x) : Hp(tiles_y * DR), Wp(tiles_x * DW) {}
+  __host__ __device__ long long ge_elems(int B, int Co) const {
+    return static_cast<long long>(B) * Co * Hp * Wp;
+  }
+  __host__ __device__ long long x_elems(int B, int Cin) const {
+    return static_cast<long long>(B) * Cin * (Hp + 2) * (Wp + 2);
+  }
+};
+
+// ---- the deep path's prepass: the operands the products read, each
+// transformed once (the products' blocks would repeat a transform Cin/64 or
+// Co/64 times) and laid out for bulk copies (DeepLayout).  A block takes 64
+// channels (blockIdx.y) of every gridDim.x-th row of pixels, a thread 8
+// channels (plane j) of every 32nd pixel, so that 8 lanes read one pixel's
+// 128 contiguous bytes and 4 lanes write 64 contiguous bytes of a plane.
+// What bounds it: bytes (it reads g, y and x once and writes ge and act(x)
+// once).
+//
+// ge = the transformed cotangent, zero outside the image, with one row of
+// db partial sums a block: a thread keeps its 8 channels over its pixels,
+// and the block adds its 32 pixel lanes in order.
+template <int GE>
+__global__ void __launch_bounds__(DPRE_THREADS) wgrad_ge_prepass(const Args p, __nv_bfloat16* gep,
+                                                                float* part_db) {
+  __shared__ float red[DPRE_THREADS][8];
+  const int tid = threadIdx.x, H = p.H, W = p.W, Co = p.Co;
+  const DeepLayout L(p.tiles_y, p.tiles_x);
+  const int cg = blockIdx.y * 8 + (tid & 7), lane = tid >> 3;  // plane, pixel lane
+  float r[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i < (GE == kGeAffine ? 4 : GE == kGeStats ? 2 : 0)) imgseg::load_row8(p.gf + i * Co, 8 * cg, r[i]);
+  }
+  float db[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (long long u = blockIdx.x; u < static_cast<long long>(p.B) * L.Hp; u += gridDim.x) {
+    const int n = static_cast<int>(u / L.Hp), yy = static_cast<int>(u % L.Hp);
+    __nv_bfloat16* dst = gep + ((static_cast<size_t>(n) * (Co / 8) + cg) * L.Hp + yy) * L.Wp * 8;
+    for (int xx = lane; xx < L.Wp; xx += DPRE_THREADS / 8) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (yy < H && xx < W) {
+        const size_t at = ((static_cast<size_t>(n) * H + yy) * W + xx) * Co + 8 * cg;
+        v = __ldg(reinterpret_cast<const uint4*>(p.g + at));
+        if constexpr (GE != kGePlain) {
+          v = imgseg::cotangent8<GE == kGeAffine>(r, v, __ldg(reinterpret_cast<const uint4*>(p.y + at)));
+        }
+        const imgseg::Vec8 e8 = imgseg::as_vec8(v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) db[e] += __bfloat162float(e8.v[e]);
+      }
+      *reinterpret_cast<uint4*>(dst + xx * 8) = v;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[tid][e] = db[e];
+  __syncthreads();
+  if (tid < 64) {  // channel blockIdx.y * 64 + tid: the pixel lanes in order
+    float s = 0.f;
+    for (int l = 0; l < DPRE_THREADS / 8; ++l) s += red[8 * l + tid / 8][tid % 8];
+    part_db[static_cast<size_t>(blockIdx.x) * Co + blockIdx.y * 64 + tid] = s;
+  }
+}
+
+// act(x) = [x | xb], or round(relu(x*a + b)), with a one-pixel zero border.
+__global__ void __launch_bounds__(DPRE_THREADS) wgrad_x_prepass(const Args p, __nv_bfloat16* xp) {
+  const int tid = threadIdx.x, H = p.H, W = p.W, cin = p.Ca + p.Cb;
+  const DeepLayout L(p.tiles_y, p.tiles_x);
+  const int hp = L.Hp + 2, wp = L.Wp + 2;
+  const int cg = blockIdx.y * 8 + (tid & 7), lane = tid >> 3, c = 8 * cg;
+  const bool in_b = c >= p.Ca;
+  const __nv_bfloat16* src = in_b ? p.xb + (c - p.Ca) : p.x + c;
+  const int cs = in_b ? p.Cb : p.Ca;
+  const bool pre = p.ab != nullptr && !in_b;
+  float ra[8], rb[8];
+  if (pre) {
+    imgseg::load_row8(p.ab, c, ra);
+    imgseg::load_row8(p.ab + p.Ca, c, rb);
+  }
+  for (long long u = blockIdx.x; u < static_cast<long long>(p.B) * hp; u += gridDim.x) {
+    const int n = static_cast<int>(u / hp), hy = static_cast<int>(u % hp), iy = hy - 1;
+    __nv_bfloat16* dst = xp + ((static_cast<size_t>(n) * (cin / 8) + cg) * hp + hy) * wp * 8;
+    for (int hx = lane; hx < wp; hx += DPRE_THREADS / 8) {
+      const int ix = hx - 1;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
+        v = __ldg(reinterpret_cast<const uint4*>(src + ((static_cast<size_t>(n) * H + iy) * W + ix) * cs));
+        if (pre) v = imgseg::affine_relu8(ra, rb, v);
+      }
+      *reinterpret_cast<uint4*>(dst + hx * 8) = v;
+    }
+  }
+}
+
+// Warp 12 (of warpgroup 3): each tile's operands by bulk copies (the TMA engine), one a
+// tile row of an 8-channel plane: the halo rows of act(x) and the rows of
+// ge, into 8-channel planes of 16-byte pixel rows (the wgmma's MN-major
+// core matrices: 8 consecutive pixels a core matrix, so a tap's shift is a
+// start address).
+__device__ __forceinline__ void wgrad_deep_copies(const Args& p, long long t_begin, long long t_end,
+                                                  __nv_bfloat16* stage, uint64_t* full,
+                                                  uint64_t* empty, int ci0, int co0,
+                                                  const __nv_bfloat16* gep, const __nv_bfloat16* xp) {
+  const int lane = threadIdx.x & 31, cin = p.Ca + p.Cb;
+  const DeepLayout L(p.tiles_y, p.tiles_x);
+  constexpr uint32_t kXRow = (DW + 2) * 16, kGRow = DW * 16;
+  for (long long t = t_begin; t < t_end; ++t) {
+    const long long k = t - t_begin;
+    const int b = static_cast<int>(k % DRING);
+    const int x0 = static_cast<int>(t % p.tiles_x) * DW;
+    const int y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * DR;
+    const int n = static_cast<int>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y));
+    imgseg::mbar_wait(&empty[b], static_cast<int>((k / DRING) & 1) ^ 1);
+    if (lane == 0) imgseg::mbar_arrive_tx(&full[b], 8 * (DR + 2) * kXRow + 8 * DR * kGRow);
+    __syncwarp();
+    __nv_bfloat16* st = stage + b * DSTAGE;
+    for (int i = lane; i < DCOPIES; i += 32) {
+      if (i < 8 * (DR + 2)) {  // plane j, halo row hy
+        const int j = i / (DR + 2), hy = i % (DR + 2);
+        const __nv_bfloat16* src =
+            xp + (((static_cast<size_t>(n) * (cin / 8) + ci0 / 8 + j) * (L.Hp + 2) + y0 + hy) * (L.Wp + 2) + x0) * 8;
+        imgseg::bulk_copy(st + j * DXP + hy * (DW + 2) * 8, src, kXRow, &full[b]);
+      } else {  // plane j, tile row r
+        const int j = (i - 8 * (DR + 2)) / DR, r = (i - 8 * (DR + 2)) % DR;
+        const __nv_bfloat16* src =
+            gep + (((static_cast<size_t>(n) * (p.Co / 8) + co0 / 8 + j) * L.Hp + y0 + r) * L.Wp + x0) * 8;
+        imgseg::bulk_copy(st + 8 * DXP + j * DGP + r * DW * 8, src, kGRow, &full[b]);
+      }
+    }
+  }
+}
+
+// The consumers: warpgroup ky owns taps (ky, kx), kx = 0..2: M = 64 input
+// channels, N = 64 output channels, K = the pixels.
+__device__ __forceinline__ void wgrad_deep_products(const Args& p, const __nv_bfloat16* stage,
+                                                    uint64_t* full, uint64_t* empty,
+                                                    long long t_begin, long long t_end, int ci0,
+                                                    int co0) {
+  const int Co = p.Co, cin = p.Ca + p.Cb;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ky = warp / 4, w = warp & 3;
+  float acc[3][32];
+  int pend = -1;  // the stage the group in flight reads
+  float* pw = p.part_w + static_cast<size_t>(blockIdx.y) * 9 * cin * Co;
+  // sub-chunks of DSUB tiles: summed in registers, then added into this
+  // chunk's rows of partials (the first stores)
+  for (long long s0 = t_begin; s0 < t_end; s0 += DSUB) {
+    const long long s1 = s0 + DSUB < t_end ? s0 + DSUB : t_end;
+    for (long long t = s0; t < s1; ++t) {
+      const long long k = t - t_begin;
+      const int b = static_cast<int>(k % DRING);
+      imgseg::mbar_wait(&full[b], static_cast<int>((k / DRING) & 1));
+      const __nv_bfloat16* sx = stage + b * DSTAGE;
+      const __nv_bfloat16* sg = sx + 8 * DXP;
+      imgseg::wgmma_fence();
+#pragma unroll 1
+      for (int r = 0; r < DR; ++r) {
+        const int keep = t != s0 || r != 0;  // the sub-chunk's first k16 step overwrites
+#pragma unroll
+        for (int ks = 0; ks < DW / 16; ++ks) {
+          // B: the cotangent, MN-major: K-adjacent cores 128 bytes apart, N-adjacent a plane
+          const uint64_t db = imgseg::wgmma_desc(sg + (r * DW + 16 * ks) * 8, 128, DGP * 2);
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            // A: act(x) shifted by the tap, MN-major: M-adjacent (8 channels) a plane
+            const uint64_t da =
+                imgseg::wgmma_desc(sx + ((r + ky) * (DW + 2) + kx + 16 * ks) * 8, 128, DXP * 2);
+            imgseg::wgmma<1, 1, 8>(acc[kx], da, db, keep | ks);
+          }
+        }
+      }
+      imgseg::wgmma_commit();
+      imgseg::wgmma_wait<1>();  // the previous tile's group is done: free its stage
+      if (lane == 0 && pend >= 0) imgseg::mbar_arrive(&empty[pend]);
+      pend = b;
+    }
+    imgseg::wgmma_wait<0>();
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) imgseg::fence_acc(acc[kx]);
+    if (lane == 0) imgseg::mbar_arrive(&empty[pend]);
+    pend = -1;
+    const bool first = s0 == t_begin;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = ci0 + 16 * w + (lane >> 2) + 8 * h;
+          const int co = co0 + 8 * t + 2 * (lane & 3);
+          float2* dst = reinterpret_cast<float2*>(pw + (static_cast<size_t>(ky * 3 + kx) * cin + ci) * Co + co);
+          float2 v = make_float2(acc[kx][4 * t + 2 * h], acc[kx][4 * t + 2 * h + 1]);
+          if (!first) {
+            const float2 o = *dst;
+            v.x += o.x, v.y += o.y;
+          }
+          *dst = v;
+        }
+  }
+}
+
+__global__ void __launch_bounds__(DTHREADS, 1) wgrad_deep_kernel(const Args p, const __nv_bfloat16* gep,
+                                                                  const __nv_bfloat16* xp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ uint64_t full[DRING], empty[DRING];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int co_tiles = p.Co / 64;
+  const int ci0 = (blockIdx.x / co_tiles) * 64, co0 = (blockIdx.x % co_tiles) * 64;
+  const long long t_begin = static_cast<long long>(blockIdx.y) * p.per_chunk;
+  const long long t_end = t_begin + p.per_chunk < p.tiles ? t_begin + p.per_chunk : p.tiles;
+
+  if (tid == 0) {
+    for (int i = 0; i < DRING; ++i) {
+      imgseg::mbar_init(&full[i], 1);    // the copies' warp, and their bytes
+      imgseg::mbar_init(&empty[i], 12);  // lane 0 of each consumer warp
+    }
+    imgseg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 12) {
+    imgseg::reg_dealloc<DCOPY_REGS>();
+    if (warp == 12) wgrad_deep_copies(p, t_begin, t_end, stage, full, empty, ci0, co0, gep, xp);
+  } else {
+    imgseg::reg_alloc<DPRODUCT_REGS>();
+    wgrad_deep_products(p, stage, full, empty, t_begin, t_end, ci0, co0);
+  }
+}
+
+// Floats of the deep path's scratch past its chunks' rows: ge and act(x)
+// in bf16 (DeepLayout), and the prepass's rows of db, each from a 16-byte
+// boundary.
+inline long long f16(long long floats) { return (floats + 3) / 4 * 4; }
+
+inline long long deep_extra(int B, int H, int W, int Cin, int Co) {
+  const DeepLayout L((H + DR - 1) / DR, (W + DW - 1) / DW);
+  return f16(L.ge_elems(B, Co) / 2) + f16(L.x_elems(B, Cin) / 2) + f16(static_cast<long long>(DPRE_BLOCKS) * Co);
+}
+
+// The kernels' paths (imgseg_conv3x3_wgrad_path).
+enum Path { kVector = 0, kNarrow = 1, kDeep = 2 };
+
 struct Plan {
   int tiles_x, tiles_y, mi, ni, combos;
   int cp, nt;  // the narrow path's input channels per tile and n8 tiles (cp = 0: the vector path)
   long long tiles, chunks, per_chunk;
 };
 
-Plan plan(int B, int H, int W, int Cin, int Co, bool narrow) {
+// The card's SMs: the deep kernel's blocks, one an SM.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 132;
+  return sms > 0 ? sms : 132;
+}
+
+Plan plan(int B, int H, int W, int Cin, int Co, int path) {
   Plan q{};
+  if (path == kDeep) {
+    // as many chunks as fill one wave beside the (Cin/64) x (Co/64) tiles of
+    // dw, every chunk non-empty
+    q.tiles_x = (W + DW - 1) / DW;
+    q.tiles_y = (H + DR - 1) / DR;
+    q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
+    q.combos = (Cin / 64) * (Co / 64);
+    q.chunks = sm_count() / q.combos;
+    q.chunks = q.chunks < 1 ? 1 : q.chunks > q.tiles ? q.tiles : q.chunks;
+    q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
+    q.chunks = (q.tiles + q.per_chunk - 1) / q.per_chunk;
+    return q;
+  }
+  const bool narrow = path == kNarrow;
   const int th = narrow ? NTH : TH;
   q.tiles_x = (W + TW - 1) / TW;
   q.tiles_y = (H + th - 1) / th;
@@ -648,8 +970,35 @@ cudaError_t launch_narrow(Args& p, Plan& q, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The deep path: the prepass, then the products on its operands, then
+// db's rows from the prepass (the caller adds dw's chunks).
 template <int GE>
-cudaError_t launch(Args& p, Plan& q, cudaStream_t s) {
+cudaError_t launch_deep(Args& p, const Plan& q, cudaStream_t s) {
+  static bool opted = false;
+  const cudaError_t err = imgseg::allow_smem(wgrad_deep_kernel, DBYTES, opted);
+  if (err != cudaSuccess) return err;
+  const DeepLayout L(p.tiles_y, p.tiles_x);
+  float* at = p.part_b + f16(p.Co);
+  __nv_bfloat16* gep = reinterpret_cast<__nv_bfloat16*>(at);
+  at += f16(L.ge_elems(p.B, p.Co) / 2);
+  __nv_bfloat16* xp = reinterpret_cast<__nv_bfloat16*>(at);
+  float* part_db = at + f16(L.x_elems(p.B, p.Ca + p.Cb) / 2);
+  wgrad_ge_prepass<GE><<<dim3(DPRE_BLOCKS, p.Co / 64), DPRE_THREADS, 0, s>>>(p, gep, part_db);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  wgrad_x_prepass<<<dim3(DPRE_BLOCKS, (p.Ca + p.Cb) / 64), DPRE_THREADS, 0, s>>>(p, xp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  wgrad_deep_kernel<<<dim3(q.combos, static_cast<unsigned>(q.chunks)), DTHREADS, DBYTES, s>>>(p, gep, xp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  p.part_b = part_db;  // db's rows: the prepass's blocks
+  return cudaSuccess;
+}
+
+template <int GE>
+cudaError_t launch(Args& p, Plan& q, int path, cudaStream_t s) {
+  if (path == kDeep) return launch_deep<GE>(p, q, s);
   if (q.cp != 0) {
     return q.nt == 1 ? launch_narrow<GE, 1>(p, q, s)
            : q.nt == 2 ? launch_narrow<GE, 2>(p, q, s)
@@ -664,38 +1013,56 @@ cudaError_t launch(Args& p, Plan& q, cudaStream_t s) {
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-int g_last_narrow = 0;  // the path of the latest launch (imgseg_conv3x3_wgrad_path)
+int g_last_path = kVector;  // the path of the latest launch (imgseg_conv3x3_wgrad_path)
 
 }  // namespace
 
-// Floats of scratch: a (9, Cin, Co) and a (Co) row per chunk, for the path
-// with more chunks.
-extern "C" long long imgseg_conv3x3_wgrad_scratch(int B, int H, int W, int Cin, int Co) {
-  const long long vec = plan(B, H, W, Cin, Co, false).chunks;
-  const long long nar = plan(B, H, W, Cin, Co, true).chunks;
-  return (vec > nar ? vec : nar) * (9LL * Cin * Co + Co);
+// Floats of scratch: a (9, Cin, Co) and a (Co) row per chunk; `deep` as
+// imgseg_conv3x3_wgrad's (the deep path's chunks), else for the vector or
+// narrow path, whichever has more chunks.
+extern "C" long long imgseg_conv3x3_wgrad_scratch(int B, int H, int W, int Cin, int Co, int deep) {
+  long long chunks;
+  if (deep) {
+    chunks = plan(B, H, W, Cin, Co, kDeep).chunks;
+    return chunks * (9LL * Cin * Co + Co) + deep_extra(B, H, W, Cin, Co);
+  } else {
+    const long long vec = plan(B, H, W, Cin, Co, kVector).chunks;
+    const long long nar = plan(B, H, W, Cin, Co, kNarrow).chunks;
+    chunks = vec > nar ? vec : nar;
+  }
+  return chunks * (9LL * Cin * Co + Co);
 }
 
-// 1 if the latest launch of imgseg_conv3x3_wgrad took the narrow path, 0 if
-// the vector path.
-extern "C" int imgseg_conv3x3_wgrad_path() { return g_last_narrow; }
+// The path of the latest launch of imgseg_conv3x3_wgrad: 0 vector, 1
+// narrow, 2 deep.
+extern "C" int imgseg_conv3x3_wgrad_path() { return g_last_path; }
 
 // dw (9, Ca+Cb, Co) and db (Co), fp32.  g, y (B,H,W,Co); gf (2|4, Co) rows
 // of the cotangent transform, `affine` selecting the 4-row form, or no gf
 // (and no y): the cotangent g itself; x
-// (B,H,W,Ca) with xb (B,H,W,Cb) or the pre-affine ab (2, Ca).
+// (B,H,W,Ca) with xb (B,H,W,Cb) or the pre-affine ab (2, Ca).  `deep`
+// (ops/fused_conv.conv_path): the deep path, which takes Ca, Cb and Co
+// multiples of 64 on 16-byte aligned operands, or the call fails; else the
+// vector or narrow path by the channel counts and the alignment.
 extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf, const void* x,
                                     const void* xb, const void* ab, void* dw, void* db,
                                     void* scratch, int B, int H, int W, int Ca, int Cb, int Co,
-                                    int affine, void* stream) {
+                                    int affine, int deep, void* stream) {
   const int cin = Ca + Cb;
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || cin <= 0) return static_cast<int>(cudaSuccess);
-  // the vector path: channel counts multiples of 8, operands on 16-byte boundaries
-  const bool vec = Ca % 8 == 0 && Cb % 8 == 0 && Co % 8 == 0 && aligned16(x) && aligned16(xb) &&
-                   aligned16(ab) && aligned16(g) && aligned16(y) && aligned16(gf);
-  Plan q = plan(B, H, W, cin, Co, !vec);
+  const bool aligned = aligned16(x) && aligned16(xb) && aligned16(ab) && aligned16(g) &&
+                       aligned16(y) && aligned16(gf);
+  int path;
+  if (deep) {
+    if (Ca % 64 || Cb % 64 || Co % 64 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
+    path = kDeep;
+  } else {
+    // the vector path: channel counts multiples of 8, operands on 16-byte boundaries
+    path = Ca % 8 == 0 && Cb % 8 == 0 && Co % 8 == 0 && aligned ? kVector : kNarrow;
+  }
+  Plan q = plan(B, H, W, cin, Co, path);
   if (q.chunks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  g_last_narrow = !vec;
+  g_last_path = path;
   Args p{};
   p.g = static_cast<const __nv_bfloat16*>(g);
   p.y = static_cast<const __nv_bfloat16*>(y);
@@ -711,15 +1078,16 @@ extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (gf == nullptr) {
-    err = launch<kGePlain>(p, q, s);
+    err = launch<kGePlain>(p, q, path, s);
   } else if (affine) {
-    err = launch<kGeAffine>(p, q, s);
+    err = launch<kGeAffine>(p, q, path, s);
   } else {
-    err = launch<kGeStats>(p, q, s);
+    err = launch<kGeStats>(p, q, path, s);
   }
   if (err == cudaSuccess) {
     err = imgseg::sum_rows(p.part_w, static_cast<float*>(dw), q.chunks, 9LL * cin * Co, s);
   }
-  if (err == cudaSuccess) err = imgseg::sum_rows(p.part_b, static_cast<float*>(db), q.chunks, Co, s);
+  const long long db_rows = path == kDeep ? DPRE_BLOCKS : q.chunks;
+  if (err == cudaSuccess) err = imgseg::sum_rows(p.part_b, static_cast<float*>(db), db_rows, Co, s);
   return static_cast<int>(err);
 }

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy primitives shared by the tensor-core
 // kernels (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu, conv1x1_bwd.cu,
 // cross_attention.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
-// fp32 sums, cp.async with zero fill, bulk copies on an mbarrier, 8-wide
+// fp32 sums, Hopper's wgmma with shared-memory descriptors (the conv
+// kernels' deep paths), cp.async with zero fill, bulk copies on an mbarrier, 8-wide
 // bf16 vector helpers, the operand transforms applied on load, and the
 // narrow conv paths' staging of operands of any channel count and
 // alignment.
@@ -377,6 +378,129 @@ __device__ __forceinline__ void stage_rows(float (*rows)[32], const float* src, 
 // 16-byte units.
 __host__ __device__ constexpr int odd16(int c) { return (c / 8) % 2 ? c : c + 8; }
 
+
+// ---- Hopper's warpgroup MMA (wgmma, sm_90a), for the conv kernels' deep
+// paths.  Four warps issue one asynchronous 64 x N x 16 product whose
+// operands both lie in shared memory, each described by a 64-bit
+// descriptor; the fp32 sums stay in registers, warp w of the group holding
+// rows 16w .. 16w+15 in the m16n8 C layout above, repeated over N/8.
+//
+// The operands here use the layout without swizzle: "core matrices" of 8
+// rows x 16 bytes, each row 16 bytes after the last (128 contiguous bytes).
+// A K-major operand's core matrix is 8 rows of M (or N) by 8 elements of
+// K; an MN-major one's is 8 rows of K by 8 elements of M (or N).  The
+// descriptor holds the start address and two strides: LBO between core
+// matrices adjacent along K, SBO between those adjacent along M (or N)
+// (PTX ISA, "Matrix Descriptor Format"; CUTLASS's GmmaDescriptor,
+// LayoutType::INTERLEAVE).  The start needs only 16-byte alignment, so
+// starting one 16-byte row later shifts a core matrix by one row: the
+// conv kernels' tap shifts are start addresses.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_u32(smem);
+  return ((a & 0x3FFFFull) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32);
+}
+
+// Before the first wgmma of a run, and after registers it reads were written.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of the accumulators across
+// a wgmma_wait (the asynchronous product writes them behind its back).
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define IMGSEG_F8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x N, fp32) += A (64 x 16) * B (16 x N), bf16 operands in shared
+// memory (descriptors da, db); scale_d = 0 overwrites d instead.  TA / TB:
+// 1 where the operand is MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : IMGSEG_F8(0), IMGSEG_F8(8), IMGSEG_F8(16), IMGSEG_F8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : IMGSEG_F8(0), IMGSEG_F8(8), IMGSEG_F8(16), IMGSEG_F8(24), IMGSEG_F8(32), IMGSEG_F8(40),
+        IMGSEG_F8(48), IMGSEG_F8(56)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+#undef IMGSEG_F8
+
+// d += A * B at N = 8 * NT (64 or 128) output columns.
+template <int TA, int TB, int NT>
+__device__ __forceinline__ void wgmma(float (&d)[4 * NT], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (NT == 8) {
+    wgmma_n64<TA, TB>(d, da, db, scale_d);
+  } else {
+    static_assert(NT == 16, "N is 64 or 128");
+    wgmma_n128<TA, TB>(d, da, db, scale_d);
+  }
+}
+
+// Move registers between warpgroups (sm_90a): a producer gives some back,
+// the consumers take them.  Every warp of a warpgroup executes it, and the
+// two roles' code paths must not meet again after it.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Wait for `count` threads at named barrier `id` (1..15; 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// mbarrier pieces for the deep paths' rings (with mbar_init, mbar_wait,
+// bulk_copy above): the init made visible, an arrival that also expects
+// `bytes` of bulk copies, and shared-memory writes of this thread made
+// visible to the async proxy (wgmma, bulk copies) before it arrives.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once.
 template <typename Kernel>

@@ -36,12 +36,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argtypes.  Every entry returns cudaError_t as int,
 # but the two path queries.
 SIGNATURES = {
-    # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, stream
-    "imgseg_conv3x3": (_P,) * 8 + (_I,) * 6 + (_P,),
-    # g, y, gf, w, x_post, ab_post, out, out_b, sums, scratch, B, H, W, Cg, Co, Na, affine, stream
-    "imgseg_conv3x3_dgrad": (_P,) * 10 + (_I,) * 7 + (_P,),
-    # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, stream
-    "imgseg_conv3x3_wgrad": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, deep, stream
+    "imgseg_conv3x3": (_P,) * 8 + (_I,) * 7 + (_P,),
+    # g, y, gf, w, x_post, ab_post, out, out_b, sums, scratch, B, H, W, Cg, Co, Na, affine, deep,
+    # stream
+    "imgseg_conv3x3_dgrad": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, deep, stream
+    "imgseg_conv3x3_wgrad": (_P,) * 9 + (_I,) * 8 + (_P,),
     # g, y, ab, sums, scratch, B, H, W, C, stream
     "imgseg_bn_relu_bwd_reduce": (_P,) * 5 + (_I,) * 4 + (_P,),
     # z, ab, p, B, H, W, C, stream
@@ -60,7 +61,7 @@ SIGNATURES = {
     "imgseg_preprocess": (_P,) * 5 + (_I,) * 4 + (_P,),
     # q, k, v, out, B, L, S, D, heads, scale, stream
     "imgseg_cross_attention": (_P,) * 4 + (_I,) * 5 + (_F, _P),
-    # the path of the latest conv launch: 1 narrow, 0 vector (no error code)
+    # the path of the latest conv launch: 0 vector, 1 narrow, 2 deep (no error code)
     "imgseg_conv3x3_path": (),
     "imgseg_conv3x3_wgrad_path": (),
 }
@@ -68,7 +69,7 @@ SIGNATURES = {
 # name -> argtypes; each returns long long.
 SCRATCH_QUERIES = {
     "imgseg_conv3x3_scratch": (_I, _I, _I, _I),                  # B, H, W, Co
-    "imgseg_conv3x3_wgrad_scratch": (_I, _I, _I, _I, _I),        # B, H, W, Cin, Co
+    "imgseg_conv3x3_wgrad_scratch": (_I,) * 6,                   # B, H, W, Cin, Co, deep
     "imgseg_channel_sums_scratch": (_L, _I),                     # pixels, C
     "imgseg_convtranspose2x2_bwd_scratch": (_I, _I, _I, _I, _I),  # B, Hin, Win, Cin, Co
     "imgseg_preprocess_scratch": (_I, _I, _I),                   # N, H, W

@@ -31,7 +31,8 @@ at fold 1 they compute the plain NHWC ops, and that is what is ported.
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (bf16 activations, fp32 sums)
 and raises if the build or the launch fails.  Any other device raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.  On a
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, and
+the three conv wrappers those on their deep path in ``.deep_launches``.  On a
 CUDA tensor the wrappers are not differentiable themselves: an input that
 requires grad while grad mode is on raises (they are forward-only).
 Gradients go through the Functions, whose backwards call the backward
@@ -220,6 +221,38 @@ def convtranspose2x2_bwd_plain(x, w, g):
 
 
 # --------------------------------------------------------------------------
+# the conv kernels' paths
+# --------------------------------------------------------------------------
+
+def conv_path(ca: int, cb: int, co: int) -> str:
+    """The path of the 3x3 conv kernels for a conv of ``[Ca | Cb] -> Co``
+    channels, in its forward, dx and wgrad alike: ``"deep"`` where Ca, Cb
+    and Co are multiples of 64 and 256 or more channels go in or come out
+    (the fold-1 blocks' levels, wgmma tiles of 64-channel K stages); else
+    ``"vector"`` where all are multiples of 8, ``"narrow"`` where not.  The
+    library takes ``"deep"`` as told (and fails on an operand off 16 bytes);
+    between the other two it also reads the alignment (an operand off 16
+    bytes takes the narrow path)."""
+    if ca % 64 == 0 and cb % 64 == 0 and co % 64 == 0 and (ca + cb >= 256 or co >= 256):
+        return "deep"
+    return "vector" if ca % 8 == 0 and cb % 8 == 0 and co % 8 == 0 else "narrow"
+
+
+def _deep_tile(path: str, n: int) -> int:
+    """The deep kernel's N tile over n output channels (0 off the deep path)."""
+    return 0 if path != "deep" else 128 if n % 128 == 0 else 64
+
+
+def deep_pack(wk: torch.Tensor, n: int) -> torch.Tensor:
+    """Weights (3, 3, K, N) in the deep kernel's order: for each N tile of n
+    channels, 64-channel K stage and tap, the (n x 64) tile as the wgmma's
+    K-major core matrices ([n/8][8][8 of N][8 of K]), one bulk copy each."""
+    k, nn = wk.shape[2], wk.shape[3]
+    tiles = wk.reshape(9, k // 64, 8, 8, nn // n, n // 8, 8)
+    return tiles.permute(4, 1, 0, 5, 2, 6, 3).contiguous()
+
+
+# --------------------------------------------------------------------------
 # checks shared by the wrappers
 # --------------------------------------------------------------------------
 
@@ -337,7 +370,9 @@ def conv3x3(
         _check_vector(name, a, ca, "a")
         _check_vector(name, b, ca, "b")
         ab = _ab(a, b, x.dtype)
-    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Co)
+    deep = _deep_tile(conv_path(ca, cb, co), co)
+    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0)  # (3, 3, Cin, Co)
+    wk = deep_pack(wk, deep) if deep else wk.contiguous()
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
     sums = scratch = None
     if stats:
@@ -345,7 +380,8 @@ def conv3x3(
         scratch = _scratch("imgseg_conv3x3_scratch", x, bsz, h, wd, co)
     _launch(conv3x3, "imgseg_conv3x3", _ptr(x), _ptr(x_b), _ptr(wk),
             _ptr(bias.float().contiguous()), _ptr(ab), _ptr(out), _ptr(sums), _ptr(scratch),
-            bsz, h, wd, ca, cb, co)
+            bsz, h, wd, ca, cb, co, deep)
+    conv3x3.deep_launches += bool(deep)
     return (out, sums[0], sums[1]) if stats else out
 
 
@@ -407,7 +443,10 @@ def conv3x3_dgrad(
             _check_vector(name, t, co, what)
     gf = _gf(c1, c2, a, b, g.dtype)
     # the flipped, transposed kernel in conv3x3's (3, 3, Cin', Co') layout
-    wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1).contiguous()
+    ca = cin if split is None else split
+    deep = _deep_tile(conv_path(ca, cin - ca, co), cin)
+    wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1)
+    wk = deep_pack(wk, deep) if deep else wk.contiguous()
     ab_post = sums = scratch = out_b = None
     na = cin
     if x_post is not None:
@@ -425,7 +464,8 @@ def conv3x3_dgrad(
     out = torch.empty((bsz, h, wd, na), dtype=g.dtype, device=g.device)
     _launch(conv3x3_dgrad, "imgseg_conv3x3_dgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(wk),
             _ptr(x_post), _ptr(ab_post), _ptr(out), _ptr(out_b), _ptr(sums), _ptr(scratch),
-            bsz, h, wd, co, cin, na, int(a is not None))
+            bsz, h, wd, co, cin, na, int(a is not None), deep)
+    conv3x3_dgrad.deep_launches += bool(deep)
     if x_post is not None:
         return out, sums[0], sums[1]
     return (out, out_b) if split is not None else out
@@ -486,24 +526,24 @@ def conv3x3_wgrad(
     cin = ca + cb
     dw = torch.empty((9, cin, co), dtype=torch.float32, device=g.device)
     db = torch.empty((co,), dtype=torch.float32, device=g.device)
-    scratch = _scratch("imgseg_conv3x3_wgrad_scratch", g, bsz, h, wd, cin, co)
+    deep = int(conv_path(ca, cb, co) == "deep")
+    scratch = _scratch("imgseg_conv3x3_wgrad_scratch", g, bsz, h, wd, cin, co, deep)
     _launch(conv3x3_wgrad, "imgseg_conv3x3_wgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(x),
             _ptr(x_b), _ptr(ab), _ptr(dw), _ptr(db), _ptr(scratch),
-            bsz, h, wd, ca, cb, co, int(a is not None))
+            bsz, h, wd, ca, cb, co, int(a is not None), deep)
+    conv3x3_wgrad.deep_launches += deep
     return dw.view(3, 3, cin, co).permute(3, 2, 0, 1).contiguous(), db
 
 
 def last_path(wrapper) -> str:
-    """``"narrow"`` or ``"vector"``: the path that the latest kernel launch
-    of :func:`conv3x3` and :func:`conv3x3_dgrad` (one kernel), or of
-    :func:`conv3x3_wgrad`, took.  The vector path takes channel counts that
-    are multiples of 8 on 16-byte aligned operands; the narrow path every
-    other shape."""
+    """``"vector"``, ``"narrow"`` or ``"deep"``: the path that the latest
+    kernel launch of :func:`conv3x3` and :func:`conv3x3_dgrad` (one kernel),
+    or of :func:`conv3x3_wgrad`, took (:func:`conv_path`)."""
     from ._build import library
 
     query = {conv3x3: "imgseg_conv3x3_path", conv3x3_dgrad: "imgseg_conv3x3_path",
              conv3x3_wgrad: "imgseg_conv3x3_wgrad_path"}[wrapper]
-    return "narrow" if getattr(library(), query)() else "vector"
+    return ("vector", "narrow", "deep")[getattr(library(), query)()]
 
 
 def bn_relu_bwd_reduce(
@@ -639,6 +679,10 @@ WRAPPERS = (conv3x3, conv3x3_dgrad, conv3x3_wgrad, bn_relu_bwd_reduce,
             convtranspose2x2, convtranspose2x2_bwd)
 for _w in WRAPPERS:
     _w.launches = 0
+# the conv wrappers' launches on the deep path (conv_path), within .launches
+CONV_WRAPPERS = (conv3x3, conv3x3_dgrad, conv3x3_wgrad)
+for _w in CONV_WRAPPERS:
+    _w.deep_launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,9 @@ beside it, and the host time of one wrapper call (a host clock over
 HOST_CALLS calls with no synchronise).  The result: per
 case the mean ms of both checkouts and the library's, and per entry the sum
 over its "sum" cases (the smoke run's JSON line), as JSON lines on stdout.
+With ``--steps`` it times, in the same turns, the large_unet train step
+(batch 16, 512x512) of each checkout with ``fused_deep`` off and on
+(``--iters`` steps after one) instead of kernels.
 With ``--profile`` each case also gets its device time per CUDA kernel
 (``torch.profiler``, a mean over ``--iters`` launches), to split a
 wrapper's time between its kernel and its second pass of the sums.  Each
@@ -102,32 +105,73 @@ def child(root: Path, entries: list, labels: list, iters: int, with_profile: boo
         torch.cuda.empty_cache()
 
 
-def run(root: Path, entries: list, labels: list, iters: int, with_profile: bool) -> list:
+def child_steps(root: Path, steps: int) -> None:
+    """Time the large_unet train step (batch 16, 512x512) with ``fused_deep``
+    off and on in this process, from ``root``'s modules: the mean ms of
+    ``steps`` steps after one, on one fixed batch."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as smoke
+    from image_segmentation_tpu_torch.engine.train import Trainer
+
+    images, masks = smoke._u8_batch(torch, smoke.SEED + 37, smoke.SIZE)
+    for fused_deep in (False, True):
+        extra = {"fused_deep": True} if fused_deep else {}
+        trainer = Trainer(smoke.train_config("large_unet", smoke.SIZE, **extra), device="cuda",
+                          make_artifacts=False)
+        ms = smoke._step_ms(torch, trainer, images, masks, steps)
+        print("STEP " + json.dumps({"fused_deep": fused_deep, "ms": ms}), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def run(root: Path, entries: list, labels: list, iters: int, with_profile: bool,
+        steps: bool = False) -> list:
     cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root),
-           "--iters", str(iters), "--entries", *entries, "--labels", *labels]
+           "--iters", str(iters), "--labels", *labels]
+    cmd += ["--entries", *entries] if entries else []
     cmd += ["--profile"] if with_profile else []
+    cmd += ["--steps"] if steps else []
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
     if res.returncode != 0:
         raise RuntimeError(f"{root}: exit {res.returncode}\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    return [json.loads(line[5:]) for line in res.stdout.splitlines() if line.startswith("CASE ")]
+    tag = "STEP " if steps else "CASE "
+    return [json.loads(line[5:]) for line in res.stdout.splitlines() if line.startswith(tag)]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the checkout to compare with")
-    ap.add_argument("--entries", nargs="+", required=True, help="KERNEL_INFO entries")
+    ap.add_argument("--entries", nargs="+", default=[], help="KERNEL_INFO entries")
     ap.add_argument("--labels", nargs="*", default=[], help="case label prefixes (default: all)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true", help="device time per CUDA kernel")
+    ap.add_argument("--steps", action="store_true",
+                    help="the large_unet train step with fused_deep off and on, not kernels")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve(), args.entries, args.labels, args.iters, args.profile)
+        if args.steps:
+            child_steps(args.child.resolve(), args.iters)
+        else:
+            child(args.child.resolve(), args.entries, args.labels, args.iters, args.profile)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     order = [("other", args.other.resolve()), ("this", ROOT), ("this", ROOT),
              ("other", args.other.resolve())]
+    if args.steps:
+        steps = {}  # fused_deep -> {"this": [ms], "other": [ms]}
+        for who, root in order:
+            for r in run(root, [], [], args.iters, False, steps=True):
+                steps.setdefault(r["fused_deep"], {"this": [], "other": []})[who].append(r["ms"])
+        for fused_deep, t in steps.items():
+            print(json.dumps({"step": "large_unet", "fused_deep": fused_deep, "this_ms": t["this"],
+                              "other_ms": t["other"], "card": card}), flush=True)
+        return 0
+    if not args.entries:
+        ap.error("--entries is required without --steps")
     times = {}  # (entry, label) -> {"timed", "other": [ms], "this": [ms], "library": [ms]}
     for who, root in order:
         for r in run(root, args.entries, args.labels, args.iters, args.profile):

@@ -331,10 +331,99 @@ def test_conv3x3_forward_and_wgrad_at_one_input_channel(gen, co, stats):
     _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2))
 
 
+# ---- the deep path (ops/fused_conv.conv_path): the fold-1 blocks' convs
+# of chip_smoke.deep_path_shapes (large_unet's enc3, enc4, dec2, dec3) and
+# the tensor-parallel unet's Co/2 slices (Co 64 and 128), at batch 1-2 on
+# ragged maps against the deep kernels' 4 x 64 pixel tiles
+
+DEEP_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
+    ((2, 20, 36, 128), 0, 256, False),    # enc3.conv1
+    ((2, 20, 36, 256), 0, 256, True),     # enc3.conv2
+    ((1, 20, 36, 256), 0, 512, False),    # enc4.conv1
+    ((1, 13, 70, 512), 0, 512, True),     # enc4.conv2, two column tiles
+    ((2, 20, 36, 256), 256, 256, False),  # dec2.conv1 [256|256]
+    ((2, 20, 36, 128), 128, 128, False),  # dec3.conv1 [128|128]
+    ((2, 20, 36, 256), 0, 128, True),     # the Co/2 slice of enc3.conv2
+    ((2, 20, 36, 128), 128, 64, False),   # the Co/2 slice of dec3.conv1
+    ((1, 9, 5, 256), 0, 64, True),        # one tile, mostly outside the image
+]
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("shape,cb,co,pre", DEEP_FWD)
+def test_conv3x3_deep_path(gen, shape, cb, co, pre, stats):
+    ca = shape[-1]
+    assert fc.conv_path(ca, cb, co) == "deep"
+    x = _randn(gen, *shape)
+    xb = _randn(gen, *shape[:3], cb) if cb else None
+    w = _randn(gen, co, ca + cb, 3, 3, dtype=torch.float32) / (9 * (ca + cb)) ** 0.5
+    bias = _randn(gen, co, dtype=torch.float32) * 0.1
+    ab = dict(a=torch.rand(ca, generator=gen, device="cuda") + 0.5,
+              b=_randn(gen, ca, dtype=torch.float32) * 0.5) if pre else {}
+    got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, x_b=xb, stats=stats, **ab))
+    assert fc.last_path(fc.conv3x3) == "deep"
+    _close_all(got, fc.conv3x3_plain(x, w, bias, x_b=xb, stats=stats, **ab))
+
+
+# (shape of the conv's input, Cb, Co, affine cotangent, post / split / raw / neither)
+DEEP_BWD = [
+    ((2, 20, 36, 256), 0, 256, False, "post"),   # enc3.conv2
+    ((1, 13, 70, 512), 0, 512, True, "post"),    # enc4.conv2, bn2's affine on the cotangent
+    ((1, 20, 36, 128), 0, 256, False, None),     # enc3.conv1
+    ((1, 20, 36, 256), 0, 512, True, None),      # enc4.conv1
+    ((2, 20, 36, 256), 256, 256, False, "split"),  # dec2.conv1
+    ((2, 20, 36, 128), 128, 128, True, "split"),   # dec3.conv1
+    ((2, 20, 36, 256), 0, 128, True, "post"),    # the Co/2 slice of enc3.conv2
+    ((2, 20, 36, 128), 128, 64, False, "split"),  # the Co/2 slice of dec3.conv1
+    ((2, 20, 36, 256), 0, 64, False, None),      # one 64-channel K stage of dx
+    ((2, 20, 36, 256), 0, 256, False, "raw"),    # the cotangent itself
+]
+
+
+@pytest.mark.parametrize("shape,cb,co,affine,epi", DEEP_BWD)
+def test_conv3x3_dgrad_deep_path(gen, shape, cb, co, affine, epi):
+    g, y, c1, c2, w, _, kw, _ = _wide_bwd(gen, shape, cb, co, affine, epi)
+    got = _counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **kw))
+    assert fc.last_path(fc.conv3x3_dgrad) == "deep"
+    _close_all(got, fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **kw))
+
+
+@pytest.mark.parametrize("shape,cb,co,affine,epi", DEEP_BWD)
+def test_conv3x3_wgrad_deep_path(gen, shape, cb, co, affine, epi):
+    g, y, c1, c2, _, x, _, kw = _wide_bwd(gen, shape, cb, co, affine, epi)
+    got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **kw))
+    assert fc.last_path(fc.conv3x3_wgrad) == "deep"
+    _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2, **kw))
+
+
+def test_conv3x3_deep_path_long_chunk(gen):
+    """The wgrad over more pixels than one register sum holds (its flushes
+    into the partial rows) and a forward whose blocks walk many tiles."""
+    shape, co = (8, 64, 64, 256), 256
+    g, y, c1, c2, w, x, dkw, wkw = _wide_bwd(gen, shape, 0, co, True, "post")
+    got = _counted(fc.conv3x3_wgrad, lambda: fc.conv3x3_wgrad(g, y, x, c1, c2, **wkw))
+    _close_all(got, fc.conv3x3_wgrad_plain(g, y, x, c1, c2, **wkw))
+    bias = _randn(gen, co, dtype=torch.float32) * 0.1
+    fkw = dict(a=dkw["a_post"], b=dkw["b_post"], stats=True)
+    got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, **fkw))
+    _close_all(got, fc.conv3x3_plain(x, w, bias, **fkw))
+
+
+def test_conv3x3_deep_path_refuses_misaligned_operands(gen):
+    """No fallback: a shape the rule gives the deep path launches the deep
+    kernel or raises."""
+    x = _randn(gen, 1 * 8 * 8 * 256 + 1)[1:].view(1, 8, 8, 256)  # 2 bytes off 16
+    w = _randn(gen, 256, 256, 3, 3, dtype=torch.float32) * 0.01
+    bias = _randn(gen, 256, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fc.conv3x3(x, w, bias)
+
+
 def test_conv_kernels_are_deterministic(gen):
     """Two launches on the same inputs: bit-identical outputs and sums (the
     cross-block sums are partial rows added in a fixed order, no atomics),
-    on the vector path and on the narrow path (ClipRes's output block)."""
+    on the vector path, on the narrow path (ClipRes's output block) and on
+    the deep path (the fold-1 blocks)."""
     shape, co = (2, 19, 37, 64), 64
     g, y, c1, c2, w, x, dkw, wkw = _wide_bwd(gen, shape, 0, co, True, "post")
     bias = _randn(gen, co, dtype=torch.float32)
@@ -350,6 +439,20 @@ def test_conv_kernels_are_deterministic(gen):
         lambda: fc.conv3x3_dgrad(ng, ny, nw, nc1, nc2, **ndkw),
         lambda: fc.conv3x3_wgrad(ng, ny, nx, nc1, nc2, **nwkw),
     ]
+    # the deep path: a fold-1 decoder's conv2 (post) and conv1 ([x | xb], split)
+    for dshape, dcb, dco, depi in (((2, 20, 36, 256), 0, 256, "post"),
+                                   ((2, 20, 36, 128), 128, 128, "split")):
+        dg, dy, dc1, dc2, dw, dx, ddkw, dwkw = _wide_bwd(gen, dshape, dcb, dco, True, depi)
+        dbias = _randn(gen, dco, dtype=torch.float32)
+        fkw = (dict(a=ddkw["a_post"], b=ddkw["b_post"]) if depi == "post"
+               else dict(x_b=dwkw["x_b"]))
+        calls += [
+            lambda dx=dx, dw=dw, dbias=dbias, fkw=fkw: fc.conv3x3(dx, dw, dbias, stats=True, **fkw),
+            lambda dg=dg, dy=dy, dw=dw, dc1=dc1, dc2=dc2, ddkw=ddkw:
+                fc.conv3x3_dgrad(dg, dy, dw, dc1, dc2, **ddkw),
+            lambda dg=dg, dy=dy, dx=dx, dc1=dc1, dc2=dc2, dwkw=dwkw:
+                fc.conv3x3_wgrad(dg, dy, dx, dc1, dc2, **dwkw),
+        ]
     for call in calls:
         first, second = call(), call()
         torch.cuda.synchronize()
