@@ -242,7 +242,8 @@ TENSOR_CORE_ENTRIES = ("conv3x3", "convtranspose2x2", "cross_attention", "conv1x
 # The entries whose kernel-phase lines also give the device time of each
 # CUDA kernel of the call (torch.profiler) beside the event time of the
 # wrapper's whole call
-DEVICE_TIMED_ENTRIES = ("row_shift", "col_shift", "preprocess")
+DEVICE_TIMED_ENTRIES = ("row_shift", "col_shift", "preprocess", "bn_relu_bwd_reduce",
+                        "maxpool2x2_affine_relu_bwd")
 # fp32 operations of the colour stage per pixel: normalize 3, brightness 9,
 # the gray mean 5, contrast 14, saturation 19, the HSV round trip ~70 (with
 # its clips), the two blur passes 60
@@ -341,6 +342,9 @@ PER_AE_FORWARD = {"conv3x3": 10, "maxpool2x2_affine_relu": 2, "convtranspose2x2"
 PER_AE_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "bn_relu_bwd_reduce": 3,
                "maxpool2x2_affine_relu": 2, "maxpool2x2_affine_relu_bwd": 2,
                "convtranspose2x2": 3, "convtranspose2x2_bwd": 3, "conv1x1_bwd": 2}
+# the autoencoder step's launches timed on lines of their own (its other
+# kernel blocks are checked only): K3 (dec1-3) and the pool backward (enc1-2)
+AE_LINES = {"bn_relu_bwd_reduce": "line", "maxpool2x2_affine_relu_bwd": "line"}
 PER_AE_UNFUSED_FORWARD = {"conv3x3": 10}
 PER_AE_UNFUSED_STEP = {"conv3x3": 10, "conv3x3_dgrad": 10, "conv3x3_wgrad": 10, "conv1x1_bwd": 2}
 # the clip_res preset (batch 32 at 256x256, augmentation 4): dec5 (the
@@ -424,26 +428,28 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(torch, fn, iters: int) -> dict:
+def device_us(torch, fn, iters: int, attempts: int = 3) -> dict:
     """Mean device microseconds per call of ``fn``, by CUDA kernel name,
     from ``torch.profiler`` after one warm-up call; raises if the trace
-    holds no device time."""
+    holds no device time ``attempts`` times in a row (a trace now and then
+    comes back empty on the card's machine)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-        if total > 0:
-            out[evt.key] = total / iters
-    if not out:
-        raise AssertionError("torch.profiler shows no device time for the call")
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for evt in prof.key_averages():
+            total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+            if total > 0:
+                out[evt.key] = total / iters
+        if out:
+            return out
+    raise AssertionError("torch.profiler shows no device time for the call")
 
 
 def kernel_modules():
@@ -648,15 +654,26 @@ def tp_path_shapes() -> list:
             tp_shapes(deep_path_shapes("unet", b, UNET_SIZE), "tp unet", TP_RANKS)]
 
 
+def relabel(shapes: dict, label: str) -> dict:
+    """``shapes`` with ``label`` before every label."""
+    return {"conv": [c._replace(label=f"{label} {c.label}") for c in shapes["conv"]],
+            "pool": [(f"{label} {n}", shp) for n, shp in shapes["pool"]],
+            "ct": [(f"{label} {n}", shp, co) for n, shp, co in shapes["ct"]],
+            "1x1": [(f"{label} {n}", *rest) for n, *rest in shapes["1x1"]]}
+
+
 def path_shapes() -> list:
     """(shapes, mode) of every main path, ``mode`` as in :func:`kernel_cases`:
     the large_unet step summed into the JSON line; the prompt step and the
-    autoencoder's kernel blocks checked; the autoencoder's unfused convs
+    autoencoder's kernel blocks checked, the autoencoder's BN-ReLU
+    reductions and pool backwards timed on lines of their own
+    (``AE_LINES``); the autoencoder's unfused convs
     summed into the "... unfused" lines; the clip_res level, the
     ``fused_deep`` blocks and the tensor-parallel slices timed on lines of
     their own."""
     return [(main_path_shapes(train_config().model_args), "sum"), (prompt_path_shapes(), None),
-            (ae_path_shapes(), None), (ae_path_shapes(unfused=True), "sum"),
+            (relabel(ae_path_shapes(), "autoencoder"), AE_LINES),
+            (ae_path_shapes(unfused=True), "sum"),
             (clip_res_path_shapes(), "line"), (deep_path_shapes(), "line"),
             *((shapes, "line") for shapes in tp_path_shapes())]
 
@@ -701,7 +718,8 @@ def kernel_cases(torch, mods, groups: list) -> list:
     """(KERNEL_INFO entry, label, timed, make) for every launch of the
     serving forward, the large_unet train step and the augmentor, of the
     prompt and autoencoder train steps (``groups``: (shapes, mode), see
-    :func:`path_shapes`) and of the fusion phase, and for edge checks.
+    :func:`path_shapes`; a dict ``mode`` gives the mode of each entry, None
+    for the others) and of the fusion phase, and for edge checks.
     ``timed``: "sum" (timed, and summed into the entry's line of the JSON:
     the large_unet step's launches, the wgrad alone of the prompt step, the
     unfused convs of the autoencoder step, the fusion phase's attention),
@@ -731,6 +749,9 @@ def kernel_cases(torch, mods, groups: list) -> list:
     cases = []
     def of_paths(kind):
         return [(item, mode) for shapes, mode in groups for item in shapes[kind]]
+
+    def add(entry, label, mode, make):  # a launch of a path, in its group's mode
+        cases.append((entry, label, mode.get(entry) if isinstance(mode, dict) else mode, make))
 
     for (label, shp, cb, co, pre, dec, alone, unfused), mode in of_paths("conv"):
         ca = shp[-1]
@@ -795,25 +816,25 @@ def kernel_cases(torch, mods, groups: list) -> list:
                         lambda: torch.nn.grad.conv2d_weight(xl, w.shape, gl, padding=1))
 
         if unfused:  # make_folded_conv3x3: forward, dx, dw and db (pre is False here)
-            cases += [("conv3x3 unfused", label, mode, conv_fwd),
-                      ("conv3x3_dgrad unfused", label, mode, dgrad),
-                      ("conv3x3_wgrad unfused", label, mode, wgrad)]
+            add("conv3x3 unfused", label, mode, conv_fwd)
+            add("conv3x3_dgrad unfused", label, mode, dgrad)
+            add("conv3x3_wgrad unfused", label, mode, wgrad)
             continue
-        cases.append(("conv3x3", label, mode, conv_fwd))
-        cases.append(("conv3x3", label + " stats", "line" if alone else mode,
-                      lambda f=conv_fwd: f(stats=True)))
+        add("conv3x3", label, mode, conv_fwd)
+        add("conv3x3", label + " stats", "line" if alone else mode,
+            lambda f=conv_fwd: f(stats=True))
         if alone:  # input_grad=False: the wgrad kernel alone, no dgrad
-            cases.append(("conv3x3_wgrad alone", label, "sum", wgrad))
+            add("conv3x3_wgrad alone", label, "sum", wgrad)
         else:
-            cases.append(("conv3x3_dgrad", label, mode, dgrad))
-            cases.append(("conv3x3_wgrad", label, mode, wgrad))
+            add("conv3x3_dgrad", label, mode, dgrad)
+            add("conv3x3_wgrad", label, mode, wgrad)
         if pre and dec:  # the decoders' bn2 reduction, at conv2's output shape
             def bnred(shp=shp, co=co):
                 gt, y, a, b = randn(*shp[:3], co), randn(*shp[:3], co), vec(co, 0.5, 1.5), vec(co, -0.5, 0.5)
                 return Case((lambda: fc.bn_relu_bwd_reduce(gt, y, a, b)),
                             (lambda: fc.bn_relu_bwd_reduce_plain(gt, y, a, b)),
                             [gt, y, a, b], 6.0 * y.numel())  # mul, add, compare, select, mul, 2 adds
-            cases.append(("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", mode, bnred))
+            add("bn_relu_bwd_reduce", label.split(".")[0] + ".bn2", mode, bnred)
     for (label, shp), mode in of_paths("pool"):
         def pool(shp=shp, bwd=False):
             # few distinct values, so windows hold ties
@@ -827,8 +848,8 @@ def kernel_cases(torch, mods, groups: list) -> list:
             return Case((lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp)),
                         (lambda: fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)),
                         [z, a, b, dp], 8.0 * z.numel())  # affine, relu, routing, P*a, 2 sums
-        cases.append(("maxpool2x2_affine_relu", label, mode, pool))
-        cases.append(("maxpool2x2_affine_relu_bwd", label, mode, lambda f=pool: f(bwd=True)))
+        add("maxpool2x2_affine_relu", label, mode, pool)
+        add("maxpool2x2_affine_relu_bwd", label, mode, lambda f=pool: f(bwd=True))
     for (label, shp, co), mode in of_paths("ct"):
         def ct(shp=shp, co=co, bwd=False):
             x = randn(*shp)
@@ -851,8 +872,8 @@ def kernel_cases(torch, mods, groups: list) -> list:
                         (lambda: fc.convtranspose2x2_bwd_plain(x, w, gt)),
                         [x, w, gt], 2 * flops, BF16_FLOP_PER_S,
                         lambda: torch.autograd.grad(yr, (xr, wr), gl, retain_graph=True))
-        cases.append(("convtranspose2x2", label, mode, ct))
-        cases.append(("convtranspose2x2_bwd", label, mode, lambda f=ct: f(bwd=True)))
+        add("convtranspose2x2", label, mode, ct)
+        add("convtranspose2x2_bwd", label, mode, lambda f=ct: f(bwd=True))
 
     # K11 at the stem (no dx: the image takes no gradient) and the output
     # conv; the library's backward: autograd through the bf16 1x1 matmul
@@ -873,8 +894,8 @@ def kernel_cases(torch, mods, groups: list) -> list:
                         [x, gt, w], npix * co * (2.0 * ci * (1 + input_grad) + 1), BF16_FLOP_PER_S,
                         lambda: torch.autograd.grad(yr, wrt, gt, retain_graph=True))
         batch = f"B{shp[0]} {shp[1]}x{shp[2]}"
-        cases.append(("conv1x1_bwd", f"{label} {batch} {shp[-1]} -> {co}",
-                      "sum" if mode == "sum" else "line", one))
+        add("conv1x1_bwd", f"{label} {batch} {shp[-1]} -> {co}",
+            "sum" if mode == "sum" else "line", one)
 
     # the augmentor: the shear shifts of 16 drawn angles (rows twice, columns
     # once per step), the prompt step's packed stack (2 x 32 planes at

@@ -1,17 +1,21 @@
-// The second pass of every cross-block sum in these kernels.
+// The cross-block sums of these kernels.
 //
 // On the TPU a Pallas kernel carries a sum from one grid step to the next
 // in an output block that every step revisits, because the grid runs in
 // order on one core.  Hopper's blocks run in parallel and in no order, so
 // each kernel here writes per-block partial sums, one row per block, and
-// this pass adds the rows up column by column in a FIXED order.  No
-// atomics: the result is the same on every run.
+// the rows are added up column by column in a FIXED order: by a second
+// launch (sum_rows: the conv, ConvTranspose and 1x1 kernels), or inside
+// the same launch after a grid-wide barrier (block_period_sums and
+// grid_column_sums: the BN-ReLU backward reduction and the pool backward).
+// No float atomics: the result is the same on every run.
 //
 // What bounds it: device-memory bandwidth over the partial rows, which are
 // far smaller than the tensors the first passes read.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace imgseg {
@@ -60,47 +64,115 @@ inline long long chunks_for(long long units, long long per_chunk_blocks, long lo
   return n < 1 ? 1 : n;
 }
 
-// ---- per-channel sums over pixels, for kernels whose 256-thread blocks
-// are laid out as `rows` x `groups` threads: thread (r, g) handles the VEC
-// channels of group g for every rows-th pixel of the block's chunk.
+// ---- one-launch per-channel sums (the BN-ReLU backward reduction K3 and
+// the pool backward): a persistent grid, launched cooperatively, whose
+// blocks each add their threads' register sums into one row of 2C
+// partials (block_period_sums), wait at a grid-wide barrier, and then add
+// the 2C columns over the rows in block order, the columns spread over the
+// blocks (grid_column_sums).  Fixed order everywhere, no float atomics:
+// the same bits on every run on the same card.
 
-constexpr int kChanThreads = 256;
-constexpr int kChanMaxVec = 8;
+constexpr int kGridThreads = 256;  // most threads a block
+constexpr int kGridVec = 8;        // most sums of each kind a thread
 
-// The two per-thread sums s, q of VEC channels, added over the block's rows
-// in row order; the block's row of partials is out[0..C) = s, out[C..2C) = q
-// for the channels [cbase, cbase + groups*VEC).
-template <int VEC>
-__device__ __forceinline__ void block_channel_sums(const float (&s)[VEC], const float (&q)[VEC],
-                                                   int r, int g, int rows, int groups,
-                                                   int cbase, int C, float* out) {
-  __shared__ float red[2 * kChanThreads * kChanMaxVec];
-  const int width = groups * VEC;
-  if (r < rows) {
+// A block's sums: thread t holds s[k], q[k] for positions t*K + k of the
+// block's flat array of T*K positions (T = blockDim.x), which repeats with
+// period L (T*K a multiple of L); position e sums channel (e % L) % C (L a
+// multiple of C).  Writes row[c] = the s-sum and row[C + c] = the q-sum of
+// channel c: over the periods in order, then over the L/C places of c in a
+// period in order.
+template <int K>
+__device__ __forceinline__ void block_period_sums(const float (&s)[K], const float (&q)[K], int L,
+                                                  int C, float* __restrict__ row) {
+  static_assert(K <= kGridVec, "at most kGridVec sums of each kind a thread");
+  __shared__ float red[2 * kGridThreads * kGridVec];
+  __shared__ float col[2 * kGridThreads * kGridVec];  // 2L <= 2 * T * K
+  const int t = threadIdx.x, n = blockDim.x * K;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      red[r * width + g * VEC + k] = s[k];
-      red[(rows + r) * width + g * VEC + k] = q[k];
-    }
+  for (int k = 0; k < K; ++k) {
+    red[t * K + k] = s[k];
+    red[n + t * K + k] = q[k];
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < width; j += blockDim.x) {
-    float a = 0.f, b = 0.f;
-    for (int rr = 0; rr < rows; ++rr) {
-      a += red[rr * width + j];
-      b += red[(rows + rr) * width + j];
-    }
-    const int c = cbase + j;
-    if (c < C) {
-      out[c] = a;
-      out[C + c] = b;
-    }
+  const int periods = n / L;
+  for (int j = t; j < 2 * L; j += blockDim.x) {
+    const float* src = red + (j < L ? 0 : n) + j % L;
+    float acc = 0.f;
+    for (int p = 0; p < periods; ++p) acc += src[p * L];
+    col[j] = acc;
+  }
+  __syncthreads();
+  const int places = L / C;
+  for (int j = t; j < 2 * C; j += blockDim.x) {
+    const float* src = col + (j < C ? 0 : L) + j % C;
+    float acc = 0.f;
+    for (int o = 0; o < places; ++o) acc += src[o * C];
+    row[j] = acc;
   }
 }
 
-// Chunks over `units` pixels for the per-channel sums: independent of the
-// vector width, so the scratch size is known before the launch picks it.
-inline long long channel_chunks(long long units) { return chunks_for(units, 1); }
+constexpr int kSumGroup = 4;  // columns a block adds at a time in grid_column_sums
+
+// After every block of the cooperative grid has written its row of `ncol`
+// partials (row r = block r of part): the grid-wide barrier, then out[j] =
+// the sum over rows 0..gridDim.x-1 of part[r * ncol + j].  Block b takes
+// the groups of kSumGroup columns b, b + gridDim.x, ...; within a group
+// T / kSumGroup row lanes each add the rows l, l + lanes, ... in order, and
+// one thread a column adds the lanes in order.
+__device__ __forceinline__ void grid_column_sums(const float* part, float* __restrict__ out,
+                                                 int ncol) {
+  __shared__ float lane_sums[kGridThreads];
+  __threadfence();
+  cooperative_groups::this_grid().sync();
+  const int lanes = blockDim.x / kSumGroup;
+  const int t = threadIdx.x, lane = t / kSumGroup, cc = t % kSumGroup;
+  const int nrow = gridDim.x;
+  for (int j0 = blockIdx.x * kSumGroup; j0 < ncol; j0 += gridDim.x * kSumGroup) {
+    const int j = j0 + cc;
+    float acc = 0.f;
+    if (lane < lanes && j < ncol) {
+#pragma unroll 4
+      for (int r = lane; r < nrow; r += lanes) acc += __ldcg(part + static_cast<size_t>(r) * ncol + j);
+    }
+    lane_sums[t] = acc;
+    __syncthreads();
+    if (t < kSumGroup && j0 + t < ncol) {
+      float sum = 0.f;
+      for (int l = 0; l < lanes; ++l) sum += lane_sums[l * kSumGroup + t];
+      out[j0 + t] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// Blocks of a cooperative launch of `kernel` (`threads` a block, `bytes`
+// of dynamic shared memory): the SMs times the blocks resident on one.
+// Kept per device and `key` (0 <= key < 512), which the caller makes
+// unique to (kernel, threads, bytes); a negative key queries every time.
+template <typename Kernel>
+inline cudaError_t grid_blocks(Kernel kernel, int threads, size_t bytes, int key, int& blocks) {
+  constexpr int kDevices = 16, kKeys = 512;
+  static int cached[kDevices][kKeys] = {};  // 0: not queried yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (key >= kKeys) return cudaErrorInvalidValue;
+  const bool keep = key >= 0 && dev < kDevices;
+  if (!keep || cached[dev][key] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+    }
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    if (keep) cached[dev][key] = blocks;
+    return cudaSuccess;
+  }
+  blocks = cached[dev][key];
+  return cudaSuccess;
+}
 
 }  // namespace
 }  // namespace imgseg

@@ -43,11 +43,11 @@ SIGNATURES = {
     "imgseg_conv3x3_dgrad": (_P,) * 10 + (_I,) * 8 + (_P,),
     # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, deep, stream
     "imgseg_conv3x3_wgrad": (_P,) * 9 + (_I,) * 8 + (_P,),
-    # g, y, ab, sums, scratch, B, H, W, C, stream
+    # g, y, a, b, sums, B, H, W, C, stream
     "imgseg_bn_relu_bwd_reduce": (_P,) * 5 + (_I,) * 4 + (_P,),
     # z, ab, p, B, H, W, C, stream
     "imgseg_maxpool2x2_affine_relu": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # z, ab, dp, dz, sums, scratch, B, H, W, C, stream
+    # z, a, b, dp, dz, sums, B, H, W, C, stream
     "imgseg_maxpool2x2_affine_relu_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
     # x, w, bias, y, B, Hin, Win, Cin, Co, stream
     "imgseg_convtranspose2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -65,12 +65,15 @@ SIGNATURES = {
     "imgseg_conv3x3_path": (),
     "imgseg_conv3x3_wgrad_path": (),
 }
-# Scratch sizes (fp32 elements) of the kernels with a second summing pass:
-# name -> argtypes; each returns long long.
+# Scratch sizes (fp32 elements) of the kernels with a second summing pass,
+# and the sums buffers (the sums, then a row of partials per block) of the
+# two that sum in one launch: name -> argtypes; each returns long long (-1:
+# the kernel takes no such shape).
 SCRATCH_QUERIES = {
     "imgseg_conv3x3_scratch": (_I, _I, _I, _I),                  # B, H, W, Co
     "imgseg_conv3x3_wgrad_scratch": (_I,) * 6,                   # B, H, W, Cin, Co, deep
-    "imgseg_channel_sums_scratch": (_L, _I),                     # pixels, C
+    "imgseg_bn_relu_bwd_reduce_floats": (_I,),                   # C
+    "imgseg_maxpool2x2_affine_relu_bwd_floats": (_I, _I, _L),    # W, C, B*H/2
     "imgseg_convtranspose2x2_bwd_scratch": (_I, _I, _I, _I, _I),  # B, Hin, Win, Cin, Co
     "imgseg_preprocess_scratch": (_I, _I, _I),                   # N, H, W
     "imgseg_conv1x1_bwd_scratch": (_L, _I, _I),                  # pixels, Ci, Co

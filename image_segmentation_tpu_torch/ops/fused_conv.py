@@ -46,12 +46,14 @@ round bf16 results the same way, so on the card they are the reference for
 the kernels, and in fp32 on the CPU they are the JAX kernels' math (a
 float64 operand keeps float64, :func:`~.precision.wide`).  Sums
 over pixels are fp32 in both; the kernels take them as per-block partial
-sums plus a second pass in a fixed order, so they are reproducible but not
-in ``torch.sum``'s order.
+sums added in a fixed order, by a second pass or (K3 and the pool
+backward) inside the same launch, so they are reproducible but not in
+``torch.sum``'s order.
 """
 
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager
 from typing import Optional
 
@@ -61,6 +63,7 @@ import torch.nn.functional as F
 from ..parallel import mesh
 from ..parallel import tensor as tp
 from ._build import launch as _launch
+from ._build import library as _library
 from ._build import on_cpu as _on_cpu
 from ._build import ptr as _ptr
 from ._build import scratch as _scratch
@@ -294,6 +297,32 @@ def _check_transform(name: str, y, c1, c2, a, b) -> bool:
 def _check_vector(name: str, t: torch.Tensor, n: int, what: str) -> None:
     if t.shape != (n,):
         raise ValueError(f"{name}: {what} must have shape ({n},), got {tuple(t.shape)}")
+
+
+def _check_fp32_vector(name: str, t: torch.Tensor, n: int, what: str) -> None:
+    """A per-channel vector that a kernel reads as it is: (n,), fp32,
+    contiguous."""
+    _check_vector(name, t, n, what)
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _sums_floats(query: str, *dims: int) -> int:
+    """The C library's ``query`` for these dims, asked once: the size of a
+    one-launch reduction's buffer depends on the card and the shape only."""
+    n = int(getattr(_library(), query)(*dims))
+    if n < 0:
+        raise ValueError(f"{query}{dims}: the kernel takes no such shape")
+    return n
+
+
+def _sums_buffer(like: torch.Tensor, query: str, *dims: int) -> torch.Tensor:
+    """fp32 buffer of a one-launch reduction: its sums, then one row of
+    partials per block of its grid."""
+    return torch.empty(_sums_floats(query, *dims), dtype=torch.float32, device=like.device)
 
 
 def _check_pair(name: str, a, b, what: str) -> None:
@@ -551,8 +580,10 @@ def bn_relu_bwd_reduce(
 ):
     """Per-channel fp32 ``(sum P*y, sum P)`` with ``P = g*[y*a + b > 0]``:
     the affine cotangent of ``z = relu(y*a + b)`` (``_bnred_kernel_body``
-    :1439).  g, y (B,H,W,C); a, b (C,) rounded to the activation dtype and
-    held in fp32 (pallas_conv.py:2389-2391)."""
+    :1439).  g, y (B,H,W,C); a, b (C,), rounded to the activation dtype and
+    held in fp32 (pallas_conv.py:2389-2391).  On the card: g, y bf16 and
+    16-byte aligned, a, b fp32 and contiguous (the kernel rounds them), one
+    launch that sums across its blocks in a fixed order."""
     name = "bn_relu_bwd_reduce"
     if _on_cpu(y):
         return bn_relu_bwd_reduce_plain(g, y, a, b)
@@ -560,13 +591,12 @@ def bn_relu_bwd_reduce(
     _check_activation(name, y, "y")
     _check_activation(name, g, "g", y.shape)
     bsz, h, wd, c = y.shape
-    _check_vector(name, a, c, "a")
-    _check_vector(name, b, c, "b")
-    sums = torch.empty((2, c), dtype=torch.float32, device=y.device)
-    scratch = _scratch("imgseg_channel_sums_scratch", y, bsz * h * wd, c)
-    _launch(bn_relu_bwd_reduce, "imgseg_bn_relu_bwd_reduce", _ptr(g), _ptr(y),
-            _ptr(_ab(a, b, y.dtype)), _ptr(sums), _ptr(scratch), bsz, h, wd, c)
-    return sums[0], sums[1]
+    _check_fp32_vector(name, a, c, "a")
+    _check_fp32_vector(name, b, c, "b")
+    sums = _sums_buffer(y, "imgseg_bn_relu_bwd_reduce_floats", c)
+    _launch(bn_relu_bwd_reduce, "imgseg_bn_relu_bwd_reduce", _ptr(g), _ptr(y), _ptr(a), _ptr(b),
+            _ptr(sums), bsz, h, wd, c)
+    return sums[:c], sums[c:2 * c]
 
 
 def maxpool2x2_affine_relu(
@@ -599,7 +629,9 @@ def maxpool2x2_affine_relu_bwd(
     :1540): each window's cotangent dp (B,H/2,W/2,C) goes to the window's
     FIRST maximum in row-major order of the fp32 ``relu(z*a + b)``; with
     ``P = routed*[z*a + b > 0]`` it returns ``(round(P*a), sum P*z, sum P)``.
-    H and W must be even."""
+    H and W must be even.  On the card: z, dp bf16 and 16-byte aligned, a, b
+    fp32 and contiguous (the kernel rounds them), one launch that sums
+    across its blocks in a fixed order."""
     name = "maxpool2x2_affine_relu_bwd"
     bsz, h, wd, c = z.shape
     if h % 2 or wd % 2:
@@ -609,15 +641,13 @@ def maxpool2x2_affine_relu_bwd(
     _check_cuda_operands(name, z, a, b, dp)
     _check_activation(name, z, "z")
     _check_activation(name, dp, "dp", (bsz, h // 2, wd // 2, c))
-    _check_vector(name, a, c, "a")
-    _check_vector(name, b, c, "b")
+    _check_fp32_vector(name, a, c, "a")
+    _check_fp32_vector(name, b, c, "b")
     dz = torch.empty_like(z)
-    sums = torch.empty((2, c), dtype=torch.float32, device=z.device)
-    scratch = _scratch("imgseg_channel_sums_scratch", z, bsz * (h // 2) * (wd // 2), c)
-    _launch(maxpool2x2_affine_relu_bwd, "imgseg_maxpool2x2_affine_relu_bwd", _ptr(z),
-            _ptr(_ab(a, b, z.dtype)), _ptr(dp), _ptr(dz), _ptr(sums), _ptr(scratch),
-            bsz, h, wd, c)
-    return dz, sums[0], sums[1]
+    sums = _sums_buffer(z, "imgseg_maxpool2x2_affine_relu_bwd_floats", wd, c, bsz * (h // 2))
+    _launch(maxpool2x2_affine_relu_bwd, "imgseg_maxpool2x2_affine_relu_bwd", _ptr(z), _ptr(a),
+            _ptr(b), _ptr(dp), _ptr(dz), _ptr(sums), bsz, h, wd, c)
+    return dz, sums[:c], sums[c:2 * c]
 
 
 def convtranspose2x2(

@@ -172,10 +172,14 @@ def main() -> int:
         return 0
     if not args.entries:
         ap.error("--entries is required without --steps")
-    times = {}  # (entry, label) -> {"timed", "other": [ms], "this": [ms], "library": [ms]}
+    # (entry, label, n) -> {"timed", "other": [ms], "this": [ms], "library": [ms]}: the n-th
+    # case of that entry and label in a checkout's list (two paths may share a label)
+    times = {}
     for who, root in order:
+        seen = {}
         for r in run(root, args.entries, args.labels, args.iters, args.profile):
-            t = times.setdefault((r["entry"], r["label"]),
+            n = seen[r["entry"], r["label"]] = seen.get((r["entry"], r["label"]), -1) + 1
+            t = times.setdefault((r["entry"], r["label"], n),
                                  {"timed": r["timed"], "other": [], "this": [], "library": [],
                                   "TBps": [], "copy_TBps": [], "other_host_us": [],
                                   "this_host_us": [], "path": None})
@@ -194,8 +198,9 @@ def main() -> int:
         return sum(xs) / len(xs) if xs else None
 
     sums = {}
-    for (entry, label), t in times.items():
-        row = {"entry": entry, "label": label, "this_ms": mean(t["this"]),
+    for (entry, label, n), t in times.items():
+        row = {"entry": entry, "label": label if n == 0 else f"{label} #{n + 1}",
+               "this_ms": mean(t["this"]),
                "other_ms": mean(t["other"]), "library_ms": mean(t["library"]),
                "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]),
                "this_host_us": mean(t["this_host_us"]), "other_host_us": mean(t["other_host_us"]),

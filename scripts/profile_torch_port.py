@@ -15,7 +15,9 @@ shapes; imports no jax.
    the device-busy ms (the sum of the kernels' device time), idle share =
    1 - busy / traced window, and the device time by group: each
    hand-written kernel, cuDNN convs and GEMMs, elementwise and copies, the
-   rest by name.
+   rest by name; the idle time by the group of the kernel that ends it,
+   and the host's time in each launch call (``[idle before]``, ``[host]``;
+   every mode prints them).
 2. cuDNN bf16 ms of each conv3x3 main-path launch (no pre-affine), for
    scale against the hand-written kernel.
 3. Exactness at enc1.conv2: the kernel, its plain version and the fp64 conv
@@ -99,6 +101,7 @@ OWN_KERNELS = (
     ("narrow_kernel<2", "conv3x3_dgrad (narrow)"), ("narrow_kernel<3", "conv3x3_dgrad (narrow)"),
     ("conv1x1_bwd_kernel", "conv1x1_bwd"),
     ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
+    ("pool_bwd_narrow_kernel", "maxpool2x2_affine_relu_bwd (narrow)"),
     ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_bwd_kernel", "convtranspose2x2_bwd"),
     ("ct_fwd_kernel", "convtranspose2x2"),
     ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
@@ -126,7 +129,9 @@ def group(name: str) -> str:
 
 def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None:
     """Untraced CUDA-event ms per call of ``fn``, then the traced window,
-    device busy time, idle share and device time by group."""
+    device busy time, idle share and device time by group, the idle time
+    by the group of the kernel it precedes (the six largest), and the host
+    time of each launch call."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     start = torch.cuda.Event(enable_timing=True)
@@ -159,6 +164,23 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
         print(f"   {name}: {ms!r} ms ({ms / busy:.3f})", flush=True)
     for name, ms in ranges.items():
         print(f"   [range] {name}: {ms!r} ms", flush=True)
+    # where the idle time sits: the device's gap before each kernel (since
+    # the latest end of any earlier one), summed by the kernel's group; and
+    # the host's time in each launch call
+    spans = sorted((e.time_range.start, e.time_range.end, group(e.name)) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith((AUGMENT_RANGES, MODEL_RANGES, "Optimizer.")))
+    idle, last = defaultdict(float), None
+    for begin, finish, name in spans:
+        if last is not None and begin > last:
+            idle[name] += (begin - last) / 1e3 / calls
+        last = finish if last is None else max(last, finish)
+    for name, ms in sorted(idle.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"   [idle before] {name}: {ms!r} ms", flush=True)
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchCooperativeKernel"):
+            print(f"   [host] {e.key}: {e.count / calls!r} a call, {e.cpu_time!r} us each",
+                  flush=True)
 
 
 def cudnn_conv_ms() -> None:

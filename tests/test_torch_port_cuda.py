@@ -349,6 +349,36 @@ DEEP_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
 ]
 
 
+def _close_stats_to_own_outputs(got, ref):
+    """A ``stats`` forward's ``(y, S, Q)``: y as :func:`_close`, and each
+    element within one bf16 step of the plain y (plus the fp32 sums' own
+    floor, SUM_RTOL of its largest magnitude); S and Q at SUM_RTOL of the
+    float64 sums of the kernel's OWN bf16 outputs, which is what they sum
+    (JAX sums the cast output, pallas_conv.py:452-453, 564-565).  The
+    kernel's fp32 products sum in another order than the plain conv's, so
+    some outputs round to the neighbouring bf16 value; the plain version's
+    Q sums its own roundings and moves with them, by up to SUM_RTOL at
+    batch 1 and 512 channels."""
+    y, s, q = got
+    _close(y, ref[0])
+    yf, rf = y.float(), ref[0].float()
+    mag = torch.maximum(yf.abs(), rf.abs()).clamp(min=2.0**-126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    over = (yf - rf).abs() - step - SUM_RTOL * rf.abs().max()
+    assert over.max().item() <= 0.0, over.max().item()
+    yd = y.double()
+    for name, got_sum, own in (("S", s, yd.sum((0, 1, 2))), ("Q", q, (yd * yd).sum((0, 1, 2)))):
+        assert got_sum.dtype == torch.float32
+        err = (got_sum.double() - own).abs().max().item()
+        assert err <= SUM_RTOL * own.abs().max().item(), (name, err)
+    flips = int((y != ref[0]).sum().item())
+    q_plain = (q.double() - ref[2].double()).abs().max().item() / ref[2].abs().max().item()
+    q_own = ((q.double() - (yd * yd).sum((0, 1, 2))).abs().max()
+             / (yd * yd).sum((0, 1, 2)).abs().max()).item()
+    print(f"stats: {flips} of {y.numel()} outputs one bf16 step off the plain version's; "
+          f"Q off its own outputs {q_own!r}, off the plain Q {q_plain!r} (relative)")
+
+
 @pytest.mark.parametrize("stats", [False, True])
 @pytest.mark.parametrize("shape,cb,co,pre", DEEP_FWD)
 def test_conv3x3_deep_path(gen, shape, cb, co, pre, stats):
@@ -362,7 +392,11 @@ def test_conv3x3_deep_path(gen, shape, cb, co, pre, stats):
               b=_randn(gen, ca, dtype=torch.float32) * 0.5) if pre else {}
     got = _counted(fc.conv3x3, lambda: fc.conv3x3(x, w, bias, x_b=xb, stats=stats, **ab))
     assert fc.last_path(fc.conv3x3) == "deep"
-    _close_all(got, fc.conv3x3_plain(x, w, bias, x_b=xb, stats=stats, **ab))
+    ref = fc.conv3x3_plain(x, w, bias, x_b=xb, stats=stats, **ab)
+    if stats:
+        _close_stats_to_own_outputs(got, ref)
+    else:
+        _close_all(got, ref)
 
 
 # (shape of the conv's input, Cb, Co, affine cotangent, post / split / raw / neither)
@@ -480,6 +514,157 @@ def test_maxpool2x2_affine_relu_bwd(gen, shape):
     ref = fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
     assert torch.equal(got[0], ref[0])  # the same routing and one product: exact
     _close_all(got, ref)
+
+
+# ---- K3 and the pool backward: one cooperative launch each (a persistent
+# grid that sums across its blocks in a fixed order after a grid-wide
+# barrier); the vector path for C a multiple of 8, for the pool a narrow
+# path through shared memory otherwise.  Long runs (1M pixels), the channel
+# counts the design treats apart, the sums against float64 at a main-path
+# shape, bit-identical repeats, one CUDA kernel a call.
+
+REDUCE_CHANNELS = [3, 5, 16, 32, 64, 256, 512]
+
+
+def _affine(gen, c):
+    return (torch.rand(c, generator=gen, device="cuda") + 0.5,
+            _randn(gen, c, dtype=torch.float32) * 0.5)
+
+
+def _pool_operands(gen, shape):
+    # few distinct values, so windows hold ties the routing must break alike
+    z = (torch.randint(-3, 4, shape, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    dp = _randn(gen, shape[0], shape[1] // 2, shape[2] // 2, shape[3])
+    return (z, *_affine(gen, shape[-1]), dp)
+
+
+def _device_kernels(fn, attempts: int = 3) -> dict:
+    """CUDA kernels of one call of ``fn`` (after a warm-up call), from
+    torch.profiler: name -> launches; a trace that comes back empty is
+    taken again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+            if total > 0:
+                out[evt.key] = evt.count
+        if out:
+            break
+    return out
+
+
+@pytest.mark.parametrize("c", REDUCE_CHANNELS)
+def test_bn_relu_bwd_reduce_long_run(gen, c):
+    shape = (4, 512, 512, c)  # 1M pixels
+    g, y = _randn(gen, *shape), _randn(gen, *shape)
+    a, b = _affine(gen, c)
+    got = _counted(fc.bn_relu_bwd_reduce, lambda: fc.bn_relu_bwd_reduce(g, y, a, b))
+    _close_all(got, fc.bn_relu_bwd_reduce_plain(g, y, a, b))
+
+
+@pytest.mark.parametrize("c", REDUCE_CHANNELS)
+def test_maxpool2x2_affine_relu_bwd_long_run(gen, c):
+    z, a, b, dp = _pool_operands(gen, (4, 512, 512, c))  # 1M pixels
+    got = _counted(fc.maxpool2x2_affine_relu_bwd, lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp))
+    ref = fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
+    assert torch.equal(got[0], ref[0])
+    _close_all(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(2, 38, 70, 3), (3, 10, 14, 5), (1, 2, 2, 3), (2, 4, 6, 24)])
+def test_maxpool2x2_affine_relu_bwd_narrow_runs(gen, shape):
+    """The narrow path's runs: W/2 * C odd (16-byte groups of 8 window
+    rows), a last run shorter than the others, a single window, and C = 24
+    (three 8-channel groups a window on the vector path)."""
+    z, a, b, dp = _pool_operands(gen, shape)
+    got = _counted(fc.maxpool2x2_affine_relu_bwd, lambda: fc.maxpool2x2_affine_relu_bwd(z, a, b, dp))
+    ref = fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
+    assert torch.equal(got[0], ref[0])
+    _close_all(got, ref)
+
+
+def test_bn_relu_bwd_reduce_sums_against_float64(gen):
+    """dec4.bn2 of the large_unet step (batch 16, 256x256, 64 channels):
+    the kernel's fp32 sums within SUM_RTOL of the float64 sums of the same
+    products (the mask decided in fp32, as both versions decide it)."""
+    shape = (16, 256, 256, 64)
+    g, y = _randn(gen, *shape), _randn(gen, *shape)
+    a, b = _affine(gen, 64)
+    da, db = fc.bn_relu_bwd_reduce(g, y, a, b)
+    ar, br = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    p = torch.where(y.float() * ar + br > 0, g.double(), 0.0)
+    for got, ref in ((da, (p * y.double()).sum((0, 1, 2))), (db, p.sum((0, 1, 2)))):
+        err = (got.double() - ref).abs().max().item()
+        assert err <= SUM_RTOL * ref.abs().max().item(), err
+
+
+def test_maxpool2x2_affine_relu_bwd_sums_against_float64(gen):
+    """enc2's pool of the large_unet step (batch 16, 256x256, 128 channels):
+    dz equal to the plain version's, and the affine sums within SUM_RTOL of
+    float64 sums over the same routing, rebuilt as the first maximum of each
+    window in row-major order."""
+    z, a, b, dp = _pool_operands(gen, (16, 256, 256, 128))
+    dz, da, db = fc.maxpool2x2_affine_relu_bwd(z, a, b, dp)
+    ref = fc.maxpool2x2_affine_relu_bwd_plain(z, a, b, dp)
+    assert torch.equal(dz, ref[0])
+    ar, br = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    # the routed cotangent, rebuilt in float64 from the plain routing
+    u = torch.relu(z.float() * ar + br).view(16, 128, 2, 128, 2, 128)
+    flat = u.permute(0, 1, 3, 5, 2, 4).reshape(16, 128, 128, 128, 4)
+    sel = flat.argmax(-1, keepdim=True)  # the first maximum in row-major order
+    mask = torch.zeros_like(flat, dtype=torch.bool).scatter_(-1, sel, True)
+    first = mask.view(16, 128, 128, 128, 2, 2).permute(0, 1, 4, 2, 5, 3).reshape(z.shape)
+    pre = z.float() * ar + br
+    g = dp.double().repeat_interleave(2, 1).repeat_interleave(2, 2)
+    p = torch.where(first & (pre > 0), g, 0.0)
+    for got, want in ((da, (p * z.double()).sum((0, 1, 2))), (db, p.sum((0, 1, 2)))):
+        err = (got.double() - want).abs().max().item()
+        assert err <= SUM_RTOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("c", [3, 64, 512])
+def test_reduction_kernels_are_deterministic_and_one_launch(gen, c):
+    """Two calls on the same inputs: bit-identical sums (and dz); each call
+    runs exactly one CUDA kernel, which adds the blocks' partial rows
+    itself (no second pass, no PyTorch op on the device)."""
+    shape = (2, 96, 160, c)
+    g, y = _randn(gen, *shape), _randn(gen, *shape)
+    a, b = _affine(gen, c)
+    z, pa, pb, dp = _pool_operands(gen, shape)
+    for call, kernel in ((lambda: fc.bn_relu_bwd_reduce(g, y, a, b), "bnred_kernel"),
+                         (lambda: fc.maxpool2x2_affine_relu_bwd(z, pa, pb, dp), "pool_bwd")):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for u, v in zip(first, second, strict=True):
+            assert torch.equal(u, v)
+        kernels = _device_kernels(call)
+        assert len(kernels) == 1 and list(kernels.values()) == [1], kernels
+        assert kernel in next(iter(kernels)), kernels
+
+
+def test_reduction_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    """No fallback and no conversion on the card: operands off 16 bytes
+    fail in the kernel's launch, an fp64 affine and a channel count past
+    the kernels' layouts raise before it."""
+    g = _randn(gen, 1 * 4 * 4 * 8 + 1)[1:].view(1, 4, 4, 8)  # 2 bytes off 16
+    y = _randn(gen, 1, 4, 4, 8)
+    a, b = _affine(gen, 8)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fc.bn_relu_bwd_reduce(g, y, a, b)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fc.maxpool2x2_affine_relu_bwd(g, a, b, y[:, :2, :2].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        fc.bn_relu_bwd_reduce(y, y, a.double(), b)
+    with pytest.raises(ValueError, match="no such shape"):
+        c = 257  # lcm(257, 8) / 8 = 257 vectors a period: past one block
+        fc.bn_relu_bwd_reduce(_randn(gen, 1, 2, 2, c), _randn(gen, 1, 2, 2, c), *_affine(gen, c))
 
 
 @pytest.mark.parametrize("shape,co", [((2, 8, 16, 64), 32), ((1, 3, 5, 7), 9)])

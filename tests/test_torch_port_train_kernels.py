@@ -129,12 +129,15 @@ def test_block_forward_and_gradients_match_pallas(case, fold):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref), err_msg=name, **BLOCK_TOL)
 
 
+# the channel counts the CUDA kernels treat apart: 3 (the pool's narrow
+# path; a period of 3 vectors in K3), 8, 16, 64, 256 (one to 32 8-channel
+# groups a window)
+@pytest.mark.parametrize("c", [3, 8, 16, 64, 256])
 @pytest.mark.parametrize("fold", [2, 4])
-def test_pool_vjp_matches_pallas(fold):
+def test_pool_vjp_matches_pallas(fold, c):
     """Tied windows included: equal positive values in one window, where
     the cotangent must reach the same (first, row-major) position."""
-    rng = np.random.default_rng(700 + fold)
-    c = 8
+    rng = np.random.default_rng(700 + fold + (0 if c == 8 else 10 * c))  # c = 8: the first seeds
     z = (rng.integers(-3, 4, (2, 8, 16, c)) * 0.5).astype(np.float32)
     a = rng.uniform(0.5, 1.5, c).astype(np.float32)
     bb = _normal(rng, (c,), 0.5)
@@ -175,9 +178,9 @@ def test_convtranspose_vjp_matches_pallas(fold):
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(db), **TOL)
 
 
-def test_bn_relu_bwd_reduce_matches_pallas():
-    rng = np.random.default_rng(900)
-    c = 16
+@pytest.mark.parametrize("c", [3, 16, 64, 256])
+def test_bn_relu_bwd_reduce_matches_pallas(c):
+    rng = np.random.default_rng(900 + (0 if c == 16 else c))  # c = 16: the first seed
     g = _normal(rng, (2, 8, 16, c))
     y = _normal(rng, (2, 8, 16, c))
     a = rng.uniform(0.5, 1.5, c).astype(np.float32)

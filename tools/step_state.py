@@ -76,11 +76,12 @@ def step_state(out: str) -> None:
 
 def compare(a: str, b: str) -> bool:
     """Whether two dumps are bit-identical; prints, per step (the
-    large_unet step, then each ``<run>/``), whether it is and its largest
-    leaf difference."""
+    large_unet step, then each ``<run>/``), whether it is, its largest
+    leaf difference, and how many of its arrays moved, naming those that
+    did not."""
     za, zb = np.load(a), np.load(b)
     same = sorted(za.files) == sorted(zb.files)
-    worst, steps = 0.0, {}
+    worst, steps, kept = 0.0, {}, {}
     for k in za.files:
         if k in zb.files:
             equal = bool(np.array_equal(za[k], zb[k]))
@@ -88,11 +89,15 @@ def compare(a: str, b: str) -> bool:
             step = k.split("/")[0] + "/" if "/" in k.split("grad/")[0] else "large_unet"
             eq, big, leaf = steps.get(step, (True, 0.0, ""))
             steps[step] = (eq and equal, max(big, diff), k if diff > big else leaf)
+            kept.setdefault(step, []).append((k, equal))
             same &= equal
             worst = max(worst, diff)
     for step, (eq, big, leaf) in steps.items():
+        moved = [k for k, equal in kept[step] if not equal]
+        unmoved = [k.split("grad/")[-1] for k, equal in kept[step] if equal]
         print(f"  {step}: bit-identical {eq}" + ("" if eq else f", largest |difference| {big!r} "
-                                                 f"at {leaf}"), flush=True)
+                                                 f"at {leaf}; {len(moved)} of {len(kept[step])} "
+                                                 f"arrays moved, unmoved: {unmoved}"), flush=True)
     print(f"step states {a} and {b}: bit-identical {same}, largest |difference| {worst!r} "
           f"({len(za.files)} arrays)", flush=True)
     return same
