@@ -16,15 +16,31 @@
 // a conv is a conv of the cotangent with the flipped, transposed kernel,
 // which the wrapper passes in the forward's weight layout.
 //
-// What bounds it on the card: the tensor cores.  At the LargeUNet's
-// level-0/1 shapes (batch 16, 32..128 channels at 512^2 and 256^2) a conv
-// does 2*9*Cin*Co FLOPs per output pixel against ~2*(Cin+Co) bytes moved,
-// far above the H100's ~295 FLOP/byte ridge.  The operands are bf16 (every
-// on-load transform ends in a bf16 rounding), so a bf16 x bf16 product is
-// exact in fp32 and the tensor cores compute the same sums as fp32 FMAs, in
-// another order.
+// The vector path takes Ca, Cb and Co multiples of 8 on 16-byte aligned
+// operands, Cin up to 192 (160 where Co <= 16: the forward's resident
+// weights must fit): every level 0-1 conv of every U-Net (32-128 channels
+// at 512^2 and 256^2 in large_unet at batch 16).  The caller chooses the
+// path (ops/fused_conv.conv_path); the library refuses one it cannot
+// take.  A conv does 18*Cin*Co FLOPs per
+// output pixel against 2*(Cin + Co) bytes moved, so what bounds it on the
+// card depends on the shape: bytes at enc1.conv1 (32 -> 64: 0.240 ms of
+// bytes against 0.156 of FLOPs at 3.35 TB/s and 989 TFLOP/s), enc1.conv2,
+// dec5.conv1 and dec5.conv2; the tensor cores at enc2.conv1, enc2.conv2 and
+// dec4.conv1 (128 -> 128: 0.313 ms of FLOPs against 0.160 of bytes); the
+// two nearly equal at dec4.conv2.  The operands are bf16 (every on-load
+// transform ends in a bf16 rounding), so a bf16 x bf16 product is exact in
+// fp32 and the tensor cores compute the same sums as fp32 FMAs, in another
+// order.
 //
-// What the design does about it: an implicit GEMM on mma.sync m16n8k16
+// The forward (vec_kernel; see its section) reads x once and keeps the
+// weights resident: one wave of persistent blocks, each holding the whole
+// 9 x Cin x N weight tile in shared memory (147 KB at 64 -> 128) and walking
+// a run of 128-pixel strips of consecutive rows with a ring of x rows, so
+// each x value is loaded and activated once per N tile; the products are
+// wgmma with both operands read from shared memory by descriptor.
+//
+// The dgrad's vector path (conv3x3_kernel, the dx of the merged backward
+// and of make_folded_conv3x3) is an implicit GEMM on mma.sync m16n8k16
 // (bf16 in, fp32 sums).  A 256-thread block owns an 8x16-pixel by TCO
 // (32 or 64) output-channel tile: M = 128 pixels, N = TCO, K = 9 taps x Cin
 // in 16-wide slices.  Per stage of 32 input channels it holds the
@@ -34,23 +50,22 @@
 // by (ky, kx), which is only another row pointer per lane for ldmatrix.
 // Each warp owns 2 output rows (2 m16 tiles) by TCO/2 channels and keeps
 // its sums in registers in the mma fragment layout.  The stages are
-// double-buffered: the weights, and the operand where it needs no
-// transform (x without the affine, the raw cotangent), arrive by cp.async
-// (16 bytes, zero-filled outside the image); a transformed operand (the
-// affine + ReLU, the cotangent transform) is read 16 bytes a thread into
-// registers before the stage's mma, transformed and stored after, so both
-// loads overlap the tensor cores.  The zero border (after the transform, as
-// in JAX) is the zero fill.  The epilogues
-// run on the fragments: the bias, the bf16 rounding, the statistics of the
-// ROUNDED output or the ReLU adjoint with its sums, the split of dx; sums
-// go over each lane's pixels, then warp shuffles, then the four row warps in
-// order through shared memory, and each block writes one row of partial
-// sums that a second pass (reduce.cuh) adds in a fixed order.  No atomics.
+// double-buffered: the weights, and the raw cotangent, arrive by cp.async
+// (16 bytes, zero-filled outside the image); the transformed cotangent is
+// read 16 bytes a thread into registers before the stage's mma,
+// transformed and stored after, so both loads overlap the tensor cores.
+// The zero border (after the transform, as in JAX) is the zero fill.  The
+// epilogues run on the fragments: the bias, the bf16 rounding, the ReLU
+// adjoint with its sums, the split of dx; sums go over each lane's pixels,
+// then warp shuffles, then the four row warps in order through shared
+// memory, and each block writes one row of partial sums that a second pass
+// (reduce.cuh) adds in a fixed order.  No atomics.
 //
 // The narrow path (narrow_kernel) takes every other shape: a channel count
 // that is not a multiple of 8 (ClipRes's output block, [16 | 3] -> 3 and
 // 3 -> 3, its dx from a 3-channel cotangent; the prompt heatmap, 1 -> 32),
-// an odd split, an operand off a 16-byte boundary.  What bounds it on the
+// a split not at a multiple of 8, more input channels than the vector
+// path's weights fit, an operand off a 16-byte boundary.  What bounds it on the
 // card: bytes.  At 3 output channels a pixel does 2*9*19*3 FLOPs against
 // ~44 bytes moved, far below the ridge.  What cost was the staging: a
 // 128-pixel block padded K and N to 32, so 94 % of the weights it staged
@@ -76,13 +91,9 @@
 // The deep path (deep_kernel) takes Ca, Cb and Co multiples of 64 with 256
 // or more channels in or out, as the caller's rule (ops/fused_conv.
 // conv_path) says: the fold-1 blocks of fused_deep, 128-512 channels at
-// 1/4 and 1/8 of the image side, which the vector path above was not
-// designed for.  What bounds it: the tensor cores (2*9*Cin*Co FLOPs a pixel
-// against ~2*(Cin+Co) bytes).  What held the vector path back there: each
-// 128-pixel block staged the whole 9 x Cin x 64 weight slice again (2.4 GB
-// of L2 traffic for enc4.conv2, 512 -> 512 at 64^2), and ldmatrix feeding
-// mma.sync from shared memory capped the tensor cores near half their rate.
-// What the design does about it: an implicit GEMM on Hopper's wgmma (bf16
+// 1/4 and 1/8 of the image side, whose whole weights do not fit in shared
+// memory.  What bounds it: the tensor cores (2*9*Cin*Co FLOPs a pixel
+// against ~2*(Cin+Co) bytes).  What the design does about it: an implicit GEMM on Hopper's wgmma (bf16
 // in, fp32 sums) with both operands read from shared memory by descriptor.
 // A persistent block (one an SM) walks tiles of 4 x 64 output pixels (M =
 // 256, one image row a m64 wgmma tile) by N = 64 or 128 output channels; K
@@ -170,7 +181,11 @@ struct Args {
   int kp;  // the narrow path: channels per stage, padded to a multiple of 8
   int tiles_x, tiles_y, nblk;  // the narrow and deep paths: pixel tiles; blocks along them
   int deep;  // the deep path: its N tile (64 or 128), else 0
-  long long tiles;
+  // the vector forward: pixels a unit (a strip of one row; 0 off that
+  // path), K padded to a multiple of 16, the N tile, whether the two
+  // consumer warpgroups split N (else the strip)
+  int vsw, vcpad, vntile, vsplit, vxr;  // and the x rows in its ring
+  long long tiles, per_chunk;
 };
 
 // The post adjoint of one element (the fp32 sum v, xpost's value xv, the
@@ -223,6 +238,7 @@ __device__ __forceinline__ void emit(const Args& p, size_t pix, int gco, const f
 
 template <int LOAD, int EPI, int TCO>
 __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
+  static_assert(LOAD != kLoadX, "the vector path's forward is vec_kernel");
   using T = Tiles<TCO>;
   constexpr int NT = TCO / 16;  // n8 tiles per warp: each warp has TCO/2 channels
   constexpr bool kGe = LOAD == kLoadGeStats || LOAD == kLoadGeAffine;
@@ -241,7 +257,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
   const int co0 = (blockIdx.z % p.co_tiles) * TCO;
   const size_t img = static_cast<size_t>(n) * H;
   // the operand goes shared <- global by cp.async; else through registers
-  const bool direct = LOAD == kLoadG || (LOAD == kLoadX && p.ab == nullptr);
+  const bool direct = LOAD == kLoadG;
   const bool regs = !direct;
 
   uint4 pg[AV] = {}, py[AV] = {};  // a transformed operand's next stage, in flight
@@ -277,11 +293,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
       int q, gc;
       size_t pix;
       const bool ok = halo_vec(i, c0, q, gc, pix);
-      const __nv_bfloat16* src = p.x;
-      if (ok) {
-        src = (LOAD == kLoadX && gc >= p.Ca) ? p.xb + pix * p.Cb + (gc - p.Ca)
-                                             : p.x + pix * p.Ca + gc;
-      }
+      const __nv_bfloat16* src = ok ? p.x + pix * p.Ca + gc : p.x;
       if (direct) {
         cp_async16(sA + q * AS + (i & 3) * 8, src, ok);
       } else if (ok) {
@@ -302,13 +314,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
       size_t pix;
       const bool ok = halo_vec(i, c0, q, gc, pix);
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) {
-        if constexpr (LOAD == kLoadX) {
-          val = gc < p.Ca ? imgseg::affine_relu8(p.ab, p.Ca, gc, pg[j]) : pg[j];
-        } else {
-          val = imgseg::cotangent8<LOAD == kLoadGeAffine>(p.ab, p.Ca, gc, pg[j], py[j]);
-        }
-      }
+      if (ok) val = imgseg::cotangent8<LOAD == kLoadGeAffine>(p.ab, p.Ca, gc, pg[j], py[j]);
       *reinterpret_cast<uint4*>(sA + q * AS + (i & 3) * 8) = val;
     }
   };
@@ -432,6 +438,394 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
       p.partial[(blk * 2) * Co + co0 + tid] = a;
       p.partial[(blk * 2 + 1) * Co + co0 + tid] = q;
     }
+  }
+}
+
+// ---- the vector path's forward (vec_kernel): [x | xb] or the pre-affine
+// on load, the eval or the stats epilogue.  A block holds the 9 x Cin x N
+// weights of its N tile (blockIdx.x) in shared memory for its whole run of
+// units (mma.cuh UnitWalk: a unit is an sw-pixel strip of one output row;
+// blockIdx.y picks the run).  Warpgroup 0 copies: a bulk copy a tap of the
+// weights, once, then each new x row of the run by 16-byte cp.async
+// (zero-filled outside the image and past Cin) into a ring of vxr slots of
+// 8-channel planes (the wgmma's K-major core matrices of A: 8 consecutive
+// pixels of a plane, so a tap's shift of one pixel is a start address 16
+// bytes on), as many rows ahead as the ring holds, the copies counted on
+// the slot's `landed` barrier.  Warpgroups 1 and 2 apply the pre-affine +
+// ReLU to a unit's new rows in place where there is one, then each runs
+// one m64 (pixels) x n(8 NT) x k16 wgmma a (tap, 16 channels), A from the
+// ring's row y + ky - 1 and B from the resident weights, both by
+// descriptor: with sw = 128 they take the two 64-pixel halves of the strip
+// at all N channels, with sw = 64 (where 128-pixel rows and the weights do
+// not fit together: Cin = 128) the two halves of N.  A unit's epilogue runs
+// while the next unit's wgmmas do (two accumulator sets); its stores go
+// through shared memory as 16-byte words, its stats into registers.  What
+// limits it (PERF.md, section 6): the wgmmas, at a third of the tensor
+// cores' rate with N = 64 and less with the halves of N at Cin = 128.
+constexpr int FXR_MIN = 4;      // x rows in the ring: the three a unit reads and one ahead
+constexpr int FXR_MAX = 8;      // and at most, where the weights leave room
+constexpr int FTHREADS = 384;   // warpgroup 0 copies; 1 and 2 transform and run the products
+constexpr int FSTAGERS = 128;
+constexpr int FCONSUMERS = FTHREADS - FSTAGERS;
+// registers a thread after the copying warpgroup hands some to the others
+// (168 at the launch): 128 x 112 given, 256 x 56 taken.  setmaxnreg.inc
+// takes only what the block's own setmaxnreg.dec gave back, and waits for
+// it: the two must balance exactly, or the consumers wait forever
+constexpr int FLAUNCH_REGS = 168;
+constexpr int FSTAGE_REGS = 56;
+constexpr int FPRODUCT_REGS = 224;
+static_assert((FLAUNCH_REGS - FSTAGE_REGS) * FSTAGERS == (FPRODUCT_REGS - FLAUNCH_REGS) * FCONSUMERS,
+              "the registers given and taken balance");
+constexpr size_t FSMEM = 226 * 1024;  // dynamic shared memory a block may take
+constexpr int FEC = 32;       // output channels a consumer warp stores at a time
+constexpr int FES = FEC + 8;  // their row stride in shared memory (bf16): no bank conflicts
+
+// The elements between two 8-channel planes of an x row of sw + 2 pixels.
+__host__ __device__ constexpr int fwd_xp(int sw) { return (sw + 2) * 8; }
+
+// Bytes of a block's shared memory, in this order: the weights (9 x cpad x
+// ntile bf16), the x ring (xr x cpad x (sw + 2) bf16), the consumer warps'
+// output rows (8 x 16 x FES bf16), the pre-affine rows (2 x cpad fp32),
+// the bias (ntile fp32), the stats rows (8 warps x 2 x ntile fp32).
+__host__ __device__ constexpr size_t fvec_bytes(int sw, int cpad, int ntile, int xr) {
+  return (static_cast<size_t>(9) * cpad * ntile + static_cast<size_t>(xr) * (cpad / 8) * fwd_xp(sw) +
+          8 * 16 * FES) * sizeof(__nv_bfloat16) +
+         (2 * static_cast<size_t>(cpad) + 17 * static_cast<size_t>(ntile)) * sizeof(float);
+}
+
+// The most input channels (padded to 16) the vector path takes, as
+// ops/fused_conv.conv_path states them (VECTOR_CIN, VECTOR_CIN_N16): the
+// weights of an N tile of 32 on 64-pixel strips fit up to Cin = 192, those
+// of an N tile of 16 (Co <= 16) on 128-pixel strips up to 160.
+static_assert(fvec_bytes(64, 192, 32, FXR_MIN) <= FSMEM && fvec_bytes(64, 208, 32, FXR_MIN) > FSMEM,
+              "conv_path's VECTOR_CIN is the most the vector forward fits");
+static_assert(fvec_bytes(128, 160, 16, FXR_MIN) <= FSMEM && fvec_bytes(128, 176, 16, FXR_MIN) > FSMEM,
+              "conv_path's VECTOR_CIN_N16 is the most the vector forward fits at Co <= 16");
+
+// The vector forward's tiles for cin -> co channels on rows of w pixels: K
+// padded to cpad (a multiple of 16: one k16 step is two planes), N tile
+// ntile (16, 32, 64 or 128, past Co zero weights), strips of 128 pixels
+// with the two consumer warpgroups on its halves, else (rows of 64 pixels
+// or fewer, whose second half would be empty; 128-pixel rows and the
+// weights not fitting together) of 64 with the two on halves of N; the
+// largest N tile that fits in FSMEM with FXR_MIN rows, then as many more
+// rows as fit, up to FXR_MAX.  False where none fits.
+bool vec_plan(int cin, int co, int w, Args& p) {
+  p.vcpad = (cin + 15) / 16 * 16;
+  int n = 16;
+  while (n < co && n < 128) n *= 2;
+  for (; n >= 16; n /= 2) {
+    for (int sw = w <= 64 && n >= 32 ? 64 : 128; sw >= 64; sw /= 2) {
+      if (sw == 64 && n < 32) break;
+      const size_t base = fvec_bytes(sw, p.vcpad, n, FXR_MIN);
+      if (base > FSMEM) continue;
+      const size_t slot = static_cast<size_t>(p.vcpad / 8) * fwd_xp(sw) * sizeof(__nv_bfloat16);
+      const size_t more = (FSMEM - base) / slot;
+      p.vsw = sw, p.vsplit = sw == 64, p.vntile = n;
+      p.vxr = FXR_MIN + static_cast<int>(more < FXR_MAX - FXR_MIN ? more : FXR_MAX - FXR_MIN);
+      return true;
+    }
+  }
+  return false;
+}
+
+// A thread's walk over the 16-byte vectors of an x row, among T threads (G
+// = T / 8 groups of 8 lanes): its vectors are T m + t, vector i being plane
+// j = (i / 8) % KB at pixel hx = 8 ((i / 8) / KB) + i % 8 of the sw + 2, so 8
+// lanes touch 128 contiguous bytes; kept incrementally.
+struct RowVecs {
+  int j0, h0, dj, dh, KB, pl;
+  __device__ __forceinline__ RowVecs(int t, int T, int kb)
+      : j0((t >> 3) % kb), h0((t >> 3) / kb), dj((T >> 3) % kb), dh((T >> 3) / kb), KB(kb), pl(t & 7) {}
+  __device__ __forceinline__ void step(int& j, int& h8) const {
+    j += dj, h8 += dh;
+    if (j >= KB) j -= KB, ++h8;
+  }
+};
+
+// Warpgroup 0: each unit's new x rows, 16-byte copies of [x | xb] into the
+// ring (cp.async, zero outside the image and past Cin: K's padding) as
+// soon as a slot is free, as many rows ahead as the ring holds; the slot's
+// `landed` barrier counts the copies.
+__device__ __forceinline__ void fwd_vec_issue(const Args& p, __nv_bfloat16* xr, uint64_t* xland,
+                                              uint64_t* xempty, long long u0, long long u1) {
+  const int H = p.H, W = p.W, Ca = p.Ca, Cb = p.Cb, cin = Ca + Cb, sw = p.vsw;
+  const int KB = p.vcpad / 8, XP = fwd_xp(sw), H8 = (sw + 2 + 7) / 8;
+  const RowVecs rv(threadIdx.x, FSTAGERS, KB);
+  imgseg::UnitWalk w;
+  for (w.begin(u0, u1, H, p.tiles_x, p.vxr); w.more(); w.next_unit()) {
+    const int x0 = w.s * sw;
+    for (int r = w.fresh ? -1 : 1; r <= 1; ++r) {
+      w.next_row();
+      const int iy = w.y + r;
+      imgseg::mbar_wait(&xempty[w.slot], w.phase ^ 1);
+      __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot) * KB * XP;
+      const bool row_in = iy >= 0 && iy < H;
+      const size_t rowpix = row_in ? (static_cast<size_t>(w.n) * H + iy) * W : 0;
+      const __nv_bfloat16* xa = p.x + rowpix * Ca;
+      const __nv_bfloat16* xb = p.xb + rowpix * Cb;
+      for (int j = rv.j0, h8 = rv.h0; h8 < H8; rv.step(j, h8)) {
+        const int hx = 8 * h8 + rv.pl, c = 8 * j, ix = x0 - 1 + hx;
+        if (hx >= sw + 2) continue;
+        const bool ok = row_in && c < cin && ix >= 0 && ix < W;
+        const __nv_bfloat16* src = !ok ? p.x : c < Ca ? xa + ix * Ca + c : xb + ix * Cb + (c - Ca);
+        imgseg::cp_async16(dst + j * XP + hx * 8, src, ok);
+      }
+      imgseg::cp_async_arrive(&xland[w.slot]);
+    }
+  }
+}
+
+// The consumers (256 threads) on a unit's new x rows once they have landed:
+// the pre-affine + ReLU in place (mul and add rounded apart; the zeros
+// outside the image stay zero: SAME padding pads the activated tensor).
+__device__ __forceinline__ void fwd_vec_activate(const Args& p, __nv_bfloat16* xr, const float* rows,
+                                                 const imgseg::UnitWalk& w) {
+  const int H = p.H, W = p.W, cin = p.Ca + p.Cb, sw = p.vsw;
+  const int KB = p.vcpad / 8, XP = fwd_xp(sw), H8 = (sw + 2 + 7) / 8;
+  const RowVecs rv(threadIdx.x - FSTAGERS, FCONSUMERS, KB);
+  const int x0 = w.s * sw;
+  for (int k = 0; k < w.loads(); ++k) {  // rows y + 1, y, y - 1
+    const int iy = w.y + 1 - k;
+    if (iy < 0 || iy >= H) continue;
+    __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot_back(k)) * KB * XP;
+    for (int j = rv.j0, h8 = rv.h0; h8 < H8; rv.step(j, h8)) {
+      const int hx = 8 * h8 + rv.pl, c = 8 * j, ix = x0 - 1 + hx;
+      if (hx >= sw + 2 || c >= cin || ix < 0 || ix >= W) continue;
+      uint4* at = reinterpret_cast<uint4*>(dst + j * XP + hx * 8);
+      *at = imgseg::affine_relu8_shared(rows, p.vcpad, c, *at);
+    }
+  }
+}
+
+// What a consumer keeps of a unit between its products and its epilogue:
+// where it lies, and which x rows it frees.
+struct UnitDone {
+  long long n;
+  int s, y, slot;
+  bool frees_all;
+};
+
+// Warpgroups 1 and 2 (cw = 0, 1), each on its half of every unit, their
+// wgmmas running together (the two dependent chains fill the tensor cores;
+// taken in turns, so that one's epilogue ran beside the other's wgmmas,
+// they were slower).  A unit: 9 x cpad/16 wgmmas into one commit group;
+// meanwhile the next unit's new rows, once landed, are activated in place
+// where the conv has a pre-affine (each warpgroup its share of the
+// vectors, then an arrival on the row's `act` barrier, which the wgmmas of
+// both wait for); then the epilogue: the bias and the bf16 rounding into
+// this warp's rows in shared memory, EC channels at a time, from which each
+// lane stores 16 bytes and, for the stats of the ROUNDED outputs, lane c
+// adds channel c over the warp's 16 pixels into its running sums (sums
+// over a thread's own channels in registers cost spills).  (Two
+// accumulator sets in one warpgroup, its epilogue beside its own next
+// wgmmas, made ptxas serialize them.)
+template <int EPI, int NT>
+__device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloat16* ws,
+                                                 __nv_bfloat16* xr, const float* rows,
+                                                 const float* sbias, float* red, __nv_bfloat16* estage,
+                                                 uint64_t* wfull, uint64_t* xland, uint64_t* xact,
+                                                 uint64_t* xempty, long long u0, long long u1) {
+  constexpr int EC = NT * 8 < FEC ? NT * 8 : FEC;  // channels a store pass
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cw = warp / 4 - 1, wi = warp & 3;
+  const int H = p.H, W = p.W, Co = p.Co, sw = p.vsw, ntile = p.vntile;
+  const int KB = p.vcpad / 8, NB = ntile / 8, XP = fwd_xp(sw), KS = KB / 2, R = p.vxr;
+  const int mw = p.vsplit ? 0 : cw, nw = p.vsplit ? cw : 0;
+  const int co0 = blockIdx.x * ntile, cbase = nw * NT * 8;  // this warpgroup's first channel of the tile
+  const bool pre = p.ab != nullptr;
+  float* myred = red + (warp - 4) * 2 * ntile;
+  __nv_bfloat16* stage = estage + (warp - 4) * 16 * FES;
+  imgseg::UnitWalk w;
+  w.begin(u0, u1, H, p.tiles_x, R);
+
+  // the current unit's new rows: landed, and activated where there is a
+  // pre-affine (this thread's share, then its arrival on each row's `act`)
+  auto prepare = [&]() {
+    for (int i = w.loads(); i > 0; --i) w.next_row();
+    if (!pre) return;
+    for (int k = 0; k < w.loads(); ++k) imgseg::mbar_wait(&xland[w.slot_back(k)], w.phase_back(k));
+    fwd_vec_activate(p, xr, rows, w);
+    imgseg::fence_proxy_async();  // the stores, before the wgmmas read them
+    for (int k = 0; k < w.loads(); ++k) imgseg::mbar_arrive(&xact[w.slot_back(k)]);
+  };
+
+  // this lane's running stats: channel lane (< EC) of each store pass
+  constexpr int NPASS = NT * 8 / EC;
+  float s1[NPASS], s2[NPASS];
+#pragma unroll
+  for (int i = 0; i < NPASS; ++i) s1[i] = s2[i] = 0.f;
+  float acc[4 * NT];
+  imgseg::mbar_wait(wfull, 0);
+  if (w.more()) prepare();
+  while (w.more()) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      uint64_t* bar = pre ? xact : xland;
+      imgseg::mbar_wait(&bar[w.slot_back(2 - ky)], w.phase_back(2 - ky));
+    }
+    if (!pre) imgseg::fence_proxy_async();  // the copies, before the wgmmas read them
+    imgseg::wgmma_fence();
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      const __nv_bfloat16* xs = xr + static_cast<size_t>(w.slot_back(2 - ky)) * KB * XP;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        const int tap = ky * 3 + kx;
+        const __nv_bfloat16* a0 = xs + (64 * mw + kx) * 8;
+        const __nv_bfloat16* b0 = ws + (tap * NB + nw * NT) * KB * 64;
+        auto k16 = [&](int ks) {
+          // A: K-major, K-adjacent cores (8 channels) a plane apart, M-adjacent (8 pixels) 128 bytes
+          const uint64_t da = imgseg::wgmma_desc(a0 + 2 * ks * XP, XP * 2, 128);
+          // B: K-major, K-adjacent cores 128 bytes apart, N-adjacent KB x 128
+          const uint64_t db = imgseg::wgmma_desc(b0 + 2 * ks * 64, 128, KB * 128);
+          imgseg::wgmma<0, 0, NT>(acc, da, db, (tap | ks) != 0);
+        };
+        // unrolled to 128 input channels, every model's (a loop with a
+        // runtime trip count made ptxas fence every wgmma: 2-17 % slower)
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          if (ks >= KS) break;
+          k16(ks);
+        }
+#pragma unroll 1
+        for (int ks = 8; ks < KS; ++ks) k16(ks);
+      }
+    }
+    imgseg::wgmma_commit();
+    const UnitDone u{w.n, w.s, w.y, w.slot, w.frees_all()};
+    w.next_unit();
+    // the next unit's new rows while this one's wgmmas run, unless it
+    // restarts the ring: it needs the rows this unit frees
+    const bool early = w.more() && !w.fresh;
+    if (early) prepare();
+    imgseg::wgmma_wait<0>();
+    imgseg::fence_acc(acc);
+    if (lane == 0) imgseg::release_rows(u.slot, R, u.frees_all, xempty);
+
+    // ---- the epilogue: lane holds pixels 16 wi + lane/4 (+8) of the
+    // warpgroup's 64, channels 8t + 2(lane%4) (+1) of its N
+    const int gx0 = u.s * sw + 64 * mw + 16 * wi;
+    const size_t row = (static_cast<size_t>(u.n) * H + u.y) * W;
+#pragma unroll
+    for (int pass = 0; pass < NPASS; ++pass) {
+      const int c0 = pass * EC;
+#pragma unroll
+      for (int t = c0 / 8; t < (c0 + EC) / 8; ++t) {
+        const int c = cbase + 8 * t + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = (lane >> 2) + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(stage + q * FES + (c - cbase - c0)) =
+              __floats2bfloat162_rn(acc[4 * t + 2 * h] + sbias[c], acc[4 * t + 2 * h + 1] + sbias[c + 1]);
+        }
+      }
+      __syncwarp();
+      if constexpr (EPI == kEpiStats) {  // statistics of the ROUNDED output, in the image
+        if (lane < EC) {  // channel lane of the pass, over the warp's 16 pixels in order
+          const int nq = W - gx0;
+          float f[16];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) f[q] = q < nq ? __bfloat162float(stage[q * FES + lane]) : 0.f;
+#pragma unroll
+          for (int q = 0; q < 16; ++q) s1[pass] += f[q], s2[pass] += __fmul_rn(f[q], f[q]);
+        }
+      }
+      // 16 pixels x EC channels out, 16 bytes a lane
+#pragma unroll
+      for (int i = lane; i < 16 * (EC / 8); i += 32) {
+        const int q = i / (EC / 8), part = i % (EC / 8);
+        const int gx = gx0 + q, gco = co0 + cbase + c0 + 8 * part;
+        if (gx < W && gco < Co) {
+          *reinterpret_cast<uint4*>(p.out + (row + gx) * Co + gco) =
+              *reinterpret_cast<const uint4*>(stage + q * FES + 8 * part);
+        }
+      }
+      __syncwarp();
+    }
+    if (w.more() && !early) prepare();
+  }
+  if constexpr (EPI == kEpiStats) {
+    // one row of partial sums a block: the 8 consumer warps' rows in order
+    if (lane < EC) {
+#pragma unroll
+      for (int pass = 0; pass < NPASS; ++pass) {
+        myred[cbase + pass * EC + lane] = s1[pass];
+        myred[ntile + cbase + pass * EC + lane] = s2[pass];
+      }
+    }
+    imgseg::named_sync(1, FCONSUMERS);
+    for (int i = threadIdx.x - FSTAGERS; i < 2 * ntile; i += FCONSUMERS) {
+      const int r = i / ntile, c = i % ntile;
+      if (co0 + c >= Co) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int wr = 0; wr < 8; ++wr) s += red[(wr * 2 + r) * ntile + c];
+      p.partial[(static_cast<size_t>(blockIdx.y) * 2 + r) * Co + co0 + c] = s;
+    }
+  }
+}
+
+template <int EPI, int NT>
+__global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ uint64_t wfull, xland[FXR_MAX], xact[FXR_MAX], xempty[FXR_MAX];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int cpad = p.vcpad, ntile = p.vntile, KB = cpad / 8, NB = ntile / 8, Co = p.Co;
+  const int co0 = blockIdx.x * ntile;
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* xr = ws + static_cast<size_t>(9) * cpad * ntile;
+  __nv_bfloat16* estage = xr + static_cast<size_t>(p.vxr) * KB * fwd_xp(p.vsw);
+  float* rows = reinterpret_cast<float*>(estage + 8 * 16 * FES);
+  float* sbias = rows + 2 * cpad;
+  float* red = sbias + ntile;
+  const long long u0 = static_cast<long long>(blockIdx.y) * p.per_chunk;
+  const long long u1 = u0 + p.per_chunk < p.tiles ? u0 + p.per_chunk : p.tiles;
+
+  if (tid == 0) {
+    imgseg::mbar_init(&wfull, 1 + FSTAGERS);  // the bulk copies' arrival, then the stagers'
+    for (int i = 0; i < FXR_MAX; ++i) {
+      imgseg::mbar_init(&xland[i], FSTAGERS);
+      imgseg::mbar_init(&xact[i], FCONSUMERS);
+      imgseg::mbar_init(&xempty[i], 8);  // lane 0 of each consumer warp
+    }
+    imgseg::fence_barrier_init();
+  }
+  for (int i = tid; i < 2 * cpad; i += FTHREADS) {
+    const int r = i / cpad, c = i % cpad;
+    rows[i] = p.ab != nullptr && c < p.Ca ? p.ab[r * p.Ca + c] : 0.f;
+  }
+  for (int i = tid; i < ntile; i += FTHREADS) {
+    sbias[i] = p.bias != nullptr && co0 + i < Co ? p.bias[co0 + i] : 0.f;
+  }
+  for (int i = tid; i < 16 * ntile; i += FTHREADS) red[i] = 0.f;
+  __syncthreads();
+
+  if (warp < 4) {
+    imgseg::reg_dealloc<FSTAGE_REGS>();
+    // the weights of the N tile, vector_pack's [tap][n/8][cpad/8][8 n][8 k]:
+    // one bulk copy a tap of its real channels, zeros past Co
+    const int nvalid = min(ntile, Co - co0) / 8;
+    if (tid == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(nvalid) * KB * 128;
+      imgseg::mbar_arrive_tx(&wfull, 9 * bytes);
+      for (int tap = 0; tap < 9; ++tap) {
+        imgseg::bulk_copy(ws + static_cast<size_t>(tap) * NB * KB * 64,
+                          p.w + (static_cast<size_t>(tap) * (Co / 8) + co0 / 8) * KB * 64, bytes, &wfull);
+      }
+    }
+    const int pad = (NB - nvalid) * KB * 8;  // 16-byte rows past Co, a tap
+    for (int i = tid; i < 9 * pad; i += FSTAGERS) {
+      const int tap = i / pad, o = i % pad;
+      *reinterpret_cast<uint4*>(ws + (static_cast<size_t>(tap) * NB + nvalid) * KB * 64 + o * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    imgseg::fence_proxy_async();
+    imgseg::mbar_arrive(&wfull);
+    fwd_vec_issue(p, xr, xland, xempty, u0, u1);
+  } else {
+    imgseg::reg_alloc<FPRODUCT_REGS>();
+    fwd_vec_products<EPI, NT>(p, ws, xr, rows, sbias, red, estage, &wfull, xland, xact, xempty, u0, u1);
   }
 }
 
@@ -1173,6 +1567,40 @@ int launch_deep(Args& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The card's SMs: the vector forward's blocks, one an SM.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 132;
+  return sms > 0 ? sms : 132;
+}
+
+// Units of the vector forward (strips of sw pixels of one row) and its
+// runs: one wave, one block an SM beside the N tiles, every run non-empty.
+long long vec_runs(Args& p, int B) {
+  p.tiles_x = (p.W + p.vsw - 1) / p.vsw;
+  p.tiles = static_cast<long long>(B) * p.tiles_x * p.H;
+  long long runs = sm_count() / p.co_tiles;
+  runs = runs < 1 ? 1 : runs > p.tiles ? p.tiles : runs;
+  p.per_chunk = (p.tiles + runs - 1) / runs;
+  return (p.tiles + p.per_chunk - 1) / p.per_chunk;
+}
+
+// The vector forward: blockIdx.x the N tile, blockIdx.y the run, so the
+// N tiles of one run are neighbours in the grid and read its x rows
+// together (the second read from L2).
+template <int EPI, int NT>
+int launch_vec(Args& p, int B, cudaStream_t stream) {
+  static bool opted = false;
+  auto* kernel = vec_kernel<EPI, NT>;
+  cudaError_t err = imgseg::allow_smem(kernel, FSMEM, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.nblk = static_cast<int>(vec_runs(p, B));
+  if (p.nblk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<dim3(p.co_tiles, p.nblk), FTHREADS, fvec_bytes(p.vsw, p.vcpad, p.vntile, p.vxr), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LOAD, int EPI>
 int launch(Args& p, int B, cudaStream_t stream) {
   g_last_path = p.deep ? kDeep : p.kp != 0 ? kNarrow : kVector;
@@ -1187,47 +1615,66 @@ int launch(Args& p, int B, cudaStream_t stream) {
            : nt == 2 ? launch_narrow<LOAD, EPI, 2>(p, B, stream)
                      : launch_narrow<LOAD, EPI, 4>(p, B, stream);
   }
-  const int tco = tco_of(p.Co);
-  p.co_tiles = (p.Co + tco - 1) / tco;
-  return tco == 64 ? launch_tiles<LOAD, EPI, 64>(p, B, stream)
-                   : launch_tiles<LOAD, EPI, 32>(p, B, stream);
+  if constexpr (LOAD == kLoadX) {
+    p.co_tiles = (p.Co + p.vntile - 1) / p.vntile;
+    const int nt = (p.vsplit ? p.vntile / 2 : p.vntile) / 8;  // n8 tiles a consumer warpgroup
+    return nt == 2   ? launch_vec<EPI, 2>(p, B, stream)
+           : nt == 4 ? launch_vec<EPI, 4>(p, B, stream)
+           : nt == 8 ? launch_vec<EPI, 8>(p, B, stream)
+                     : launch_vec<EPI, 16>(p, B, stream);
+  } else {  // the dgrad's vector path: conv3x3_kernel
+    const int tco = tco_of(p.Co);
+    p.co_tiles = (p.Co + tco - 1) / tco;
+    return tco == 64 ? launch_tiles<LOAD, EPI, 64>(p, B, stream)
+                     : launch_tiles<LOAD, EPI, 32>(p, B, stream);
+  }
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
-// The path, from the caller's `deep` (ops/fused_conv.conv_path: 0, or the
-// deep path's N tile, 64 or 128), the channel counts and the pointers: the
-// deep path takes K and N multiples of 64 on 16-byte aligned operands, or
-// the call fails (returns false); else the vector path for channel counts
-// that are multiples of 8 (an even split), its operands on 16-byte
-// boundaries (kp = 0); else the narrow path, kp channels a stage.
-bool set_paths(Args& p, int deep) {
+// The path the caller chose (`path`: ops/fused_conv._path_arg, from
+// conv_path and the operands' alignment): 0 the narrow path, kp channels a
+// stage; 1 the vector path; 64 or 128 the deep path, that N tile.  The
+// library chooses nothing: it refuses (returns false) a vector or deep
+// path whose channel counts or operands it cannot take.
+bool set_paths(Args& p, int path) {
   const bool aligned = aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab) && aligned16(p.w);
-  if (deep) {
-    p.deep = deep;
-    return (deep == 64 || deep == 128) && p.Ca % DK == 0 && p.Cb % DK == 0 && p.Co % deep == 0 &&
-           p.Na % 2 == 0 && aligned;
+  if (path == 64 || path == 128) {
+    p.deep = path;
+    return p.Ca % DK == 0 && p.Cb % DK == 0 && p.Co % path == 0 && p.Na % 2 == 0 && aligned;
   }
-  const bool vec = p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 && aligned;
   const int cin = p.Ca + p.Cb;
-  p.kp = vec ? 0 : cin > NKP ? NKP : (cin + 7) / 8 * 8;
-  return true;
+  p.kp = path == 1 ? 0 : cin > NKP ? NKP : (cin + 7) / 8 * 8;
+  return path == 0 ||
+         (path == 1 && p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 && aligned);
+}
+
+// The forward's path, as set_paths; `path` also names w's layout
+// (vector_pack on the vector path, deep_pack on the deep path, (3, 3, Cin,
+// Co) on the narrow path), and the vector path's tiles must fit (vec_plan).
+bool fwd_paths(Args& p, int path) {
+  return set_paths(p, path) && (path != 1 || vec_plan(p.Ca + p.Cb, p.Co, p.W, p));
 }
 
 // The second pass of the sum epilogues: (blocks, 2, Co) rows -> (2, Co).
 int finish_sums(const Args& p, int B, float* sums, cudaStream_t stream) {
-  const long long rows = p.kp || p.deep ? p.nblk : blocks_per_channel(B, p.H, p.W);
+  const long long rows = p.kp || p.deep || p.vsw ? p.nblk : blocks_per_channel(B, p.H, p.W);
   return static_cast<int>(imgseg::sum_rows(p.partial, sums, rows, 2LL * p.Co, stream));
 }
 
 }  // namespace
 
 // Floats of scratch the sum epilogues need: one (2, Co) row per pixel block
-// of the vector path (at most one a 16x16 pixel tile on the narrow path)
-// or per tile of the deep path (no more blocks than tiles), whichever is more.
+// of the dgrad's vector path (at most one a 16x16 pixel tile on the narrow
+// path), per tile of the deep path (no more blocks than tiles) or per run
+// of the vector forward (no more than the SMs, nor than its 64-pixel
+// units), whichever is more.
 extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
   const long long vec = blocks_per_channel(B, H, W), deep = deep_tiles(B, H, W);
-  return (vec > deep ? vec : deep) * 2LL * Co;
+  long long runs = static_cast<long long>(B) * H * ((W + 63) / 64);
+  runs = runs < sm_count() ? runs : sm_count();
+  const long long most = vec > deep ? vec : deep;
+  return (most > runs ? most : runs) * 2LL * Co;
 }
 
 // The path of the latest launch of imgseg_conv3x3 or imgseg_conv3x3_dgrad:
@@ -1235,12 +1682,11 @@ extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
 extern "C" int imgseg_conv3x3_path() { return g_last_path; }
 
 // y = conv(act([x | xb])) + bias; with `stats` (2, Co) also the sums of y
-// and y*y over (B, H, W), using `scratch`.  `deep`: see set_paths (w is
-// then packed as ops/fused_conv.deep_pack packs it).
+// and y*y over (B, H, W), using `scratch`.  `path`: as fwd_paths takes it.
 extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
                               const void* bias, const void* ab, void* out, void* stats,
                               void* scratch, int B, int H, int W, int Ca, int Cb, int Co,
-                              int deep, void* stream) {
+                              int path, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
   if (ab != nullptr && Cb != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args p{};
@@ -1252,7 +1698,7 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
   p.out = static_cast<__nv_bfloat16*>(out);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Ca, p.Cb = Cb, p.Co = Co, p.Na = Co;
-  if (!set_paths(p, deep)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fwd_paths(p, path)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stats == nullptr) return launch<kLoadX, kEpiStore>(p, B, s);
   const int err = launch<kLoadX, kEpiStats>(p, B, s);
@@ -1263,11 +1709,11 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
 // (2|4, Cg) rows `gf`; `affine` selects the 4-row form), or without `gf`
 // of g itself (y unread; neither `xpost` nor `out_b`).  With `xpost`: the
 // post adjoint, `sums` (2, Co) = [sum gu*xpost, sum gu]; with `out_b`: dx
-// split at channel Na.  `deep`: as imgseg_conv3x3's.
+// split at channel Na.  `path`: as set_paths takes it.
 extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf,
                                     const void* w, const void* xpost, const void* abpost,
                                     void* out, void* out_b, void* sums, void* scratch, int B,
-                                    int H, int W, int Cg, int Co, int Na, int affine, int deep,
+                                    int H, int W, int Cg, int Co, int Na, int affine, int path,
                                     void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return static_cast<int>(cudaSuccess);
   Args p{};
@@ -1281,7 +1727,7 @@ extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf
   p.out_b = static_cast<__nv_bfloat16*>(out_b);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Cg, p.Cb = 0, p.Co = Co, p.Na = Na;
-  if (!set_paths(p, deep)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!set_paths(p, path)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gf == nullptr) {
     if (xpost != nullptr || out_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -13,47 +13,52 @@
 // _folded_wgrad_pallas (:822), the wgrad alone: of a block input that takes
 // no gradient, and of make_folded_conv3x3 (:1932) with no transform.  The TPU kernel
 // merges dx and wgrad to read the cotangent once from VMEM; here they are
-// two kernels (conv3x3.cu computes dx).
+// two kernels (conv3x3.cu computes dx).  On the TPU the dk block stays in
+// VMEM while the grid walks the image in order; here blocks run in
+// parallel, so each sums its own pixels and a second pass adds the blocks.
 //
-// What bounds it on the card: the tensor cores.  It is a GEMM of (9*Cin) x
-// Co outputs over a reduction depth of B*H*W pixels (4.2M at batch 16,
-// 512^2): the same FLOPs as the forward conv, on bf16 operands whose
-// products are exact in fp32.  The reduction over pixels is the other
-// problem: on the TPU the dk block stays in VMEM while the grid walks the
-// image in order; here blocks run in parallel.
-//
-// What the design does about it: a GEMM on mma.sync m16n8k16 (bf16 in,
-// fp32 sums) with the pixels as K.  A 384-thread block owns a 9-tap x TCI x
-// TCO tile of dw (TCI, TCO 64 where Cin, Co > 32, else 32) and walks a
-// contiguous chunk of 8x16 pixel tiles.  Per tile it stages the activated
-// (8+2)x(16+2) halo of its TCI input channels and the transformed
-// cotangent of its TCO output channels in shared memory as bf16 (rows
-// padded by 16 bytes: ldmatrix without bank conflicts), so each staged
-// value is transformed once for 9 x 64 outputs.  One tile row of 16 pixels
-// is one k-step: A = act(x) shifted by the tap comes from the halo by
-// ldmatrix.trans (the shift is a row pointer), B = ge by ldmatrix.trans.
-// A warp owns one tap row (3 taps) x 32 input x 32 output channels in
-// registers; with smaller tiles the 12 warps split the tile rows into 2 or
-// 4 groups whose sums are added in group order at the end.  The stages are
-// double-buffered and every load is a 16-byte cp.async started before the
-// previous tile's mma: an operand with no transform (x without the
-// pre-affine, the raw cotangent) straight into its tile, a transformed one
-// (x, or g and y) into a raw buffer, from which each thread transforms its
-// own vectors, 16 bytes at a time through registers, after the mma.  (Held
-// in registers across the mma instead, the next tile's raw vectors took 40
-// registers a thread and spilled 400-700 bytes at the 168-register cap of a
-// 384-thread block.)  db is a separate fp32 sum: each thread adds one
-// channel of the staged cotangent over a fixed share of the tile's pixels,
-// and the block adds the shares in a fixed order.  Each block writes its
-// tile of partial sums once; a second pass (reduce.cuh) adds the chunks
-// in a fixed order.  No atomics.  The chunks are short (about 4 blocks per
-// SM over the whole image) so that no block's fp32 sum runs over more than
-// a few thousand pixels.
+// The vector path (wgrad_vec_kernel): Ca, Cb and Co multiples of 8 on
+// 16-byte aligned operands where the forward's path rule gives the vector
+// path (ops/fused_conv.conv_path: Cin up to 192), every level 0-1 conv of
+// every U-Net.  What
+// bounds it on the card: bytes, at 7 of the large_unet step's 8 convs.  It
+// reads x, g and y (2*(Cin + 2*Co) bytes a pixel) for 18*Cin*Co FLOPs, so
+// at 32-64 channels the tensor cores have 1.5-3x of slack (enc1.conv1 32
+// -> 64 at batch 16, 512^2: 0.401 ms of bytes against 0.156 of FLOPs at
+// 3.35 TB/s and 989 TFLOP/s; only enc2.conv2, 128 -> 128, is bound by
+// FLOPs).  So the design reads every operand from device memory once and
+// transforms it once.  What the design does: one wave of persistent blocks
+// (one an SM), each owning a 9-tap x 64 input x TCO (16, 32 or 64) output
+// channel tile of dw and walking a contiguous run of units, a unit being a
+// 128-pixel strip of one image row (mma.cuh UnitWalk).  Warpgroup 0 copies
+// each new row of x (with its halo columns) and each row of g (and y) by
+// 16-byte cp.async straight into rings of 8-channel planes (8 consecutive
+// pixels of a plane are the wgmma's MN-major core matrix, so a tap's shift
+// of one pixel is a start address 16 bytes on), as many rows ahead as the
+// rings hold, each row's copies counted on an mbarrier; consecutive units
+// are consecutive rows, so each x row is copied once for the three tap
+// rows that read it.  Warpgroups 1-3 apply the transforms in place (act(x),
+// the cotangent transform: 384 threads, while the previous unit's wgmmas
+// run; with one staging warpgroup doing them they were the bottleneck) and
+// then, warpgroup ky + 1 owning the tap row ky, run m64 (input channels) x
+// n(TCO) x k16 (pixels) wgmmas with both operands read from shared memory
+// by descriptor, the sums in registers over the whole run (9 x 64 x 64
+// fp32: 96 registers a thread over the three).  Where dw has more than one
+// tile (64 -> 128, 128 -> 128, [64 | 64] -> 64) the blocks of one run sit
+// next to each other in the grid and walk the same rows together, so their
+// second reads of an operand come from L2.  db is a fixed-order fp32 sum of
+// the transformed ge (each transforming thread keeps 8 channels).  Each
+// block writes its tile of partial sums once (132 rows at most: 19 MB at 64
+// -> 64); a second pass (reduce.cuh) adds them in a fixed order.  No
+// atomics.  Cin below 64 leaves part of each m64 tile empty.  What limits
+// it now (PERF.md, section 6): the wgmmas run at a third of the tensor
+// cores' rate, neither the copies nor the transforms being on the critical
+// path.
 //
 // The narrow path (wgrad_narrow_kernel) takes every other shape: a channel
 // count that is not a multiple of 8 (ClipRes's output block, [16 | 3] -> 3
-// and 3 -> 3; the prompt heatmap's K10, 1 -> 32), an operand off a
-// 16-byte boundary.  What bounds it on the card: bytes (2*9*19*3 FLOPs a
+// and 3 -> 3; the prompt heatmap's K10, 1 -> 32), more input channels
+// than the vector path takes, an operand off a 16-byte boundary.  What bounds it on the card: bytes (2*9*19*3 FLOPs a
 // pixel against ~50 bytes).  What cost was the staging, as in conv3x3.cu's
 // narrow path: padded to 32 x 32 channels a tap group, most of each tile
 // was zeros, staged one element at a time.  What the design does about it:
@@ -103,39 +108,11 @@
 
 namespace {
 
-using imgseg::cp_async16;
 using imgseg::ldsm_x4_trans;
 using imgseg::mma_bf16;
 
-constexpr int TH = 8;
-constexpr int TW = 16;  // one k-step of 16 pixels per tile row
-constexpr int IH = TH + 2;
+constexpr int TW = 16;  // the narrow path's tile columns: one k16 step a tile row
 constexpr int IW = TW + 2;
-constexpr int HALO = IH * IW;
-constexpr int TILE = TH * TW;
-constexpr int THREADS = 384;  // 12 warps
-
-// MI, NI: 32-channel halves of the input and output channel tile.
-template <int MI, int NI>
-struct WTiles {
-  static constexpr int TCI = 32 * MI;
-  static constexpr int TCO = 32 * NI;
-  static constexpr int KG = 4 / (MI * NI);  // warp groups splitting the tile rows
-  static constexpr int XS = TCI + 8;        // row strides (bf16)
-  static constexpr int GS = TCO + 8;
-  static constexpr int X = HALO * XS;
-  static constexpr int G = TILE * GS;
-  static constexpr int STAGE = X + G;
-  static constexpr int XV = (HALO * TCI / 8 + THREADS - 1) / THREADS;  // 16-byte vectors a thread
-  static constexpr int GV = (TILE * TCO / 8 + THREADS - 1) / THREADS;
-  // the next tile's raw x, g and y as loaded, for the operands transformed on load
-  static constexpr int RAW = HALO * TCI + 2 * TILE * TCO;
-  static constexpr size_t STAGES = (2 * STAGE + RAW) * sizeof(__nv_bfloat16);
-  static constexpr size_t XCHG = KG > 1 ? 9 * TCI * TCO * sizeof(float) : 0;
-  static constexpr size_t DBRED = THREADS * sizeof(float);
-  static constexpr size_t BYTES =
-      STAGES > XCHG ? (STAGES > DBRED ? STAGES : DBRED) : (XCHG > DBRED ? XCHG : DBRED);
-};
 
 struct Args {
   const __nv_bfloat16* g;   // (B,H,W,Co) cotangent
@@ -148,7 +125,7 @@ struct Args {
   float* part_b;            // (chunks, Co)
   int B, H, W, Ca, Cb, Co, tiles_x, tiles_y;
   int cp;  // the narrow path: input channels per tile, padded to a multiple of 8
-  long long tiles, per_chunk;
+  long long tiles, per_chunk;  // the vector path: units (tiles_x strips a row) and units a chunk
 };
 
 // How the cotangent is read.
@@ -158,256 +135,294 @@ enum Ge {
   kGeAffine = 2,  // round(g*a*[y*a + b > 0] + c1 + 2*y*c2)
 };
 
-template <int GE, int MI, int NI>
-__global__ void __launch_bounds__(THREADS, 1) wgrad_kernel(const Args p) {
-  using T = WTiles<MI, NI>;
-  constexpr int TCI = T::TCI, TCO = T::TCO, KG = T::KG;
-  constexpr int XW = TCI / 8, GW = TCO / 8;  // 16-byte vectors per staged row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+// ---- the vector path: Ca, Cb and Co multiples of 8 on 16-byte aligned
+// operands.  A block owns a 9-tap x 64 input x TCO output channel tile of dw
+// (TCO = 8 * NT: 16, 32 or 64) and walks a chunk of units (mma.cuh
+// UnitWalk): a unit is a VSW-pixel strip of one cotangent row, 8 k16 steps
+// of K.  Warpgroup 0 copies; warpgroup ky + 1 runs the taps (ky, 0..2).
+constexpr int VSW = 128;       // pixels a unit
+constexpr int VXW = VSW + 2;   // x pixels a unit: the strip and its halo columns
+constexpr int VXP = VXW * 8;   // bf16 from one 8-channel plane of an x row to the next
+constexpr int VGP = VSW * 8;   // and of a cotangent row
+constexpr int VTCI = 64;       // input channels a block: one m64 tile
+constexpr int VXR = 6;         // x rows in the ring (see wgrad_vec_products)
+constexpr int VGR = 3;         // cotangent rows in the ring
+constexpr int VTHREADS = 512;  // warpgroup 0 copies; 1-3 transform and run the products
+constexpr int VSTAGERS = 128;
+constexpr int VCONSUMERS = VTHREADS - VSTAGERS;
+// registers a thread after the copying warpgroup hands some to the others
+// (128 at the launch): 128 x 72 given, 384 x 24 taken, which must balance
+// (setmaxnreg.inc waits for what the block's setmaxnreg.dec gave back);
+// setmaxnreg also keeps ptxas from serializing the products' wgmmas behind
+// the branch between the roles
+constexpr int VSTAGE_REGS = 56;
+constexpr int VPRODUCT_REGS = 152;
+static_assert((128 - VSTAGE_REGS) * VSTAGERS == (VPRODUCT_REGS - 128) * VCONSUMERS,
+              "the registers given and taken balance");
 
+// Bytes of the rings: x rows of 8 planes, cotangent rows of NT planes, and
+// as many rows of y beside them.
+__host__ __device__ constexpr size_t vec_bytes(int nt) {
+  return (static_cast<size_t>(VXR) * 8 * VXP + static_cast<size_t>(2 * VGR) * nt * VGP) *
+         sizeof(__nv_bfloat16);
+}
+
+// The shared state of a vector-path block: the rings and their barriers
+// (`land`: a row's copies have landed; `empty`: the products are done with
+// it), the transform rows of its channels.
+struct VecShared {
+  __nv_bfloat16* xr;  // VXR x rows of 8 planes of VXW pixels (act(x))
+  __nv_bfloat16* gr;  // VGR cotangent rows of NT planes of VSW pixels (ge)
+  __nv_bfloat16* yr;  // VGR rows of y, as gr
+  uint64_t *xland, *xempty, *gland, *gempty;
+  const float* rows;  // [xa, xb, r0, r1, r2, r3], 64 floats each, at the block's channels
+};
+
+// Warpgroup 0: every unit's new x rows, then its cotangent row (g, and y
+// beside it), 16-byte copies (cp.async, zero-filled outside the image) into
+// their ring slots once the consumers freed them, as far ahead as the rings
+// hold; each row's `land` barrier counts the copies.  Thread t copies plane
+// (t / 8) % 8 of x (8 input channels) at pixels t % 8 + 8 (t / 64) + 16 m,
+// and plane (t / 8) % NT of g at pixels t % 8 + 8 ((t / 8) / NT) + (128 /
+// NT) m, so 8 lanes write 128 contiguous bytes.  x planes past Cin and g
+// planes past Co are not copied (they feed rows and columns of dw the block
+// does not store).
+template <int GE, int NT>
+__device__ __forceinline__ void wgrad_vec_issue(const Args& p, const VecShared& sh, long long u0,
+                                                long long u1, int ci0, int co0) {
+  const int t = threadIdx.x, pl = t & 7, grp = t >> 3;
   const int H = p.H, W = p.W, Co = p.Co;
-  const int cin = p.Ca + p.Cb;
-  const int co_tiles = (Co + TCO - 1) / TCO;
-  const int ci0 = (blockIdx.x / co_tiles) * TCI;
-  const int co0 = (blockIdx.x % co_tiles) * TCO;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = warp % (3 * MI * NI), kg = warp / (3 * MI * NI);
-  const int ky = wg % 3;              // this warp's taps (ky, 0..2)
-  const int mh = (wg / 3) % MI;       // its input channels ci0 + 32mh ..
-  const int nh = wg / (3 * MI);       // its output channels co0 + 32nh ..
-  const bool direct_x = p.ab == nullptr;
-  const bool direct_g = GE == kGePlain;
-  const bool xraw = !direct_x, graw = !direct_g;
-  const bool with_db = ci0 == 0;
-  const bool mi1 = ci0 + mh * 32 + 16 < cin;  // the warp's second m16 tile holds channels
-
-  // a transformed operand's next tile in flight, as loaded
-  __nv_bfloat16* raw_x = smem + 2 * T::STAGE;
-  __nv_bfloat16* raw_g = raw_x + HALO * TCI;
-  __nv_bfloat16* raw_y = raw_g + TILE * TCO;
-
-  auto tile_origin = [&](long long t, int& n, int& y0, int& x0) {
-    x0 = static_cast<int>(t % p.tiles_x) * TW;
-    y0 = static_cast<int>((t / p.tiles_x) % p.tiles_y) * TH;
-    n = static_cast<int>(t / (static_cast<long long>(p.tiles_x) * p.tiles_y));
-  };
-  // halo vector i of x: pixel q, channels gc..; ge vector i: pixel q, channels gc..
-  auto x_vec = [&](int i, int n, int y0, int x0, int& q, int& gc, size_t& pix) {
-    q = i / XW;
-    gc = ci0 + 8 * (i % XW);
-    const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < cin;
-    pix = ok ? (static_cast<size_t>(n) * H + gy) * W + gx : 0;
-    return ok;
-  };
-  auto g_vec = [&](int i, int n, int y0, int x0, int& q, int& gc, size_t& pix) {
-    q = i / GW;
-    gc = co0 + 8 * (i % GW);
-    const int gy = y0 + q / TW, gx = x0 + q % TW;
-    const bool ok = gy < H && gx < W && gc < Co;
-    pix = ok ? (static_cast<size_t>(n) * H + gy) * W + gx : 0;
-    return ok;
-  };
-
-  // Start tile t into buffer `buf` by cp.async: an operand with no
-  // transform into the tile, a transformed one raw.
-  auto begin_tile = [&](long long t, int buf) {
-    int n, y0, x0;
-    tile_origin(t, n, y0, x0);
-    __nv_bfloat16* sX = smem + buf * T::STAGE;
-    __nv_bfloat16* sG = sX + T::X;
-#pragma unroll
-    for (int j = 0; j < T::XV; ++j) {
-      const int i = tid + j * THREADS;
-      if (i >= HALO * XW) break;
-      int q, gc;
-      size_t pix;
-      const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
-      const __nv_bfloat16* src = p.x;
-      if (ok) src = gc < p.Ca ? p.x + pix * p.Ca + gc : p.xb + pix * p.Cb + (gc - p.Ca);
-      cp_async16(direct_x ? sX + q * T::XS + (i % XW) * 8 : raw_x + 8 * i, src, ok);
-    }
-#pragma unroll
-    for (int j = 0; j < T::GV; ++j) {
-      const int i = tid + j * THREADS;
-      if (i >= TILE * GW) break;
-      int q, gc;
-      size_t pix;
-      const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
-      const __nv_bfloat16* src = ok ? p.g + pix * Co + gc : p.g;
-      if (direct_g) {
-        cp_async16(sG + q * T::GS + (i % GW) * 8, src, ok);
-      } else {
-        cp_async16(raw_g + 8 * i, src, ok);
-        cp_async16(raw_y + 8 * i, ok ? p.y + pix * Co + gc : p.g, ok);
-      }
-    }
-  };
-
-  // Finish tile t's transformed operands (this thread's own copies, so its
-  // own wait suffices): transform the raw vectors and store them.
-  auto finish_tile = [&](long long t, int buf) {
-    int n, y0, x0;
-    tile_origin(t, n, y0, x0);
-    __nv_bfloat16* sX = smem + buf * T::STAGE;
-    __nv_bfloat16* sG = sX + T::X;
-    if (xraw) {
-#pragma unroll
-      for (int j = 0; j < T::XV; ++j) {
-        const int i = tid + j * THREADS;
-        if (i >= HALO * XW) break;
-        int q, gc;
-        size_t pix;
-        const bool ok = x_vec(i, n, y0, x0, q, gc, pix);
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (ok) {
-          const uint4 r = *reinterpret_cast<const uint4*>(raw_x + 8 * i);
-          v = gc < p.Ca ? imgseg::affine_relu8(p.ab, p.Ca, gc, r) : r;
+  const int jx = grp & 7, cx = ci0 + 8 * jx, xbase = pl + 8 * (grp >> 3);
+  const bool xon = cx < p.Ca + p.Cb, in_b = cx >= p.Ca;
+  const int xcs = in_b ? p.Cb : p.Ca;
+  const __nv_bfloat16* xsrc = in_b ? p.xb + (cx - p.Ca) : p.x + cx;
+  const int jg = grp % NT, gbase = pl + 8 * (grp / NT), cg = co0 + 8 * jg;
+  constexpr int gstride = VSTAGERS / NT, GN = VSW / gstride;  // GN pixels a thread
+  const bool gon = cg < Co;
+  imgseg::UnitWalk w;
+  imgseg::RingPos g{0, 0, VGR};
+  for (w.begin(u0, u1, H, p.tiles_x, VXR); w.more(); w.next_unit(), g.next()) {
+    const int x0 = w.s * VSW;
+    const size_t img = static_cast<size_t>(w.n) * H;
+    for (int r = w.fresh ? -1 : 1; r <= 1; ++r) {
+      w.next_row();
+      const int iy = w.y + r;
+      imgseg::mbar_wait(&sh.xempty[w.slot], w.phase ^ 1);
+      if (xon) {
+        __nv_bfloat16* dst = sh.xr + (static_cast<size_t>(w.slot) * 8 + jx) * VXP;
+        const bool row_in = iy >= 0 && iy < H;
+        const __nv_bfloat16* src = xsrc + (row_in ? (img + iy) * W * xcs : 0);
+        for (int hx = xbase; hx < VXW; hx += 16) {
+          const int ix = x0 - 1 + hx;
+          const bool ok = row_in && ix >= 0 && ix < W;
+          imgseg::cp_async16(dst + hx * 8, ok ? src + ix * xcs : p.x, ok);
         }
-        *reinterpret_cast<uint4*>(sX + q * T::XS + (i % XW) * 8) = v;
       }
+      imgseg::cp_async_arrive(&sh.xland[w.slot]);
     }
-    if (graw) {
+    imgseg::mbar_wait(&sh.gempty[g.slot], g.phase ^ 1);
+    if (gon) {
+      const size_t at = ((img + w.y) * W + x0) * Co + cg;
+      const size_t o = (static_cast<size_t>(g.slot) * NT + jg) * VGP;
 #pragma unroll
-      for (int j = 0; j < T::GV; ++j) {
-        const int i = tid + j * THREADS;
-        if (i >= TILE * GW) break;
-        int q, gc;
-        size_t pix;
-        const bool ok = g_vec(i, n, y0, x0, q, gc, pix);
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (ok) {
-          v = imgseg::cotangent8<GE == kGeAffine>(p.gf, Co, gc,
-                                                  *reinterpret_cast<const uint4*>(raw_g + 8 * i),
-                                                  *reinterpret_cast<const uint4*>(raw_y + 8 * i));
-        }
-        *reinterpret_cast<uint4*>(sG + q * T::GS + (i % GW) * 8) = v;
+      for (int i = 0; i < GN; ++i) {
+        const int px = gbase + gstride * i;
+        const bool ok = x0 + px < W;
+        imgseg::cp_async16(sh.gr + o + px * 8, ok ? p.g + at + px * Co : p.g, ok);
+        if constexpr (GE != kGePlain) imgseg::cp_async16(sh.yr + o + px * 8, ok ? p.y + at + px * Co : p.y, ok);
       }
     }
-  };
+    imgseg::cp_async_arrive(&sh.gland[g.slot]);
+  }
+}
 
-  float acc[3][2][4][4];
+// The consumers (384 threads, c = thread - 128) on a unit's rows once they
+// have landed.  x (its new rows): act(x) in place, thread c taking plane
+// (c / 8) % 8 at pixels c % 8 + 8 (c / 64) + 48 m (the zeros outside the
+// image stay zero: SAME padding pads the activated tensor).  ge: plane (c /
+// 8) % NT at pixels c % 8 + 8 ((c / 8) / NT) + (384 / NT) m, transformed in
+// place from g and y (zero past the image), its 8 channels added into db.
+template <int GE, int NT>
+__device__ __forceinline__ void wgrad_vec_transform(const Args& p, const VecShared& sh,
+                                                    const imgseg::UnitWalk& w, int gslot, int ci0,
+                                                    int co0, float (&db)[8]) {
+  const int c = threadIdx.x - VSTAGERS, pl = c & 7, grp = c >> 3;
+  const int H = p.H, W = p.W, x0 = w.s * VSW;
+  const int jx = grp & 7;
+  if (p.ab != nullptr && ci0 + 8 * jx < p.Ca) {
+    for (int k = 0; k < w.loads(); ++k) {  // rows y + 1, y, y - 1
+      const int iy = w.y + 1 - k;
+      if (iy < 0 || iy >= H) continue;
+      __nv_bfloat16* dst = sh.xr + (static_cast<size_t>(w.slot_back(k)) * 8 + jx) * VXP;
+      for (int hx = pl + 8 * (grp >> 3); hx < VXW; hx += VCONSUMERS / 8) {
+        const int ix = x0 - 1 + hx;
+        if (ix < 0 || ix >= W) continue;
+        uint4* at = reinterpret_cast<uint4*>(dst + hx * 8);
+        *at = imgseg::affine_relu8_shared(sh.rows, 64, 8 * jx, *at);
+      }
+    }
+  }
+  const int jg = grp % NT;
+  if (co0 + 8 * jg >= p.Co) return;
+  const size_t o = (static_cast<size_t>(gslot) * NT + jg) * VGP;
+  for (int px = pl + 8 * (grp / NT); px < VSW && x0 + px < W; px += VCONSUMERS / NT) {
+    uint4* at = reinterpret_cast<uint4*>(sh.gr + o + px * 8);
+    uint4 v = *at;
+    if constexpr (GE != kGePlain) {
+      v = imgseg::cotangent8_shared<GE == kGeAffine>(sh.rows + 2 * 64, 64, 8 * jg, v,
+                                                     *reinterpret_cast<const uint4*>(sh.yr + o + px * 8));
+      *at = v;
+    }
+    const imgseg::Vec8 e8 = imgseg::as_vec8(v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) db[e] += __bfloat162float(e8.v[e]);
+  }
+}
+
+// Warpgroups 1-3 (ky = 0..2): for each unit, the rows' transforms (all 384
+// threads, while the unit before's wgmmas run), then taps (ky, kx), kx =
+// 0..2, as m64 (input channels) x n(TCO) (output channels) x k16 (pixels)
+// wgmmas, both operands MN-major by descriptor: act(x) row y + ky - 1
+// shifted by kx pixels (a start address 16 bytes on per pixel), ge row y.
+// The sums stay in registers over the whole chunk; a unit's group is
+// committed after its 24 wgmmas, and the rows of the unit before are freed
+// once it is done.  So the rows a unit frees come back one unit late, and
+// a unit that restarts loads three: it needs rows freed by units up to two
+// before it, which VXR = 6 slots give (with 5 its last row would wait for
+// the unit before it, which waits for it).
+template <int GE, int NT>
+__device__ __forceinline__ void wgrad_vec_products(const Args& p, const VecShared& sh, long long u0,
+                                                   long long u1, int ci0, int co0, float (&db)[8]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ky = warp / 4 - 1, w4 = warp & 3;
+  const int cin = p.Ca + p.Cb, Co = p.Co;
+  float acc[3][4 * NT];
 #pragma unroll
   for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < 4 * NT; ++i) acc[kx][i] = 0.f;
+  imgseg::UnitWalk w;
+  imgseg::RingPos g{0, 0, VGR};
+  int prev_slot = -1, prev_g = 0;  // the unit before: its last x row's slot, its ge slot
+  bool prev_all = false;
+  for (w.begin(u0, u1, p.H, p.tiles_x, VXR); w.more(); w.next_unit(), g.next()) {
+    for (int i = w.loads(); i > 0; --i) w.next_row();
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+    for (int k = 0; k < 3; ++k) imgseg::mbar_wait(&sh.xland[w.slot_back(k)], w.phase_back(k));
+    imgseg::mbar_wait(&sh.gland[g.slot], g.phase);
+    wgrad_vec_transform<GE, NT>(p, sh, w, g.slot, ci0, co0, db);
+    imgseg::fence_proxy_async();  // the copies and the stores, before the wgmmas read them
+    imgseg::named_sync(1, VCONSUMERS);
+    const __nv_bfloat16* sx = sh.xr + static_cast<size_t>(w.slot_back(2 - ky)) * 8 * VXP;
+    const __nv_bfloat16* sg = sh.gr + static_cast<size_t>(g.slot) * NT * VGP;
+    imgseg::wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[kx][mi][ni][e] = 0.f;
-  // db: this thread's channel co0 + tid % TCO over the tile pixels tid / TCO + k * DG
-  constexpr int DG = THREADS / TCO;
-  float db = 0.f;
-
-  // this lane's ldmatrix rows: A (pixel, 8-channel half), B (pixel, 8-channel half)
-  const int a_px = (lane & 7) + (lane >> 4) * 8, a_c = ((lane >> 3) & 1) * 8;
-  const int b_px = (lane & 7) + ((lane >> 3) & 1) * 8, b_c = (lane >> 4) * 8;
-
-  const long long t_begin = static_cast<long long>(blockIdx.y) * p.per_chunk;
-  const long long t_end = t_begin + p.per_chunk < p.tiles ? t_begin + p.per_chunk : p.tiles;
-  if (t_begin < t_end) begin_tile(t_begin, 0);
-  imgseg::cp_async_commit();
-  imgseg::cp_async_wait_all();
-  if (t_begin < t_end) finish_tile(t_begin, 0);
-  __syncthreads();
-  for (long long t = t_begin; t < t_end; ++t) {
-    const int buf = static_cast<int>((t - t_begin) & 1);
-    const bool next = t + 1 < t_end;
-    if (next) {
-      begin_tile(t + 1, buf ^ 1);
-      imgseg::cp_async_commit();
-    }
-    const __nv_bfloat16* sX = smem + buf * T::STAGE;
-    const __nv_bfloat16* sG = sX + T::X;
-    if (with_db) {  // the bias gradient: one channel, a fixed share of the pixels
-      for (int q = tid / TCO; q < TILE; q += DG) db += __bfloat162float(sG[q * T::GS + tid % TCO]);
-    }
-#pragma unroll 1
-    for (int r = kg; r < TH; r += KG) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int pr = 0; pr < 2; ++pr) {
-        uint32_t q4[4];
-        ldsm_x4_trans(q4, sG + (r * TW + b_px) * T::GS + nh * 32 + pr * 16 + b_c);
-        b[2 * pr][0] = q4[0], b[2 * pr][1] = q4[1];
-        b[2 * pr + 1][0] = q4[2], b[2 * pr + 1][1] = q4[3];
-      }
+    for (int s = 0; s < VSW / 16; ++s) {
+      // B: ge, MN-major: K-adjacent cores (8 pixels) 128 bytes apart, N-adjacent a plane
+      const uint64_t db_desc = imgseg::wgmma_desc(sg + 16 * s * 8, 128, VGP * 2);
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          if (mi == 1 && !mi1) break;
-          uint32_t a[4];
-          ldsm_x4_trans(a, sX + ((r + ky) * IW + a_px + kx) * T::XS + mh * 32 + mi * 16 + a_c);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[kx][mi][ni], a, b[ni][0], b[ni][1]);
-        }
+        // A: act(x) shifted by the tap, MN-major: M-adjacent (8 channels) a plane
+        const uint64_t da = imgseg::wgmma_desc(sx + (16 * s + kx) * 8, 128, VXP * 2);
+        imgseg::wgmma<1, 1, NT>(acc[kx], da, db_desc, 1);
       }
     }
-    imgseg::cp_async_wait_all();
-    if (next) finish_tile(t + 1, buf ^ 1);
-    __syncthreads();
-  }
-
-  // the row groups' sums into group 0, in group order
-  float* xs = reinterpret_cast<float*>(smem_raw);
-#pragma unroll 1
-  for (int g = 1; g < KG; ++g) {
-    if (kg == g) {
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              xs[((wg * 96) + ((kx * 2 + mi) * 4 + ni) * 4 + e) * 32 + lane] = acc[kx][mi][ni][e];
-            }
+    imgseg::wgmma_commit();
+    imgseg::wgmma_wait<1>();  // the unit before is done: free what only it still read
+    if (prev_slot >= 0 && lane == 0) {
+      imgseg::mbar_arrive(&sh.gempty[prev_g]);
+      imgseg::release_rows(prev_slot, VXR, prev_all, sh.xempty);
     }
-    __syncthreads();
-    if (kg == 0) {
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[kx][mi][ni][e] += xs[((wg * 96) + ((kx * 2 + mi) * 4 + ni) * 4 + e) * 32 + lane];
-            }
-    }
-    __syncthreads();
+    prev_slot = w.slot, prev_g = g.slot, prev_all = w.frees_all();
   }
+  imgseg::wgmma_wait<0>();
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) imgseg::fence_acc(acc[kx]);
+  // (the last unit's rows need no freeing: nothing is staged after it)
 
-  // this block's partial sums: every (tap, ci, co) of its tile, zeros included
-  const size_t chunk = blockIdx.y;
-  if (kg == 0) {
-    float* pw = p.part_w + chunk * 9 * static_cast<size_t>(cin) * Co;
+  // this block's partial sums: lane holds input channels 16 w4 + lane/4 (+8)
+  // and output channels 8t + 2(lane%4) (+1) of each tap (ky, kx)
+  float* pw = p.part_w + static_cast<size_t>(blockIdx.y) * 9 * cin * Co;
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx)
+  for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ci = ci0 + mh * 32 + mi * 16 + (lane >> 2) + (e >> 1) * 8;
-            const int co = co0 + nh * 32 + ni * 8 + 2 * (lane & 3) + (e & 1);
-            if (ci < cin && co < Co) {
-              pw[(static_cast<size_t>(ky * 3 + kx) * cin + ci) * Co + co] = acc[kx][mi][ni][e];
-            }
-          }
+      for (int h = 0; h < 2; ++h) {
+        const int ci = ci0 + 16 * w4 + (lane >> 2) + 8 * h;
+        const int co = co0 + 8 * t + 2 * (lane & 3);
+        if (ci < cin && co < Co) {
+          *reinterpret_cast<float2*>(pw + (static_cast<size_t>(ky * 3 + kx) * cin + ci) * Co + co) =
+              make_float2(acc[kx][4 * t + 2 * h], acc[kx][4 * t + 2 * h + 1]);
+        }
+      }
+}
+
+template <int GE, int NT>
+__global__ void __launch_bounds__(VTHREADS, 1) wgrad_vec_kernel(const Args p) {
+  constexpr int TCO = 8 * NT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ uint64_t xland[VXR], xempty[VXR], gland[VGR], gempty[VGR];
+  __shared__ __align__(16) float rows[6 * 64];
+  __shared__ float dbs[VCONSUMERS][8];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int Co = p.Co;
+  const int co_tiles = (Co + TCO - 1) / TCO;
+  const int ci0 = (blockIdx.x / co_tiles) * VTCI, co0 = (blockIdx.x % co_tiles) * TCO;
+  const long long u0 = static_cast<long long>(blockIdx.y) * p.per_chunk;
+  const long long u1 = u0 + p.per_chunk < p.tiles ? u0 + p.per_chunk : p.tiles;
+  VecShared sh;
+  sh.xr = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  sh.gr = sh.xr + VXR * 8 * VXP;
+  sh.yr = sh.gr + VGR * NT * VGP;
+  sh.xland = xland, sh.xempty = xempty, sh.gland = gland, sh.gempty = gempty;
+  sh.rows = rows;
+
+  if (tid == 0) {
+    for (int i = 0; i < VXR; ++i) {
+      imgseg::mbar_init(&xland[i], VSTAGERS);
+      imgseg::mbar_init(&xempty[i], 12);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < VGR; ++i) {
+      imgseg::mbar_init(&gland[i], VSTAGERS);
+      imgseg::mbar_init(&gempty[i], 12);
+    }
+    imgseg::fence_barrier_init();
   }
-  if (with_db) {  // the threads' db sums, added in pixel-share order per channel
-    xs[tid] = db;
-    __syncthreads();
-    if (tid < TCO && co0 + tid < Co) {
-      float s = 0.f;
-      for (int g = 0; g < DG; ++g) s += xs[g * TCO + tid];
-      p.part_b[chunk * Co + co0 + tid] = s;
+  // the transform rows at the block's channels: act(x)'s a, b; ge's rows
+  for (int i = tid; i < 6 * 64; i += VTHREADS) {
+    const int r = i / 64, c = i % 64;
+    float v = 0.f;
+    if (r < 2) {
+      if (p.ab != nullptr && ci0 + c < p.Ca) v = p.ab[r * p.Ca + ci0 + c];
+    } else if (GE != kGePlain && r - 2 < (GE == kGeAffine ? 4 : 2) && c < TCO && co0 + c < Co) {
+      v = p.gf[(r - 2) * Co + co0 + c];
+    }
+    rows[i] = v;
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    imgseg::reg_dealloc<VSTAGE_REGS>();
+    wgrad_vec_issue<GE, NT>(p, sh, u0, u1, ci0, co0);
+  } else {
+    imgseg::reg_alloc<VPRODUCT_REGS>();
+    float db[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    wgrad_vec_products<GE, NT>(p, sh, u0, u1, ci0, co0, db);
+    if (ci0 == 0) {  // db: the consumer threads' sums, added in thread order per channel
+      const int c = tid - VSTAGERS;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dbs[c][e] = db[e];
+      imgseg::named_sync(1, VCONSUMERS);
+      if (c < TCO && co0 + c < Co) {
+        const int j = c / 8, e = c % 8;
+        float s = 0.f;
+        for (int t = 0; t < VCONSUMERS; ++t) {
+          if ((t >> 3) % NT == j) s += dbs[t][e];
+        }
+        p.part_b[static_cast<size_t>(blockIdx.y) * Co + co0 + c] = s;
+      }
     }
   }
 }
@@ -886,12 +901,12 @@ inline long long deep_extra(int B, int H, int W, int Cin, int Co) {
 enum Path { kVector = 0, kNarrow = 1, kDeep = 2 };
 
 struct Plan {
-  int tiles_x, tiles_y, mi, ni, combos;
-  int cp, nt;  // the narrow path's input channels per tile and n8 tiles (cp = 0: the vector path)
+  int tiles_x, tiles_y, combos;
+  int cp, nt;  // the narrow path's input channels per tile (cp = 0 elsewhere); n8 tiles of a dw tile
   long long tiles, chunks, per_chunk;
 };
 
-// The card's SMs: the deep kernel's blocks, one an SM.
+// The card's SMs: the vector and deep kernels' blocks, one an SM.
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 132;
@@ -899,47 +914,53 @@ int sm_count() {
   return sms > 0 ? sms : 132;
 }
 
+// As many chunks as fill one wave beside `combos` tiles of dw (one block
+// an SM), every chunk non-empty.
+void one_wave(Plan& q) {
+  q.chunks = sm_count() / q.combos;
+  q.chunks = q.chunks < 1 ? 1 : q.chunks > q.tiles ? q.tiles : q.chunks;
+  q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
+  q.chunks = (q.tiles + q.per_chunk - 1) / q.per_chunk;
+}
+
 Plan plan(int B, int H, int W, int Cin, int Co, int path) {
   Plan q{};
   if (path == kDeep) {
-    // as many chunks as fill one wave beside the (Cin/64) x (Co/64) tiles of
-    // dw, every chunk non-empty
     q.tiles_x = (W + DW - 1) / DW;
     q.tiles_y = (H + DR - 1) / DR;
     q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
     q.combos = (Cin / 64) * (Co / 64);
-    q.chunks = sm_count() / q.combos;
-    q.chunks = q.chunks < 1 ? 1 : q.chunks > q.tiles ? q.tiles : q.chunks;
-    q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
-    q.chunks = (q.tiles + q.per_chunk - 1) / q.per_chunk;
+    one_wave(q);
     return q;
   }
-  const bool narrow = path == kNarrow;
-  const int th = narrow ? NTH : TH;
-  q.tiles_x = (W + TW - 1) / TW;
-  q.tiles_y = (H + th - 1) / th;
-  q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
-  if (narrow) {
-    q.cp = Cin > NCP ? NCP : (Cin + 7) / 8 * 8;
-    q.nt = Co <= 8 ? 1 : Co <= 16 ? 2 : 4;
-    q.combos = ((Cin + q.cp - 1) / q.cp) * ((Co + 8 * q.nt - 1) / (8 * q.nt));
-  } else {
-    q.mi = Cin > 32 ? 2 : 1;
-    q.ni = Co > 32 ? 2 : 1;
-    q.combos = ((Cin + 32 * q.mi - 1) / (32 * q.mi)) * ((Co + 32 * q.ni - 1) / (32 * q.ni));
+  q.nt = Co <= 8 ? 1 : Co <= 16 ? 2 : 4;
+  if (path == kVector) {
+    // units: strips of one image row; TCO = 16, 32 or 64
+    q.nt = Co <= 16 ? 2 : Co <= 32 ? 4 : 8;
+    q.tiles_x = (W + VSW - 1) / VSW;
+    q.tiles_y = H;
+    q.tiles = static_cast<long long>(B) * q.tiles_x * H;
+    q.combos = ((Cin + VTCI - 1) / VTCI) * ((Co + 8 * q.nt - 1) / (8 * q.nt));
+    one_wave(q);
+    return q;
   }
+  q.tiles_x = (W + TW - 1) / TW;
+  q.tiles_y = (H + NTH - 1) / NTH;
+  q.tiles = static_cast<long long>(B) * q.tiles_x * q.tiles_y;
+  q.cp = Cin > NCP ? NCP : (Cin + 7) / 8 * 8;
+  q.combos = ((Cin + q.cp - 1) / q.cp) * ((Co + 8 * q.nt - 1) / (8 * q.nt));
   q.chunks = imgseg::chunks_for(q.tiles, q.combos);
   q.per_chunk = (q.tiles + q.chunks - 1) / q.chunks;
   return q;
 }
 
-template <int GE, int MI, int NI>
-cudaError_t launch_tiles(const Args& p, dim3 grid, cudaStream_t s) {
+template <int GE, int NT>
+cudaError_t launch_vec(const Args& p, const Plan& q, cudaStream_t s) {
   static bool opted = false;
-  auto* kernel = wgrad_kernel<GE, MI, NI>;
-  const cudaError_t err = imgseg::allow_smem(kernel, WTiles<MI, NI>::BYTES, opted);
+  auto* kernel = wgrad_vec_kernel<GE, NT>;
+  const cudaError_t err = imgseg::allow_smem(kernel, vec_bytes(NT), opted);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, WTiles<MI, NI>::BYTES, s>>>(p);
+  kernel<<<dim3(q.combos, static_cast<unsigned>(q.chunks)), VTHREADS, vec_bytes(NT), s>>>(p);
   return cudaGetLastError();
 }
 
@@ -999,16 +1020,14 @@ cudaError_t launch_deep(Args& p, const Plan& q, cudaStream_t s) {
 template <int GE>
 cudaError_t launch(Args& p, Plan& q, int path, cudaStream_t s) {
   if (path == kDeep) return launch_deep<GE>(p, q, s);
-  if (q.cp != 0) {
+  if (path == kNarrow) {
     return q.nt == 1 ? launch_narrow<GE, 1>(p, q, s)
            : q.nt == 2 ? launch_narrow<GE, 2>(p, q, s)
                        : launch_narrow<GE, 4>(p, q, s);
   }
-  const dim3 grid(q.combos, static_cast<unsigned>(q.chunks));
-  if (q.mi == 2) {
-    return q.ni == 2 ? launch_tiles<GE, 2, 2>(p, grid, s) : launch_tiles<GE, 2, 1>(p, grid, s);
-  }
-  return q.ni == 2 ? launch_tiles<GE, 1, 2>(p, grid, s) : launch_tiles<GE, 1, 1>(p, grid, s);
+  return q.nt == 2 ? launch_vec<GE, 2>(p, q, s)
+         : q.nt == 4 ? launch_vec<GE, 4>(p, q, s)
+                     : launch_vec<GE, 8>(p, q, s);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
@@ -1040,25 +1059,30 @@ extern "C" int imgseg_conv3x3_wgrad_path() { return g_last_path; }
 // dw (9, Ca+Cb, Co) and db (Co), fp32.  g, y (B,H,W,Co); gf (2|4, Co) rows
 // of the cotangent transform, `affine` selecting the 4-row form, or no gf
 // (and no y): the cotangent g itself; x
-// (B,H,W,Ca) with xb (B,H,W,Cb) or the pre-affine ab (2, Ca).  `deep`
-// (ops/fused_conv.conv_path): the deep path, which takes Ca, Cb and Co
-// multiples of 64 on 16-byte aligned operands, or the call fails; else the
-// vector or narrow path by the channel counts and the alignment.
+// (B,H,W,Ca) with xb (B,H,W,Cb) or the pre-affine ab (2, Ca).  `path`
+// (ops/fused_conv._path_arg): 0 the narrow path, 1 the vector path (Ca, Cb
+// and Co multiples of 8), 64 or 128 the deep path (multiples of 64), the
+// last two on 16-byte aligned operands; the library refuses a path it
+// cannot take and chooses none.
 extern "C" int imgseg_conv3x3_wgrad(const void* g, const void* y, const void* gf, const void* x,
                                     const void* xb, const void* ab, void* dw, void* db,
                                     void* scratch, int B, int H, int W, int Ca, int Cb, int Co,
-                                    int affine, int deep, void* stream) {
+                                    int affine, int path, void* stream) {
   const int cin = Ca + Cb;
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0 || cin <= 0) return static_cast<int>(cudaSuccess);
   const bool aligned = aligned16(x) && aligned16(xb) && aligned16(ab) && aligned16(g) &&
                        aligned16(y) && aligned16(gf);
-  int path;
-  if (deep) {
-    if (Ca % 64 || Cb % 64 || Co % 64 || !aligned) return static_cast<int>(cudaErrorInvalidValue);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (path == 64 || path == 128) {
+    if (Ca % 64 || Cb % 64 || Co % 64 || !aligned) return invalid;
     path = kDeep;
+  } else if (path == 1) {
+    if (Ca % 8 || Cb % 8 || Co % 8 || !aligned) return invalid;
+    path = kVector;
+  } else if (path == 0) {
+    path = kNarrow;
   } else {
-    // the vector path: channel counts multiples of 8, operands on 16-byte boundaries
-    path = Ca % 8 == 0 && Cb % 8 == 0 && Co % 8 == 0 && aligned ? kVector : kNarrow;
+    return invalid;
   }
   Plan q = plan(B, H, W, cin, Co, path);
   if (q.chunks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);

@@ -2,7 +2,8 @@
 // kernels (conv3x3.cu, conv3x3_bwd.cu, convtranspose.cu, conv1x1_bwd.cu,
 // cross_attention.cu): ldmatrix, mma.sync m16n8k16 in bf16 with
 // fp32 sums, Hopper's wgmma with shared-memory descriptors (the conv
-// kernels' deep paths), cp.async with zero fill, bulk copies on an mbarrier, 8-wide
+// kernels' vector and deep paths) and the vector paths' row streams,
+// cp.async with zero fill, bulk copies on an mbarrier, 8-wide
 // bf16 vector helpers, the operand transforms applied on load, and the
 // narrow conv paths' staging of operands of any channel count and
 // alignment.
@@ -73,6 +74,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Arrive on `bar` once all of this thread's cp.async copies so far have
+// landed (the barrier counts the thread's arrival among its expected ones).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Wait until at most N of this thread's committed groups are still in flight.
@@ -199,6 +206,58 @@ __device__ __forceinline__ uint4 cotangent8(const float* gf, int C, int c, const
 #pragma unroll
   for (int i = 0; i < (AFFINE ? 4 : 2); ++i) load_row8(gf + i * C, c, r[i]);
   return cotangent8<AFFINE>(r, graw, yraw);
+}
+
+// The two transforms with their rows in shared memory (row i at rows + i *
+// stride, channel c + k at [c + k], 16-byte aligned), read 4 channels at a
+// time: the vector paths' consumer warps apply them, whose registers hold
+// their accumulators.
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint4 affine_relu8_shared(const float* rows, int stride, int c,
+                                                     const uint4& raw) {
+  const Vec8 x = as_vec8(raw);
+  Vec8 out;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 a = *reinterpret_cast<const float4*>(rows + c + 4 * h);
+    const float4 b = *reinterpret_cast<const float4*>(rows + stride + c + 4 * h);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float t = __fadd_rn(__fmul_rn(__bfloat162float(x.v[4 * h + k]), lane4(a, k)), lane4(b, k));
+      out.v[4 * h + k] = __float2bfloat16(fmaxf(t, 0.f));
+    }
+  }
+  return as_raw(out);
+}
+
+template <bool AFFINE>
+__device__ __forceinline__ uint4 cotangent8_shared(const float* rows, int stride, int c,
+                                                   const uint4& graw, const uint4& yraw) {
+  const Vec8 g = as_vec8(graw), y = as_vec8(yraw);
+  constexpr int R = AFFINE ? 2 : 0;
+  Vec8 out;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float4 r[4];
+#pragma unroll
+    for (int i = 0; i < (AFFINE ? 4 : 2); ++i) {
+      r[i] = *reinterpret_cast<const float4*>(rows + i * stride + c + 4 * h);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float gv = __bfloat162float(g.v[4 * h + k]), yv = __bfloat162float(y.v[4 * h + k]);
+      float t = gv;
+      if constexpr (AFFINE) {
+        t = __fadd_rn(__fmul_rn(yv, lane4(r[0], k)), lane4(r[1], k)) > 0.f ? __fmul_rn(gv, lane4(r[0], k)) : 0.f;
+      }
+      out.v[4 * h + k] = __float2bfloat16(
+          __fadd_rn(__fadd_rn(t, lane4(r[R], k)), __fmul_rn(__fmul_rn(2.f, yv), lane4(r[R + 1], k))));
+    }
+  }
+  return as_raw(out);
 }
 
 // ---- the narrow path of the conv kernels: operands whose channel count is
@@ -430,6 +489,29 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // memory (descriptors da, db); scale_d = 0 overwrites d instead.  TA / TB:
 // 1 where the operand is MN-major.
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : IMGSEG_F8(0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : IMGSEG_F8(0), IMGSEG_F8(8)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -460,13 +542,17 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 
 #undef IMGSEG_F8
 
-// d += A * B at N = 8 * NT (64 or 128) output columns.
+// d += A * B at N = 8 * NT (16, 32, 64 or 128) output columns.
 template <int TA, int TB, int NT>
 __device__ __forceinline__ void wgmma(float (&d)[4 * NT], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (NT == 8) {
+  if constexpr (NT == 2) {
+    wgmma_n16<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (NT == 4) {
+    wgmma_n32<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (NT == 8) {
     wgmma_n64<TA, TB>(d, da, db, scale_d);
   } else {
-    static_assert(NT == 16, "N is 64 or 128");
+    static_assert(NT == 16, "N is 16, 32, 64 or 128");
     wgmma_n128<TA, TB>(d, da, db, scale_d);
   }
 }
@@ -501,6 +587,74 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
+
+// ---- the vector paths' row streams (conv3x3.cu's forward, conv3x3_bwd.cu's
+// wgrad).  A block walks a contiguous run of units, unit u being one strip
+// of one image row: strip s of `strips`, row y of image n, u = (n * strips
+// + s) * H + y, so consecutive units are consecutive rows of one strip.  It
+// keeps the x rows the units read (rows y - 1, y, y + 1 with their halo
+// columns) in a ring of R shared-memory slots: a unit that continues the
+// one before it loads one new row, one that starts a run (the block's
+// first, or the first of a strip) loads three.  Every role walks the same
+// units and rows with its own cursor, kept incrementally (a division a
+// unit cost more than the unit's products): the unit's (n, s, y), and the
+// slot and phase parity of the last row loaded; a unit reads the last three.
+struct UnitWalk {
+  int H, strips, R;
+  long long n;  // the unit: image n, strip s, row y
+  int s, y;
+  int left;     // units after this one (-1: past the run)
+  bool fresh;   // this unit restarts the ring (loads three rows)
+  int slot, phase;  // the ring slot of the last row loaded, and its phase parity
+
+  __device__ __forceinline__ void begin(long long u0, long long u1, int h, int nstrips, int ring) {
+    H = h, strips = nstrips, R = ring;
+    y = static_cast<int>(u0 % h);
+    const long long ns = u0 / h;
+    s = static_cast<int>(ns % nstrips);
+    n = ns / nstrips;
+    left = static_cast<int>(u1 - u0) - 1;
+    fresh = true;
+    slot = R - 1, phase = 1;  // so that the first row lands in slot 0, phase 0
+  }
+  __device__ __forceinline__ bool more() const { return left >= 0; }
+  __device__ __forceinline__ int loads() const { return fresh ? 3 : 1; }
+  // after this unit, its rows q - 2 and, where the next unit restarts or
+  // this is the last, q - 1 and q are read by no later unit
+  __device__ __forceinline__ bool frees_all() const { return left == 0 || y + 1 == H; }
+  __device__ __forceinline__ void next_unit() {
+    --left;
+    fresh = ++y == H;
+    if (fresh) {
+      y = 0;
+      if (++s == strips) s = 0, ++n;
+    }
+  }
+  __device__ __forceinline__ void next_row() {
+    if (++slot == R) slot = 0, phase ^= 1;
+  }
+  // the slot and phase parity of row q - k (k < R)
+  __device__ __forceinline__ int slot_back(int k) const { return slot >= k ? slot - k : slot - k + R; }
+  __device__ __forceinline__ int phase_back(int k) const { return slot >= k ? phase : phase ^ 1; }
+};
+
+// One consumer's arrival on the empty barriers of the x rows that a unit
+// (its last row in `slot`) is the last to read (UnitWalk::frees_all).
+__device__ __forceinline__ void release_rows(int slot, int R, bool all, uint64_t* empty) {
+  mbar_arrive(&empty[slot >= 2 ? slot - 2 : slot - 2 + R]);
+  if (all) {
+    mbar_arrive(&empty[slot >= 1 ? slot - 1 : slot - 1 + R]);
+    mbar_arrive(&empty[slot]);
+  }
+}
+
+// A ring position that steps one slot at a time: slot and phase parity.
+struct RingPos {
+  int slot, phase, R;
+  __device__ __forceinline__ void next() {
+    if (++slot == R) slot = 0, phase ^= 1;
+  }
+};
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory, once.
 template <typename Kernel>

@@ -36,12 +36,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argtypes.  Every entry returns cudaError_t as int,
 # but the two path queries.
 SIGNATURES = {
-    # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, deep, stream
+    # x, x_b, w, bias, ab, out, stats, scratch, B, H, W, Ca, Cb, Co, path, stream
     "imgseg_conv3x3": (_P,) * 8 + (_I,) * 7 + (_P,),
-    # g, y, gf, w, x_post, ab_post, out, out_b, sums, scratch, B, H, W, Cg, Co, Na, affine, deep,
+    # g, y, gf, w, x_post, ab_post, out, out_b, sums, scratch, B, H, W, Cg, Co, Na, affine, path,
     # stream
     "imgseg_conv3x3_dgrad": (_P,) * 10 + (_I,) * 8 + (_P,),
-    # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, deep, stream
+    # g, y, gf, x, x_b, ab, dw, db, scratch, B, H, W, Ca, Cb, Co, affine, path, stream
     "imgseg_conv3x3_wgrad": (_P,) * 9 + (_I,) * 8 + (_P,),
     # g, y, a, b, sums, B, H, W, C, stream
     "imgseg_bn_relu_bwd_reduce": (_P,) * 5 + (_I,) * 4 + (_P,),

@@ -227,23 +227,62 @@ def convtranspose2x2_bwd_plain(x, w, g):
 # the conv kernels' paths
 # --------------------------------------------------------------------------
 
+# the most input channels the vector path takes: a block of its forward
+# holds the 9 x Cin x N weights of its N tile (N 32 on 64-pixel strips, or
+# N 16 on 128-pixel strips where Co <= 16) beside four rows of x
+VECTOR_CIN, VECTOR_CIN_N16 = 192, 160
+
+
 def conv_path(ca: int, cb: int, co: int) -> str:
     """The path of the 3x3 conv kernels for a conv of ``[Ca | Cb] -> Co``
     channels, in its forward, dx and wgrad alike: ``"deep"`` where Ca, Cb
     and Co are multiples of 64 and 256 or more channels go in or come out
     (the fold-1 blocks' levels, wgmma tiles of 64-channel K stages); else
-    ``"vector"`` where all are multiples of 8, ``"narrow"`` where not.  The
-    library takes ``"deep"`` as told (and fails on an operand off 16 bytes);
-    between the other two it also reads the alignment (an operand off 16
-    bytes takes the narrow path)."""
+    ``"vector"`` where all are multiples of 8 and the vector forward's
+    weights fit its shared memory (Ca + Cb, padded to 16, at most
+    VECTOR_CIN, or VECTOR_CIN_N16 where Co <= 16: ``csrc/conv3x3.cu``
+    asserts the same limits); else ``"narrow"``.  :func:`_path_arg` adds
+    the operands' alignment."""
     if ca % 64 == 0 and cb % 64 == 0 and co % 64 == 0 and (ca + cb >= 256 or co >= 256):
         return "deep"
-    return "vector" if ca % 8 == 0 and cb % 8 == 0 and co % 8 == 0 else "narrow"
+    if ca % 8 or cb % 8 or co % 8:
+        return "narrow"
+    cin = -(-(ca + cb) // 16) * 16
+    return "vector" if cin <= (VECTOR_CIN if co > 16 else VECTOR_CIN_N16) else "narrow"
 
 
-def _deep_tile(path: str, n: int) -> int:
-    """The deep kernel's N tile over n output channels (0 off the deep path)."""
-    return 0 if path != "deep" else 128 if n % 128 == 0 else 64
+def _path_arg(ca: int, cb: int, co: int, n: int, *operands) -> tuple:
+    """The path a conv of ``[Ca | Cb] -> Co`` channels takes on these
+    operands, and the C library's argument that names it: 0 the narrow
+    path, 1 the vector path, 64 or 128 the deep path's N tile over n
+    channels.  It is :func:`conv_path`'s, but that the vector path's shapes
+    take the narrow path where an operand is off 16 bytes (the library
+    refuses the deep path on one).  The library only checks the choice."""
+    path = conv_path(ca, cb, co)
+    if path == "vector" and not _aligned(*operands):
+        path = "narrow"
+    if path == "deep":
+        return path, 128 if n % 128 == 0 else 64
+    return path, int(path == "vector")
+
+
+def vector_pack(w: torch.Tensor) -> torch.Tensor:
+    """Weights (Co, K, 3, 3) in the vector forward's order, bf16, in one
+    copy: K zero-padded to Kp, a multiple of 16 (one k16 step is two
+    8-channel planes), then for each tap the (Co x Kp) matrix as the
+    wgmma's K-major core matrices ([Co/8][Kp/8][8 of N][8 of K]), so a
+    block's N tile of a tap is one bulk copy."""
+    n, k = w.shape[0], w.shape[1]
+    kp = -(-k // 16) * 16
+    if kp != k:
+        w = F.pad(w, (0, 0, 0, 0, 0, kp - k))
+    tiles = w.reshape(n // 8, 8, kp // 8, 8, 9).permute(4, 0, 2, 1, 3)
+    return tiles.to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _aligned(*tensors) -> bool:
+    """Whether every given tensor starts on a 16-byte boundary."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def deep_pack(wk: torch.Tensor, n: int) -> torch.Tensor:
@@ -399,9 +438,12 @@ def conv3x3(
         _check_vector(name, a, ca, "a")
         _check_vector(name, b, ca, "b")
         ab = _ab(a, b, x.dtype)
-    deep = _deep_tile(conv_path(ca, cb, co), co)
-    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0)  # (3, 3, Cin, Co)
-    wk = deep_pack(wk, deep) if deep else wk.contiguous()
+    path, arg = _path_arg(ca, cb, co, co, x, x_b)
+    if path == "vector":
+        wk = vector_pack(w)
+    else:
+        wk = w.to(torch.bfloat16).permute(2, 3, 1, 0)  # (3, 3, Cin, Co)
+        wk = deep_pack(wk, arg) if path == "deep" else wk.contiguous()
     out = torch.empty((bsz, h, wd, co), dtype=x.dtype, device=x.device)
     sums = scratch = None
     if stats:
@@ -409,8 +451,8 @@ def conv3x3(
         scratch = _scratch("imgseg_conv3x3_scratch", x, bsz, h, wd, co)
     _launch(conv3x3, "imgseg_conv3x3", _ptr(x), _ptr(x_b), _ptr(wk),
             _ptr(bias.float().contiguous()), _ptr(ab), _ptr(out), _ptr(sums), _ptr(scratch),
-            bsz, h, wd, ca, cb, co, deep)
-    conv3x3.deep_launches += bool(deep)
+            bsz, h, wd, ca, cb, co, arg)
+    conv3x3.deep_launches += path == "deep"
     return (out, sums[0], sums[1]) if stats else out
 
 
@@ -473,9 +515,9 @@ def conv3x3_dgrad(
     gf = _gf(c1, c2, a, b, g.dtype)
     # the flipped, transposed kernel in conv3x3's (3, 3, Cin', Co') layout
     ca = cin if split is None else split
-    deep = _deep_tile(conv_path(ca, cin - ca, co), cin)
+    path, arg = _path_arg(ca, cin - ca, co, cin, g, y)
     wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1)
-    wk = deep_pack(wk, deep) if deep else wk.contiguous()
+    wk = deep_pack(wk, arg) if path == "deep" else wk.contiguous()
     ab_post = sums = scratch = out_b = None
     na = cin
     if x_post is not None:
@@ -493,8 +535,8 @@ def conv3x3_dgrad(
     out = torch.empty((bsz, h, wd, na), dtype=g.dtype, device=g.device)
     _launch(conv3x3_dgrad, "imgseg_conv3x3_dgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(wk),
             _ptr(x_post), _ptr(ab_post), _ptr(out), _ptr(out_b), _ptr(sums), _ptr(scratch),
-            bsz, h, wd, co, cin, na, int(a is not None), deep)
-    conv3x3_dgrad.deep_launches += bool(deep)
+            bsz, h, wd, co, cin, na, int(a is not None), arg)
+    conv3x3_dgrad.deep_launches += path == "deep"
     if x_post is not None:
         return out, sums[0], sums[1]
     return (out, out_b) if split is not None else out
@@ -555,11 +597,12 @@ def conv3x3_wgrad(
     cin = ca + cb
     dw = torch.empty((9, cin, co), dtype=torch.float32, device=g.device)
     db = torch.empty((co,), dtype=torch.float32, device=g.device)
-    deep = int(conv_path(ca, cb, co) == "deep")
+    path, arg = _path_arg(ca, cb, co, co, g, y, x, x_b)
+    deep = int(path == "deep")
     scratch = _scratch("imgseg_conv3x3_wgrad_scratch", g, bsz, h, wd, cin, co, deep)
     _launch(conv3x3_wgrad, "imgseg_conv3x3_wgrad", _ptr(g), _ptr(y), _ptr(gf), _ptr(x),
             _ptr(x_b), _ptr(ab), _ptr(dw), _ptr(db), _ptr(scratch),
-            bsz, h, wd, ca, cb, co, int(a is not None), deep)
+            bsz, h, wd, ca, cb, co, int(a is not None), arg)
     conv3x3_wgrad.deep_launches += deep
     return dw.view(3, 3, cin, co).permute(3, 2, 0, 1).contiguous(), db
 

@@ -29,7 +29,11 @@ wrapper's time between its kernel and its second pass of the sums.  Each
 case also reports the device-memory rate it reached (its inputs read once
 and its outputs written once, over its ms) beside that of a plain copy of
 its inputs (``Tensor.copy_``: each input read once and written once), the
-rate a streaming pass reaches on this card.
+rate a streaming pass reaches on this card.  With ``--host-ops`` each case
+also gets the host time of one wrapper call by PyTorch operator
+(``torch.profiler``'s self CPU time over HOST_CALLS calls) beside the
+wall time of those calls under the profiler: what is left of the wall
+time is Python and the C library's own host work.
 """
 
 from __future__ import annotations
@@ -57,7 +61,27 @@ def device_us():
     return mod.device_us
 
 
-def child(root: Path, entries: list, labels: list, iters: int, with_profile: bool) -> None:
+def host_ops_us(torch, fn) -> dict:
+    """Host microseconds per call of ``fn`` by PyTorch operator (self CPU
+    time), and under ``"wall"`` the wall time per call, all over HOST_CALLS
+    calls under ``torch.profiler`` after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = {e.key: e.self_cpu_time_total / HOST_CALLS for e in prof.key_averages()
+           if e.self_cpu_time_total > 0}
+    return {"wall": wall / HOST_CALLS * 1e6, **out}
+
+
+def child(root: Path, entries: list, labels: list, iters: int, with_profile: bool,
+          with_host_ops: bool = False) -> None:
     """Time the cases in this process, from ``root``'s modules."""
     sys.path.insert(0, str(root))
     import torch
@@ -100,6 +124,8 @@ def child(root: Path, entries: list, labels: list, iters: int, with_profile: boo
         del got, twins
         if with_profile:
             row["device_us"] = device_times(torch, case.kern, iters)
+        if with_host_ops:
+            row["host_ops_us"] = host_ops_us(torch, case.kern)
         print("CASE " + json.dumps(row), flush=True)
         del case
         torch.cuda.empty_cache()
@@ -127,12 +153,13 @@ def child_steps(root: Path, steps: int) -> None:
 
 
 def run(root: Path, entries: list, labels: list, iters: int, with_profile: bool,
-        steps: bool = False) -> list:
+        steps: bool = False, with_host_ops: bool = False) -> list:
     cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root),
            "--iters", str(iters), "--labels", *labels]
     cmd += ["--entries", *entries] if entries else []
     cmd += ["--profile"] if with_profile else []
     cmd += ["--steps"] if steps else []
+    cmd += ["--host-ops"] if with_host_ops else []
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=1200)
     if res.returncode != 0:
         raise RuntimeError(f"{root}: exit {res.returncode}\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
@@ -147,6 +174,8 @@ def main() -> int:
     ap.add_argument("--labels", nargs="*", default=[], help="case label prefixes (default: all)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true", help="device time per CUDA kernel")
+    ap.add_argument("--host-ops", action="store_true",
+                    help="host time of a wrapper call per PyTorch operator")
     ap.add_argument("--steps", action="store_true",
                     help="the large_unet train step with fused_deep off and on, not kernels")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
@@ -155,7 +184,8 @@ def main() -> int:
         if args.steps:
             child_steps(args.child.resolve(), args.iters)
         else:
-            child(args.child.resolve(), args.entries, args.labels, args.iters, args.profile)
+            child(args.child.resolve(), args.entries, args.labels, args.iters, args.profile,
+                  args.host_ops)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -177,7 +207,8 @@ def main() -> int:
     times = {}
     for who, root in order:
         seen = {}
-        for r in run(root, args.entries, args.labels, args.iters, args.profile):
+        for r in run(root, args.entries, args.labels, args.iters, args.profile,
+                     with_host_ops=args.host_ops):
             n = seen[r["entry"], r["label"]] = seen.get((r["entry"], r["label"]), -1) + 1
             t = times.setdefault((r["entry"], r["label"], n),
                                  {"timed": r["timed"], "other": [], "this": [], "library": [],
@@ -190,6 +221,8 @@ def main() -> int:
                 t["path"] = r.get("path")
             if "device_us" in r:
                 t.setdefault(who + "_device_us", r["device_us"])
+            if "host_ops_us" in r:
+                t.setdefault(who + "_host_ops_us", r["host_ops_us"])
             t[who].append(r["ms"])
             if r["library_ms"] is not None:
                 t["library"].append(r["library_ms"])
@@ -205,7 +238,7 @@ def main() -> int:
                "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]),
                "this_host_us": mean(t["this_host_us"]), "other_host_us": mean(t["other_host_us"]),
                "this_path": t["path"], "card": card,
-               **{k: v for k, v in t.items() if k.endswith("_device_us")}}
+               **{k: v for k, v in t.items() if k.endswith(("_device_us", "_host_ops_us"))}}
         print(json.dumps(row), flush=True)
         if t["timed"] == "sum" and t["this"] and t["other"]:
             s = sums.setdefault(entry, {"this_ms": 0.0, "other_ms": 0.0, "library_ms": 0.0})
