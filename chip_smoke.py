@@ -255,7 +255,12 @@ PREPROCESS_OPS_PER_PIXEL = 180
 # no gradient (the prompt heatmap; ``_folded_wgrad_pallas``).  Each conv
 # kernel has one more ("... unfused"): its plain form, with no affine,
 # statistics or cotangent transform, which a block of ``w2d_impl="pallas"``
-# launches once per conv (``make_folded_conv3x3``).
+# launches once per conv (``make_folded_conv3x3``).  The dgrad's lines
+# time the forward's own kernels (``csrc/conv3x3.cu`` ``vec_kernel``,
+# ``narrow_kernel``, ``deep_kernel``) in their dgrad modes: the conv of the
+# transformed cotangent with the flipped, transposed weights; its unfused
+# line is the dx of ``make_folded_conv3x3`` (:2005), which JAX computes
+# with ``_folded_conv_pallas`` on the raw cotangent.
 KERNEL_INFO = {
     "conv3x3": ("conv3x3", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
                 "image_segmentation_tpu/ops/pallas_conv.py:568"),
@@ -290,7 +295,7 @@ KERNEL_INFO = {
     "conv3x3 unfused": ("conv3x3", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
                         "image_segmentation_tpu/ops/pallas_conv.py:1932"),
     "conv3x3_dgrad unfused": ("conv3x3_dgrad", "image_segmentation_tpu_torch/csrc/conv3x3.cu",
-                              "image_segmentation_tpu/ops/pallas_conv.py:1932"),
+                              "image_segmentation_tpu/ops/pallas_conv.py:2005"),
     "conv3x3_wgrad unfused": ("conv3x3_wgrad", "image_segmentation_tpu_torch/csrc/conv3x3_bwd.cu",
                               "image_segmentation_tpu/ops/pallas_conv.py:1932"),
 }

@@ -17,50 +17,38 @@
 // which the wrapper passes in the forward's weight layout.
 //
 // The vector path takes Ca, Cb and Co multiples of 8 on 16-byte aligned
-// operands, Cin up to 192 (160 where Co <= 16: the forward's resident
-// weights must fit): every level 0-1 conv of every U-Net (32-128 channels
+// operands whose weights fit its shared memory: K (the forward's Cin, the
+// dgrad's Co), padded to 16, at most 192, or 160 where N (the other side) is
+// at most 16.  That is every level 0-1 conv of every U-Net (32-128 channels
 // at 512^2 and 256^2 in large_unet at batch 16).  The caller chooses the
-// path (ops/fused_conv.conv_path); the library refuses one it cannot
-// take.  A conv does 18*Cin*Co FLOPs per
+// path (ops/fused_conv.conv_path, one rule for the forward, the dx and the
+// wgrad); the library refuses one it cannot take.  A conv does 18*Cin*Co FLOPs per
 // output pixel against 2*(Cin + Co) bytes moved, so what bounds it on the
 // card depends on the shape: bytes at enc1.conv1 (32 -> 64: 0.240 ms of
 // bytes against 0.156 of FLOPs at 3.35 TB/s and 989 TFLOP/s), enc1.conv2,
 // dec5.conv1 and dec5.conv2; the tensor cores at enc2.conv1, enc2.conv2 and
 // dec4.conv1 (128 -> 128: 0.313 ms of FLOPs against 0.160 of bytes); the
-// two nearly equal at dec4.conv2.  The operands are bf16 (every on-load
+// two nearly equal at dec4.conv2.  The dgrad moves more bytes (g, and y
+// beside it for the cotangent transform, and xpost for the post adjoint).
+// The operands are bf16 (every on-load
 // transform ends in a bf16 rounding), so a bf16 x bf16 product is exact in
 // fp32 and the tensor cores compute the same sums as fp32 FMAs, in another
 // order.
 //
-// The forward (vec_kernel; see its section) reads x once and keeps the
-// weights resident: one wave of persistent blocks, each holding the whole
-// 9 x Cin x N weight tile in shared memory (147 KB at 64 -> 128) and walking
-// a run of 128-pixel strips of consecutive rows with a ring of x rows, so
-// each x value is loaded and activated once per N tile; the products are
-// wgmma with both operands read from shared memory by descriptor.
-//
-// The dgrad's vector path (conv3x3_kernel, the dx of the merged backward
-// and of make_folded_conv3x3) is an implicit GEMM on mma.sync m16n8k16
-// (bf16 in, fp32 sums).  A 256-thread block owns an 8x16-pixel by TCO
-// (32 or 64) output-channel tile: M = 128 pixels, N = TCO, K = 9 taps x Cin
-// in 16-wide slices.  Per stage of 32 input channels it holds the
-// (8+2)x(16+2) halo of the operand and the 3x3x32xTCO weights in shared
-// memory as bf16, rows padded by 16 bytes so that every ldmatrix is free of
-// bank conflicts.  All 9 taps read the one halo: a tap is the halo shifted
-// by (ky, kx), which is only another row pointer per lane for ldmatrix.
-// Each warp owns 2 output rows (2 m16 tiles) by TCO/2 channels and keeps
-// its sums in registers in the mma fragment layout.  The stages are
-// double-buffered: the weights, and the raw cotangent, arrive by cp.async
-// (16 bytes, zero-filled outside the image); the transformed cotangent is
-// read 16 bytes a thread into registers before the stage's mma,
-// transformed and stored after, so both loads overlap the tensor cores.
-// The zero border (after the transform, as in JAX) is the zero fill.  The
-// epilogues run on the fragments: the bias, the bf16 rounding, the ReLU
-// adjoint with its sums, the split of dx; sums go over each lane's pixels,
-// then warp shuffles, then the four row warps in order through shared
-// memory, and each block writes one row of partial sums that a second pass
-// (reduce.cuh) adds in a fixed order.  No atomics.
-//
+// The vector path's kernel (vec_kernel; see its section) runs the forward
+// and the dgrad alike, the dgrad as the conv of the transformed cotangent
+// with the flipped, transposed weights (K = the forward's Co, N = its Cin;
+// ops/fused_conv.vector_pack packs them).  It reads its operand once and
+// keeps the weights resident: one wave of persistent blocks, each holding
+// the whole 9 x K x N weight tile in shared memory (147 KB at K = 128, N =
+// 64) and walking a run of 128-pixel strips of consecutive rows with a ring
+// of operand rows, each row transformed in place once per N tile (the
+// forward's pre-affine + ReLU; the cotangent transform, by the copying
+// warpgroup from y staged beside g where that fits, else by the consumers
+// from y read from global memory); the products are wgmma with both
+// operands read from shared memory by descriptor.  Its epilogues: the forward's bias and
+// statistics, the dgrad's post adjoint and its split of dx.
+
 // The narrow path (narrow_kernel) takes every other shape: a channel count
 // that is not a multiple of 8 (ClipRes's output block, [16 | 3] -> 3 and
 // 3 -> 3, its dx from a 3-channel cotangent; the prompt heatmap, 1 -> 32),
@@ -131,24 +119,9 @@ using imgseg::ldsm_x4;
 using imgseg::ldsm_x4_trans;
 using imgseg::mma_bf16;
 
-constexpr int TH = 8;     // output rows per block
-constexpr int TW = 16;    // output columns per block: one m16 tile per row
-constexpr int IH = TH + 2;
+constexpr int TW = 16;    // the narrow path's tile columns: one m16 tile a row
 constexpr int IW = TW + 2;
-constexpr int HALO = IH * IW;
-constexpr int CK = 32;        // input channels per stage: two k16 slices
-constexpr int AS = CK + 8;    // halo row stride (bf16): 80 bytes
-constexpr int AV = (HALO * CK / 8 + 255) / 256;  // 16-byte halo vectors per thread
-constexpr int THREADS = 256;  // 8 warps: 4 along the rows x 2 along the channels
-
-template <int TCO>
-struct Tiles {
-  static constexpr int WS = TCO + 8;  // weight row stride (bf16)
-  static constexpr int A = HALO * AS;
-  static constexpr int W = 9 * CK * WS;
-  static constexpr int STAGE = A + W;
-  static constexpr size_t BYTES = 2 * STAGE * sizeof(__nv_bfloat16);
-};
+constexpr int THREADS = 256;  // the narrow path's block
 
 // How the staged operand is read.
 enum Load {
@@ -181,10 +154,11 @@ struct Args {
   int kp;  // the narrow path: channels per stage, padded to a multiple of 8
   int tiles_x, tiles_y, nblk;  // the narrow and deep paths: pixel tiles; blocks along them
   int deep;  // the deep path: its N tile (64 or 128), else 0
-  // the vector forward: pixels a unit (a strip of one row; 0 off that
-  // path), K padded to a multiple of 16, the N tile, whether the two
-  // consumer warpgroups split N (else the strip)
-  int vsw, vcpad, vntile, vsplit, vxr;  // and the x rows in its ring
+  // the vector path: pixels a unit (a strip of one row), K padded to a
+  // multiple of 16, the N tile, whether the two consumer warpgroups split
+  // N (else the strip)
+  int vsw, vcpad, vntile, vsplit, vxr;  // and the operand rows in its ring
+  int vy;  // the dgrad's y planes in a ring slot, after g's (0: y is read from global memory)
   long long tiles, per_chunk;
 };
 
@@ -219,8 +193,8 @@ __device__ __forceinline__ __nv_bfloat16 epi1(const Args& p, size_t pix, int c, 
   }
 }
 
-// The vector path's epilogue of output channels gco, gco+1 at pixel `pix`
-// (Co and Na multiples of 8 and 2): one 4-byte store.
+// The deep path's epilogue of output channels gco, gco+1 at pixel `pix`
+// (Co and Na multiples of 2): one 4-byte store.
 template <int EPI>
 __device__ __forceinline__ void emit(const Args& p, size_t pix, int gco, const float (&v)[2],
                                      float (&s1)[2], float (&s2)[2]) {
@@ -236,303 +210,144 @@ __device__ __forceinline__ void emit(const Args& p, size_t pix, int gco, const f
   *dst = __halves2bfloat162(r0, r1);
 }
 
-template <int LOAD, int EPI, int TCO>
-__global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(const Args p) {
-  static_assert(LOAD != kLoadX, "the vector path's forward is vec_kernel");
-  using T = Tiles<TCO>;
-  constexpr int NT = TCO / 16;  // n8 tiles per warp: each warp has TCO/2 channels
-  constexpr bool kGe = LOAD == kLoadGeStats || LOAD == kLoadGeAffine;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ float red[2][4][TCO];
-
-  const int H = p.H, W = p.W, Co = p.Co;
-  const int cin = p.Ca + p.Cb;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3;   // output rows 2wm, 2wm+1
-  const int wn = warp >> 2;  // output channels wn*TCO/2 ..
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const int n = blockIdx.z / p.co_tiles;
-  const int co0 = (blockIdx.z % p.co_tiles) * TCO;
-  const size_t img = static_cast<size_t>(n) * H;
-  // the operand goes shared <- global by cp.async; else through registers
-  const bool direct = LOAD == kLoadG;
-  const bool regs = !direct;
-
-  uint4 pg[AV] = {}, py[AV] = {};  // a transformed operand's next stage, in flight
-
-  // Where 16-byte halo vector i (pixel q, channels gc..gc+7) comes from.
-  auto halo_vec = [&](int i, int c0, int& q, int& gc, size_t& pix) {
-    q = i >> 2;
-    gc = c0 + 8 * (i & 3);
-    const int gy = y0 + q / IW - 1, gx = x0 + q % IW - 1;
-    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && gc < cin;
-    pix = ok ? (img + gy) * W + gx : 0;
-    return ok;
-  };
-
-  // Start stage `c0` into buffer `buf`: the weights and a direct operand by
-  // cp.async, a transformed one into registers.
-  auto begin_stage = [&](int c0, int buf) {
-    __nv_bfloat16* sA = smem + buf * T::STAGE;
-    __nv_bfloat16* sW = sA + T::A;
-    constexpr int WV = TCO / 8;
-    for (int i = tid; i < 9 * CK * WV; i += THREADS) {
-      const int v = i % WV, c = (i / WV) % CK, tap = i / (WV * CK);
-      const int gc = c0 + c, gco = co0 + 8 * v;
-      const bool ok = gc < cin && gco < Co;
-      const __nv_bfloat16* src =
-          ok ? p.w + (static_cast<size_t>(tap) * cin + gc) * Co + gco : p.w;
-      cp_async16(sW + (tap * CK + c) * T::WS + 8 * v, src, ok);
-    }
-#pragma unroll
-    for (int j = 0; j < AV; ++j) {
-      const int i = tid + j * THREADS;
-      if (i >= HALO * CK / 8) break;
-      int q, gc;
-      size_t pix;
-      const bool ok = halo_vec(i, c0, q, gc, pix);
-      const __nv_bfloat16* src = ok ? p.x + pix * p.Ca + gc : p.x;
-      if (direct) {
-        cp_async16(sA + q * AS + (i & 3) * 8, src, ok);
-      } else if (ok) {
-        pg[j] = *reinterpret_cast<const uint4*>(src);
-        if constexpr (kGe) py[j] = *reinterpret_cast<const uint4*>(p.xb + pix * p.Ca + gc);
-      }
-    }
-  };
-
-  // Finish a transformed operand's stage: transform and store the registers.
-  auto finish_stage = [&](int c0, int buf) {
-    __nv_bfloat16* sA = smem + buf * T::STAGE;
-#pragma unroll
-    for (int j = 0; j < AV; ++j) {
-      const int i = tid + j * THREADS;
-      if (i >= HALO * CK / 8) break;
-      int q, gc;
-      size_t pix;
-      const bool ok = halo_vec(i, c0, q, gc, pix);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) val = imgseg::cotangent8<LOAD == kLoadGeAffine>(p.ab, p.Ca, gc, pg[j], py[j]);
-      *reinterpret_cast<uint4*>(sA + q * AS + (i & 3) * 8) = val;
-    }
-  };
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // this lane's ldmatrix rows: A (pixels, 8-channel half), B (k row, 8-channel half)
-  const int a_pix = (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 8;
-  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = wn * (TCO / 2) + (lane >> 4) * 8;
-
-  const int nk = (cin + CK - 1) / CK;
-  begin_stage(0, 0);
-  if (regs) finish_stage(0, 0);
-  imgseg::cp_async_commit();
-  imgseg::cp_async_wait_all();
-  __syncthreads();
-  for (int k = 0; k < nk; ++k) {
-    const int buf = k & 1, c0 = k * CK;
-    const bool next = k + 1 < nk;
-    if (next) {
-      begin_stage(c0 + CK, buf ^ 1);
-      imgseg::cp_async_commit();
-    }
-    const __nv_bfloat16* sA = smem + buf * T::STAGE;
-    const __nv_bfloat16* sW = sA + T::A;
-#pragma unroll
-    for (int kk = 0; kk < CK / 16; ++kk) {
-      if (c0 + kk * 16 >= cin) break;  // K past the channels: zeros
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const int tap = ky * 3 + kx;
-          uint32_t b[NT][2];
-#pragma unroll
-          for (int pr = 0; pr < NT / 2; ++pr) {
-            uint32_t r[4];
-            ldsm_x4_trans(r, sW + (tap * CK + kk * 16 + b_k) * T::WS + b_n + pr * 16);
-            b[2 * pr][0] = r[0], b[2 * pr][1] = r[1];
-            b[2 * pr + 1][0] = r[2], b[2 * pr + 1][1] = r[3];
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            uint32_t a[4];
-            ldsm_x4(a, sA + ((wm * 2 + mi + ky) * IW + a_pix + kx) * AS + kk * 16 + a_k);
-#pragma unroll
-            for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], a, b[ni][0], b[ni][1]);
-          }
-        }
-      }
-    }
-    if (next && regs) finish_stage(c0 + CK, buf ^ 1);
-    imgseg::cp_async_wait_all();
-    __syncthreads();
-  }
-
-  // ---- epilogue on the fragments: lane holds pixels lane/4 (+8) of rows
-  // 2wm, 2wm+1 and channels 2(lane%4) (+1) of each n8 tile
-  float s1[NT][2], s2[NT][2], bias[NT][2];
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int gco = co0 + wn * (TCO / 2) + ni * 8 + 2 * (lane & 3) + e;
-      s1[ni][e] = s2[ni][e] = 0.f;
-      bias[ni][e] = (p.bias != nullptr && gco < Co) ? p.bias[gco] : 0.f;
-    }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int gy = y0 + wm * 2 + mi;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gx = x0 + (lane >> 2) + 8 * h;
-      if (gy >= H || gx >= W) continue;
-      const size_t pix = (img + gy) * W + gx;
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const int gco = co0 + wn * (TCO / 2) + ni * 8 + 2 * (lane & 3);
-        if (gco >= Co) continue;
-        const float v[2] = {acc[mi][ni][2 * h] + bias[ni][0], acc[mi][ni][2 * h + 1] + bias[ni][1]};
-        emit<EPI>(p, pix, gco, v, s1[ni], s2[ni]);
-      }
-    }
-  }
-  if constexpr (EPI == kEpiStats || EPI == kEpiPost) {
-    // the 8 lanes of one channel pair: butterfly sums; then the 4 row warps in order
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s1[ni][e] += __shfl_xor_sync(0xffffffffu, s1[ni][e], off);
-          s2[ni][e] += __shfl_xor_sync(0xffffffffu, s2[ni][e], off);
-        }
-    if (lane < 4) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int ch = wn * (TCO / 2) + ni * 8 + 2 * lane + e;
-          red[0][wm][ch] = s1[ni][e];
-          red[1][wm][ch] = s2[ni][e];
-        }
-    }
-    __syncthreads();
-    if (tid < TCO && co0 + tid < Co) {
-      const size_t blk = (static_cast<size_t>(n) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      float a = red[0][0][tid], q = red[1][0][tid];
-#pragma unroll
-      for (int r = 1; r < 4; ++r) {
-        a += red[0][r][tid];
-        q += red[1][r][tid];
-      }
-      p.partial[(blk * 2) * Co + co0 + tid] = a;
-      p.partial[(blk * 2 + 1) * Co + co0 + tid] = q;
-    }
-  }
-}
-
-// ---- the vector path's forward (vec_kernel): [x | xb] or the pre-affine
-// on load, the eval or the stats epilogue.  A block holds the 9 x Cin x N
-// weights of its N tile (blockIdx.x) in shared memory for its whole run of
-// units (mma.cuh UnitWalk: a unit is an sw-pixel strip of one output row;
-// blockIdx.y picks the run).  Warpgroup 0 copies: a bulk copy a tap of the
-// weights, once, then each new x row of the run by 16-byte cp.async
-// (zero-filled outside the image and past Cin) into a ring of vxr slots of
-// 8-channel planes (the wgmma's K-major core matrices of A: 8 consecutive
-// pixels of a plane, so a tap's shift of one pixel is a start address 16
-// bytes on), as many rows ahead as the ring holds, the copies counted on
-// the slot's `landed` barrier.  Warpgroups 1 and 2 apply the pre-affine +
-// ReLU to a unit's new rows in place where there is one, then each runs
-// one m64 (pixels) x n(8 NT) x k16 wgmma a (tap, 16 channels), A from the
-// ring's row y + ky - 1 and B from the resident weights, both by
+// ---- the vector path (vec_kernel): the forward ([x | xb], or the
+// pre-affine on load; the eval or the stats epilogue) and the dgrad (the
+// cotangent g, transformed or as it is; the store, the post or the split
+// epilogue).  A block holds the 9 x K x N weights of its N tile
+// (blockIdx.x) in shared memory for its whole run of units (mma.cuh
+// UnitWalk: a unit is an sw-pixel strip of one output row; blockIdx.y picks
+// the run).  Warpgroup 0 copies: a bulk copy a tap of the weights, once,
+// then each new operand row of the run by 16-byte cp.async (zero-filled
+// outside the image and past K) into a ring of vxr slots of 8-channel
+// planes (the wgmma's K-major core matrices of A: 8 consecutive pixels of a
+// plane, so a tap's shift of one pixel is a start address 16 bytes on), as
+// many rows ahead as the ring holds, the copies counted on the slot's
+// `landed` barrier; with the dgrad's cotangent transform also the row of y
+// into the slot's second half, where it fits, and then the transform of the
+// row in place before it counts it landed.  Warpgroups 1 and 2 transform a
+// unit's new rows in place where the mode has a transform the copies do
+// not (the forward's pre-affine + ReLU; the cotangent transform where the
+// ring does not hold y: at K = 128, reading y from global memory), then
+// each runs one m64 (pixels) x n(8 NT) x k16 wgmma a (tap, 16 channels), A
+// from the ring's row y + ky - 1 and B from the resident weights, both by
 // descriptor: with sw = 128 they take the two 64-pixel halves of the strip
 // at all N channels, with sw = 64 (where 128-pixel rows and the weights do
-// not fit together: Cin = 128) the two halves of N.  A unit's epilogue runs
+// not fit together, K = 128, and for the post adjoint's N tiles of 64 and
+// 128) the two halves of N.  A unit's epilogue runs
 // while the next unit's wgmmas do (two accumulator sets); its stores go
-// through shared memory as 16-byte words, its stats into registers.  What
+// through shared memory as 16-byte words, its sums into registers.  What
 // limits it (PERF.md, section 6): the wgmmas, at a third of the tensor
-// cores' rate with N = 64 and less with the halves of N at Cin = 128.
-constexpr int FXR_MIN = 4;      // x rows in the ring: the three a unit reads and one ahead
+// cores' rate with N = 64 and less with the halves of N at K = 128.
+constexpr int FXR_MIN = 4;      // operand rows in the ring: the three a unit reads and one ahead
 constexpr int FXR_MAX = 8;      // and at most, where the weights leave room
 constexpr int FTHREADS = 384;   // warpgroup 0 copies; 1 and 2 transform and run the products
 constexpr int FSTAGERS = 128;
 constexpr int FCONSUMERS = FTHREADS - FSTAGERS;
 // registers a thread after the copying warpgroup hands some to the others
-// (168 at the launch): 128 x 112 given, 256 x 56 taken.  setmaxnreg.inc
-// takes only what the block's own setmaxnreg.dec gave back, and waits for
-// it: the two must balance exactly, or the consumers wait forever
+// (168 at the launch): 128 x 112 given, 256 x 56 taken; 128 x 96 and 256 x
+// 48 where the copying warpgroup may apply the cotangent transform
+// (copier_modes).  setmaxnreg.inc takes only what the block's own
+// setmaxnreg.dec gave back, and waits for it: the two must balance
+// exactly, or the consumers wait forever
 constexpr int FLAUNCH_REGS = 168;
-constexpr int FSTAGE_REGS = 56;
-constexpr int FPRODUCT_REGS = 224;
-static_assert((FLAUNCH_REGS - FSTAGE_REGS) * FSTAGERS == (FPRODUCT_REGS - FLAUNCH_REGS) * FCONSUMERS,
+constexpr int FSTAGE_REGS = 56, FSTAGE_REGS_GE = 72;
+constexpr int FPRODUCT_REGS = 224, FPRODUCT_REGS_GE = 216;
+static_assert((FLAUNCH_REGS - FSTAGE_REGS) * FSTAGERS == (FPRODUCT_REGS - FLAUNCH_REGS) * FCONSUMERS &&
+                  (FLAUNCH_REGS - FSTAGE_REGS_GE) * FSTAGERS ==
+                      (FPRODUCT_REGS_GE - FLAUNCH_REGS) * FCONSUMERS,
               "the registers given and taken balance");
 constexpr size_t FSMEM = 226 * 1024;  // dynamic shared memory a block may take
 constexpr int FEC = 32;       // output channels a consumer warp stores at a time
 constexpr int FES = FEC + 8;  // their row stride in shared memory (bf16): no bank conflicts
+// the transform's rows of K channels: the forward's pre-affine [a, b]; the
+// dgrad's cotangent transform [c1, c2], or [a, b, c1, c2] with the affine
+constexpr int FROWS_FWD = 2;
+constexpr int FROWS_DGRAD = 4;
 
-// The elements between two 8-channel planes of an x row of sw + 2 pixels.
+__host__ __device__ constexpr int vec_rows(int load) { return load == kLoadX ? FROWS_FWD : FROWS_DGRAD; }
+
+// The elements between two 8-channel planes of an operand row of sw + 2 pixels.
 __host__ __device__ constexpr int fwd_xp(int sw) { return (sw + 2) * 8; }
 
 // Bytes of a block's shared memory, in this order: the weights (9 x cpad x
-// ntile bf16), the x ring (xr x cpad x (sw + 2) bf16), the consumer warps'
-// output rows (8 x 16 x FES bf16), the pre-affine rows (2 x cpad fp32),
-// the bias (ntile fp32), the stats rows (8 warps x 2 x ntile fp32).
-__host__ __device__ constexpr size_t fvec_bytes(int sw, int cpad, int ntile, int xr) {
-  return (static_cast<size_t>(9) * cpad * ntile + static_cast<size_t>(xr) * (cpad / 8) * fwd_xp(sw) +
+// ntile bf16), the operand ring (xr x cpad x (sw + 2) bf16, twice that
+// with the dgrad's rows of y beside g: yring), the consumer
+// warps' output rows (8 x 16 x FES bf16; after the last unit the sum
+// epilogues' rows, 8 warps x 2 x ntile fp32, take their place), the
+// transform's rows (nrows x cpad fp32), the epilogue's rows (2 x ntile
+// fp32: the bias, or the post affine).
+__host__ __device__ constexpr size_t fvec_bytes(int sw, int cpad, int ntile, int xr, int nrows,
+                                                int yring = 0) {
+  return (static_cast<size_t>(9) * cpad * ntile +
+          static_cast<size_t>(xr) * (1 + yring) * (cpad / 8) * fwd_xp(sw) +
           8 * 16 * FES) * sizeof(__nv_bfloat16) +
-         (2 * static_cast<size_t>(cpad) + 17 * static_cast<size_t>(ntile)) * sizeof(float);
+         (static_cast<size_t>(nrows) * cpad + 2 * static_cast<size_t>(ntile)) * sizeof(float);
 }
+static_assert(8 * 2 * 128 * sizeof(float) <= 8 * 16 * FES * sizeof(__nv_bfloat16),
+              "the sum rows of an N tile of 128 fit in the output rows' place");
 
-// The most input channels (padded to 16) the vector path takes, as
-// ops/fused_conv.conv_path states them (VECTOR_CIN, VECTOR_CIN_N16): the
-// weights of an N tile of 32 on 64-pixel strips fit up to Cin = 192, those
-// of an N tile of 16 (Co <= 16) on 128-pixel strips up to 160.
-static_assert(fvec_bytes(64, 192, 32, FXR_MIN) <= FSMEM && fvec_bytes(64, 208, 32, FXR_MIN) > FSMEM,
+// The most K channels (padded to 16) the vector path takes, as
+// ops/fused_conv.conv_path states them: the forward's K is Cin
+// (VECTOR_CIN, VECTOR_CIN_N16; its N is Co), the dgrad's K is Co
+// (VECTOR_DGRAD_CO, VECTOR_DGRAD_CO_N16; its N is Cin).  The weights of an N
+// tile of 32 on 64-pixel strips fit up to K = 192, those of an N tile of
+// 16 (N <= 16) on 128-pixel strips up to 160, beside either's transform
+// rows (the dgrad with y read from global memory where its ring does not fit).
+static_assert(fvec_bytes(64, 192, 32, FXR_MIN, FROWS_FWD) <= FSMEM &&
+                  fvec_bytes(64, 208, 32, FXR_MIN, FROWS_FWD) > FSMEM,
               "conv_path's VECTOR_CIN is the most the vector forward fits");
-static_assert(fvec_bytes(128, 160, 16, FXR_MIN) <= FSMEM && fvec_bytes(128, 176, 16, FXR_MIN) > FSMEM,
+static_assert(fvec_bytes(128, 160, 16, FXR_MIN, FROWS_FWD) <= FSMEM &&
+                  fvec_bytes(128, 176, 16, FXR_MIN, FROWS_FWD) > FSMEM,
               "conv_path's VECTOR_CIN_N16 is the most the vector forward fits at Co <= 16");
+static_assert(fvec_bytes(64, 192, 32, FXR_MIN, FROWS_DGRAD) <= FSMEM &&
+                  fvec_bytes(64, 208, 32, FXR_MIN, FROWS_DGRAD) > FSMEM,
+              "conv_path's VECTOR_DGRAD_CO is the most the vector dgrad fits");
+static_assert(fvec_bytes(128, 160, 16, FXR_MIN, FROWS_DGRAD) <= FSMEM &&
+                  fvec_bytes(128, 176, 16, FXR_MIN, FROWS_DGRAD) > FSMEM,
+              "conv_path's VECTOR_DGRAD_CO_N16 is the most the vector dgrad fits at Cin <= 16");
 
-// The vector forward's tiles for cin -> co channels on rows of w pixels: K
+// The vector path's tiles for a K -> N conv (the forward's Cin -> Co, the
+// dgrad's Co -> Cin) on rows of w pixels, with nrows transform rows: K
 // padded to cpad (a multiple of 16: one k16 step is two planes), N tile
-// ntile (16, 32, 64 or 128, past Co zero weights), strips of 128 pixels
+// ntile (16, 32, 64 or 128, past N zero weights), strips of 128 pixels
 // with the two consumer warpgroups on its halves, else (rows of 64 pixels
 // or fewer, whose second half would be empty; 128-pixel rows and the
 // weights not fitting together) of 64 with the two on halves of N; the
 // largest N tile that fits in FSMEM with FXR_MIN rows, then as many more
-// rows as fit, up to FXR_MAX.  False where none fits.
-bool vec_plan(int cin, int co, int w, Args& p) {
-  p.vcpad = (cin + 15) / 16 * 16;
+// rows as fit, up to FXR_MAX; at most max_nt n8 tiles a consumer
+// warpgroup (8: at 16 the epilogues spill, and the forward's 64 -> 128
+// ran slower so; the post adjoint 4, so that an N tile of 64 is split: at
+// 8 its epilogue spills).  With `yring` (the dgrad's cotangent transform) the ring
+// holds y beside g where that N tile fits so (K <= 64: there the products
+// are short and the transform's wait for y would bound the unit; at K =
+// 128 they are long enough to hide it, and the ring would halve the N
+// tile).  False where none fits.
+bool vec_plan(int k, int n_out, int w, int nrows, int max_nt, bool yring, Args& p) {
+  p.vcpad = (k + 15) / 16 * 16;
   int n = 16;
-  while (n < co && n < 128) n *= 2;
+  while (n < n_out && n < 128) n *= 2;
   for (; n >= 16; n /= 2) {
-    for (int sw = w <= 64 && n >= 32 ? 64 : 128; sw >= 64; sw /= 2) {
-      if (sw == 64 && n < 32) break;
-      const size_t base = fvec_bytes(sw, p.vcpad, n, FXR_MIN);
-      if (base > FSMEM) continue;
-      const size_t slot = static_cast<size_t>(p.vcpad / 8) * fwd_xp(sw) * sizeof(__nv_bfloat16);
-      const size_t more = (FSMEM - base) / slot;
-      p.vsw = sw, p.vsplit = sw == 64, p.vntile = n;
-      p.vxr = FXR_MIN + static_cast<int>(more < FXR_MAX - FXR_MIN ? more : FXR_MAX - FXR_MIN);
-      return true;
+    for (int yr = yring ? 1 : 0; yr >= 0; --yr) {
+      for (int sw = w <= 64 && n >= 32 ? 64 : 128; sw >= 64; sw /= 2) {
+        if (sw == 64 && n < 32) break;
+        if ((sw == 64 ? n / 2 : n) / 8 > max_nt) continue;
+        const size_t base = fvec_bytes(sw, p.vcpad, n, FXR_MIN, nrows, yr);
+        if (base > FSMEM) continue;
+        const size_t slot = static_cast<size_t>(1 + yr) * (p.vcpad / 8) * fwd_xp(sw) * sizeof(__nv_bfloat16);
+        const size_t more = (FSMEM - base) / slot;
+        p.vsw = sw, p.vsplit = sw == 64, p.vntile = n, p.vy = yr * p.vcpad / 8;
+        p.vxr = FXR_MIN + static_cast<int>(more < FXR_MAX - FXR_MIN ? more : FXR_MAX - FXR_MIN);
+        return true;
+      }
     }
   }
   return false;
 }
 
-// A thread's walk over the 16-byte vectors of an x row, among T threads (G
-// = T / 8 groups of 8 lanes): its vectors are T m + t, vector i being plane
-// j = (i / 8) % KB at pixel hx = 8 ((i / 8) / KB) + i % 8 of the sw + 2, so 8
-// lanes touch 128 contiguous bytes; kept incrementally.
+// A thread's walk over the 16-byte vectors of an operand row, among T
+// threads (G = T / 8 groups of 8 lanes): its vectors are T m + t, vector i
+// being plane j = (i / 8) % KB at pixel hx = 8 ((i / 8) / KB) + i % 8 of the
+// sw + 2, so 8 lanes touch 128 contiguous bytes; kept incrementally.
 struct RowVecs {
   int j0, h0, dj, dh, KB, pl;
   __device__ __forceinline__ RowVecs(int t, int T, int kb)
@@ -543,63 +358,219 @@ struct RowVecs {
   }
 };
 
-// Warpgroup 0: each unit's new x rows, 16-byte copies of [x | xb] into the
-// ring (cp.async, zero outside the image and past Cin: K's padding) as
-// soon as a slot is free, as many rows ahead as the ring holds; the slot's
-// `landed` barrier counts the copies.
-__device__ __forceinline__ void fwd_vec_issue(const Args& p, __nv_bfloat16* xr, uint64_t* xland,
-                                              uint64_t* xempty, long long u0, long long u1) {
-  const int H = p.H, W = p.W, Ca = p.Ca, Cb = p.Cb, cin = Ca + Cb, sw = p.vsw;
+// One operand row's vectors of this consumer thread, transformed in place
+// (dst: the row's slot), U at a time: their y first (YS: from the slot's
+// planes vy..; else from global memory, the U loads in flight together),
+// then the transform.  Outside the image and past K nothing is written.
+template <int LOAD, int U, bool YS>
+__device__ __forceinline__ void vec_transform_row(const Args& p, __nv_bfloat16* dst,
+                                                  const __nv_bfloat16* yrow, const float* rows,
+                                                  const RowVecs& rv, int x0) {
+  const int W = p.W, cin = p.Ca + p.Cb, sw = p.vsw;
   const int KB = p.vcpad / 8, XP = fwd_xp(sw), H8 = (sw + 2 + 7) / 8;
-  const RowVecs rv(threadIdx.x, FSTAGERS, KB);
-  imgseg::UnitWalk w;
-  for (w.begin(u0, u1, H, p.tiles_x, p.vxr); w.more(); w.next_unit()) {
-    const int x0 = w.s * sw;
-    for (int r = w.fresh ? -1 : 1; r <= 1; ++r) {
-      w.next_row();
-      const int iy = w.y + r;
-      imgseg::mbar_wait(&xempty[w.slot], w.phase ^ 1);
-      __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot) * KB * XP;
-      const bool row_in = iy >= 0 && iy < H;
-      const size_t rowpix = row_in ? (static_cast<size_t>(w.n) * H + iy) * W : 0;
-      const __nv_bfloat16* xa = p.x + rowpix * Ca;
-      const __nv_bfloat16* xb = p.xb + rowpix * Cb;
-      for (int j = rv.j0, h8 = rv.h0; h8 < H8; rv.step(j, h8)) {
-        const int hx = 8 * h8 + rv.pl, c = 8 * j, ix = x0 - 1 + hx;
-        if (hx >= sw + 2) continue;
-        const bool ok = row_in && c < cin && ix >= 0 && ix < W;
-        const __nv_bfloat16* src = !ok ? p.x : c < Ca ? xa + ix * Ca + c : xb + ix * Cb + (c - Ca);
-        imgseg::cp_async16(dst + j * XP + hx * 8, src, ok);
+  for (int j = rv.j0, h8 = rv.h0; h8 < H8;) {
+    int at[U], c[U];  // the vector's place in the slot (-1: none), its channel
+    uint4 yv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u, rv.step(j, h8)) {
+      const int hx = 8 * h8 + rv.pl, ix = x0 - 1 + hx;
+      c[u] = 8 * j;
+      const bool ok = h8 < H8 && hx < sw + 2 && c[u] < cin && ix >= 0 && ix < W;
+      at[u] = ok ? j * XP + hx * 8 : -1;
+      if constexpr (LOAD != kLoadX) {
+        yv[u] = !ok ? make_uint4(0u, 0u, 0u, 0u)
+                : YS ? *reinterpret_cast<const uint4*>(dst + (KB + j) * XP + hx * 8)
+                     : __ldg(reinterpret_cast<const uint4*>(yrow + static_cast<size_t>(ix) * cin + c[u]));
       }
-      imgseg::cp_async_arrive(&xland[w.slot]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (at[u] < 0) continue;
+      uint4* v = reinterpret_cast<uint4*>(dst + at[u]);
+      if constexpr (LOAD == kLoadX) {
+        *v = imgseg::affine_relu8_shared(rows, p.vcpad, c[u], *v);
+      } else {
+        *v = imgseg::cotangent8_shared<LOAD == kLoadGeAffine>(rows, p.vcpad, c[u], *v, yv[u]);
+      }
     }
   }
 }
 
-// The consumers (256 threads) on a unit's new x rows once they have landed:
-// the pre-affine + ReLU in place (mul and add rounded apart; the zeros
-// outside the image stay zero: SAME padding pads the activated tensor).
-__device__ __forceinline__ void fwd_vec_activate(const Args& p, __nv_bfloat16* xr, const float* rows,
-                                                 const imgseg::UnitWalk& w) {
+// The consumers (256 threads) on a unit's new rows once they have landed,
+// in place: the forward's pre-affine + ReLU, or the dgrad's cotangent
+// transform from g and y (y from the slot, a vector at a time, or from
+// global memory, two in flight a thread: more cost registers the products
+// hold); mul and add rounded apart.  Outside the image and past K nothing
+// is written, so the ring's zeros stay: zero AFTER the transform, as SAME
+// padding pads the transformed tensor (the dgrad's c1 is not zero).
+template <int LOAD>
+__device__ __forceinline__ void vec_transform(const Args& p, __nv_bfloat16* xr, const float* rows,
+                                              const imgseg::UnitWalk& w) {
   const int H = p.H, W = p.W, cin = p.Ca + p.Cb, sw = p.vsw;
-  const int KB = p.vcpad / 8, XP = fwd_xp(sw), H8 = (sw + 2 + 7) / 8;
+  const int KB = p.vcpad / 8, KBR = KB + p.vy, XP = fwd_xp(sw);
   const RowVecs rv(threadIdx.x - FSTAGERS, FCONSUMERS, KB);
   const int x0 = w.s * sw;
   for (int k = 0; k < w.loads(); ++k) {  // rows y + 1, y, y - 1
     const int iy = w.y + 1 - k;
     if (iy < 0 || iy >= H) continue;
-    __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot_back(k)) * KB * XP;
-    for (int j = rv.j0, h8 = rv.h0; h8 < H8; rv.step(j, h8)) {
-      const int hx = 8 * h8 + rv.pl, c = 8 * j, ix = x0 - 1 + hx;
-      if (hx >= sw + 2 || c >= cin || ix < 0 || ix >= W) continue;
-      uint4* at = reinterpret_cast<uint4*>(dst + j * XP + hx * 8);
-      *at = imgseg::affine_relu8_shared(rows, p.vcpad, c, *at);
+    __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot_back(k)) * KBR * XP;
+    if constexpr (LOAD == kLoadX) {
+      vec_transform_row<LOAD, 1, false>(p, dst, nullptr, rows, rv, x0);
+    } else if (p.vy != 0) {
+      vec_transform_row<LOAD, 1, true>(p, dst, nullptr, rows, rv, x0);
+    } else {
+      const __nv_bfloat16* yrow = p.xb + (static_cast<size_t>(w.n) * H + iy) * W * cin;
+      vec_transform_row<LOAD, 2, false>(p, dst, yrow, rows, rv, x0);
     }
   }
 }
 
+// Whether the copying warpgroup applies the dgrad's cotangent transform:
+// with the post adjoint, where the ring holds y.  (In the store and split
+// modes, measured both ways, it was slower on the whole: there the consumers' units are
+// short, or the ring holds four rows, and its transform became their wait.)
+template <int LOAD, int EPI>
+__host__ __device__ constexpr bool copier_modes() {
+  return (LOAD == kLoadGeStats || LOAD == kLoadGeAffine) && EPI == kEpiPost;
+}
+
+template <int LOAD, int EPI>
+__device__ __forceinline__ bool copier_transforms(const Args& p) {
+  return copier_modes<LOAD, EPI>() && p.vy != 0;
+}
+
+// Warpgroup 0: each unit's new operand rows, 16-byte copies of [x | xb]
+// (the dgrad's: of g, and of y in planes vy.. where the ring holds it)
+// into the ring (cp.async, zero outside the image and past K: its
+// padding) as soon as a slot is free, as many rows ahead as the ring
+// holds; the slot's `landed` barrier counts the copies.  With the post
+// adjoint, where the ring holds y (copier_transforms), this warpgroup also
+// applies the cotangent transform to each row once its copies are in, a
+// row behind them (a cp.async group a row, then a barrier of the 128
+// threads: a thread's vectors were copied by others), and only then
+// arrives on the row's `landed` barrier: the consumers' time goes to the
+// products and that epilogue, their heaviest.  What the consumers
+// read from global memory, the dgrad's y rows where the ring does not hold
+// them and the unit's xpost row, is asked into L2 as the unit's rows are
+// copied, a unit or more before it is read (one bulk prefetch a row).
+template <int LOAD, int EPI>
+__device__ __forceinline__ void vec_issue(const Args& p, __nv_bfloat16* xr, const float* rows,
+                                          uint64_t* xland, uint64_t* xempty, long long u0,
+                                          long long u1) {
+  const int H = p.H, W = p.W, Ca = p.Ca, Cb = p.Cb, cin = Ca + Cb, sw = p.vsw;
+  const int KB = p.vcpad / 8, KBR = KB + p.vy, XP = fwd_xp(sw), H8 = (sw + 2 + 7) / 8;
+  const RowVecs rv(threadIdx.x, FSTAGERS, KBR);
+  const bool own = copier_transforms<LOAD, EPI>(p);
+  int pend = -1, pend_y = 0, pend_x0 = 0;  // the row copied last, not yet transformed: slot, image row, strip
+  auto finish = [&](bool last) {  // the pending row: its copies in, transformed, landed
+    if (pend < 0) return;
+    if (last) {
+      imgseg::cp_async_wait<0>();
+    } else {
+      imgseg::cp_async_wait<1>();
+    }
+    imgseg::named_sync(2, FSTAGERS);
+    if (pend_y >= 0 && pend_y < H) {
+      vec_transform_row<LOAD, 1, true>(p, xr + static_cast<size_t>(pend) * KBR * XP, nullptr, rows,
+                                       RowVecs(threadIdx.x, FSTAGERS, KB), pend_x0);
+    }
+    imgseg::fence_proxy_async();  // the stores, before the wgmmas read them
+    imgseg::mbar_arrive(&xland[pend]);
+    pend = -1;
+  };
+  imgseg::UnitWalk w;
+  for (w.begin(u0, u1, H, p.tiles_x, p.vxr); w.more(); w.next_unit()) {
+    const int x0 = w.s * sw;
+    if (LOAD != kLoadX && p.xpost != nullptr && threadIdx.x == 0) {  // the unit's output row
+      const size_t at = ((static_cast<size_t>(w.n) * H + w.y) * W + x0) * p.Co;
+      imgseg::prefetch_l2(p.xpost + at, static_cast<uint32_t>(min(sw, W - x0) * p.Co * 2));
+    }
+    for (int r = w.fresh ? -1 : 1; r <= 1; ++r) {
+      w.next_row();
+      const int iy = w.y + r;
+      if ((LOAD == kLoadGeStats || LOAD == kLoadGeAffine) && p.vy == 0 && threadIdx.x == 0 && iy >= 0 &&
+          iy < H) {  // the row's y, which the transform reads from global memory
+        const int lo = max(x0 - 1, 0), hi = min(x0 + sw + 1, W);
+        const size_t at = ((static_cast<size_t>(w.n) * H + iy) * W + lo) * Ca;
+        imgseg::prefetch_l2(p.xb + at, static_cast<uint32_t>((hi - lo) * Ca * 2));
+      }
+      imgseg::mbar_wait(&xempty[w.slot], w.phase ^ 1);
+      __nv_bfloat16* dst = xr + static_cast<size_t>(w.slot) * KBR * XP;
+      const bool row_in = iy >= 0 && iy < H;
+      const size_t rowpix = row_in ? (static_cast<size_t>(w.n) * H + iy) * W : 0;
+      const __nv_bfloat16* xa = p.x + rowpix * Ca;
+      const __nv_bfloat16* xb = p.xb + rowpix * Cb;
+      const __nv_bfloat16* ya = p.xb + rowpix * Ca;  // the dgrad's y, as many channels as g
+      for (int j = rv.j0, h8 = rv.h0; h8 < H8; rv.step(j, h8)) {
+        const int hx = 8 * h8 + rv.pl, c = 8 * (j < KB ? j : j - KB), ix = x0 - 1 + hx;
+        if (hx >= sw + 2) continue;
+        const bool ok = row_in && c < cin && ix >= 0 && ix < W;
+        const __nv_bfloat16* src = !ok      ? p.x
+                                   : j >= KB ? ya + ix * Ca + c
+                                   : c < Ca  ? xa + ix * Ca + c
+                                             : xb + ix * Cb + (c - Ca);
+        imgseg::cp_async16(dst + j * XP + hx * 8, src, ok);
+      }
+      if (own) {
+        imgseg::cp_async_commit();
+        finish(false);
+        pend = w.slot, pend_y = iy, pend_x0 = x0;
+      } else {
+        imgseg::cp_async_arrive(&xland[w.slot]);
+      }
+    }
+  }
+  if (own) finish(true);
+}
+
+// The post adjoint's sums of one store pass, v[0..M) (index 2t + e: the
+// pass's n8 tile t, element e), summed over the 8 lanes that hold the same
+// channels (lane bits 2-4), halving at each exchange (xor 16, 8, 4): a
+// lane is left with its share, M / 8 values, or (M < 8) one that 8 / M
+// lanes hold alike.  The exchanges are fixed, so the sums are the same
+// bits on every run.
+template <int M, int S>
+__device__ __forceinline__ void halve_sums(float* v, int lane) {
+  if constexpr (M > 1) {
+    constexpr int H = M / 2;
+    const bool up = (lane & S) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float keep = up ? v[H + i] : v[i], send = up ? v[i] : v[H + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], S);
+  }
+}
+
+template <int M>
+__device__ __forceinline__ void lane_sums(float* v, int lane) {
+  halve_sums<M, 16>(v, lane);
+  halve_sums<(M > 1 ? M / 2 : 1), 8>(v, lane);
+  halve_sums<(M > 2 ? M / 4 : 1), 4>(v, lane);
+}
+
+// The first index of a lane's share after lane_sums<M>, and whether the
+// lane is its one holder (the lowest of the lanes that hold it alike).
+template <int M>
+__device__ __forceinline__ int lane_share(int lane, bool& holder) {
+  int first = 0, step = M;
+  holder = true;
+#pragma unroll
+  for (int s = 16; s >= 4; s >>= 1) {
+    if (step > 1) {
+      step /= 2;
+      if (lane & s) first += step;
+    } else if (lane & s) {
+      holder = false;
+    }
+  }
+  return first;
+}
+
 // What a consumer keeps of a unit between its products and its epilogue:
-// where it lies, and which x rows it frees.
+// where it lies, and which operand rows it frees.
 struct UnitDone {
   long long n;
   int s, y, slot;
@@ -610,51 +581,66 @@ struct UnitDone {
 // wgmmas running together (the two dependent chains fill the tensor cores;
 // taken in turns, so that one's epilogue ran beside the other's wgmmas,
 // they were slower).  A unit: 9 x cpad/16 wgmmas into one commit group;
-// meanwhile the next unit's new rows, once landed, are activated in place
-// where the conv has a pre-affine (each warpgroup its share of the
-// vectors, then an arrival on the row's `act` barrier, which the wgmmas of
-// both wait for); then the epilogue: the bias and the bf16 rounding into
-// this warp's rows in shared memory, EC channels at a time, from which each
-// lane stores 16 bytes and, for the stats of the ROUNDED outputs, lane c
-// adds channel c over the warp's 16 pixels into its running sums (sums
-// over a thread's own channels in registers cost spills).  (Two
-// accumulator sets in one warpgroup, its epilogue beside its own next
-// wgmmas, made ptxas serialize them.)
-template <int EPI, int NT>
-__device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloat16* ws,
-                                                 __nv_bfloat16* xr, const float* rows,
-                                                 const float* sbias, float* red, __nv_bfloat16* estage,
-                                                 uint64_t* wfull, uint64_t* xland, uint64_t* xact,
-                                                 uint64_t* xempty, long long u0, long long u1) {
+// meanwhile the next unit's new rows, once landed, are transformed in
+// place where the consumers apply a transform (each warpgroup its share of
+// the vectors, then an arrival on the row's `act` barrier, which the
+// wgmmas of both wait for), and with the post adjoint this lane's xpost
+// values are loaded; then the epilogue: the output values (the bias and the bf16
+// rounding, or the post adjoint) into this warp's rows in shared memory,
+// EC channels at a time, from which each lane stores 16 bytes (into
+// [out | out_b] with the split).  The statistics of the ROUNDED outputs:
+// lane c adds channel c over the warp's 16 pixels into its running sums
+// (sums over a thread's own channels in registers cost spills there); the
+// post adjoint's sums of gu*xpost and gu, which the bf16 rows do not hold:
+// each lane over its own outputs of a pass, then over the 8 lanes of each
+// channel (lane_sums), each lane keeping its share.  (Two accumulator sets in one warpgroup,
+// its epilogue beside its own next wgmmas, made ptxas serialize them.)
+template <int LOAD, int EPI, int NT>
+__device__ __forceinline__ void vec_products(const Args& p, const __nv_bfloat16* ws,
+                                             __nv_bfloat16* xr, const float* rows,
+                                             const float* erows, __nv_bfloat16* estage,
+                                             uint64_t* wfull, uint64_t* xland, uint64_t* xact,
+                                             uint64_t* xempty, long long u0, long long u1) {
   constexpr int EC = NT * 8 < FEC ? NT * 8 : FEC;  // channels a store pass
+  constexpr bool kPost = EPI == kEpiPost;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cw = warp / 4 - 1, wi = warp & 3;
   const int H = p.H, W = p.W, Co = p.Co, sw = p.vsw, ntile = p.vntile;
   const int KB = p.vcpad / 8, NB = ntile / 8, XP = fwd_xp(sw), KS = KB / 2, R = p.vxr;
   const int mw = p.vsplit ? 0 : cw, nw = p.vsplit ? cw : 0;
   const int co0 = blockIdx.x * ntile, cbase = nw * NT * 8;  // this warpgroup's first channel of the tile
-  const bool pre = p.ab != nullptr;
-  float* myred = red + (warp - 4) * 2 * ntile;
+  // a transform of the new rows here: the forward's pre-affine where it
+  // has one; the dgrad's cotangent transform, but for g itself and where
+  // the copying warpgroup applies it
+  const bool pre = LOAD == kLoadX ? p.ab != nullptr : LOAD != kLoadG && !copier_transforms<LOAD, EPI>(p);
   __nv_bfloat16* stage = estage + (warp - 4) * 16 * FES;
   imgseg::UnitWalk w;
   w.begin(u0, u1, H, p.tiles_x, R);
 
-  // the current unit's new rows: landed, and activated where there is a
-  // pre-affine (this thread's share, then its arrival on each row's `act`)
+  // the current unit's new rows: landed, and transformed where the mode
+  // has a transform (this thread's share, then its arrival on each row's `act`)
   auto prepare = [&]() {
     for (int i = w.loads(); i > 0; --i) w.next_row();
     if (!pre) return;
     for (int k = 0; k < w.loads(); ++k) imgseg::mbar_wait(&xland[w.slot_back(k)], w.phase_back(k));
-    fwd_vec_activate(p, xr, rows, w);
+    vec_transform<LOAD>(p, xr, rows, w);
     imgseg::fence_proxy_async();  // the stores, before the wgmmas read them
     for (int k = 0; k < w.loads(); ++k) imgseg::mbar_arrive(&xact[w.slot_back(k)]);
   };
 
-  // this lane's running stats: channel lane (< EC) of each store pass
+  // this lane's running sums: the stats' of channel lane (< EC) of each
+  // store pass; the post adjoint's share of each pass (lane_sums)
   constexpr int NPASS = NT * 8 / EC;
+  constexpr int PM = EC / 4;                // a pass's post sums a lane before lane_sums
+  constexpr int PS = PM >= 8 ? PM / 8 : 1;  // and after
   float s1[NPASS], s2[NPASS];
 #pragma unroll
   for (int i = 0; i < NPASS; ++i) s1[i] = s2[i] = 0.f;
+  float ps1[kPost ? NPASS : 1][PS], ps2[kPost ? NPASS : 1][PS];
+#pragma unroll
+  for (int i = 0; i < (kPost ? NPASS : 1); ++i)
+#pragma unroll
+    for (int k = 0; k < PS; ++k) ps1[i][k] = ps2[i][k] = 0.f;
   float acc[4 * NT];
   imgseg::mbar_wait(wfull, 0);
   if (w.more()) prepare();
@@ -668,7 +654,7 @@ __device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloa
     imgseg::wgmma_fence();
 #pragma unroll
     for (int ky = 0; ky < 3; ++ky) {
-      const __nv_bfloat16* xs = xr + static_cast<size_t>(w.slot_back(2 - ky)) * KB * XP;
+      const __nv_bfloat16* xs = xr + static_cast<size_t>(w.slot_back(2 - ky)) * (KB + p.vy) * XP;
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
         const int tap = ky * 3 + kx;
@@ -681,7 +667,7 @@ __device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloa
           const uint64_t db = imgseg::wgmma_desc(b0 + 2 * ks * 64, 128, KB * 128);
           imgseg::wgmma<0, 0, NT>(acc, da, db, (tap | ks) != 0);
         };
-        // unrolled to 128 input channels, every model's (a loop with a
+        // unrolled to 128 channels of K, every model's (a loop with a
         // runtime trip count made ptxas fence every wgmma: 2-17 % slower)
 #pragma unroll
         for (int ks = 0; ks < 8; ++ks) {
@@ -695,30 +681,64 @@ __device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloa
     imgseg::wgmma_commit();
     const UnitDone u{w.n, w.s, w.y, w.slot, w.frees_all()};
     w.next_unit();
+    // lane holds pixels 16 wi + lane/4 (+8) of the warpgroup's 64,
+    // channels 8t + 2(lane%4) (+1) of its N
+    const int gx0 = u.s * sw + 64 * mw + 16 * wi;
+    const size_t row = (static_cast<size_t>(u.n) * H + u.y) * W;
     // the next unit's new rows while this one's wgmmas run, unless it
     // restarts the ring: it needs the rows this unit frees
     const bool early = w.more() && !w.fresh;
     if (early) prepare();
+    // the post adjoint: this lane's xpost pairs, loaded while the wgmmas run
+    // (after the transform, whose registers they would take)
+    __nv_bfloat162 xq[kPost ? NT : 1][2];
+    if constexpr (kPost) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gx = gx0 + (lane >> 2) + 8 * h, gc = co0 + cbase + 8 * t + 2 * (lane & 3);
+          xq[t][h] = gx < W && gc < Co
+                         ? __ldg(reinterpret_cast<const __nv_bfloat162*>(p.xpost + (row + gx) * Co + gc))
+                         : __float2bfloat162_rn(0.f);
+        }
+    }
     imgseg::wgmma_wait<0>();
     imgseg::fence_acc(acc);
     if (lane == 0) imgseg::release_rows(u.slot, R, u.frees_all, xempty);
 
-    // ---- the epilogue: lane holds pixels 16 wi + lane/4 (+8) of the
-    // warpgroup's 64, channels 8t + 2(lane%4) (+1) of its N
-    const int gx0 = u.s * sw + 64 * mw + 16 * wi;
-    const size_t row = (static_cast<size_t>(u.n) * H + u.y) * W;
+    // ---- the epilogue
 #pragma unroll
     for (int pass = 0; pass < NPASS; ++pass) {
       const int c0 = pass * EC;
+      float q1[kPost ? PM : 1], q2[kPost ? PM : 1];  // the post sums of the pass, this lane's outputs
+#pragma unroll
+      for (int i = 0; i < (kPost ? PM : 1); ++i) q1[i] = q2[i] = 0.f;
 #pragma unroll
       for (int t = c0 / 8; t < (c0 + EC) / 8; ++t) {
         const int c = cbase + 8 * t + 2 * (lane & 3);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int q = (lane >> 2) + 8 * h;
-          *reinterpret_cast<__nv_bfloat162*>(stage + q * FES + (c - cbase - c0)) =
-              __floats2bfloat162_rn(acc[4 * t + 2 * h] + sbias[c], acc[4 * t + 2 * h + 1] + sbias[c + 1]);
+          __nv_bfloat162 r;
+          if constexpr (kPost) {  // outside the image: no output, nothing summed
+            const bool in = gx0 + q < W;
+            const float2 xv = __bfloat1622float2(xq[t][h]);
+            const float v0 = in ? acc[4 * t + 2 * h] : 0.f, v1 = in ? acc[4 * t + 2 * h + 1] : 0.f;
+            const int o = 2 * (t - c0 / 8);
+            r = __halves2bfloat162(post1(v0, xv.x, erows[c], erows[ntile + c], q1[o], q2[o]),
+                                   post1(v1, xv.y, erows[c + 1], erows[ntile + c + 1], q1[o + 1], q2[o + 1]));
+          } else {
+            r = __floats2bfloat162_rn(acc[4 * t + 2 * h] + erows[c], acc[4 * t + 2 * h + 1] + erows[c + 1]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage + q * FES + (c - cbase - c0)) = r;
         }
+      }
+      if constexpr (kPost) {
+        lane_sums<PM>(q1, lane);
+        lane_sums<PM>(q2, lane);
+#pragma unroll
+        for (int k = 0; k < PS; ++k) ps1[pass][k] += q1[k], ps2[pass][k] += q2[k];
       }
       __syncwarp();
       if constexpr (EPI == kEpiStats) {  // statistics of the ROUNDED output, in the image
@@ -731,27 +751,54 @@ __device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloa
           for (int q = 0; q < 16; ++q) s1[pass] += f[q], s2[pass] += __fmul_rn(f[q], f[q]);
         }
       }
-      // 16 pixels x EC channels out, 16 bytes a lane
+      // 16 pixels x EC channels out, 16 bytes a lane (Na a multiple of 8)
 #pragma unroll
       for (int i = lane; i < 16 * (EC / 8); i += 32) {
         const int q = i / (EC / 8), part = i % (EC / 8);
         const int gx = gx0 + q, gco = co0 + cbase + c0 + 8 * part;
         if (gx < W && gco < Co) {
-          *reinterpret_cast<uint4*>(p.out + (row + gx) * Co + gco) =
-              *reinterpret_cast<const uint4*>(stage + q * FES + 8 * part);
+          __nv_bfloat16* dst;
+          if (EPI == kEpiSplit && gco >= p.Na) {
+            dst = p.out_b + (row + gx) * (Co - p.Na) + (gco - p.Na);
+          } else {
+            dst = p.out + (row + gx) * (EPI == kEpiSplit ? p.Na : Co) + gco;
+          }
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(stage + q * FES + 8 * part);
         }
       }
       __syncwarp();
     }
     if (w.more() && !early) prepare();
   }
-  if constexpr (EPI == kEpiStats) {
-    // one row of partial sums a block: the 8 consumer warps' rows in order
-    if (lane < EC) {
+  if constexpr (EPI == kEpiStats || kPost) {
+    // one row of partial sums a block: each consumer warp's row, in the
+    // output rows' place once every warp is done with them, then the 8
+    // rows in order
+    imgseg::named_sync(1, FCONSUMERS);
+    float* red = reinterpret_cast<float*>(estage);
+    float* myred = red + (warp - 4) * 2 * ntile;
+    for (int i = lane; i < 2 * ntile; i += 32) myred[i] = 0.f;
+    __syncwarp();
+    if constexpr (EPI == kEpiStats) {
+      if (lane < EC) {
 #pragma unroll
-      for (int pass = 0; pass < NPASS; ++pass) {
-        myred[cbase + pass * EC + lane] = s1[pass];
-        myred[ntile + cbase + pass * EC + lane] = s2[pass];
+        for (int pass = 0; pass < NPASS; ++pass) {
+          myred[cbase + pass * EC + lane] = s1[pass];
+          myred[ntile + cbase + pass * EC + lane] = s2[pass];
+        }
+      }
+    } else {  // each channel's sums from their one holder: index o is tile o / 2, element o % 2
+      bool holder;
+      const int first = lane_share<PM>(lane, holder);
+      if (holder) {
+#pragma unroll
+        for (int pass = 0; pass < NPASS; ++pass)
+#pragma unroll
+          for (int k = 0; k < PS; ++k) {
+            const int o = first + k, c = cbase + pass * EC + 8 * (o / 2) + 2 * (lane & 3) + o % 2;
+            myred[c] = ps1[pass][k];
+            myred[ntile + c] = ps2[pass][k];
+          }
       }
     }
     imgseg::named_sync(1, FCONSUMERS);
@@ -766,8 +813,11 @@ __device__ __forceinline__ void fwd_vec_products(const Args& p, const __nv_bfloa
   }
 }
 
-template <int EPI, int NT>
+template <int LOAD, int EPI, int NT>
 __global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
+  constexpr int NROWS = vec_rows(LOAD);
+  constexpr int NAB = LOAD == kLoadGeAffine ? 4 : 2;  // the rows `ab` holds
+  constexpr bool kGe = copier_modes<LOAD, EPI>();  // the copier may transform: more registers
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ uint64_t wfull, xland[FXR_MAX], xact[FXR_MAX], xempty[FXR_MAX];
   const int tid = threadIdx.x, warp = tid >> 5;
@@ -775,10 +825,9 @@ __global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
   const int co0 = blockIdx.x * ntile;
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* xr = ws + static_cast<size_t>(9) * cpad * ntile;
-  __nv_bfloat16* estage = xr + static_cast<size_t>(p.vxr) * KB * fwd_xp(p.vsw);
+  __nv_bfloat16* estage = xr + static_cast<size_t>(p.vxr) * (KB + p.vy) * fwd_xp(p.vsw);
   float* rows = reinterpret_cast<float*>(estage + 8 * 16 * FES);
-  float* sbias = rows + 2 * cpad;
-  float* red = sbias + ntile;
+  float* erows = rows + NROWS * cpad;
   const long long u0 = static_cast<long long>(blockIdx.y) * p.per_chunk;
   const long long u1 = u0 + p.per_chunk < p.tiles ? u0 + p.per_chunk : p.tiles;
 
@@ -791,20 +840,26 @@ __global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
     }
     imgseg::fence_barrier_init();
   }
-  for (int i = tid; i < 2 * cpad; i += FTHREADS) {
+  for (int i = tid; i < NROWS * cpad; i += FTHREADS) {
     const int r = i / cpad, c = i % cpad;
-    rows[i] = p.ab != nullptr && c < p.Ca ? p.ab[r * p.Ca + c] : 0.f;
+    rows[i] = p.ab != nullptr && r < NAB && c < p.Ca ? p.ab[r * p.Ca + c] : 0.f;
   }
-  for (int i = tid; i < ntile; i += FTHREADS) {
-    sbias[i] = p.bias != nullptr && co0 + i < Co ? p.bias[co0 + i] : 0.f;
+  for (int i = tid; i < ntile; i += FTHREADS) {  // the bias, or the post affine
+    const bool ok = co0 + i < Co;
+    if constexpr (EPI == kEpiPost) {
+      erows[i] = ok ? p.abpost[co0 + i] : 0.f;
+      erows[ntile + i] = ok ? p.abpost[Co + co0 + i] : 0.f;
+    } else {
+      erows[i] = p.bias != nullptr && ok ? p.bias[co0 + i] : 0.f;
+      erows[ntile + i] = 0.f;
+    }
   }
-  for (int i = tid; i < 16 * ntile; i += FTHREADS) red[i] = 0.f;
   __syncthreads();
 
   if (warp < 4) {
-    imgseg::reg_dealloc<FSTAGE_REGS>();
+    imgseg::reg_dealloc<kGe ? FSTAGE_REGS_GE : FSTAGE_REGS>();
     // the weights of the N tile, vector_pack's [tap][n/8][cpad/8][8 n][8 k]:
-    // one bulk copy a tap of its real channels, zeros past Co
+    // one bulk copy a tap of its real channels, zeros past N
     const int nvalid = min(ntile, Co - co0) / 8;
     if (tid == 0) {
       const uint32_t bytes = static_cast<uint32_t>(nvalid) * KB * 128;
@@ -814,7 +869,7 @@ __global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
                           p.w + (static_cast<size_t>(tap) * (Co / 8) + co0 / 8) * KB * 64, bytes, &wfull);
       }
     }
-    const int pad = (NB - nvalid) * KB * 8;  // 16-byte rows past Co, a tap
+    const int pad = (NB - nvalid) * KB * 8;  // 16-byte rows past N, a tap
     for (int i = tid; i < 9 * pad; i += FSTAGERS) {
       const int tap = i / pad, o = i % pad;
       *reinterpret_cast<uint4*>(ws + (static_cast<size_t>(tap) * NB + nvalid) * KB * 64 + o * 8) =
@@ -822,10 +877,10 @@ __global__ void __launch_bounds__(FTHREADS, 1) vec_kernel(const Args p) {
     }
     imgseg::fence_proxy_async();
     imgseg::mbar_arrive(&wfull);
-    fwd_vec_issue(p, xr, xland, xempty, u0, u1);
+    vec_issue<LOAD, EPI>(p, xr, rows, xland, xempty, u0, u1);
   } else {
-    imgseg::reg_alloc<FPRODUCT_REGS>();
-    fwd_vec_products<EPI, NT>(p, ws, xr, rows, sbias, red, estage, &wfull, xland, xact, xempty, u0, u1);
+    imgseg::reg_alloc<kGe ? FPRODUCT_REGS_GE : FPRODUCT_REGS>();
+    vec_products<LOAD, EPI, NT>(p, ws, xr, rows, erows, estage, &wfull, xland, xact, xempty, u0, u1);
   }
 }
 
@@ -1489,28 +1544,10 @@ __global__ void __launch_bounds__(DTHREADS, 1) deep_kernel(const Args p) {
   }
 }
 
-int tco_of(int Co) { return Co > 32 ? 64 : 32; }
-
-long long blocks_per_channel(int B, int H, int W) {
-  return static_cast<long long>(B) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-}
-
 // The kernels' paths (imgseg_conv3x3_path).
 enum Path { kVector = 0, kNarrow = 1, kDeep = 2 };
 
 int g_last_path = kVector;  // the path of the latest launch
-
-template <int LOAD, int EPI, int TCO>
-int launch_tiles(const Args& p, int B, cudaStream_t stream) {
-  static bool opted = false;
-  auto* kernel = conv3x3_kernel<LOAD, EPI, TCO>;
-  cudaError_t err = imgseg::allow_smem(kernel, Tiles<TCO>::BYTES, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.W + TW - 1) / TW, (p.H + TH - 1) / TH, B * p.co_tiles);
-  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<grid, THREADS, Tiles<TCO>::BYTES, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The narrow kernel: as many blocks as fit on the card at once, each walking
 // every gridDim.x-th pixel tile of one N tile (blockIdx.y).  The grid, so
@@ -1567,7 +1604,7 @@ int launch_deep(Args& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The card's SMs: the vector forward's blocks, one an SM.
+// The card's SMs: the vector path's blocks, one an SM.
 int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 132;
@@ -1575,7 +1612,7 @@ int sm_count() {
   return sms > 0 ? sms : 132;
 }
 
-// Units of the vector forward (strips of sw pixels of one row) and its
+// Units of the vector path (strips of sw pixels of one row) and its
 // runs: one wave, one block an SM beside the N tiles, every run non-empty.
 long long vec_runs(Args& p, int B) {
   p.tiles_x = (p.W + p.vsw - 1) / p.vsw;
@@ -1586,18 +1623,20 @@ long long vec_runs(Args& p, int B) {
   return (p.tiles + p.per_chunk - 1) / p.per_chunk;
 }
 
-// The vector forward: blockIdx.x the N tile, blockIdx.y the run, so the
-// N tiles of one run are neighbours in the grid and read its x rows
+// The vector path: blockIdx.x the N tile, blockIdx.y the run, so the
+// N tiles of one run are neighbours in the grid and read its operand rows
 // together (the second read from L2).
-template <int EPI, int NT>
+template <int LOAD, int EPI, int NT>
 int launch_vec(Args& p, int B, cudaStream_t stream) {
   static bool opted = false;
-  auto* kernel = vec_kernel<EPI, NT>;
+  auto* kernel = vec_kernel<LOAD, EPI, NT>;
   cudaError_t err = imgseg::allow_smem(kernel, FSMEM, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   p.nblk = static_cast<int>(vec_runs(p, B));
   if (p.nblk > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  kernel<<<dim3(p.co_tiles, p.nblk), FTHREADS, fvec_bytes(p.vsw, p.vcpad, p.vntile, p.vxr), stream>>>(p);
+  kernel<<<dim3(p.co_tiles, p.nblk), FTHREADS,
+           fvec_bytes(p.vsw, p.vcpad, p.vntile, p.vxr, vec_rows(LOAD), p.vy != 0),
+                                                   stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1615,19 +1654,14 @@ int launch(Args& p, int B, cudaStream_t stream) {
            : nt == 2 ? launch_narrow<LOAD, EPI, 2>(p, B, stream)
                      : launch_narrow<LOAD, EPI, 4>(p, B, stream);
   }
-  if constexpr (LOAD == kLoadX) {
-    p.co_tiles = (p.Co + p.vntile - 1) / p.vntile;
-    const int nt = (p.vsplit ? p.vntile / 2 : p.vntile) / 8;  // n8 tiles a consumer warpgroup
-    return nt == 2   ? launch_vec<EPI, 2>(p, B, stream)
-           : nt == 4 ? launch_vec<EPI, 4>(p, B, stream)
-           : nt == 8 ? launch_vec<EPI, 8>(p, B, stream)
-                     : launch_vec<EPI, 16>(p, B, stream);
-  } else {  // the dgrad's vector path: conv3x3_kernel
-    const int tco = tco_of(p.Co);
-    p.co_tiles = (p.Co + tco - 1) / tco;
-    return tco == 64 ? launch_tiles<LOAD, EPI, 64>(p, B, stream)
-                     : launch_tiles<LOAD, EPI, 32>(p, B, stream);
+  p.co_tiles = (p.Co + p.vntile - 1) / p.vntile;
+  const int nt = (p.vsplit ? p.vntile / 2 : p.vntile) / 8;  // n8 tiles a consumer warpgroup
+  if (nt == 2) return launch_vec<LOAD, EPI, 2>(p, B, stream);
+  if (nt == 4) return launch_vec<LOAD, EPI, 4>(p, B, stream);
+  if constexpr (EPI != kEpiPost) {  // vec_plan gives the post at most 4, the rest at most 8
+    if (nt == 8) return launch_vec<LOAD, EPI, 8>(p, B, stream);
   }
+  return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
@@ -1636,8 +1670,13 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 // conv_path and the operands' alignment): 0 the narrow path, kp channels a
 // stage; 1 the vector path; 64 or 128 the deep path, that N tile.  The
 // library chooses nothing: it refuses (returns false) a vector or deep
-// path whose channel counts or operands it cannot take.
-bool set_paths(Args& p, int path) {
+// path whose channel counts or operands it cannot take.  `path` also names
+// w's layout (vector_pack on the vector path, deep_pack on the deep path,
+// (3, 3, Cin, Co) on the narrow path); the vector path's tiles must fit
+// (vec_plan, with the mode's nrows transform rows, max_nt n8 tiles a
+// consumer warpgroup and, for the dgrad's cotangent transform, y in the
+// ring where it fits).
+bool take_path(Args& p, int path, int nrows, int max_nt = 8, bool yring = false) {
   const bool aligned = aligned16(p.x) && aligned16(p.xb) && aligned16(p.ab) && aligned16(p.w);
   if (path == 64 || path == 128) {
     p.deep = path;
@@ -1645,35 +1684,29 @@ bool set_paths(Args& p, int path) {
   }
   const int cin = p.Ca + p.Cb;
   p.kp = path == 1 ? 0 : cin > NKP ? NKP : (cin + 7) / 8 * 8;
-  return path == 0 ||
-         (path == 1 && p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 2 == 0 && aligned);
-}
-
-// The forward's path, as set_paths; `path` also names w's layout
-// (vector_pack on the vector path, deep_pack on the deep path, (3, 3, Cin,
-// Co) on the narrow path), and the vector path's tiles must fit (vec_plan).
-bool fwd_paths(Args& p, int path) {
-  return set_paths(p, path) && (path != 1 || vec_plan(p.Ca + p.Cb, p.Co, p.W, p));
+  if (path == 0) return true;
+  return path == 1 && p.Ca % 8 == 0 && p.Cb % 8 == 0 && p.Co % 8 == 0 && p.Na % 8 == 0 && aligned &&
+         aligned16(p.xpost) && vec_plan(cin, p.Co, p.W, nrows, max_nt, yring, p);
 }
 
 // The second pass of the sum epilogues: (blocks, 2, Co) rows -> (2, Co).
-int finish_sums(const Args& p, int B, float* sums, cudaStream_t stream) {
-  const long long rows = p.kp || p.deep || p.vsw ? p.nblk : blocks_per_channel(B, p.H, p.W);
-  return static_cast<int>(imgseg::sum_rows(p.partial, sums, rows, 2LL * p.Co, stream));
+int finish_sums(const Args& p, float* sums, cudaStream_t stream) {
+  return static_cast<int>(imgseg::sum_rows(p.partial, sums, p.nblk, 2LL * p.Co, stream));
 }
 
 }  // namespace
 
-// Floats of scratch the sum epilogues need: one (2, Co) row per pixel block
-// of the dgrad's vector path (at most one a 16x16 pixel tile on the narrow
-// path), per tile of the deep path (no more blocks than tiles) or per run
-// of the vector forward (no more than the SMs, nor than its 64-pixel
-// units), whichever is more.
+// Floats of scratch the sum epilogues need: one (2, Co) row per block of
+// the narrow path (no more blocks than its 16x16-pixel tiles), of the deep
+// path (no more than its tiles) or of the vector path (one a run: no more
+// than the SMs, nor than its units, strips of 64 or 128 pixels of one
+// row), whichever is more.
 extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
-  const long long vec = blocks_per_channel(B, H, W), deep = deep_tiles(B, H, W);
+  const long long narrow = static_cast<long long>(B) * ((H + NTH - 1) / NTH) * ((W + TW - 1) / TW);
+  const long long deep = deep_tiles(B, H, W);
   long long runs = static_cast<long long>(B) * H * ((W + 63) / 64);
   runs = runs < sm_count() ? runs : sm_count();
-  const long long most = vec > deep ? vec : deep;
+  const long long most = narrow > deep ? narrow : deep;
   return (most > runs ? most : runs) * 2LL * Co;
 }
 
@@ -1682,7 +1715,7 @@ extern "C" long long imgseg_conv3x3_scratch(int B, int H, int W, int Co) {
 extern "C" int imgseg_conv3x3_path() { return g_last_path; }
 
 // y = conv(act([x | xb])) + bias; with `stats` (2, Co) also the sums of y
-// and y*y over (B, H, W), using `scratch`.  `path`: as fwd_paths takes it.
+// and y*y over (B, H, W), using `scratch`.  `path`: as take_path takes it.
 extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
                               const void* bias, const void* ab, void* out, void* stats,
                               void* scratch, int B, int H, int W, int Ca, int Cb, int Co,
@@ -1698,18 +1731,18 @@ extern "C" int imgseg_conv3x3(const void* x, const void* xb, const void* w,
   p.out = static_cast<__nv_bfloat16*>(out);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Ca, p.Cb = Cb, p.Co = Co, p.Na = Co;
-  if (!fwd_paths(p, path)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!take_path(p, path, FROWS_FWD)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stats == nullptr) return launch<kLoadX, kEpiStore>(p, B, s);
   const int err = launch<kLoadX, kEpiStats>(p, B, s);
-  return err != 0 ? err : finish_sums(p, B, static_cast<float*>(stats), s);
+  return err != 0 ? err : finish_sums(p, static_cast<float*>(stats), s);
 }
 
 // dx = conv(ge, w) of the transformed cotangent ge (from g, y and the
 // (2|4, Cg) rows `gf`; `affine` selects the 4-row form), or without `gf`
 // of g itself (y unread; neither `xpost` nor `out_b`).  With `xpost`: the
 // post adjoint, `sums` (2, Co) = [sum gu*xpost, sum gu]; with `out_b`: dx
-// split at channel Na.  `path`: as set_paths takes it.
+// split at channel Na.  `path`: as take_path takes it.
 extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf,
                                     const void* w, const void* xpost, const void* abpost,
                                     void* out, void* out_b, void* sums, void* scratch, int B,
@@ -1727,7 +1760,9 @@ extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf
   p.out_b = static_cast<__nv_bfloat16*>(out_b);
   p.partial = static_cast<float*>(scratch);
   p.H = H, p.W = W, p.Ca = Cg, p.Cb = 0, p.Co = Co, p.Na = Na;
-  if (!set_paths(p, path)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!take_path(p, path, FROWS_DGRAD, xpost != nullptr ? 4 : 8, gf != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gf == nullptr) {
     if (xpost != nullptr || out_b != nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1736,7 +1771,7 @@ extern "C" int imgseg_conv3x3_dgrad(const void* g, const void* y, const void* gf
   int err;
   if (xpost != nullptr) {
     err = affine ? launch<kLoadGeAffine, kEpiPost>(p, B, s) : launch<kLoadGeStats, kEpiPost>(p, B, s);
-    return err != 0 ? err : finish_sums(p, B, static_cast<float*>(sums), s);
+    return err != 0 ? err : finish_sums(p, static_cast<float*>(sums), s);
   }
   if (out_b != nullptr) {
     return affine ? launch<kLoadGeAffine, kEpiSplit>(p, B, s) : launch<kLoadGeStats, kEpiSplit>(p, B, s);

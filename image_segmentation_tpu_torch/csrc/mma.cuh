@@ -130,6 +130,12 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Ask for a contiguous global range (16-byte aligned, a multiple of 16
+// bytes) to be brought into L2: one instruction, nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
 // 8 bf16 <-> 16 bytes
 struct Vec8 {
   __nv_bfloat16 v[8];

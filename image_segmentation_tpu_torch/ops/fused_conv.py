@@ -227,10 +227,19 @@ def convtranspose2x2_bwd_plain(x, w, g):
 # the conv kernels' paths
 # --------------------------------------------------------------------------
 
-# the most input channels the vector path takes: a block of its forward
-# holds the 9 x Cin x N weights of its N tile (N 32 on 64-pixel strips, or
-# N 16 on 128-pixel strips where Co <= 16) beside four rows of x
+# the most K channels the vector kernel takes: a block holds the 9 x K x N
+# weights of its N tile (N 32 on 64-pixel strips, or N 16 on 128-pixel
+# strips where N <= 16) beside four operand rows.  The forward's K is Cin
+# and its N is Co; the dgrad's K is Co and its N is Cin (it convolves the
+# cotangent with the flipped, transposed weights).
 VECTOR_CIN, VECTOR_CIN_N16 = 192, 160
+VECTOR_DGRAD_CO, VECTOR_DGRAD_CO_N16 = 192, 160
+
+
+def _vector_fits(k: int, n: int, most: int, most_n16: int) -> bool:
+    """Whether the vector kernel's weights of a K -> N conv fit: K, padded
+    to 16, at most ``most``, or ``most_n16`` where N <= 16."""
+    return -(-k // 16) * 16 <= (most if n > 16 else most_n16)
 
 
 def conv_path(ca: int, cb: int, co: int) -> str:
@@ -238,17 +247,20 @@ def conv_path(ca: int, cb: int, co: int) -> str:
     channels, in its forward, dx and wgrad alike: ``"deep"`` where Ca, Cb
     and Co are multiples of 64 and 256 or more channels go in or come out
     (the fold-1 blocks' levels, wgmma tiles of 64-channel K stages); else
-    ``"vector"`` where all are multiples of 8 and the vector forward's
-    weights fit its shared memory (Ca + Cb, padded to 16, at most
-    VECTOR_CIN, or VECTOR_CIN_N16 where Co <= 16: ``csrc/conv3x3.cu``
-    asserts the same limits); else ``"narrow"``.  :func:`_path_arg` adds
-    the operands' alignment."""
+    ``"vector"`` where all are multiples of 8 and the vector kernel's
+    weights fit its shared memory in the forward and in the dgrad (Ca + Cb,
+    padded to 16, at most VECTOR_CIN, or VECTOR_CIN_N16 where Co <= 16; Co,
+    padded to 16, at most VECTOR_DGRAD_CO, or VECTOR_DGRAD_CO_N16 where
+    Ca + Cb <= 16: ``csrc/conv3x3.cu`` asserts the same limits); else
+    ``"narrow"``.  :func:`_path_arg` adds the operands' alignment."""
     if ca % 64 == 0 and cb % 64 == 0 and co % 64 == 0 and (ca + cb >= 256 or co >= 256):
         return "deep"
     if ca % 8 or cb % 8 or co % 8:
         return "narrow"
-    cin = -(-(ca + cb) // 16) * 16
-    return "vector" if cin <= (VECTOR_CIN if co > 16 else VECTOR_CIN_N16) else "narrow"
+    cin = ca + cb
+    fits = (_vector_fits(cin, co, VECTOR_CIN, VECTOR_CIN_N16)
+            and _vector_fits(co, cin, VECTOR_DGRAD_CO, VECTOR_DGRAD_CO_N16))
+    return "vector" if fits else "narrow"
 
 
 def _path_arg(ca: int, cb: int, co: int, n: int, *operands) -> tuple:
@@ -266,18 +278,24 @@ def _path_arg(ca: int, cb: int, co: int, n: int, *operands) -> tuple:
     return path, int(path == "vector")
 
 
-def vector_pack(w: torch.Tensor) -> torch.Tensor:
-    """Weights (Co, K, 3, 3) in the vector forward's order, bf16, in one
-    copy: K zero-padded to Kp, a multiple of 16 (one k16 step is two
-    8-channel planes), then for each tap the (Co x Kp) matrix as the
-    wgmma's K-major core matrices ([Co/8][Kp/8][8 of N][8 of K]), so a
-    block's N tile of a tap is one bulk copy."""
+def vector_pack(w: torch.Tensor, dgrad: bool = False) -> torch.Tensor:
+    """Weights (Co, Cin, 3, 3) in the vector kernel's order, bf16: for the
+    forward N = Co, K = Cin; with ``dgrad`` the flipped, transposed kernel
+    (N = Cin, K = Co, the taps in reverse order).  K zero-padded to Kp, a
+    multiple of 16 (one k16 step is two 8-channel planes), then for each
+    tap the (N x Kp) matrix as the wgmma's K-major core matrices
+    ([N/8][Kp/8][8 of N][8 of K]), so a block's N tile of a tap is one bulk
+    copy."""
+    if dgrad:
+        w = w.transpose(0, 1)
     n, k = w.shape[0], w.shape[1]
     kp = -(-k // 16) * 16
     if kp != k:
         w = F.pad(w, (0, 0, 0, 0, 0, kp - k))
-    tiles = w.reshape(n // 8, 8, kp // 8, 8, 9).permute(4, 0, 2, 1, 3)
-    return tiles.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    tiles = w.reshape(n // 8, 8, kp // 8, 8, 9)
+    if dgrad:
+        tiles = tiles.flip(4)
+    return tiles.permute(4, 0, 2, 1, 3).to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
 def _aligned(*tensors) -> bool:
@@ -513,11 +531,13 @@ def conv3x3_dgrad(
         if t is not None:
             _check_vector(name, t, co, what)
     gf = _gf(c1, c2, a, b, g.dtype)
-    # the flipped, transposed kernel in conv3x3's (3, 3, Cin', Co') layout
     ca = cin if split is None else split
-    path, arg = _path_arg(ca, cin - ca, co, cin, g, y)
-    wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1)
-    wk = deep_pack(wk, arg) if path == "deep" else wk.contiguous()
+    path, arg = _path_arg(ca, cin - ca, co, cin, g, y, x_post)
+    if path == "vector":
+        wk = vector_pack(w, dgrad=True)
+    else:  # the flipped, transposed kernel in conv3x3's (3, 3, Cin', Co') layout
+        wk = w.to(torch.bfloat16).flip(2, 3).permute(2, 3, 0, 1)
+        wk = deep_pack(wk, arg) if path == "deep" else wk.contiguous()
     ab_post = sums = scratch = out_b = None
     na = cin
     if x_post is not None:

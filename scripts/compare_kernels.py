@@ -29,7 +29,9 @@ wrapper's time between its kernel and its second pass of the sums.  Each
 case also reports the device-memory rate it reached (its inputs read once
 and its outputs written once, over its ms) beside that of a plain copy of
 its inputs (``Tensor.copy_``: each input read once and written once), the
-rate a streaming pass reaches on this card.  With ``--host-ops`` each case
+rate a streaming pass reaches on this card, and its bound (``bound_ms``,
+as ``chip_smoke.py`` computes it: the larger of those bytes at the card's
+memory rate and its operations at the peak rate for their type).  With ``--host-ops`` each case
 also gets the host time of one wrapper call by PyTorch operator
 (``torch.profiler``'s self CPU time over HOST_CALLS calls) beside the
 wall time of those calls under the profiler: what is left of the wall
@@ -120,6 +122,8 @@ def child(root: Path, entries: list, labels: list, iters: int, with_profile: boo
         row = {"entry": entry, "label": label, "timed": timed, "ms": ms, "library_ms": lib,
                "host_us": host_us, "path": path,
                "TBps": smoke._nbytes([*case.inputs, got]) / ms / 1e9,
+               "bound_ms": max(smoke._nbytes([*case.inputs, got]) / smoke.HBM_BYTES_PER_S * 1e3,
+                               case.ops / case.flop_per_s * 1e3),
                "copy_TBps": 2 * smoke._nbytes(inputs) / copy_ms / 1e9}
         del got, twins
         if with_profile:
@@ -219,6 +223,7 @@ def main() -> int:
             if who == "this":
                 t["TBps"].append(r["TBps"])
                 t["path"] = r.get("path")
+                t["bound_ms"] = r.get("bound_ms")
             if "device_us" in r:
                 t.setdefault(who + "_device_us", r["device_us"])
             if "host_ops_us" in r:
@@ -237,12 +242,13 @@ def main() -> int:
                "other_ms": mean(t["other"]), "library_ms": mean(t["library"]),
                "this_TBps": mean(t["TBps"]), "copy_TBps": mean(t["copy_TBps"]),
                "this_host_us": mean(t["this_host_us"]), "other_host_us": mean(t["other_host_us"]),
-               "this_path": t["path"], "card": card,
+               "this_path": t["path"], "bound_ms": t.get("bound_ms"), "card": card,
                **{k: v for k, v in t.items() if k.endswith(("_device_us", "_host_ops_us"))}}
         print(json.dumps(row), flush=True)
         if t["timed"] == "sum" and t["this"] and t["other"]:
-            s = sums.setdefault(entry, {"this_ms": 0.0, "other_ms": 0.0, "library_ms": 0.0})
-            for k in ("this_ms", "other_ms", "library_ms"):
+            s = sums.setdefault(entry, {"this_ms": 0.0, "other_ms": 0.0, "library_ms": 0.0,
+                                        "bound_ms": 0.0})
+            for k in ("this_ms", "other_ms", "library_ms", "bound_ms"):
                 s[k] += row[k] or 0.0
     for entry, s in sums.items():
         print(json.dumps({"entry": entry, "summed": True, **s, "card": card}), flush=True)

@@ -90,13 +90,18 @@ MODEL_ARGS = smoke.train_config().model_args
 DEVICE = smoke.DEVICE
 FORWARDS = 5
 TRAIN_STEPS = 3
-# device kernel name -> group (the first that matches); conv3x3_kernel<LOAD,
-# EPI> and its narrow path narrow_kernel<LOAD, ...>: LOAD 0 is the forward,
-# 1 to 3 the dgrad (3: the raw cotangent of an unfused conv)
+# device kernel name -> group (the first that matches, so the wgrad's names
+# come before the names they contain); the conv kernels' vector, narrow and
+# deep paths, vec_kernel<LOAD, ...>, narrow_kernel<LOAD, ...> and
+# deep_kernel<LOAD, ...>: LOAD 0 is the forward, 1 to 3 the dgrad (3: the
+# raw cotangent of an unfused conv)
 OWN_KERNELS = (
-    ("conv3x3_kernel<0", "conv3x3 (forward)"), ("conv3x3_kernel<1", "conv3x3_dgrad"),
-    ("conv3x3_kernel<2", "conv3x3_dgrad"), ("conv3x3_kernel<3", "conv3x3_dgrad"),
-    ("wgrad_kernel", "conv3x3_wgrad"), ("wgrad_narrow_kernel", "conv3x3_wgrad (narrow)"),
+    ("wgrad_vec_kernel", "conv3x3_wgrad"), ("wgrad_narrow_kernel", "conv3x3_wgrad (narrow)"),
+    ("wgrad_deep_kernel", "conv3x3_wgrad (deep)"), ("wgrad_ge_prepass", "conv3x3_wgrad (deep)"),
+    ("wgrad_x_prepass", "conv3x3_wgrad (deep)"),
+    ("vec_kernel<0", "conv3x3 (forward)"), ("vec_kernel<1", "conv3x3_dgrad"),
+    ("vec_kernel<2", "conv3x3_dgrad"), ("vec_kernel<3", "conv3x3_dgrad"),
+    ("deep_kernel<0", "conv3x3 (forward, deep)"), ("deep_kernel<", "conv3x3_dgrad (deep)"),
     ("narrow_kernel<0", "conv3x3 (forward, narrow)"), ("narrow_kernel<1", "conv3x3_dgrad (narrow)"),
     ("narrow_kernel<2", "conv3x3_dgrad (narrow)"), ("narrow_kernel<3", "conv3x3_dgrad (narrow)"),
     ("conv1x1_bwd_kernel", "conv1x1_bwd"),

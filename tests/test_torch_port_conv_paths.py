@@ -8,8 +8,9 @@ large_unet step, the prompt, autoencoder and clip_res steps, the
 The rule gives the deep path to the fold-1 convs with 256 or more channels
 in or out and to no level 0-1 conv of any model, the narrow path to the
 channel counts that are not multiples of 8 (ClipRes's output block, the
-prompt heatmap) and to more input channels than the vector forward's
-resident weights fit, the vector path to the rest.  It is a function of the
+prompt heatmap) and to more channels than the vector kernel's resident
+weights fit (input channels in the forward, output channels in the
+dgrad), the vector path to the rest.  It is a function of the
 channel counts alone (the operands' alignment aside, ``_path_arg``), so it
 is checked here on the CPU; the card tests (``test_torch_port_cuda.py``)
 check that the kernels take it.
@@ -113,13 +114,21 @@ def test_vector_pack_is_the_wgmma_core_matrix_order(k, n):
 
 
 # [Ca | Cb] -> Co on the vector path's edge: it takes multiples of 8 whose
-# input channels, padded to 16, number at most 192 (160 where Co <= 16)
+# input channels, padded to 16, number at most 192 (160 where Co <= 16),
+# the forward's K, and whose output channels, padded to 16, number at most
+# 192 (160 where Ca + Cb <= 16), the dgrad's K
 FIT = [
     ((192, 0, 32), "vector"), ((184, 0, 64), "vector"), ((96, 96, 32), "vector"),
     ((160, 0, 16), "vector"), ((152, 0, 8), "vector"), ((8, 0, 8), "vector"),
     ((200, 0, 64), "narrow"), ((208, 0, 32), "narrow"), ((104, 104, 32), "narrow"),
     ((256, 0, 32), "narrow"), ((120, 120, 120), "narrow"), ((176, 0, 16), "narrow"),
     ((168, 0, 8), "narrow"), ((192, 0, 16), "narrow"), ((256, 0, 256), "deep"),
+    # the dgrad's edge: its K is Co, its N is Cin
+    ((96, 0, 192), "vector"), ((96, 0, 208), "narrow"), ((96, 0, 184), "vector"),
+    ((32, 32, 192), "vector"), ((32, 32, 200), "narrow"), ((24, 0, 192), "vector"),
+    ((16, 0, 160), "vector"), ((16, 0, 176), "narrow"), ((8, 0, 160), "vector"),
+    ((8, 0, 168), "narrow"), ((8, 8, 176), "narrow"), ((192, 0, 192), "vector"),
+    ((192, 0, 208), "narrow"),
 ]
 
 
@@ -128,15 +137,68 @@ def test_conv_path_sends_what_the_vector_weights_do_not_fit_to_the_narrow_path(c
     assert fused_conv.conv_path(*channels) == path
 
 
+def _asserted_limits(rows: str):
+    """The K limits that ``csrc/conv3x3.cu`` asserts its vector kernel's
+    shared memory holds with ``rows`` transform rows: (fits, the next that
+    does not) at an N tile of 32 on 64-pixel strips and of 16 on 128."""
+    src = (Path(fused_conv.__file__).resolve().parents[1] / "csrc" / "conv3x3.cu").read_text()
+    found = []
+    for sw, n in ((64, 32), (128, 16)):
+        m = re.search(rf"fvec_bytes\({sw}, (\d+), {n}, FXR_MIN, {rows}\) <= FSMEM &&\s+"
+                      rf"fvec_bytes\({sw}, (\d+), {n}, FXR_MIN, {rows}\) > FSMEM", src)
+        assert m, (sw, n, rows)
+        found.append((int(m[1]), int(m[2])))
+    return found
+
+
 def test_the_vector_limits_are_the_kernels():
     """``conv_path``'s VECTOR_CIN and VECTOR_CIN_N16 are the limits that
     ``csrc/conv3x3.cu`` asserts its forward's shared memory holds."""
-    src = (Path(fused_conv.__file__).resolve().parents[1] / "csrc" / "conv3x3.cu").read_text()
-    fits = re.search(r"fvec_bytes\(64, (\d+), 32, FXR_MIN\) <= FSMEM && fvec_bytes\(64, (\d+), 32", src)
-    fits16 = re.search(r"fvec_bytes\(128, (\d+), 16, FXR_MIN\) <= FSMEM && fvec_bytes\(128, (\d+), 16", src)
-    assert fits and fits16
-    assert (int(fits[1]), int(fits[2])) == (fused_conv.VECTOR_CIN, fused_conv.VECTOR_CIN + 16)
-    assert (int(fits16[1]), int(fits16[2])) == (fused_conv.VECTOR_CIN_N16, fused_conv.VECTOR_CIN_N16 + 16)
+    fits, fits16 = _asserted_limits("FROWS_FWD")
+    assert fits == (fused_conv.VECTOR_CIN, fused_conv.VECTOR_CIN + 16)
+    assert fits16 == (fused_conv.VECTOR_CIN_N16, fused_conv.VECTOR_CIN_N16 + 16)
+
+
+def test_the_dgrad_limits_are_the_kernels():
+    """``conv_path``'s VECTOR_DGRAD_CO and VECTOR_DGRAD_CO_N16 are the
+    limits that ``csrc/conv3x3.cu`` asserts its dgrad's shared memory holds
+    (with the cotangent transform's four rows)."""
+    fits, fits16 = _asserted_limits("FROWS_DGRAD")
+    assert fits == (fused_conv.VECTOR_DGRAD_CO, fused_conv.VECTOR_DGRAD_CO + 16)
+    assert fits16 == (fused_conv.VECTOR_DGRAD_CO_N16, fused_conv.VECTOR_DGRAD_CO_N16 + 16)
+
+
+@pytest.mark.parametrize("k,n", [(16, 8), (32, 64), (64, 128), (24, 40), (40, 48)])
+def test_vector_pack_for_the_dgrad_is_the_flipped_transposed_kernel(k, n):
+    """``vector_pack(w, dgrad=True)`` of a conv's w (Co = k, Cin = n) packs
+    the dgrad's weights: the kernel flipped in both taps and transposed,
+    N = Cin, K = Co padded to 16."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((k, n, 3, 3)).astype(np.float32))
+    packed = fused_conv.vector_pack(w, dgrad=True)
+    assert torch.equal(packed, fused_conv.vector_pack(w.flip(2, 3).transpose(0, 1).contiguous()))
+
+
+@pytest.mark.parametrize("cin,co", [(8, 16), (24, 40), (16, 8)])
+def test_the_packed_dgrad_weights_read_as_the_kernel_reads_them(cin, co):
+    """The vector kernel's product for output pixel p, N channel n: the sum
+    over taps t = 3ky + kx and K channels k of the operand at p + (ky - 1,
+    kx - 1), channel k, times packed[t][n/8][k/8][n%8][k%8].  With the
+    dgrad's packing and the raw cotangent as the operand (zero outside the
+    image) that is the plain dgrad."""
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal((2, 5, 7, co)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((co, cin, 3, 3)).astype(np.float32))
+    packed = fused_conv.vector_pack(w, dgrad=True).float()
+    kp = packed.shape[2] * 8
+    wt = packed.permute(1, 3, 2, 4, 0).reshape(cin, kp, 3, 3)[:, :co]  # [n, k, ky, kx]
+    gp = torch.nn.functional.pad(g.float(), (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros(2, 5, 7, cin)
+    for ky in range(3):
+        for kx in range(3):
+            dx += gp[:, ky:ky + 5, kx:kx + 7] @ wt[:, :, ky, kx].T
+    ref = fused_conv.conv3x3_dgrad_plain(g, None, w, None, None)
+    assert torch.allclose(dx.to(torch.bfloat16).float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
 @pytest.mark.parametrize("channels,n,aligned,want", [

@@ -171,6 +171,11 @@ BWD_CASES = [
     ((2, 11, 23, 24), 0, 24, False, "post"),
     ((1, 16, 32, 16), 16, 16, False, "split"),
     ((1, 9, 5, 3), 5, 7, True, None),
+    # the vector dgrad: an N (the forward's Cin) of 8, a split at Na = 40
+    # inside its N tile of 64, a width of 100 pixels (not a multiple of 64)
+    ((2, 19, 37, 8), 0, 64, True, "post"),
+    ((1, 13, 70, 40), 24, 64, False, "split"),
+    ((2, 11, 100, 16), 0, 48, True, "post"),
 ]
 
 
@@ -240,6 +245,10 @@ WIDE_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
     ((1, 9, 37, 256), 0, 32, False),    # narrow: 256 -> 32
     ((1, 9, 37, 192), 0, 16, True),     # narrow: 192 -> 16
     ((1, 9, 37, 104), 104, 32, False),  # narrow: [104|104] -> 32
+    # the dgrad's K (Co) at its edge and past it: the forward takes the rule's path too
+    ((1, 9, 37, 96), 0, 192, False),    # 96 -> 192
+    ((1, 9, 37, 16), 0, 160, True),     # 16 -> 160
+    ((1, 9, 37, 96), 0, 208, False),    # narrow: 96 -> 208
     ((2, 19, 37, 16), 3, 3, False),     # clip_res out.conv1 [16|3] -> 3: the narrow path
     ((2, 19, 37, 3), 0, 3, True),       # clip_res out.conv2 3 -> 3
     # the narrow path: Cin 1, 3, 5, [16|3], [8|5], Co 1, 3, 5, 12, past one
@@ -260,10 +269,13 @@ WIDE_FWD = [  # (shape of the conv's input, Cb, Co, pre-affine)
 def _narrow(ca, cb, co) -> bool:
     """Whether the conv kernels take their narrow path for a conv of [Ca |
     Cb] -> Co channels (on operands at 16-byte boundaries): any count not a
-    multiple of 8, or more input channels than the vector forward's
-    resident weights fit (padded to 16: 192, or 160 where Co <= 16)."""
-    cin = -(-(ca + cb) // 16) * 16
-    return bool(ca % 8 or cb % 8 or co % 8) or cin > (192 if co > 16 else 160)
+    multiple of 8, or more channels than the vector kernel's resident
+    weights fit: input channels in the forward (padded to 16: 192, or 160
+    where Co <= 16), output channels in the dgrad (192, or 160 where Ca + Cb
+    <= 16)."""
+    cin, k = -(-(ca + cb) // 16) * 16, -(-co // 16) * 16
+    return (bool(ca % 8 or cb % 8 or co % 8) or cin > (192 if co > 16 else 160)
+            or k > (192 if ca + cb > 16 else 160))
 
 
 @pytest.mark.parametrize("stats", [False, True])
@@ -322,6 +334,18 @@ WIDE_BWD = [
     ((1, 9, 37, 192), 0, 16, True, "post"),      # narrow: 192 -> 16
     ((1, 9, 37, 104), 104, 32, False, "split"),  # narrow: [104|104] -> 32
     ((1, 9, 37, 208), 0, 32, False, "raw"),      # narrow: 208 -> 32
+    # the dgrad's K (the forward's Co) at the vector path's edge (192, 160
+    # where Cin <= 16) and past it (the narrow path in all three kernels)
+    ((1, 9, 37, 96), 0, 192, False, None),       # 96 -> 192
+    ((1, 9, 37, 64), 0, 192, True, "post"),      # 64 -> 192, affine cotangent and post
+    ((1, 9, 37, 16), 0, 160, True, "post"),      # 16 -> 160
+    ((1, 9, 37, 96), 0, 208, False, None),       # narrow: 96 -> 208
+    ((1, 9, 37, 16), 0, 176, False, "raw"),      # narrow: 16 -> 176
+    # the vector dgrad: N (the forward's Cin) of 8, a split at Na = 96 inside
+    # an N tile of 128, 100- and 200-pixel rows (not multiples of 64)
+    ((1, 9, 37, 8), 0, 64, False, "raw"),
+    ((2, 11, 100, 96), 32, 64, False, "split"),
+    ((1, 7, 200, 64), 0, 128, True, "post"),
     ((2, 19, 37, 16), 3, 3, False, "split"),     # clip_res out.conv1 [16|3] -> 3
     ((2, 19, 37, 3), 0, 3, True, "post"),        # clip_res out.conv2 3 -> 3
     # the narrow path in every load mode and epilogue
@@ -365,6 +389,41 @@ def test_conv3x3_dgrad_at_main_path_widths(gen, shape, cb, co, affine, epi):
     narrow = _narrow(ca, shape[-1] + cb - ca, co)
     assert fc.last_path(fc.conv3x3_dgrad) == ("narrow" if narrow else "vector")
     _close_all(got, fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **kw))
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("shape,cb,co,epi", [
+    ((2, 9, 70, 32), 0, 64, None),       # 64 -> 32, a 128-pixel strip
+    ((2, 9, 37, 64), 0, 64, "post"),
+    ((1, 11, 23, 64), 64, 128, "split"),
+    ((1, 5, 200, 128), 0, 128, None),    # K = 128: 64-pixel strips
+])
+def test_conv3x3_dgrad_zero_outside_the_image_after_the_transform(gen, shape, cb, co, epi, affine):
+    """g = y = 0 with c1 = 1: the transformed cotangent is round(c1) in the
+    image and zero outside it (SAME padding pads the transformed tensor,
+    _gfold_transform), so the border pixels' dx sums fewer taps than the
+    others'; a kernel that transformed the zero padding too is off there."""
+    ca = shape[-1]
+    cin = ca + cb
+    g = torch.zeros(*shape[:3], co, device="cuda", dtype=torch.bfloat16)
+    y = torch.zeros_like(g)
+    c1 = torch.rand(co, generator=gen, device="cuda") + 1.0
+    c2 = _randn(gen, co, dtype=torch.float32) * 0.1
+    aff = dict(a=torch.rand(co, generator=gen, device="cuda") + 0.5,
+               b=torch.rand(co, generator=gen, device="cuda") + 0.5) if affine else {}
+    w = _randn(gen, co, cin, 3, 3, dtype=torch.float32) / (9 * cin) ** 0.5
+    kw = dict(aff)
+    if epi == "post":
+        kw.update(x_post=_randn(gen, *shape), a_post=torch.rand(ca, generator=gen, device="cuda") + 0.5,
+                  b_post=_randn(gen, ca, dtype=torch.float32) * 0.5)
+    elif epi == "split":
+        kw.update(split=ca)
+    got = _counted(fc.conv3x3_dgrad, lambda: fc.conv3x3_dgrad(g, y, w, c1, c2, **kw))
+    assert fc.last_path(fc.conv3x3_dgrad) == "vector"
+    ref = fc.conv3x3_dgrad_plain(g, y, w, c1, c2, **kw)
+    _close_all(got, ref)
+    edge = ref if epi is None else ref[0]
+    assert not torch.equal(edge[:, 0], edge[:, shape[1] // 2])  # the border differs
 
 
 @pytest.mark.parametrize("shape,cb,co,affine,epi", WIDE_BWD)
