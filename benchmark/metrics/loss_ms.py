@@ -1,0 +1,13 @@
+"""Device milliseconds a step of the training loss, its forward
+(``loss``) and its backward (``loss.bwd``), from the program's spans
+(``benchmark/span_time.py``); nothing where none ran.  Read for every
+``loss_ms.<mode>`` metric."""
+
+from benchmark import span_time as S
+
+
+def read(run):
+    t = run.trace
+    if t is None:
+        return None
+    return S.per_step_ms(t, S.phase(t, "loss"))

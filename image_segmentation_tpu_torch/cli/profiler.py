@@ -11,7 +11,12 @@ One train step runs outside the trace (warm-up: the kernels' first launch
 and cuDNN's choices), then ``--steps`` steps on the first batch inside
 ``utils.profiling.trace`` (``torch.profiler``, a Chrome trace file in
 ``--log-dir``); prints ``Rate: ... datapoints/s``, the memory report and
-the trace path.
+the trace path.  The trace holds the program's spans
+(``utils/spans.py``): each step's ``train_step`` range, whose argument is
+its step key, and under it ``prepare``, ``augment.geometry``,
+``augment.colour``, every model block's forward and ``.bwd`` (the
+backward's on autograd's thread), ``loss``, ``loss.bwd`` and
+``optimizer``, each with the device time of the kernels launched in it.
 """
 
 from __future__ import annotations

@@ -151,6 +151,7 @@ from ..parallel import mesh
 from ..parallel import tensor
 from ..utils import checkpoint as ckpt_lib
 from ..utils import io as io_lib
+from ..utils import spans
 from ..utils.profiling import format_memory_report
 from ..utils.convert import jax_from_state_dict, tp_plan
 
@@ -471,15 +472,21 @@ class Trainer:
                    step_key: int = 0) -> torch.Tensor:
         """One optimizer step on one batch (this rank's rows of the global
         batch) with the draws of ``step_key``; returns the global batch's
-        loss, on the device."""
-        n, rows = self._rows(images_u8.shape[0])
-        params = None
-        if self.augmentor is not None:
-            params = self.augment_params(n, step_key).rows(rows)
-        points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
-        inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=True, params=params,
-                                            points=points, offset=rows.start)
-        return self.optimize(inputs, batch)
+        loss, on the device.  Profiler spans (``utils.spans``):
+        ``train_step`` (the step key its argument), ``prepare``, the model's
+        blocks, ``loss`` and ``optimizer``."""
+        with spans.span("train_step", str(step_key)):
+            with spans.span("prepare"):
+                n, rows = self._rows(images_u8.shape[0])
+                params = None
+                if self.augmentor is not None:
+                    params = self.augment_params(n, step_key).rows(rows)
+                points = (self.prompt_points(masks_u8, step_key) if self.task == "prompt"
+                          else None)
+                inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=True,
+                                                    params=params, points=points,
+                                                    offset=rows.start)
+            return self.optimize(inputs, batch)
 
     def optimize(self, inputs: Inputs, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Forward, loss, backward, the gradients averaged over ranks, and
@@ -488,13 +495,14 @@ class Trainer:
         module doc)."""
         inputs = inputs if isinstance(inputs, tuple) else (inputs,)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self._train_forward(inputs), batch)
+        loss = spans.block("loss", self.loss_fn, self._train_forward(inputs), batch)
         loss.backward(inputs=self._backward_inputs)
-        for p in self.trainable:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mesh.average_gradients(self.trainable)
-        self.optimizer.step()
+        with spans.span("optimizer"):
+            for p in self.trainable:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.average_gradients(self.trainable)
+            self.optimizer.step()
         self.step += 1
         return loss.detach()
 
@@ -514,11 +522,22 @@ class Trainer:
         """(loss, IoU, pixel accuracy, dice) of one batch with the running
         statistics, on the device; the binary metrics for the binary loss
         and, on the mask logits, for the class task; for reconstruction the
-        loss and three zeros (:364-374)."""
-        points = self.prompt_points(masks_u8, step_key) if self.task == "prompt" else None
-        inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=False, points=points)
-        inputs = inputs if isinstance(inputs, tuple) else (inputs,)
-        logits = self.model(*inputs, train=False)
+        loss and three zeros (:364-374).  Profiler spans (``utils.spans``):
+        ``eval_step`` (the step key its argument), ``prepare``, the model's
+        blocks and ``metrics``."""
+        with spans.span("eval_step", str(step_key)):
+            with spans.span("prepare"):
+                points = (self.prompt_points(masks_u8, step_key) if self.task == "prompt"
+                          else None)
+                inputs, batch = self._prepare_batch(images_u8, masks_u8, augment=False,
+                                                    points=points)
+            inputs = inputs if isinstance(inputs, tuple) else (inputs,)
+            logits = self.model(*inputs, train=False)
+            with spans.span("metrics"):
+                return self._metrics(logits, batch)
+
+    def _metrics(self, logits, batch: Dict[str, torch.Tensor]):
+        """(loss, IoU, pixel accuracy, dice) of the eval step (its doc)."""
         if self.task == "reconstruction":
             zero = torch.zeros((), device=logits.device)
             return self.loss_fn(logits, batch), zero, zero, zero

@@ -69,9 +69,10 @@ class Encoder(nn.Module):
         x0 = fused.conv1x1(x, self.input, folded=folded)
         x1 = fused.block_forward(self.enc1, x0, train=train, kernels=folded)
         x2 = fused.block_forward(self.enc2, x1, train=train, kernels=folded and self.level1)
-        x3 = self.enc3(x2, train=train)
+        x3 = fused.block_forward(self.enc3, x2, train=train, kernels=True)
         return {"x0": x0, "enc1": x1, "enc2": x2, "enc3": x3,
-                "bottleneck": self.bottleneck(x3, train=train)}
+                "bottleneck": fused.block_forward(self.bottleneck, x3, train=train,
+                                                  kernels=True)}
 
 
 class Decoder(nn.Module):

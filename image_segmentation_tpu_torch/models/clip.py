@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops.precision import wide
 from ..parallel import tensor as tp
+from ..utils import spans
 
 CLIP_IMAGE_SIZE = 224
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -239,8 +240,9 @@ class ClipFeatureExtractor(nn.Module):
         return self._cast["tower"]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pixels = clip_preprocess(x)
-        if not self.freeze and torch.is_grad_enabled():
-            return self.clip_model(pixels)
-        with torch.no_grad():
-            return self.compute_tower()(pixels)
+        with spans.span("model.clip_tower"):
+            pixels = clip_preprocess(x)
+            if not self.freeze and torch.is_grad_enabled():
+                return self.clip_model(pixels)
+            with torch.no_grad():
+                return self.compute_tower()(pixels)

@@ -154,7 +154,7 @@ class ClipUnet(nn.Module):
         for enc in (self.enc1, self.enc2, self.enc3):
             h = fused.block_forward(enc, h, train=train, kernels=kernels)
             skips.append(h)
-        bottleneck = self.bottleneck(h, train=train)
+        bottleneck = fused.block_forward(self.bottleneck, h, train=train, kernels=True)
         return skips, self.cross_attention_fusion(bottleneck, clip_feats)
 
     def decode(self, h: torch.Tensor, skips, train: bool) -> torch.Tensor:
@@ -232,7 +232,7 @@ class ClipResSegmentationModel(nn.Module):
             res = self.encoder(x, train=train)
         h = self.cross_attention_fusion(res, clip_feats)
         for dec in (self.dec1, self.dec2, self.dec3, self.dec4):
-            h = dec(h.contiguous(), train=train)
+            h = fused.block_forward(dec, h.contiguous(), train=train, kernels=True)
         return clip_feats, h
 
     def decode(self, h: torch.Tensor, train: bool):
@@ -329,8 +329,8 @@ class ClipAutoencoder(nn.Module):
         # torch's .view(-1, 64, 16, 16) is channel-major: NCHW, then NHWC (:222)
         h = h.reshape(x.shape[0], 64, 16, 16).permute(0, 2, 3, 1).contiguous()
         for dec in (self.dec1, self.dec2, self.dec3):
-            h = dec(h, train=train)
-        h = self.dec4(h, stem, train=train)
+            h = fused.block_forward(dec, h, train=train, kernels=True)
+        h = fused.block_forward(self.dec4, h, stem, train=train, kernels=True)
         return wide(conv1x1_nhwc(h, self.out))
 
 
@@ -365,7 +365,7 @@ class PromptEncoder(nn.Module):
         kernels = self.folded and h.shape[2] % fused.FOLD_WIDTH == 0  # clip_models.py:323
         for enc in (self.enc1, self.enc2, self.enc3):
             h = fused.block_forward(enc, h, train=train, kernels=kernels)
-        return self.conv(h, train=train)
+        return fused.block_forward(self.conv, h, train=train, kernels=True)
 
 
 class ClipUnetPrompt(ClipUnet):

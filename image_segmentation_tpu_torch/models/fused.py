@@ -57,6 +57,7 @@ ConvTranspose kernel and K11 are column-parallel around their Functions.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -67,6 +68,7 @@ from ..ops import fused_conv
 from ..ops.conv1x1 import Conv1x1Function
 from ..ops.precision import wide
 from ..parallel import tensor as tp
+from ..utils import spans
 from .blocks import (
     BN_EPS,
     ConvBlock,
@@ -323,17 +325,24 @@ def standard_forward(block: nn.Module, x: torch.Tensor, x_b: Optional[torch.Tens
 def block_forward(block: nn.Module, *inputs: torch.Tensor, train: bool,
                   kernels: bool) -> torch.Tensor:
     """``block(*inputs)``, or without ``kernels`` (where the model's fold
-    gate is off in JAX) :func:`standard_forward` on its parameters."""
+    gate is off in JAX) :func:`standard_forward` on its parameters; inside
+    the block's profiler span (``utils.spans``)."""
     if kernels:
-        return block(*inputs, train=train)
-    return standard_forward(block, *inputs, train=train)
+        return spans.module_block(block, block, *inputs, train=train)
+    return spans.module_block(block, functools.partial(standard_forward, block), *inputs,
+                              train=train)
 
 
 def conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:
     """The 1x1 ``conv`` on NHWC x, in x's dtype.  ``folded``: where JAX
     builds a ``Folded1x1`` without ``in_perm`` (the folded paths' stem and
     output conv), through :class:`~..ops.conv1x1.Conv1x1Function`, whose
-    backward is K11; else ``blocks.conv1x1_nhwc``."""
+    backward is K11; else ``blocks.conv1x1_nhwc``.  Inside the conv's
+    profiler span (``utils.spans``)."""
+    return spans.module_block(conv, _conv1x1, x, conv, folded=folded)
+
+
+def _conv1x1(x: torch.Tensor, conv: nn.Conv2d, *, folded: bool) -> torch.Tensor:
     if not folded:
         return conv1x1_nhwc(x, conv)
     return tp.column(Conv1x1Function.apply, x.contiguous(), conv.weight, conv.bias,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils import spans
 from .autoencoder import Autoencoder
 from .clip_models import (
     ClipAutoencoder,
@@ -35,7 +36,9 @@ def build_model(
     name: str, *, device, dtype: torch.dtype = torch.bfloat16, **kwargs
 ) -> nn.Module:
     """Build registry model ``name`` with parameters on ``device`` and
-    compute in ``dtype``; ``kwargs`` are the JAX model args."""
+    compute in ``dtype``; ``kwargs`` are the JAX model args.  Its blocks
+    take their profiler spans' names from their module names
+    (``utils.spans.name_blocks``)."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
-    return _REGISTRY[name](dtype=dtype, device=device, **kwargs)
+    return spans.name_blocks(_REGISTRY[name](dtype=dtype, device=device, **kwargs))

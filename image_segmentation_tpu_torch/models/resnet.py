@@ -41,6 +41,7 @@ from torch import nn
 
 from ..ops.precision import wide
 from ..parallel import tensor as tp
+from ..utils import spans
 from .blocks import BN_EPS, batch_stats, bn_affine
 
 RESNET34_LAYERS = (3, 4, 6, 3)
@@ -113,9 +114,10 @@ class ResNet34Features(nn.Module):
             nn.ReLU(), nn.MaxPool2d(3, 2, padding=1), *stages)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        h = F.relu(batch_norm(_conv(x.to(self.dtype), self.model[0]), self.model[1], train))
-        h = F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
-        for stage in self.model[4:]:
-            for block in stage:
-                h = block(h, train=train)
-        return h
+        with spans.span("model.resnet34"):
+            h = F.relu(batch_norm(_conv(x.to(self.dtype), self.model[0]), self.model[1], train))
+            h = F.max_pool2d(h.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
+            for stage in self.model[4:]:
+                for block in stage:
+                    h = block(h, train=train)
+            return h

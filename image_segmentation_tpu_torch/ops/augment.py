@@ -31,6 +31,10 @@ the card).  Both kernels are looked up on their modules at call time.
 prompt heatmap together: u8x4 image + mask words and the heatmap's fp32
 bits as int32 words go through the shift kernels as one stack
 (``apply_geometric_packed``, JAX's ``random_geometric_packed`` :195).
+
+Under a profiler both augmentors record their geometry and their colour
+stage as the spans ``augment.geometry`` and ``augment.colour``
+(``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import spans
 from . import preprocess as _preprocess
 from . import roll
 
@@ -413,12 +418,14 @@ class DataAugmentor:
                              sample_blur_weights(n, generator))
 
     def _colour_stage(self, params: AugmentParams, images, *, from_u8: bool, dtype):
-        """normalize (if from u8) + jitter + blur via the selected backend."""
-        if self.backend == "pallas" and from_u8:
-            return _preprocess.preprocess(images.contiguous(), params.jitter, params.blur,
-                                          out_dtype=dtype)
-        img = normalize_image(images, dtype) if from_u8 else images
-        return apply_gaussian_blur_5x5(apply_color_jitter(img, params.jitter), params.blur)
+        """normalize (if from u8) + jitter + blur via the selected backend,
+        inside the profiler span ``augment.colour``."""
+        with spans.span("augment.colour"):
+            if self.backend == "pallas" and from_u8:
+                return _preprocess.preprocess(images.contiguous(), params.jitter, params.blur,
+                                              out_dtype=dtype)
+            img = normalize_image(images, dtype) if from_u8 else images
+            return apply_gaussian_blur_5x5(apply_color_jitter(img, params.jitter), params.blur)
 
     def __call__(
         self, params: AugmentParams, images: torch.Tensor, masks: torch.Tensor, *,
@@ -429,9 +436,10 @@ class DataAugmentor:
         its clean value (``offset``: the first row's position there, for a
         rank's rows of a batch)."""
         params = params.to(images.device)
-        stacked = torch.cat([images, masks.to(images.dtype)[..., None]], dim=-1)
-        stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
-        aug_masks = stacked[..., 3].to(masks.dtype)
+        with spans.span("augment.geometry"):
+            stacked = torch.cat([images, masks.to(images.dtype)[..., None]], dim=-1)
+            stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
+            aug_masks = stacked[..., 3].to(masks.dtype)
         aug_images = self._colour_stage(params, stacked[..., :3], from_u8=False,
                                         dtype=images.dtype)
         clean = _clean_slots(images.shape[0], self.augmentations_per_datapoint + 1, images.device,
@@ -454,9 +462,10 @@ class DataAugmentor:
         int64 class-id masks); zero fill is class 0.  ``offset``: as
         ``__call__``'s."""
         params = params.to(images_u8.device)
-        stacked = torch.cat([images_u8, masks_u8[..., None]], dim=-1)
-        stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
-        aug_masks = stacked[..., 3].long()
+        with spans.span("augment.geometry"):
+            stacked = torch.cat([images_u8, masks_u8[..., None]], dim=-1)
+            stacked = apply_geometric(stacked, params.flip, params.angles, self.geometry)
+            aug_masks = stacked[..., 3].long()
         aug_images = self._colour_stage(params, stacked[..., :3], from_u8=True, dtype=dtype)
         clean = _clean_slots(images_u8.shape[0], self.augmentations_per_datapoint + 1,
                              images_u8.device, offset)
@@ -498,13 +507,16 @@ class DataAugmentorPrompt:
         params = params.to(images_u8.device)
         n = images_u8.shape[0]
         prompts_c = prompts if prompts.dim() == 4 else prompts[..., None]
-        packed4 = roll.pack_u8x4(torch.cat([images_u8, masks_u8[..., None]], dim=-1))
-        heat = prompts_c[..., 0].float().contiguous().view(torch.int32)
-        out = apply_geometric_packed(torch.cat([packed4, heat]), params.flip, params.angles)
-        four = roll.unpack_u8x4(out[:n])
-        aug_prompts = out[n:].contiguous().view(torch.float32)[..., None]
-        aug_images = apply_gaussian_blur_5x5(
-            apply_color_jitter(normalize_image(four[..., :3], dtype), params.jitter), params.blur)
+        with spans.span("augment.geometry"):
+            packed4 = roll.pack_u8x4(torch.cat([images_u8, masks_u8[..., None]], dim=-1))
+            heat = prompts_c[..., 0].float().contiguous().view(torch.int32)
+            out = apply_geometric_packed(torch.cat([packed4, heat]), params.flip, params.angles)
+            four = roll.unpack_u8x4(out[:n])
+            aug_prompts = out[n:].contiguous().view(torch.float32)[..., None]
+        with spans.span("augment.colour"):
+            aug_images = apply_gaussian_blur_5x5(
+                apply_color_jitter(normalize_image(four[..., :3], dtype), params.jitter),
+                params.blur)
         clean = _clean_slots(n, self.augmentations_per_datapoint + 1, images_u8.device, offset)
         return (torch.where(clean[:, None, None, None], normalize_image(images_u8, dtype),
                             aug_images),

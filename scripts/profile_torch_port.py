@@ -13,7 +13,8 @@ shapes; imports no jax.
    16 and batch 1: CUDA-event ms per forward without the profiler, then in
    a ``torch.profiler`` trace the CUDA-event ms of the traced window and
    the device-busy ms (the sum of the kernels' device time), idle share =
-   1 - busy / traced window, and the device time by group: each
+   1 - busy / traced window, and the device time by group
+   (``benchmark.trace.group``, the benchmark's grouping): each
    hand-written kernel, cuDNN convs and GEMMs, elementwise and copies, the
    rest by name; the idle time by the group of the kernel that ends it,
    and the host's time in each launch call (``[idle before]``, ``[host]``;
@@ -29,21 +30,24 @@ fixed batch (augmentation on: ``augmentations_per_datapoint=4``, one fixed
 draw; forward, backward, Adam), for the kernel path and the plain path
 (every wrapper replaced by its plain version) from the same weights, with
 the peak device memory of each, and the kernel-path step without
-augmentation.  The augmentor's device time is on rows of its own: the
-shift kernels by name, and the device time under the ranges "augment:
-geometry" (flip, quarter turn, shifts), "augment: quarter turn" and
-"augment: colour stage", which this script puts around those functions
-(the ranges, like the optimizer's, are not added to the busy time).  Then
-each augmentor stage alone, traced the same way: the flip and quarter-turn
-copies, the three shifts, the colour stage of either backend, and
-``apply_u8`` whole.
+augmentation.  Every mode prints the device time under each of the
+program's profiler spans (``image_segmentation_tpu_torch/utils/spans.py``,
+``[range] imgseg: ...`` rows, with torch's ``Optimizer.`` ranges): in the
+train step ``prepare``, ``augment.geometry`` (flip, quarter turn, shifts),
+``augment.colour``, every model block's forward and ``.bwd``, ``loss``,
+``loss.bwd`` and ``optimizer`` (the ranges are not added to the busy
+time).  Then each augmentor stage alone, traced the same way: the flip
+and quarter-turn copies, the three shifts, the colour stage of either
+backend, and ``apply_u8`` whole.
 
 ``prompt``: the same trace of the ``prompt`` preset's train step
 (``chip_smoke.clip_config``: ClipUnetPrompt with the ViT-B/32 tower, batch
 32 at 256x256, augmentation 4, one fixed batch of palette masks and one
-fixed draw), kernel path and plain path, with ranges "augment: ..." around
-the prompt maps, the packed geometry, the colour jitter and the blur, and
-"model: ..." around the frozen tower and the prompt encoder.
+fixed draw), kernel path and plain path, with the spans ``prepare`` (the
+prompt points and maps, the augmentor), ``augment.geometry`` (the packed
+geometry), ``augment.colour`` (jitter and blur), ``model.clip_tower``
+(the frozen tower) and the prompt encoder's blocks
+(``model.prompt_encoder.enc1`` ... ``.conv``).
 
 ``autoencoder``: the same trace of the ``autoencoder`` preset's train step
 (``chip_smoke.ae_config``: batch 32 at 256x256, no augmentation, one fixed
@@ -56,9 +60,9 @@ kernels in their unfused forms, BatchNorm, pools and up-convs in PyTorch).
 256x256, augmentation 4, one fixed batch and draw) on the kernel path and
 the plain path, of the ``segment_classifier`` step (batch 16,
 augmentation 2, palette masks) on the kernel path, and of the clip_res
-eval forward at batch 32 and 1 (kernel path), with ranges "model: clip
-tower" and "model: ResNet-34" around the frozen parts: the backbone's
-share of each.
+eval forward at batch 32 and 1 (kernel path), with the spans
+``model.clip_tower`` and ``model.resnet34`` of the frozen parts: the
+backbone's share of each.
 
 ``both`` is ``serve`` and ``train``.
 """
@@ -71,7 +75,6 @@ import functools
 import sys
 from collections import defaultdict
 from pathlib import Path
-from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -80,56 +83,21 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as smoke  # noqa: E402
+from benchmark.trace import group  # noqa: E402
 from image_segmentation_tpu_torch.models.registry import build_model  # noqa: E402
 from image_segmentation_tpu_torch.ops import augment as A  # noqa: E402
 from image_segmentation_tpu_torch.ops import fused_conv as fc  # noqa: E402
 from image_segmentation_tpu_torch.ops import roll  # noqa: E402
+from image_segmentation_tpu_torch.utils import spans  # noqa: E402
 
 MODEL_ARGS = smoke.train_config().model_args
 
 DEVICE = smoke.DEVICE
 FORWARDS = 5
 TRAIN_STEPS = 3
-# device kernel name -> group (the first that matches, so the wgrad's names
-# come before the names they contain); the conv kernels' vector, narrow and
-# deep paths, vec_kernel<LOAD, ...>, narrow_kernel<LOAD, ...> and
-# deep_kernel<LOAD, ...>: LOAD 0 is the forward, 1 to 3 the dgrad (3: the
-# raw cotangent of an unfused conv)
-OWN_KERNELS = (
-    ("wgrad_vec_kernel", "conv3x3_wgrad"), ("wgrad_narrow_kernel", "conv3x3_wgrad (narrow)"),
-    ("wgrad_deep_kernel", "conv3x3_wgrad (deep)"), ("wgrad_ge_prepass", "conv3x3_wgrad (deep)"),
-    ("wgrad_x_prepass", "conv3x3_wgrad (deep)"),
-    ("vec_kernel<0", "conv3x3 (forward)"), ("vec_kernel<1", "conv3x3_dgrad"),
-    ("vec_kernel<2", "conv3x3_dgrad"), ("vec_kernel<3", "conv3x3_dgrad"),
-    ("deep_kernel<0", "conv3x3 (forward, deep)"), ("deep_kernel<", "conv3x3_dgrad (deep)"),
-    ("narrow_kernel<0", "conv3x3 (forward, narrow)"), ("narrow_kernel<1", "conv3x3_dgrad (narrow)"),
-    ("narrow_kernel<2", "conv3x3_dgrad (narrow)"), ("narrow_kernel<3", "conv3x3_dgrad (narrow)"),
-    ("conv1x1_bwd_kernel", "conv1x1_bwd"),
-    ("bnred_kernel", "bn_relu_bwd_reduce"), ("pool_bwd_kernel", "maxpool2x2_affine_relu_bwd"),
-    ("pool_bwd_narrow_kernel", "maxpool2x2_affine_relu_bwd (narrow)"),
-    ("pool_kernel", "maxpool2x2_affine_relu"), ("ct_bwd_kernel", "convtranspose2x2_bwd"),
-    ("ct_fwd_kernel", "convtranspose2x2"),
-    ("sum_rows_kernel", "second pass of the sums"), ("shift_kernel", "row_shift / col_shift"),
-    ("gray_sum_kernel", "preprocess (gray sums)"), ("colour_blur_kernel", "preprocess (colour, blur)"),
-    ("attn_mma_kernel", "cross_attention"), ("attn_kernel", "cross_attention (long context)"),
-)
-AUGMENT_RANGES = "augment: "
-MODEL_RANGES = "model: "
-
-
-def group(name: str) -> str:
-    for k, label in OWN_KERNELS:
-        if k in name:
-            return label
-    if any(s in name for s in ("xmma", "cudnn", "gemm", "cutlass", "conv2d", "wgrad", "dgrad")):
-        return "cudnn conv/gemm"
-    if "multi_tensor" in name or "foreach" in name.lower():
-        return "optimizer (foreach)"
-    if any(s in name for s in ("reduce", "Reduce")):
-        return "reductions"
-    if any(s in name for s in ("elementwise", "copy", "Copy")):
-        return "elementwise/copy"
-    return "other: " + name[:60]
+# the program's spans and torch's optimizer ranges: annotations over
+# kernels that the groups already count
+RANGES = (spans.PREFIX, "Optimizer.")
 
 
 def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None:
@@ -155,8 +123,7 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             ms = (e.self_cuda_time_total if us is None else us) / 1e3 / calls
-            # annotation ranges (ours, the optimizer's) span kernels already counted
-            if e.key.startswith((AUGMENT_RANGES, MODEL_RANGES, "Optimizer.")):
+            if e.key.startswith(RANGES):
                 ranges[e.key] = ms
             else:
                 groups[group(e.key)] += ms
@@ -174,7 +141,7 @@ def profile(fn, label: str, calls: int = FORWARDS, no_grad: bool = True) -> None
     # the host's time in each launch call
     spans = sorted((e.time_range.start, e.time_range.end, group(e.name)) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith((AUGMENT_RANGES, MODEL_RANGES, "Optimizer.")))
+                   and not e.name.startswith(RANGES))
     idle, last = defaultdict(float), None
     for begin, finish, name in spans:
         if last is not None and begin > last:
@@ -245,25 +212,6 @@ def serve() -> None:
     exactness()
 
 
-def _ranged(label: str, fn, prefix: str = AUGMENT_RANGES):
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(prefix + label):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-@contextlib.contextmanager
-def augment_ranges():
-    """Profiler ranges around the augmentor's stages (looked up on their
-    module and class at call time)."""
-    with mock.patch.object(A, "apply_geometric", _ranged("geometry", A.apply_geometric)), \
-            mock.patch.object(A, "_quarter_turn", _ranged("quarter turn", A._quarter_turn)), \
-            mock.patch.object(A.DataAugmentor, "_colour_stage",
-                              _ranged("colour stage", A.DataAugmentor._colour_stage)):
-        yield
-
-
 def augment_stages(images, masks) -> None:
     """Each stage of the augmentor alone, batch 16 at 512x512."""
     xla, fused = A.DataAugmentor(4), A.DataAugmentor(4, backend="pallas")
@@ -308,40 +256,18 @@ def train() -> None:
         t.model.load_state_dict(state)
         step = functools.partial(t.train_step, images, masks, smoke.STEP_KEY)
         with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
-            with augment_ranges():
-                profile(step, f"train step {label} b{cfg.batch_size}, augmented",
-                        calls=TRAIN_STEPS, no_grad=False)
+            profile(step, f"train step {label} b{cfg.batch_size}, augmented",
+                    calls=TRAIN_STEPS, no_grad=False)
         print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
         if label == "kernels":
             torch.cuda.reset_peak_memory_stats()
-            with mock.patch.object(t, "augmentor", None):
-                profile(step, f"train step {label} b{cfg.batch_size}, no augmentation",
-                        calls=TRAIN_STEPS, no_grad=False)
+            t.augmentor = None
+            profile(step, f"train step {label} b{cfg.batch_size}, no augmentation",
+                    calls=TRAIN_STEPS, no_grad=False)
             print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
         del t, step
     torch.cuda.empty_cache()
     augment_stages(images, masks)
-
-
-@contextlib.contextmanager
-def prompt_ranges():
-    """Profiler ranges around the prompt step's stages (looked up on their
-    modules and classes at call time)."""
-    from image_segmentation_tpu_torch.engine import train as T
-    from image_segmentation_tpu_torch.models import clip, clip_models
-
-    patches = [(T, "prompt_points", "augment: "), (T, "prompt_maps", "augment: "),
-               (A, "apply_geometric_packed", "augment: "), (A, "apply_color_jitter", "augment: "),
-               (A, "apply_gaussian_blur_5x5", "augment: "),
-               (clip.ClipFeatureExtractor, "forward", MODEL_RANGES + "clip tower"),
-               (clip_models.PromptEncoder, "forward", MODEL_RANGES + "prompt encoder")]
-    with contextlib.ExitStack() as stack:
-        for owner, name, label in patches:
-            fn = getattr(owner, name)
-            if label.endswith(": "):
-                label += name
-            stack.enter_context(mock.patch.object(owner, name, _ranged(label, fn, prefix="")))
-        yield
 
 
 def prompt() -> None:
@@ -360,9 +286,8 @@ def prompt() -> None:
         t.model.load_state_dict(state)
         step = functools.partial(t.train_step, images, raw, smoke.STEP_KEY)
         with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
-            with prompt_ranges():
-                profile(step, f"prompt train step {label} b{cfg.batch_size}, augmented",
-                        calls=TRAIN_STEPS, no_grad=False)
+            profile(step, f"prompt train step {label} b{cfg.batch_size}, augmented",
+                    calls=TRAIN_STEPS, no_grad=False)
         print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
         del t, step
 
@@ -395,19 +320,6 @@ def autoencoder() -> None:
         del t, step
 
 
-@contextlib.contextmanager
-def frozen_ranges():
-    """Profiler ranges around the ClipRes models' frozen tower and ResNet."""
-    from image_segmentation_tpu_torch.models import clip, resnet
-
-    with contextlib.ExitStack() as stack:
-        for owner, label in ((clip.ClipFeatureExtractor, "clip tower"),
-                             (resnet.ResNet34Features, "ResNet-34")):
-            stack.enter_context(mock.patch.object(
-                owner, "forward", _ranged(MODEL_RANGES + label, owner.forward, prefix="")))
-        yield
-
-
 def clip_res() -> None:
     from image_segmentation_tpu_torch.engine.train import Trainer
 
@@ -427,16 +339,14 @@ def clip_res() -> None:
             t.model.load_state_dict(state)
             step = functools.partial(t.train_step, images, masks, smoke.STEP_KEY)
             with smoke.plain_path(mods) if label == "plain" else contextlib.nullcontext():
-                with frozen_ranges():
-                    profile(step, f"{name} train step {label} b{batch}, augmented",
-                            calls=TRAIN_STEPS, no_grad=False)
+                profile(step, f"{name} train step {label} b{batch}, augmented",
+                        calls=TRAIN_STEPS, no_grad=False)
             print(f"   peak device memory {torch.cuda.max_memory_allocated()!r} B", flush=True)
             if name == "clip_res" and label == "kernels":
                 model = t.model.eval()
                 x = A.normalize_image(images)
-                with frozen_ranges():
-                    for b in (batch, 1):
-                        profile(lambda b=b: model(x[:b]), f"clip_res eval forward kernels b{b}")
+                for b in (batch, 1):
+                    profile(lambda b=b: model(x[:b]), f"clip_res eval forward kernels b{b}")
             del t, step
 
 
